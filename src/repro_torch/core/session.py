@@ -1,0 +1,555 @@
+"""Session-based HTAP API: `SystemSpec` presets + incremental `HTAPSession`.
+
+Polynesia's contract (§4-§6) is an *open* system - transactions stream into
+the txn island while update propagation, consistency and analytics proceed
+concurrently. This module is that contract as an API:
+
+* `SystemSpec` - one frozen config object naming a system composition
+  (placement flags, hardware parameters, execution backend, timing model).
+  The presets this port covers:
+
+      SystemSpec.polynesia()   SystemSpec.pim_only()
+      SystemSpec.mi_sw()       SystemSpec.mi_sw_hb()
+      SystemSpec.ideal_txn()   SystemSpec.ana_only()
+
+* `HTAPSession` - the long-lived incremental surface over one spec:
+
+      session = HTAPSession(SystemSpec.polynesia(), table)   # on the GPU
+      session.execute(txn_chunk)        # any contiguous commit-order chunk
+      answers = session.query_batch(qs) # fused same-column-set groups
+      a = session.query(q)              # single query
+      session.advance_round()           # explicit round boundary
+      result = session.finish()         # -> htap.RunResult
+
+The transactional island (row store, per-thread update logs) is the host;
+the analytical island's DSM replica and its snapshots live on `device`.
+Answers depend only on the *visibility points* (which updates executed
+before each query), so any sub-chunking of the txn stream between two query
+batches is answer- and cost-neutral.
+
+What a spec can name beyond this slice - several analytical islands
+(``n_shards`` / ``"hopper@N"``), mesh placement, the delta-store update
+plane, ``timing="timeline"`` with ``async_propagation``, the
+single-instance kinds ``si_ss`` / ``si_mvcc``, `resize_islands`,
+`checkpoint` / `restore` - raises ``NotImplementedError`` naming the
+ROADMAP.md queue item that brings it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+
+from repro_torch.core import engine
+from repro_torch.core.application import (apply_updates, apply_updates_naive,
+                                          precompute_apply_stages)
+from repro_torch.core.backend import ExecutionBackend, get_backend
+from repro_torch.core.consistency import ConsistencyManager
+from repro_torch.core.dsm import DSMReplica
+from repro_torch.core.hwmodel import (CostLog, HardwareParams, HB_PARAMS,
+                                      HMC_PARAMS)
+from repro_torch.core.nsm import RowStore
+from repro_torch.core.placement import hybrid
+from repro_torch.core.schema import UpdateStream
+from repro_torch.core.shipping import ship_updates, FINAL_LOG_CAPACITY
+from repro_torch.kernels.common import kernel_launch_counts
+
+# PIM-Only calibration: OLTP on in-order PIM cores pays extra cycles (no OoO
+# ILP for pointer-heavy txn code) even though more threads are available.
+PIM_TXN_CYCLE_FACTOR = 1.4
+
+TIMINGS = ("phase", "timeline")
+
+
+class SessionClosedError(RuntimeError):
+    """The session was closed (`finish()` or `abort()`): no more traffic.
+
+    Raised by every post-close surface - ``execute``, ``query``,
+    ``query_batch``, ``advance_round``, ``flush_updates`` and a second
+    ``finish()``. Subclasses RuntimeError so existing guards keep working.
+    """
+
+
+# System compositions a spec can name. "multi_instance" covers the MI
+# family (MI+SW / MI+SW+HB / PIM-Only / Polynesia - the placement flags
+# select which); "ideal_txn" and "ana_only" are the normalization
+# baselines. The single-instance kinds are named but not ported yet.
+KINDS = ("multi_instance", "si_ss", "si_mvcc", "ideal_txn", "ana_only")
+
+_NOT_PORTED = {
+    "islands": "several analytical islands (n_shards > 1) are not ported "
+               "yet - ROADMAP.md queue 1, item 8 (stacked islands)",
+    "mesh": "mesh placement is not ported yet - ROADMAP.md queue 1, "
+            "item 13 (multi-GPU islands)",
+    "delta": "the delta-store update plane is not ported yet - ROADMAP.md "
+             "queue 1, item 9 (delta-store plane)",
+    "timeline": "timing='timeline' and async_propagation are not ported "
+                "yet - ROADMAP.md queue 1, item 10 (timeline timing + "
+                "async propagation + mixed-traffic serving)",
+    "si": "the single-instance systems (kinds 'si_ss', 'si_mvcc') are not "
+          "ported yet - ROADMAP.md queue 1, item 12 (SI baselines)",
+    "elastic": "resize_islands / checkpoint / restore are not ported yet - "
+               "ROADMAP.md queue 1, item 11 (elastic lifecycle + "
+               "checkpoint)",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class SystemSpec:
+    """A complete, immutable HTAP system configuration.
+
+    Every run is `(spec, workload)`. Presets return ready specs; keyword
+    overrides refine them, e.g. ``SystemSpec.polynesia(backend="torch")``.
+    ``backend=None`` means ``"hopper"``; ``timing=None`` means ``"phase"``.
+    The fields for islands, placement, the delta store and async
+    propagation are kept so that a spec reads like the reference's; any
+    value other than their off position raises ``NotImplementedError``.
+    """
+
+    name: str
+    kind: str
+    hw: HardwareParams = HMC_PARAMS
+    # -- placement flags (multi_instance family) --------------------------
+    propagation_on_pim: bool = False
+    analytics_on_pim: bool = False
+    txn_on_pim: bool = False
+    optimized_application: bool = True
+    # -- ablation / normalization switches --------------------------------
+    shipping_only: bool = False          # zero-cost application (Fig. 2)
+    zero_cost_propagation: bool = False  # Fig. 2/7 "Ideal" baseline
+    # -- execution substrate ----------------------------------------------
+    backend: str | ExecutionBackend | None = None
+    n_shards: int | None = None
+    placement: str | None = None
+    timing: str | None = None
+    async_propagation: bool = False
+    # -- delta-store update plane -----------------------------------------
+    delta_store: bool | None = None
+    delta_capacity: int | None = None
+
+    def __post_init__(self):
+        if self.kind not in KINDS:
+            raise ValueError(f"unknown system kind {self.kind!r}; "
+                             f"have {KINDS}")
+        if self.kind in ("si_ss", "si_mvcc"):
+            raise NotImplementedError(_NOT_PORTED["si"])
+        if self.n_shards is not None and int(self.n_shards) < 1:
+            raise ValueError(f"n_shards must be >= 1, got {self.n_shards}")
+        if self.n_shards is not None and int(self.n_shards) > 1:
+            raise NotImplementedError(_NOT_PORTED["islands"])
+        if self.placement not in (None, "stacked"):
+            if self.placement == "mesh":
+                raise NotImplementedError(_NOT_PORTED["mesh"])
+            raise ValueError(f"bad placement {self.placement!r}")
+        if self.delta_store or self.delta_capacity is not None:
+            raise NotImplementedError(_NOT_PORTED["delta"])
+        if self.timing is not None and self.timing not in TIMINGS:
+            raise ValueError(f"unknown timing {self.timing!r}; have {TIMINGS}")
+        if self.timing == "timeline" or self.async_propagation:
+            raise NotImplementedError(_NOT_PORTED["timeline"])
+
+    def replace(self, **overrides) -> "SystemSpec":
+        """A copy with fields overridden (specs are frozen)."""
+        return dataclasses.replace(self, **overrides)
+
+    # -- the named presets -------------------------------------------------
+    @classmethod
+    def polynesia(cls, **kw) -> "SystemSpec":
+        """Full system: islands + in-memory accelerators (§4-§7)."""
+        return cls(name="Polynesia", kind="multi_instance",
+                   propagation_on_pim=True, analytics_on_pim=True
+                   ).replace(**kw)
+
+    @classmethod
+    def mi_sw(cls, **kw) -> "SystemSpec":
+        """Multiple instance, Polynesia's software optimizations, CPU only."""
+        return cls(name="MI+SW", kind="multi_instance").replace(**kw)
+
+    @classmethod
+    def mi_sw_hb(cls, **kw) -> "SystemSpec":
+        """MI+SW on a hypothetical 8x off-chip bandwidth system."""
+        return cls(name="MI+SW+HB", kind="multi_instance",
+                   hw=HB_PARAMS).replace(**kw)
+
+    @classmethod
+    def pim_only(cls, **kw) -> "SystemSpec":
+        """Everything on general-purpose PIM cores (txn islands included)."""
+        return cls(name="PIM-Only", kind="multi_instance",
+                   propagation_on_pim=True, analytics_on_pim=True,
+                   txn_on_pim=True).replace(**kw)
+
+    @classmethod
+    def si_ss(cls, **kw) -> "SystemSpec":
+        """Single instance (NSM), software full-copy snapshots (not ported)."""
+        return cls(name="SI-SS", kind="si_ss").replace(**kw)
+
+    @classmethod
+    def si_mvcc(cls, **kw) -> "SystemSpec":
+        """Single instance (NSM), MVCC version chains (not ported)."""
+        return cls(name="SI-MVCC", kind="si_mvcc").replace(**kw)
+
+    @classmethod
+    def ideal_txn(cls, **kw) -> "SystemSpec":
+        """Transactions alone - the txn normalization baseline."""
+        return cls(name="Ideal-Txn", kind="ideal_txn").replace(**kw)
+
+    @classmethod
+    def ana_only(cls, **kw) -> "SystemSpec":
+        """Analytics alone on the multicore CPU over a DSM replica."""
+        return cls(name="Ana-Only", kind="ana_only").replace(**kw)
+
+
+# Preset registry: name -> factory (accepting overrides). The MI family
+# first, then the two normalization baselines.
+PRESETS: dict[str, Callable[..., SystemSpec]] = {
+    "MI+SW": SystemSpec.mi_sw,
+    "MI+SW+HB": SystemSpec.mi_sw_hb,
+    "PIM-Only": SystemSpec.pim_only,
+    "Polynesia": SystemSpec.polynesia,
+}
+BASELINE_PRESETS: dict[str, Callable[..., SystemSpec]] = {
+    "Ideal-Txn": SystemSpec.ideal_txn,
+    "Ana-Only": SystemSpec.ana_only,
+}
+ALL_PRESETS: dict[str, Callable[..., SystemSpec]] = {**PRESETS,
+                                                    **BASELINE_PRESETS}
+_UNPORTED_PRESETS = {"SI-SS": SystemSpec.si_ss, "SI-MVCC": SystemSpec.si_mvcc}
+
+
+def resolve_spec(system: str | SystemSpec, **overrides) -> SystemSpec:
+    """Preset name or spec -> spec, with keyword overrides applied."""
+    if isinstance(system, SystemSpec):
+        return system.replace(**overrides) if overrides else system
+    factory = ALL_PRESETS.get(system) or _UNPORTED_PRESETS.get(system)
+    if factory is None:
+        raise KeyError(f"unknown system preset {system!r}; "
+                       f"have {sorted(ALL_PRESETS)}")
+    return factory(**overrides)
+
+
+def _cid_span(chunk: UpdateStream) -> tuple[int, int]:
+    """(first, last) commit id of a chunk (-1, -1 when empty)."""
+    if not len(chunk):
+        return -1, -1
+    return int(chunk.commit_id[0]), int(chunk.commit_id[-1])
+
+
+class HTAPSession:
+    """One long-lived HTAP system instance accepting incremental traffic.
+
+    The session owns the storage engines of its spec's system kind plus one
+    `CostLog`; `finish()` prices the log under the phase timing model into
+    an `htap.RunResult`. Drive it with any interleaving of
+
+    * ``execute(chunk)`` - a contiguous, commit-ordered slice of the
+      update stream (chunks must arrive in commit order; empty chunks are
+      legal and open a zero-cost txn node),
+    * ``query(q)`` / ``query_batch(queries)`` - analytical queries over
+      everything executed so far (a batch runs same-column-set queries as
+      fused groups, sharing pinned snapshots),
+    * ``advance_round()`` - an explicit round boundary.
+
+    Visibility semantics per kind: the MI family applies every pending
+    update before answering a batch (end-of-round freshness), Ana-Only
+    reads the initial table.
+
+    ``device`` is where the analytical island lives: ``None`` means the
+    GPU and raises when CUDA is not available; it never falls back to the
+    CPU by itself.
+    """
+
+    def __init__(self, spec: SystemSpec, table: np.ndarray, device=None):
+        self.spec = spec
+        self.timing = spec.timing or "phase"
+        self.cost = CostLog()
+        self.round = 0
+        self.results: list[int] = []
+        self.n_txn = 0
+        self.n_ana = 0
+        self._finished = False
+        self._prev_txn: str | None = None   # last txn node (dependency chain)
+        self._txn_i = 0                      # txn sub-chunks this round
+        self._ana_i = 0                      # per-round query/group counter
+        self._launches_at_start = kernel_launch_counts()
+        self.be = get_backend(spec.backend, device=device)
+        self.device = self.be.device
+        self.hw = spec.hw
+        self.islands = 1
+        kind = spec.kind
+        if kind == "multi_instance":
+            self.store = RowStore(table)
+            self.replica = DSMReplica.from_table(table, device=self.device)
+            self.cons = ConsistencyManager(self.replica, self.cost,
+                                           on_pim=spec.analytics_on_pim,
+                                           backend=self.be)
+            self.placement = hybrid(self.hw.n_vaults * self.hw.n_stacks)
+            self.applications = 0
+            self._ship_i = 0                       # global ship-batch counter
+            self._vis_node: dict[int, str] = {}    # col -> last Phase-2 node
+            self._round_prop: list[str] = []       # this round's apply nodes
+            self._prev_round_prop: tuple[str, ...] = ()
+        elif kind == "ideal_txn":
+            self.store = RowStore(table)
+        elif kind == "ana_only":
+            self._q_i = 0   # global query counter (rounds don't reset it)
+            self.replica = DSMReplica.from_table(table, device=self.device)
+            self._view = self.replica.columns
+
+    # -- lifecycle ---------------------------------------------------------
+    def _check_open(self) -> None:
+        if self._finished:
+            raise SessionClosedError(
+                "HTAPSession is finished; start a new session for more "
+                "traffic")
+
+    def advance_round(self) -> None:
+        """Close the current round and open the next.
+
+        For the MI family the next round's first txn chunk carries
+        ``sync_deps`` on this round's Phase-2 applies (metadata for the
+        timeline timing model; the phase model ignores it).
+        """
+        self._check_open()
+        self.round += 1
+        self._txn_i = 0
+        self._ana_i = 0
+        if self.spec.kind == "multi_instance":
+            self._prev_round_prop = tuple(self._round_prop)
+            self._round_prop = []
+
+    def finish(self) -> "htap.RunResult":  # noqa: F821 (circular import)
+        """Price the accumulated cost log -> RunResult (closes the session)."""
+        self._check_open()
+        self._finished = True
+        from repro_torch.core import htap
+        spec = self.spec
+        stats: dict = {}
+        concurrent = spec.kind not in ("ideal_txn", "ana_only")
+        if spec.kind == "multi_instance":
+            stats = {"applications": self.applications,
+                     "snapshots": self.cons.snapshots_created,
+                     "shared": self.cons.snapshots_shared,
+                     "islands": self.islands,
+                     "placement": "stacked"}
+        # CUDA kernel launches per kernel over this session's lifetime
+        # (empty on the CPU, where the wrappers run their plain versions)
+        now = kernel_launch_counts()
+        stats["kernel_launches"] = {
+            k: v - self._launches_at_start.get(k, 0) for k, v in now.items()
+            if v - self._launches_at_start.get(k, 0)}
+        return htap._price(spec.name, self.cost, self.hw, self.timing,
+                           self.n_txn, self.n_ana, self.results, stats=stats,
+                           concurrent_islands=concurrent)
+
+    def abort(self) -> None:
+        """Close the session without pricing (no RunResult). Idempotent; a
+        later `finish()` raises `SessionClosedError`."""
+        self._finished = True
+
+    # -- not ported yet ----------------------------------------------------
+    def resize_islands(self, n_islands: int, placement: str | None = None):
+        raise NotImplementedError(_NOT_PORTED["elastic"])
+
+    def checkpoint(self, ckpt_dir: str, step: int | None = None):
+        raise NotImplementedError(_NOT_PORTED["elastic"])
+
+    @classmethod
+    def restore(cls, ckpt_dir: str, spec: SystemSpec | None = None,
+                step: int | None = None):
+        raise NotImplementedError(_NOT_PORTED["elastic"])
+
+    # -- transactional surface ---------------------------------------------
+    def execute(self, chunk: UpdateStream) -> None:
+        """Execute a contiguous commit-ordered chunk of transactions.
+
+        Opens one txn timeline node per call. On the MI family,
+        capacity-triggered update shipping runs here: whenever the pending
+        updates reach the final log's capacity, a ship batch leaves for
+        the analytical island.
+        """
+        self._check_open()
+        kind = self.spec.kind
+        if kind == "ana_only":
+            raise ValueError("Ana-Only has no transactional island; "
+                             "this spec only accepts queries")
+        node = (f"r{self.round}:txn" if self._txn_i == 0
+                else f"r{self.round}:txn.{self._txn_i}")
+        self._txn_i += 1
+        lo, hi = _cid_span(chunk)
+        deps = (self._prev_txn,) if self._prev_txn else ()
+        if kind == "multi_instance":
+            sync_deps = self._prev_round_prop if self._txn_i == 1 else ()
+            with self.cost.tagged(node, "txn", round=self.round, deps=deps,
+                                  sync_deps=sync_deps, n=len(chunk),
+                                  cid_lo=lo, cid_hi=hi):
+                self._execute_mi(chunk)
+        else:
+            with self.cost.tagged(node, "txn", round=self.round, deps=deps,
+                                  n=len(chunk), cid_lo=lo, cid_hi=hi):
+                self.store.execute(chunk, self.cost)
+        self._prev_txn = node
+        self.n_txn += len(chunk)
+        if kind == "multi_instance":
+            # §5: ship when the final log's hardware capacity is reached
+            while self.store.pending_updates >= FINAL_LOG_CAPACITY:
+                self._ship_once()
+
+    def _execute_mi(self, chunk: UpdateStream) -> None:
+        if self.spec.txn_on_pim:
+            self.store.execute(chunk)  # functional only; price on PIM:
+            n = len(chunk)
+            self.cost.add(phase="txn", island="txn", resource="pim_txn",
+                          cycles=n * RowStore.CYCLES_PER_TXN
+                          * PIM_TXN_CYCLE_FACTOR,
+                          bytes_local=n * self.store.n_cols * 4
+                          * RowStore.MISS_FRACTION)
+        else:
+            self.store.execute(chunk, self.cost)
+
+    # -- update propagation (§5, MI family) --------------------------------
+    def _ship_once(self) -> None:
+        """One ship batch: drain -> merge/locate/ship -> per-column apply.
+
+        The final log is a hardware buffer (§5.1's merge unit): when
+        propagation runs on the in-memory units, each batch is at most one
+        final log's worth. The software baseline has no such structure and
+        ships its whole backlog at once.
+        """
+        spec = self.spec
+        logs = self.store.drain_logs(
+            limit=FINAL_LOG_CAPACITY if spec.propagation_on_pim else None)
+        ship_node = f"r{self.round}:ship{self._ship_i}"
+        self._ship_i += 1
+        sync_deps = (self._prev_txn,) if self._prev_txn else ()
+        with self.cost.tagged(ship_node, "ship", round=self.round,
+                              sync_deps=sync_deps, islands=self.islands):
+            buffers = ship_updates(logs, self.store.n_cols, self.cost,
+                                   on_pim=spec.propagation_on_pim,
+                                   backend=self.be,
+                                   price=not spec.zero_cost_propagation)
+        # The whole batch's dictionary stages ride one fused dispatch (cost
+        # events stay per column below - tags are structural, and the cost
+        # model is analytic, not measured).
+        staged = (precompute_apply_stages(self.replica.columns, buffers,
+                                          backend=self.be)
+                  if spec.optimized_application and len(buffers) > 1
+                  else {})
+        app_cost = (None if (spec.shipping_only
+                             or spec.zero_cost_propagation)
+                    else self.cost)
+        for col_id, entries in buffers.items():
+            apply_node = f"{ship_node}:c{col_id}"
+            self._apply_column_eager(col_id, entries, apply_node,
+                                     app_cost, staged.get(col_id),
+                                     deps=(ship_node,))
+            self._vis_node[col_id] = apply_node
+            self._round_prop.append(apply_node)
+            self.applications += 1
+
+    def _apply_column_eager(self, col_id: int, entries: np.ndarray,
+                            node: str, app_cost, staged_col, deps,
+                            kind: str = "apply",
+                            phase: str = "apply") -> None:
+        """One column's batch through the standard two-stage apply (Phase-2
+        swap via the consistency manager)."""
+        spec = self.spec
+        old = self.replica.columns[col_id]
+        with self.cost.tagged(node, kind, round=self.round, deps=deps,
+                              col=col_id, islands=self.islands):
+            if spec.optimized_application:
+                self.cons.on_update(col_id, apply_updates(
+                    old, entries, app_cost,
+                    on_pim=spec.propagation_on_pim, backend=self.be,
+                    staged=staged_col, phase=phase))
+            else:
+                # the naive software baseline rebuilds a whole column
+                self.cons.on_update(col_id, apply_updates_naive(
+                    old, entries, app_cost, phase=phase))
+
+    def flush_updates(self) -> None:
+        """Ship and apply the entire pending update backlog now.
+
+        `query_batch` pulls this implicitly (queries must see everything
+        executed before them); it is public for callers that want
+        propagation *without* analytics. MI family only.
+        """
+        self._check_open()
+        if self.spec.kind != "multi_instance":
+            raise ValueError(
+                f"flush_updates is a multiple-instance mechanism; "
+                f"{self.spec.name!r} is kind {self.spec.kind!r}")
+        while self.store.pending_updates:
+            self._ship_once()
+
+    # -- analytical surface ------------------------------------------------
+    def query(self, q: engine.Query) -> int:
+        """Answer one analytical query over the currently visible data."""
+        return self.query_batch([q])[0]
+
+    def query_batch(self, queries: list[engine.Query]) -> list[int]:
+        """Answer a batch of analytical queries (fused same-column groups).
+
+        An empty batch is a no-op (it does not flush pending updates). On
+        the MI family a non-empty batch first drains the remaining update
+        backlog - queries see everything executed before them - then runs
+        each same-column-set group as one fused multi-query scan over a
+        shared pinned snapshot.
+        """
+        self._check_open()
+        queries = list(queries)
+        if not queries:
+            return []
+        kind = self.spec.kind
+        if kind == "ideal_txn":
+            raise ValueError("Ideal-Txn has no analytical island; "
+                             "this spec only accepts transactions")
+        answers = {
+            "multi_instance": self._query_batch_mi,
+            "ana_only": self._query_batch_ana_only,
+        }[kind](queries)
+        self.results.extend(answers)
+        self.n_ana += len(queries)
+        return answers
+
+    def _query_batch_mi(self, queries) -> list[int]:
+        # flush the whole backlog first: a query batch is the §5 trigger
+        # that makes every committed update visible (end-of-round contract)
+        self.flush_updates()
+        batch_results: dict[int, int] = {}
+        for group in engine.group_queries(queries):
+            g = self._ana_i
+            self._ana_i += 1
+            cols = group[0].columns
+            snap_node = f"r{self.round}:snap{g}"
+            snap_deps = tuple(dict.fromkeys(
+                self._vis_node[c] for c in cols if c in self._vis_node))
+            with self.cost.tagged(snap_node, "snapshot", round=self.round,
+                                  deps=snap_deps, islands=self.islands):
+                handles, view = self.cons.pin_scan_group(
+                    [q.columns for q in group])
+            with self.cost.tagged(f"r{self.round}:ana{g}", "ana",
+                                  round=self.round, deps=(snap_node,),
+                                  islands=self.islands, n=len(group)):
+                group_answers = engine.run_query_group_dsm(
+                    view, group, self.cost, self.placement,
+                    on_pim=self.spec.analytics_on_pim, backend=self.be)
+            for q, a in zip(group, group_answers):
+                batch_results[id(q)] = a
+            for h in handles:
+                self.cons.end_query(h)
+        return [batch_results[id(q)] for q in queries]
+
+    def _query_batch_ana_only(self, queries) -> list[int]:
+        answers = []
+        for q in queries:
+            # globally numbered: q{i} node names must stay unique across
+            # rounds (advance_round resets only the per-round counters)
+            i = self._q_i
+            self._q_i += 1
+            with self.cost.tagged(f"q{i}:ana", "ana", round=self.round):
+                answers.append(engine.run_query_dsm(self._view, q, self.cost,
+                                                    on_pim=False,
+                                                    backend=self.be))
+        return answers
