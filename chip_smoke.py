@@ -15,7 +15,16 @@ Drives `repro_torch` only. Phases, each printing one JSON line:
                  over the host row store; every kernel must have been
                  launched during the run. The wrappers record the shapes
                  they launched at.
-4. ``kernels``   every hand-written kernel launched on the card and held
+4. ``islands``   the same session on four analytical islands stacked on the
+                 card (``n_shards=4``): answers and final columns must equal
+                 the one-island session's bit for bit (and the host
+                 evaluation every round); the sharded scan and sharded join
+                 scan must carry every query group, one launch per group as
+                 on one island.
+5. ``ana_only``  the `Ana-Only` preset at the same size on ``"hopper"`` and
+                 ``"hopper@4"``: lone join queries go through the bucket
+                 probe; answers must equal the host evaluation.
+6. ``kernels``   every hand-written kernel launched on the card and held
                  against its plain PyTorch version with exact equality
                  (integers: tolerance 0), at edge shapes and at the shapes
                  the main path just gave it (the one it launched most, and
@@ -25,8 +34,12 @@ Drives `repro_torch` only. Phases, each printing one JSON line:
                  allocations), the plain version and, where one PyTorch
                  call computes the same function, that call.
 
-Then the ``{"kernels": [...]}`` summary, the card's name and power limit,
-and as the last line ``{"ok": true, "device": {...}}``. Any failed phase
+Each kernel is checked against the path that runs it (counts set to 0 just
+before the path, read just after): the one-island kernels against
+``main_path``, the sharded scans against ``islands``, the bucket probe
+against ``ana_only``. Then the ``{"kernels": [...]}`` summary, the card's
+name and power limit, and as the last line ``{"ok": true, "device":
+{...}}``. Any failed phase
 raises: the script exits non-zero and prints no result. Without CUDA it
 exits with code 2 before doing anything.
 """
@@ -56,6 +69,10 @@ ALU_OPS_PER_S = 67e12
 REPLACES = {
     "scan_exact": "src/repro/kernels/dict_ops/dict_ops.py:63",
     "scan_exact_join": "src/repro/kernels/hash_probe/ops.py:218",
+    "scan_exact_sharded": "src/repro/kernels/dict_ops/dict_ops.py:121",
+    "scan_exact_join_sharded": "src/repro/kernels/hash_probe/ops.py:244",
+    "hash_probe": "src/repro/kernels/hash_probe/hash_probe.py:90 "
+                  "(sharded form: hash_probe.py:68)",
     "merge_runs": "src/repro/kernels/merge_runs/merge_runs.py:94",
     "bitonic_sort": "src/repro/kernels/bitonic_sort/bitonic_sort.py:103",
     "bitonic_apply": "src/repro/kernels/dict_ops/ops.py:310 "
@@ -65,11 +82,17 @@ REPLACES = {
 SOURCES = {
     "scan_exact": "src/repro_torch/kernels/csrc/scan_exact.cu",
     "scan_exact_join": "src/repro_torch/kernels/csrc/scan_exact.cu",
+    "scan_exact_sharded": "src/repro_torch/kernels/csrc/scan_exact.cu",
+    "scan_exact_join_sharded": "src/repro_torch/kernels/csrc/scan_exact.cu",
+    "hash_probe": "src/repro_torch/kernels/csrc/hash_probe.cu",
     "merge_runs": "src/repro_torch/kernels/csrc/merge_runs.cu",
     "bitonic_sort": "src/repro_torch/kernels/csrc/bitonic.cu",
     "bitonic_apply": "src/repro_torch/kernels/csrc/bitonic.cu",
     "snapshot_copy": "src/repro_torch/kernels/csrc/snapshot_copy.cu",
 }
+# the path that runs each kernel: its launches are counted on that path
+PATH_OF = {"scan_exact_sharded": "islands",
+           "scan_exact_join_sharded": "islands", "hash_probe": "ana_only"}
 I32_MAX = 2**31 - 1
 
 
@@ -138,13 +161,23 @@ def phase_env() -> str:
 
 
 def phase_build() -> None:
+    """Builds (with ptxas' report of each kernel's registers, when the
+    library is not built yet) and loads the kernels."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
+    build.build_library(verbose_ptxas=True)
+    nvcc_seconds = build.build_seconds()     # 0.0 when found built
     build.load_library()
+    registers, entry = {}, None
+    for line in build.build_log().splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "registers" in line and entry:
+            registers[entry] = int(line.split("Used ")[1].split()[0])
     emit("build", seconds=round(time.perf_counter() - t0, 3),
-         nvcc_seconds=build.build_seconds(),
+         nvcc_seconds=nvcc_seconds,
          sources=sorted(p.name for p in build.CSRC.glob("*.cu")),
-         library=str(build.build_library().name))
+         library=str(build.build_library().name), registers=registers)
 
 
 # ---------------------------------------------------------------------------
@@ -200,14 +233,10 @@ def drive(spec, table, stream, late, queries, late_query, n_rounds,
     return answers, seconds, session, session.finish()
 
 
-def phase_main_path(args) -> tuple[dict, dict]:
-    """Returns the launches per kernel and, per kernel, the launches each
-    shape got, both of the `hopper` session alone."""
+def make_workload(args) -> dict:
+    """The sessions' workload from --seed: table, update stream, queries,
+    one late single write and one late query."""
     from repro_torch.core import engine, schema
-    from repro_torch.core.session import SystemSpec
-    from repro_torch.kernels.common import (kernel_launch_counts,
-                                            kernel_launch_shapes,
-                                            reset_kernel_launch_counts)
     t0 = time.perf_counter()
     rng = np.random.default_rng(args.seed)
     sch = schema.make_schema("t", args.cols, 32)
@@ -225,13 +254,38 @@ def phase_main_path(args) -> tuple[dict, dict]:
         col=np.zeros(1, np.int32),
         value=rng.integers(0, 1 << 24, size=1).astype(np.int32))
     late_query = engine.Query(args.queries, 0, 0, 1 << 24, 1, 0)
-    setup_s = time.perf_counter() - t0
+    return dict(table=table, stream=stream, late=late, queries=queries,
+                late_query=late_query,
+                setup_seconds=time.perf_counter() - t0)
 
+
+def drive_spec(spec, wl, args, check_host: bool):
+    return drive(spec, wl["table"], wl["stream"], wl["late"], wl["queries"],
+                 wl["late_query"], args.rounds, check_host)
+
+
+def same_columns(got: dict, want: dict, what: str) -> None:
+    for c, col in got.items():
+        ref = want[c]
+        if not (torch.equal(col.codes, ref.codes)
+                and torch.equal(col.valid, ref.valid)
+                and torch.equal(col.dictionary, ref.dictionary)
+                and col.version == ref.version):
+            raise AssertionError(f"final column {c} differs: {what}")
+
+
+def phase_main_path(args, wl) -> tuple[dict, dict, list, dict]:
+    """Returns the launches per kernel and, per kernel, the launches each
+    shape got, both of the `hopper` session alone, and that session's
+    answers and final columns."""
+    from repro_torch.core.session import SystemSpec
+    from repro_torch.kernels.common import (kernel_launch_counts,
+                                            kernel_launch_shapes,
+                                            reset_kernel_launch_counts)
     torch.cuda.reset_peak_memory_stats()
     reset_kernel_launch_counts()
-    answers, seconds, session, result = drive(
-        SystemSpec.polynesia(backend="hopper"), table, stream, late, queries,
-        late_query, args.rounds, check_host=True)
+    answers, seconds, session, result = drive_spec(
+        SystemSpec.polynesia(backend="hopper"), wl, args, check_host=True)
     launches = kernel_launch_counts()
     shapes = kernel_launch_shapes()
     peak = torch.cuda.max_memory_allocated()
@@ -243,33 +297,28 @@ def phase_main_path(args) -> tuple[dict, dict]:
         for t in (col.codes, col.valid, col.dictionary):
             if t.device.type != "cuda":
                 raise AssertionError(f"column {c} has a tensor on {t.device}")
-    missing = [k for k in REPLACES if launches.get(k, 0) < 1]
+    missing = [k for k in REPLACES
+               if k not in PATH_OF and launches.get(k, 0) < 1]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing} (counts {launches})")
     if result.stats["kernel_launches"] != launches:
         raise AssertionError("session launch stats disagree with the counters")
 
-    ref_answers, ref_seconds, ref_session, _ = drive(
-        SystemSpec.polynesia(backend="torch"), table, stream, late, queries,
-        late_query, args.rounds, check_host=False)
+    ref_answers, ref_seconds, ref_session, _ = drive_spec(
+        SystemSpec.polynesia(backend="torch"), wl, args, check_host=False)
     if kernel_launch_counts() != launches:
         raise AssertionError("the plain backend launched a CUDA kernel")
     if answers != ref_answers:
         raise AssertionError(f"hopper answers {answers} != torch answers "
                              f"{ref_answers}")
-    for c, col in cols.items():
-        ref = ref_session.replica.columns[c]
-        if not (torch.equal(col.codes, ref.codes)
-                and torch.equal(col.valid, ref.valid)
-                and torch.equal(col.dictionary, ref.dictionary)
-                and col.version == ref.version):
-            raise AssertionError(f"final column {c} differs between backends")
+    same_columns(cols, ref_session.replica.columns, "hopper vs torch")
+    del ref_session
 
     total = sum(seconds)
     emit("main_path", rows=args.rows, cols=args.cols, txns=args.txns + 1,
          queries=len(answers), rounds=args.rounds, seed=args.seed,
-         setup_seconds=setup_s, round_seconds=seconds,
+         setup_seconds=wl["setup_seconds"], round_seconds=seconds,
          txns_per_s=(args.txns + 1) / total, queries_per_s=len(answers) / total,
          torch_backend_round_seconds=ref_seconds,
          ship_batches=session._ship_i, applications=session.applications,
@@ -279,11 +328,97 @@ def phase_main_path(args) -> tuple[dict, dict]:
          peak_device_bytes=peak, modeled_txn_seconds=result.txn_seconds,
          modeled_ana_seconds=result.ana_seconds,
          answers_checksum=sum(answers), ok=True)
+    return launches, shapes, answers, cols
+
+
+SCANS = ("scan_exact", "scan_exact_join")
+SHARDED_SCANS = ("scan_exact_sharded", "scan_exact_join_sharded")
+
+
+def phase_islands(args, wl, one_launches, one_answers, one_cols
+                  ) -> tuple[dict, dict]:
+    """The main path on `args.islands` islands stacked on the card; returns
+    its launches and launch shapes."""
+    from repro_torch.core.session import SystemSpec
+    from repro_torch.kernels.common import (kernel_launch_counts,
+                                            kernel_launch_shapes,
+                                            reset_kernel_launch_counts)
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_launch_counts()
+    answers, seconds, session, result = drive_spec(
+        SystemSpec.polynesia(backend="hopper", n_shards=args.islands), wl,
+        args, check_host=True)
+    launches = kernel_launch_counts()
+    shapes = kernel_launch_shapes()
+    peak = torch.cuda.max_memory_allocated()
+
+    if answers != one_answers:
+        raise AssertionError(f"hopper@{args.islands} answers {answers} != "
+                             f"one-island answers {one_answers}")
+    same_columns(session.replica.columns, one_cols,
+                 f"hopper@{args.islands} vs one island")
+    missing = [k for k in SHARDED_SCANS if launches.get(k, 0) < 1]
+    if missing or any(launches.get(k, 0) for k in SCANS):
+        raise AssertionError(f"the islands' scans did not run sharded: "
+                             f"{launches}")
+    n_scans = sum(launches.get(k, 0) for k in SHARDED_SCANS)
+    one_scans = sum(one_launches.get(k, 0) for k in SCANS)
+    if n_scans != one_scans:
+        raise AssertionError(f"{n_scans} sharded scan launches on "
+                             f"{args.islands} islands, {one_scans} on one: "
+                             "one launch per query group is the contract")
+    stats = result.stats
+    if (stats["islands"] != args.islands or stats["sharded_views"] < 1
+            or session.hw.n_ana_islands != args.islands):
+        raise AssertionError(f"the session did not run on islands: {stats}")
+    n_rows = next(iter(session.replica.columns.values())).n_rows
+    width = -(-n_rows // args.islands)
+    total = sum(seconds)
+    emit("islands", islands=args.islands, rows=n_rows,
+         padded_slots=width * args.islands - n_rows, round_seconds=seconds,
+         txns_per_s=(args.txns + 1) / total, queries_per_s=len(answers) / total,
+         peak_device_bytes=peak, launches=launches,
+         scan_launches=n_scans, one_island_scan_launches=one_scans,
+         sharded_views=stats["sharded_views"],
+         views_shared=stats["views_shared"],
+         modeled_ana_seconds=result.ana_seconds, answers_checksum=sum(answers),
+         ok=True)
     return launches, shapes
 
 
+def phase_ana_only(args, wl) -> tuple[dict, dict]:
+    """`Ana-Only` (lone queries over the initial table) on one island and on
+    `args.islands`; returns the launches and shapes of both runs together."""
+    from repro_torch.core import htap
+    from repro_torch.kernels.common import (kernel_launch_counts,
+                                            kernel_launch_shapes,
+                                            reset_kernel_launch_counts)
+    want = host_answers(wl["table"], wl["queries"])
+    reset_kernel_launch_counts()
+    seconds, probes = {}, {}
+    for spec in ("hopper", f"hopper@{args.islands}"):
+        before = kernel_launch_counts().get("hash_probe", 0)
+        t0 = time.perf_counter()
+        res = htap.run("Ana-Only", wl["table"], queries=wl["queries"],
+                       backend=spec)
+        torch.cuda.synchronize()
+        seconds[spec] = time.perf_counter() - t0
+        if res.results != want:
+            raise AssertionError(f"Ana-Only on {spec}: {res.results} != host "
+                                 f"{want}")
+        probes[spec] = kernel_launch_counts().get("hash_probe", 0) - before
+        n_joins = sum(q.join_col is not None for q in wl["queries"])
+        if probes[spec] != n_joins:
+            raise AssertionError(f"Ana-Only on {spec}: {probes[spec]} probe "
+                                 f"launches for {n_joins} lone join queries")
+    launches = kernel_launch_counts()
+    emit("ana_only", queries=len(want), seconds=seconds, probe_launches=probes,
+         launches=launches, answers_checksum=sum(want), ok=True)
+    return launches, kernel_launch_shapes()
+
+
 # ---------------------------------------------------------------------------
-# phase 4: every kernel against its plain version
+# phase 6: every kernel against its plain version
 # ---------------------------------------------------------------------------
 # Each kernel has a `*_cost(shape)` -> (bytes, operations) of one launch at a
 # shape its wrapper recorded (each input read once, each output written
@@ -311,6 +446,22 @@ def scan_cost(shape, join):
     if join:
         nbytes += n * (4 + 1) + shape[2] * 4
     return nbytes, n * (2 * q + 2) * (2 if join else 1)
+
+
+def scan_sharded_cost(shape, join):
+    """(S, W, k[, kj], Q): every slot of the stacked shards is read once."""
+    n_shards, width = shape[0], shape[1]
+    nbytes, ops = scan_cost((n_shards * width,) + tuple(shape[2:]), join)
+    lanes = 3 if join else 2
+    return nbytes + (n_shards - 1) * lanes * shape[-1] * 8, ops
+
+
+def probe_cost(shape):
+    """(S, W, n_buckets, slots): each query read and written once, the
+    table read once; a mod, a sign fix, and a compare and max per slot."""
+    n_shards, width, n_buckets, slots = shape
+    q = n_shards * width
+    return q * 8 + n_buckets * slots * 8, q * (2 * slots + 3)
 
 
 def merge_cost(shape):
@@ -398,6 +549,163 @@ def measure_scan(gen, dev, shape, join: bool) -> dict:
                 wrapper_ms=time_ms(lambda: scan_exact(*args), 20),
                 plain_ms=time_ms(lambda: scan_exact_ref(*args), 3),
                 library_ms=None)
+
+
+def stacked(flat, sizes):
+    """Lay a flat tensor's rows out as shards of `sizes` (zero padded), as
+    a ShardedView does."""
+    from repro_torch.core.dsm import stack_rows
+    bounds = np.concatenate([[0], np.cumsum(sizes)]).tolist()
+    return stack_rows([flat[lo:hi] for lo, hi in zip(bounds, bounds[1:])],
+                      max(sizes))
+
+
+def edge_scan_sharded(gen, dev) -> int:
+    """An empty shard, more shards than rows, a padded tail, a width that
+    is not a multiple of 4 (no 16-byte loads), k = 0, many shards."""
+    from repro_torch.kernels.dict_ops import scan_exact, scan_exact_ref
+    cases = 0
+    for sizes, k, nq in (((0, 40, 41), 30, 3), ((1, 1, 0, 0, 0), 3, 1),
+                         ((250_001, 250_000, 250_000, 250_000), 25_000, 9),
+                         ((1001, 1000), 64, 19), ((7,) * 100, 5, 2),
+                         ((2_500_000,) * 4, 100_000, 1)):
+        n = sum(sizes)
+        f, a, j, fv, jv, ad, rc = scan_inputs(gen, max(n, 1), k, k, k, dev)
+        lay = [stacked(t[:n], sizes) for t in (f, a, j, fv, jv)]
+        bounds = [(0, k)] + [(i % k, i % k + 1 + i % 7) for i in range(nq - 1)]
+        args = (lay[0], lay[1], lay[3], ad, bounds)
+        must_equal(f"sharded scan {sizes[:4]}", scan_exact(*args),
+                   scan_exact_ref(*args))
+        jargs = args + (lay[2], lay[4], rc)
+        must_equal(f"sharded join scan {sizes[:4]}", scan_exact(*jargs),
+                   scan_exact_ref(*jargs))
+        cases += 2
+    # k = 0: only padded (invalid) slots, nothing is gathered
+    z = torch.zeros((3, 5), dtype=torch.int32, device=dev)
+    zv = torch.zeros((3, 5), dtype=torch.bool, device=dev)
+    empty = torch.empty(0, dtype=torch.int32, device=dev)
+    must_equal("sharded scan k=0", scan_exact(z, z, zv, empty, [(0, 1)], z,
+                                              zv, empty),
+               scan_exact_ref(z, z, zv, empty, [(0, 1)], z, zv, empty))
+    return cases + 1
+
+
+def measure_scan_sharded(gen, dev, shape, join: bool) -> dict:
+    from repro_torch.kernels.dict_ops import (launch_scan_exact, scan_exact,
+                                              scan_exact_ref)
+    n_shards, width, k, nq = shape[0], shape[1], shape[2], shape[-1]
+    kj = shape[3] if join else 1
+    f, a, j, fv, jv, ad, rc = scan_inputs(gen, n_shards * width, k, k, kj,
+                                          dev, invalid=0.0)
+    f, a, j, fv, jv = (t.reshape(n_shards, width) for t in (f, a, j, fv, jv))
+    span = max(1, 3 * k // 10)
+    bounds = [((q * k) // (nq + 1), (q * k) // (nq + 1) + span)
+              for q in range(nq)]
+    extra = (j, jv, rc) if join else ()
+    args = (f, a, fv, ad, bounds) + extra
+    err = must_equal(f"sharded scan {shape}", scan_exact(*args),
+                     scan_exact_ref(*args))
+    res = torch.zeros((n_shards, 3 if join else 2, nq), dtype=torch.int64,
+                      device=dev)
+    barr = torch.tensor(bounds, dtype=torch.int32, device=dev)
+    bare = (f, a, fv.view(torch.uint8), ad, barr, res) + (
+        (j, jv.view(torch.uint8), rc) if join else ())
+    return dict(max_abs_err=err,
+                ms=time_ms(lambda: launch_scan_exact(*bare), 50),
+                wrapper_ms=time_ms(lambda: scan_exact(*args), 20),
+                plain_ms=time_ms(lambda: scan_exact_ref(*args), 3),
+                library_ms=None)
+
+
+def probe_table(gen, dev, n_keys, lo=-(1 << 24), hi=1 << 24):
+    """A bucket table over `n_keys` distinct keys (negative ones too), its
+    keys on the card, and their values."""
+    from repro_torch.kernels.hash_probe import build_table
+    keys = torch.randperm(hi - lo, generator=gen, device=dev)[:n_keys] + lo
+    keys = keys.to(torch.int32)
+    vals = torch.randint(0, 1 << 20, (n_keys,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    return build_table(keys.cpu().numpy(), vals.cpu().numpy()), keys
+
+
+def probe_queries(gen, keys, n):
+    """n queries, half of them keys of the table, half random misses."""
+    hits = keys[torch.randint(0, max(len(keys), 1), (n - n // 2,),
+                              generator=gen, device=keys.device)]
+    miss = torch.randint(-(1 << 24), 1 << 24, (n // 2,), generator=gen,
+                         device=keys.device, dtype=torch.int32)
+    return torch.cat([hits, miss])
+
+
+def edge_probe(gen, dev) -> int:
+    """Negative keys, the int32 extremes, a query equal to EMPTY (it hits
+    the free slots: 0), misses, one key, a large table, ragged islands."""
+    from repro_torch.kernels.hash_probe import (EMPTY, build_table, probe,
+                                                probe_ref, probe_sharded)
+    cases = 0
+    for n_keys, n_q in ((1, 5), (37, 1000), (25_133, 1_000_000)):
+        table, keys = probe_table(gen, dev, n_keys)
+        q = probe_queries(gen, keys, n_q)
+        q[:3] = torch.tensor([EMPTY, -1, 0], dtype=torch.int32, device=dev)
+        kt, vt = table.on(dev)
+        must_equal(f"probe {n_keys} keys", probe(table, q, default=-9),
+                   probe_ref(kt, vt, q, -9))
+        parts = [q[:0], q[:3], q[3:700], q[:64]]
+        for g, part in zip(probe_sharded(table, parts, default=-9), parts):
+            must_equal(f"sharded probe {n_keys} keys", g,
+                       probe_ref(kt, vt, part, -9))
+        cases += 2
+    ext = np.asarray([2**31 - 1, -2**31 + 1, 5, -5], dtype=np.int32)
+    table = build_table(ext, np.arange(4, dtype=np.int32) + 1)
+    q = torch.tensor([2**31 - 1, -2**31 + 1, EMPTY, -5, 6], dtype=torch.int32,
+                     device=dev)
+    kt, vt = table.on(dev)
+    got = probe(table, q)
+    must_equal("probe extremes", got, probe_ref(kt, vt, q, -1))
+    if got.tolist() != [1, 2, 0, 4, -1]:
+        raise AssertionError(f"probe extremes: {got.tolist()}")
+    return cases + 1
+
+
+def measure_probe(gen, dev, shape) -> dict:
+    """At the recorded (S, W, n_buckets, slots): a table of the same bucket
+    count (n_buckets // 2 keys at the builder's load factor), W queries per
+    island. Also the sharded form at four islands of the same width."""
+    from repro_torch.kernels.hash_probe import (launch_hash_probe, probe,
+                                                probe_ref, probe_sharded)
+    n_shards, width, n_buckets, _ = shape
+    table, keys = probe_table(gen, dev, max(1, n_buckets // 2))
+    kt, vt = table.on(dev)
+    q = probe_queries(gen, keys, n_shards * width).reshape(n_shards, width)
+    flat = q.reshape(-1) if n_shards == 1 else q
+    got = probe(table, flat) if n_shards == 1 else \
+        torch.stack(probe_sharded(table, list(q)))
+    err = must_equal(f"probe {shape}", got, probe_ref(kt, vt, flat, -1))
+    out = torch.empty_like(flat)
+    skeys = torch.sort(keys).values
+    four = list(probe_queries(gen, keys, 4 * width).reshape(4, width))
+    sh_err = max(must_equal(f"sharded probe {shape}", g,
+                            probe_ref(kt, vt, p, -1))
+                 for g, p in zip(probe_sharded(table, four), four))
+    stack4 = torch.stack(four)
+    out4 = torch.empty_like(stack4)
+    return dict(max_abs_err=err, slots_measured=int(kt.shape[1]),
+                ms=time_ms(lambda: launch_hash_probe(flat, kt, vt, -1, out),
+                           200),
+                wrapper_ms=time_ms(lambda: probe(table, flat.reshape(-1)),
+                                   200),
+                plain_ms=time_ms(lambda: probe_ref(kt, vt, flat, -1), 50),
+                library_ms=time_ms(lambda: torch.searchsorted(skeys, flat),
+                                   200),
+                sharded=dict(
+                    shape=[4, width, int(kt.shape[0]), int(kt.shape[1])],
+                    max_abs_err=sh_err,
+                    ms=time_ms(lambda: launch_hash_probe(stack4, kt, vt, -1,
+                                                         out4), 200),
+                    wrapper_ms=time_ms(lambda: probe_sharded(table, four),
+                                       200),
+                    plain_ms=time_ms(lambda: probe_ref(kt, vt, stack4, -1),
+                                     50)))
 
 
 def sorted_runs(gen, dev, rows, w, lo=-2**62, hi=2**62):
@@ -489,6 +797,13 @@ def edge_bitonic(gen, dev) -> int:
         x[0, 0] = I32_MAX
         x[0, -1] = -2**31
         must_equal(f"sort {rows}x{w}", sort_rows(x), sort_rows_ref(x))
+        cases += 1
+    for rows, w in ((1, 7), (3, 1000), (2, 70_000)):   # float32, NaN last
+        x = torch.randn((rows, w), generator=gen, device=dev) * 1e6
+        x[:, 0], x[:, 1], x[:, 2] = float("nan"), float("inf"), -0.0
+        x[:, -1] = float("-inf")
+        torch.testing.assert_close(sort_rows(x), sort_rows_ref(x), rtol=0,
+                                   atol=0, equal_nan=True)
         cases += 1
     for rows, n_old, w_old, n_val, w_val in (
             (1, 1, 8, 1, 8), (8, 32, 32, 100, 128), (2, 5000, 8192, 1024, 1024),
@@ -604,6 +919,13 @@ KERNELS = {
                    lambda g, d, s: measure_scan(g, d, s, False)),
     "scan_exact_join": (lambda s: scan_cost(s, True),
                         lambda g, d, s: measure_scan(g, d, s, True)),
+    "scan_exact_sharded": (
+        lambda s: scan_sharded_cost(s, False),
+        lambda g, d, s: measure_scan_sharded(g, d, s, False)),
+    "scan_exact_join_sharded": (
+        lambda s: scan_sharded_cost(s, True),
+        lambda g, d, s: measure_scan_sharded(g, d, s, True)),
+    "hash_probe": (probe_cost, measure_probe),
     "merge_runs": (merge_cost, measure_merge),
     "bitonic_sort": (sort_cost, measure_sort),
     "bitonic_apply": (apply_cost, measure_apply),
@@ -621,14 +943,15 @@ def with_bound(m: dict, shape, cost, launches: int) -> dict:
 
 
 def phase_kernels(shapes: dict) -> dict:
-    """`shapes`: per kernel, the launches each shape got on the main path.
+    """`shapes`: per kernel, the launches each shape got on its path.
     Returns per kernel the measurement at the shape launched most (ties:
     the costlier), with the costliest shape's under ``largest`` where that
     is another."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    cases = (edge_scan(gen, dev) + edge_merge(gen, dev)
+    cases = (edge_scan(gen, dev) + edge_scan_sharded(gen, dev)
+             + edge_probe(gen, dev) + edge_merge(gen, dev)
              + edge_bitonic(gen, dev) + edge_snapshot(gen, dev))
     measured = {}
     for name, (cost, measure) in KERNELS.items():
@@ -658,6 +981,7 @@ def main(argv=None) -> int:
     ap.add_argument("--queries", type=int, default=32)
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--islands", type=int, default=4)
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -672,8 +996,17 @@ def main(argv=None) -> int:
 
     card = phase_env()
     phase_build()
-    launches, shapes = phase_main_path(args)
-    measured = phase_kernels(shapes)
+    wl = make_workload(args)
+    runs = {}
+    main_launches, main_shapes, answers, cols = phase_main_path(args, wl)
+    runs["main_path"] = (main_launches, main_shapes)
+    runs["islands"] = phase_islands(args, wl, main_launches, answers, cols)
+    del cols
+    runs["ana_only"] = phase_ana_only(args, wl)
+    # every kernel's launches and shapes from the path that runs it
+    launches = {k: runs[PATH_OF.get(k, "main_path")][0][k] for k in REPLACES}
+    measured = phase_kernels({k: runs[PATH_OF.get(k, "main_path")][1][k]
+                              for k in REPLACES})
 
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=SOURCES[k], replaces=REPLACES[k],

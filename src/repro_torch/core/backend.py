@@ -8,14 +8,23 @@ below, so the same code runs either on
 * ``TorchBackend`` (``"torch"``) - plain PyTorch ops, the functional
   reference the kernels are held against, or
 * ``HopperBackend`` (``"hopper"``) - dispatching each operator to its
-  hardware-analog kernel:
+  hardware-analog kernel, or
+* ``ShardedBackend`` (``"hopper@N"``, ``"torch@N"`` or ``n_shards=N``) -
+  N analytical islands, each owning a row-wise shard of every column,
+  stacked on one device: every island's scan rides one launch of the inner
+  backend over the leading shard axis, and the exact per-island partials
+  reduce with `reduce_partials`:
 
     ==========================  =================================
     operator                    kernel
     ==========================  =================================
     filter + aggregate          kernels/dict_ops.scan_filter_agg
-                                (+ _batch for fused multi-query)
+                                (+ _batch for fused multi-query,
+                                _sharded for all islands at once)
     filter + aggregate + join   kernels/hash_probe.scan_filter_agg_join
+                                (+ _sharded)
+    hash join / value encode    kernels/hash_probe.build_table/probe
+                                (+ probe_sharded)
     update-log / dict merge     kernels/merge_runs
     update-dictionary sort      kernels/bitonic_sort
     sort + merge, per batch     kernels/dict_ops.apply_pipeline_batch
@@ -29,29 +38,35 @@ backends in the tests. A backend is bound to one device at construction
 when there is none. Columns and dictionaries are tensors on that device;
 update logs are host numpy records (the transactional island is the host).
 
-Islands (``"hopper@N"``), mesh placement (``"/mesh"``) and the delta-store
-and view operators are not ported yet and raise ``NotImplementedError``.
+Mesh placement (``"/mesh"``, one island per GPU) and the delta-store
+operators are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import abc
 import contextlib
+import dataclasses
 import sys
 from typing import Callable, Iterable, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.core.dsm import EncodedColumn
+from repro_torch.core.dsm import (EncodedColumn, ShardedView,
+                                  make_sharded_view, shard_rows)
 from repro_torch.core.nsm import UPDATE_DTYPE
 from repro_torch.kernels.bitonic_sort import sort_1024, sort_rows
 from repro_torch.kernels.common import (I32_MAX, from_host, resolve_device,
                                         width_bucket)
 from repro_torch.kernels.dict_ops import (apply_pipeline_batch,
                                           scan_filter_agg,
-                                          scan_filter_agg_batch)
-from repro_torch.kernels.hash_probe import scan_filter_agg_join
+                                          scan_filter_agg_batch,
+                                          scan_filter_agg_sharded)
+from repro_torch.kernels.hash_probe import (EMPTY_KEY, build_table, probe,
+                                            probe_sharded,
+                                            scan_filter_agg_join,
+                                            scan_filter_agg_join_sharded)
 from repro_torch.kernels.merge_runs import merge_sorted_pairs, merge_sorted_runs
 from repro_torch.kernels.snapshot_copy import snapshot_copy
 
@@ -62,7 +77,9 @@ SNAPSHOT_BLOCK = 8192  # copy-unit chunk size (kernels/snapshot_copy default)
 # monkeypatch wrappers) wrap exactly these names - keep it next to the
 # imports so adding a kernel here keeps the count honest.
 KERNEL_ENTRY_POINTS = ("scan_filter_agg", "scan_filter_agg_batch",
-                       "scan_filter_agg_join", "merge_sorted_runs",
+                       "scan_filter_agg_sharded", "scan_filter_agg_join",
+                       "scan_filter_agg_join_sharded", "probe",
+                       "probe_sharded", "build_table", "merge_sorted_runs",
                        "merge_sorted_pairs", "sort_1024", "sort_rows",
                        "snapshot_copy", "apply_pipeline_batch")
 
@@ -134,6 +151,13 @@ def _fits_int32(values) -> bool:
         return True
     info = np.iinfo(np.int32)
     return bool(values.min() >= info.min and values.max() <= info.max)
+
+
+def _dtype_of(values) -> torch.dtype:
+    """The torch dtype of a tensor or of host numpy values."""
+    if isinstance(values, torch.Tensor):
+        return values.dtype
+    return torch.from_numpy(np.empty(0, dtype=np.asarray(values).dtype)).dtype
 
 
 class ExecutionBackend(abc.ABC):
@@ -225,6 +249,77 @@ class ExecutionBackend(abc.ABC):
                 j = int(rc[jcol.codes[keep].long()].sum())
             out.append((s, c, j))
         return out
+
+    def scan_view(self, fview: ShardedView, aview: ShardedView,
+                  code_bounds: Sequence[tuple[int, int]]
+                  ) -> list[list[tuple[int, int]]]:
+        """Every island's fused multi-predicate scan over resident shards:
+        exact per-island partials ``[[(sum, count)] * Q] * n_shards``.
+
+        This default is the serial per-shard reference - a loop over the
+        unpadded shard slices - kept as the oracle the batched kernel must
+        match; HopperBackend overrides it with ONE launch over the leading
+        shard axis.
+        """
+        fview.require_fresh()
+        aview.require_fresh()
+        adict = aview.dictionary.to(torch.int64)
+        out = []
+        for s, size in enumerate(fview.sizes):
+            fc, va = fview.codes[s, :size], fview.valid[s, :size]
+            ac = aview.codes[s, :size]
+            res = []
+            for code_lo, code_hi in code_bounds:
+                mask = (fc >= code_lo) & (fc < code_hi) & va
+                counts = torch.bincount(ac[mask].long(),
+                                        minlength=aview.dict_size)
+                res.append((int((counts * adict).sum()), int(mask.sum())))
+            out.append(res)
+        return out
+
+    def scan_view_join(self, fview: ShardedView, aview: ShardedView,
+                       jview: ShardedView,
+                       code_bounds: Sequence[tuple[int, int]],
+                       rcount: torch.Tensor | None = None
+                       ) -> list[list[tuple[int, int, int]]]:
+        """Every island's fused join-group scan over resident shards.
+
+        Like `scan_view`, plus each island's partial self-join count: its
+        resident probe-side rows against the GLOBAL build-side histogram
+        (``jview.dict_counts()``, over all islands, or the ``rcount``
+        override), so the cross-island reduction is a plain exact sum. This
+        default is the serial per-shard reference; HopperBackend overrides
+        it with ONE launch.
+        """
+        fview.require_fresh()
+        aview.require_fresh()
+        jview.require_fresh()
+        adict = aview.dictionary.to(torch.int64)
+        rc = (jview.dict_counts() if rcount is None else rcount
+              ).to(torch.int64)
+        out = []
+        for s, size in enumerate(fview.sizes):
+            fc, va = fview.codes[s, :size], fview.valid[s, :size]
+            ac = aview.codes[s, :size]
+            jc, jv = jview.codes[s, :size], jview.valid[s, :size]
+            res = []
+            for code_lo, code_hi in code_bounds:
+                mask = (fc >= code_lo) & (fc < code_hi) & va
+                counts = torch.bincount(ac[mask].long(),
+                                        minlength=aview.dict_size)
+                keep = mask & jv
+                res.append((int((counts * adict).sum()), int(mask.sum()),
+                            int(rc[jc[keep].long()].sum())))
+            out.append(res)
+        return out
+
+    def encode_values_shards(self, encoder: Callable[..., torch.Tensor],
+                             values_list: Sequence) -> list[torch.Tensor]:
+        """Encode every island's pending update values through one shared
+        value->code map. Reference: one encoder call per island; the
+        accelerator backend probes all islands in one launch when the
+        encoder is a hash table."""
+        return [encoder(v) for v in values_list]
 
     # -- update propagation (§5) ------------------------------------------
     @abc.abstractmethod
@@ -416,10 +511,10 @@ class HopperBackend(TorchBackend):
     tensors each kernel wrapper runs its plain version, which is how the
     tests drive this class.
 
-    `hash_join_count` (lone join queries) still matches dictionaries with
-    the inherited binary search: the bucket-probe kernel is not ported yet
-    (ROADMAP.md queue 2, K8). Query groups never reach it - their join is
-    the fused scan below.
+    Lone join queries (`hash_join_count`) and `make_encoder` go through the
+    hash unit: a bucket table built over the right dictionary and one probe
+    launch per call. Query groups never reach it - their join is the fused
+    scan below.
     """
 
     name = "hopper"
@@ -459,6 +554,74 @@ class HopperBackend(TorchBackend):
         return scan_filter_agg_join(fcol.codes, acol.codes, jcol.codes,
                                     fcol.valid, jcol.valid, acol.dictionary,
                                     rcount, code_bounds)
+
+    def scan_view(self, fview, aview, code_bounds):
+        # every island in ONE launch over the leading shard axis; padded
+        # slots carry valid=0, the exact scan identity
+        fview.require_fresh()
+        aview.require_fresh()
+        return scan_filter_agg_sharded(fview.codes, aview.codes, fview.valid,
+                                       aview.dictionary, code_bounds)
+
+    def scan_view_join(self, fview, aview, jview, code_bounds, rcount=None):
+        # every island's join group in the same single launch; the build
+        # side is the view's cached global histogram, so the per-island
+        # partial join counts sum exactly across shards
+        fview.require_fresh()
+        aview.require_fresh()
+        jview.require_fresh()
+        rc = (jview.dict_counts() if rcount is None else rcount
+              ).to(torch.int32)
+        return scan_filter_agg_join_sharded(
+            fview.codes, aview.codes, jview.codes, fview.valid, jview.valid,
+            aview.dictionary, rc, code_bounds)
+
+    def _join_match(self, lv, rv, lcount, rcount):
+        # hash unit: probe each left dictionary value against a table of
+        # the right dictionary; hits multiply pre-grouped occurrence
+        # counts. An empty side, or EMPTY_KEY in either dictionary (the
+        # table's free-slot key), keeps the binary search.
+        if lv.shape[0] == 0 or rv.shape[0] == 0:
+            return super()._join_match(lv, rv, lcount, rcount)
+        right = rv.cpu().numpy()
+        if (right == EMPTY_KEY).any() or bool((lv == EMPTY_KEY).any()):
+            return super()._join_match(lv, rv, lcount, rcount)
+        table = build_table(right, np.arange(len(right), dtype=np.int32))
+        ri = probe(table, lv.to(torch.int32), default=-1)
+        hit = ri >= 0
+        return int((lcount[hit] * rcount[ri[hit].long()]).sum())
+
+    def make_encoder(self, dictionary):
+        """value -> code through a bucket table of `dictionary` (one probe
+        launch per call). A dictionary the table cannot hold (empty, beyond
+        int32, holding EMPTY_KEY) keeps the binary search, as do values
+        beyond int32; a value missing from the dictionary encodes to -1."""
+        d = (dictionary.cpu().numpy() if isinstance(dictionary, torch.Tensor)
+             else np.asarray(dictionary))
+        fallback = super().make_encoder(dictionary)
+        if len(d) == 0 or not _fits_int32(d) or (d == EMPTY_KEY).any():
+            return fallback
+        table = build_table(d, np.arange(len(d), dtype=np.int32))
+
+        def encode(values):
+            if len(values) == 0:
+                return torch.empty(0, dtype=torch.int64, device=self.device)
+            if not _fits_int32(values):
+                return fallback(values)
+            codes = probe(table, self.to_device(values, torch.int32))
+            return codes.to(torch.int64)
+
+        encode._table = table  # lets encode_values_shards batch the probes
+        return encode
+
+    def encode_values_shards(self, encoder, values_list):
+        table = getattr(encoder, "_table", None)
+        if table is None or not all(_fits_int32(v) for v in values_list):
+            return super().encode_values_shards(encoder, values_list)
+        # one probe launch covers every island's update-value encodes
+        codes = probe_sharded(table, [self.to_device(v, torch.int32)
+                                      for v in values_list])
+        return [c.to(torch.int64) for c in codes]
 
     # -- update propagation ------------------------------------------------
     def merge_update_logs(self, logs):
@@ -620,8 +783,11 @@ class HopperBackend(TorchBackend):
             merged, [len(cols[i][0]) + len(cols[i][1]) for i in fused])
         out: list = [None] * len(cols)
         for i, u, nd in zip(fused, upds, news):
-            o = cols[i][0]
-            out[i] = self._stage_entry(u, nd.to(o.dtype), o)
+            o, wv = cols[i]
+            # the update dictionary keeps the values' dtype, the merged one
+            # the old dictionary's
+            out[i] = self._stage_entry(u.to(_dtype_of(wv)), nd.to(o.dtype),
+                                       o)
         rest = [i for i in range(len(cols)) if out[i] is None]
         if rest:
             for i, stage in zip(rest, super().apply_stages_batch(
@@ -664,6 +830,209 @@ class HopperBackend(TorchBackend):
 
 
 # ---------------------------------------------------------------------------
+# Analytical islands stacked on one device (§4, Fig. 5)
+# ---------------------------------------------------------------------------
+
+def reduce_partials(kind: str, parts: Sequence[int | None]) -> int | None:
+    """Exact cross-shard reduction of per-island partials.
+
+    Partials arrive as exact Python ints, and the reduction stays in
+    arbitrary-precision int arithmetic, so the answer equals the unsharded
+    scan's. ``None`` marks a partial from a shard with no qualifying rows
+    (the identity for min/max).
+    """
+    live = [int(p) for p in parts if p is not None]
+    if kind in ("sum", "count"):
+        return sum(live)
+    if kind == "min":
+        return min(live) if live else None
+    if kind == "max":
+        return max(live) if live else None
+    raise ValueError(f"unknown aggregate kind {kind!r}")
+
+
+def _unshard_rows(rows2d: torch.Tensor, sizes: Sequence[int]) -> torch.Tensor:
+    """The real rows of a (n_shards, width) tensor in row order (inverse of
+    `dsm.shard_rows`)."""
+    return torch.cat([rows2d[s, :size] for s, size in enumerate(sizes)])
+
+
+_NO_DELTA = ("the delta-store operators of the islands are not ported yet - "
+             "ROADMAP.md queue 1, item 9 (delta-store plane)")
+
+
+class ShardedBackend(ExecutionBackend):
+    """Several analytical islands: N row-wise DSM shards over one inner backend.
+
+    Polynesia scales analytics out by replicating the analytical island:
+    each island owns a resident DSM shard plus the replicated dictionary
+    (§4, Fig. 5). Residency is `dsm.ShardedView`: the consistency manager
+    shards each pinned snapshot column ONCE per query round (`shard_view`),
+    and every scan-family operator then runs all islands through the inner
+    backend's `scan_view` - one launch on HopperBackend, a per-shard loop on
+    TorchBackend - and reduces the exact per-island partials with
+    `reduce_partials`. All islands live on the inner backend's device.
+
+    Operators also accept raw EncodedColumns (a view is built on the fly);
+    a stale ShardedView is a hard `dsm.StaleShardedViewError`.
+
+    Update propagation (log merge, dictionary sort and merge, value encode)
+    and snapshots delegate to the inner backend: the dictionary is
+    replicated, so those stages run once (see
+    `application.apply_updates_shards`, which routes row ops to their
+    owning islands).
+    """
+
+    def __init__(self, inner: str | ExecutionBackend, n_shards: int,
+                 device=None):
+        if isinstance(inner, ShardedBackend):
+            raise ValueError("cannot nest ShardedBackend inside ShardedBackend")
+        inner = get_backend(inner, device=device, n_shards=1)
+        if int(n_shards) < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        self.inner = inner
+        self.device = inner.device
+        self.n_shards = int(n_shards)
+        self.name = f"{inner.name}@{self.n_shards}"
+
+    # -- the sharded snapshot plane ---------------------------------------
+    def shard_view(self, col: EncodedColumn, snapshot_id: int = -1
+                   ) -> ShardedView:
+        """Materialize the islands' resident shards of `col` (shard once)."""
+        return make_sharded_view(col, self.n_shards, snapshot_id=snapshot_id)
+
+    def _as_view(self, col) -> ShardedView:
+        if isinstance(col, ShardedView):
+            col.require_fresh()
+            if col.n_shards != self.n_shards:
+                raise ValueError(
+                    f"ShardedView has {col.n_shards} shards but backend "
+                    f"{self.name!r} has {self.n_shards} islands")
+            return col
+        return self.shard_view(col)
+
+    # -- analytical engine -------------------------------------------------
+    def _mask2d(self, view: ShardedView, lo: int, hi: int) -> torch.Tensor:
+        code_lo, code_hi = self.code_range(view, lo, hi)
+        return (view.codes >= code_lo) & (view.codes < code_hi) & view.valid
+
+    def filter_mask(self, col, lo, hi):
+        view = self._as_view(col)
+        return _unshard_rows(self._mask2d(view, lo, hi), view.sizes)
+
+    def filter_agg(self, fcol, acol, lo, hi):
+        [(total_s, total_c)] = self.filter_agg_batch(fcol, acol, [(lo, hi)])
+        return total_s, total_c
+
+    def filter_agg_mask(self, fcol, acol, lo, hi):
+        fv, av = self._as_view(fcol), self._as_view(acol)
+        [per_shard] = zip(*self.inner.scan_view(
+            fv, av, [self.code_range(fv, lo, hi)]))
+        mask = _unshard_rows(self._mask2d(fv, lo, hi), fv.sizes)
+        return (reduce_partials("sum", [s for s, _ in per_shard]),
+                reduce_partials("count", [c for _, c in per_shard]), mask)
+
+    def filter_agg_batch(self, fcol, acol, bounds):
+        fv, av = self._as_view(fcol), self._as_view(acol)
+        code_bounds = [self.code_range(fv, lo, hi) for lo, hi in bounds]
+        per_shard = self.inner.scan_view(fv, av, code_bounds)
+        return [(reduce_partials("sum", [p[q][0] for p in per_shard]),
+                 reduce_partials("count", [p[q][1] for p in per_shard]))
+                for q in range(len(bounds))]
+
+    def filter_agg_join_batch(self, fcol, acol, jcol, bounds, rcount=None):
+        # one scan_view_join covers every island's aggregate AND join scans;
+        # the per-island (sum, count, join) partials all reduce as exact sums
+        fv, av, jv = (self._as_view(fcol), self._as_view(acol),
+                      self._as_view(jcol))
+        code_bounds = [self.code_range(fv, lo, hi) for lo, hi in bounds]
+        per_shard = self.inner.scan_view_join(fv, av, jv, code_bounds,
+                                              rcount=rcount)
+        return [(reduce_partials("sum", [p[q][0] for p in per_shard]),
+                 reduce_partials("count", [p[q][1] for p in per_shard]),
+                 reduce_partials("sum", [p[q][2] for p in per_shard]))
+                for q in range(len(bounds))]
+
+    def filter_agg_delta_batch(self, fcol, acol, bounds, corr):
+        if corr is None:
+            return self.filter_agg_batch(fcol, acol, bounds)
+        raise NotImplementedError(_NO_DELTA)
+
+    def filter_agg_values_batch(self, fvals, avals, valid, bounds):
+        raise NotImplementedError(_NO_DELTA)
+
+    def filter_agg_values_delta(self, corr, bounds):
+        raise NotImplementedError(_NO_DELTA)
+
+    def hash_join_count(self, left, right, left_mask=None):
+        # Each island histograms only its own resident probe-side shard;
+        # the build side (the replicated right dictionary's counts) depends
+        # only on the pinned data, so it lives on the view
+        # (`ShardedView.dict_counts`): built once, reused by every join
+        # probing the same snapshot, and dropped with the view at the
+        # Phase-2 swap. The match runs once on the inner backend (the hash
+        # unit on HopperBackend).
+        lview = self._as_view(left)
+        lv = lview.dictionary
+        lcount = self._view_side_counts(lview, left_mask)
+        if right is left:  # the engine's self-join fast path
+            rv, rcount = lv, lview.dict_counts()
+        elif isinstance(right, ShardedView):
+            rv, rcount = right.dictionary, right.dict_counts()
+        else:
+            rv, rcount = _side_counts(right, None)
+        return self.inner._join_match(lv, rv, lcount, rcount)
+
+    @staticmethod
+    def _view_side_counts(view: ShardedView, mask) -> torch.Tensor:
+        """Per-dictionary-value occurrence counts over the islands' resident
+        shards, straight off the stacked tensors; the unmasked histogram is
+        the view's cached build side."""
+        if mask is None:
+            return view.dict_counts()
+        keep = view.valid & shard_rows(mask, view.bounds)
+        return torch.bincount(view.codes[keep].long(),
+                              minlength=view.dict_size).to(torch.int64)
+
+    # -- update propagation: dictionary stages run once (replicated dict) --
+    def merge_update_logs(self, logs):
+        return self.inner.merge_update_logs(logs)
+
+    def sort_unique(self, values):
+        return self.inner.sort_unique(values)
+
+    def merge_dictionaries(self, old_dict, update_dict):
+        return self.inner.merge_dictionaries(old_dict, update_dict)
+
+    def sort_unique_batch(self, values_list):
+        return self.inner.sort_unique_batch(values_list)
+
+    def merge_dictionaries_batch(self, pairs):
+        return self.inner.merge_dictionaries_batch(pairs)
+
+    def staged_encoder(self, new_dict):
+        return self.inner.staged_encoder(new_dict)
+
+    def apply_stages_batch(self, per_column):
+        # the dictionary is replicated, so the ship batch's fused
+        # dictionary pipeline runs once on the inner backend
+        return self.inner.apply_stages_batch(per_column)
+
+    def make_encoder(self, dictionary):
+        return self.inner.make_encoder(dictionary)
+
+    def encode_values_shards(self, encoder, values_list):
+        return self.inner.encode_values_shards(encoder, values_list)
+
+    # -- consistency -------------------------------------------------------
+    def snapshot_column(self, col, prev=None):
+        # one copy pass over the whole column: the copy unit's chunk carry
+        # is position-based, so the result and the launch count equal the
+        # one-island backend's
+        return self.inner.snapshot_column(col, prev=prev)
+
+
+# ---------------------------------------------------------------------------
 # Backend resolution
 # ---------------------------------------------------------------------------
 
@@ -672,58 +1041,165 @@ BACKENDS: dict[str, type[ExecutionBackend]] = {
     "hopper": HopperBackend,
 }
 DEFAULT_BACKEND = "hopper"
-_instances: dict[tuple[str, str], ExecutionBackend] = {}
+# How islands are laid out: "stacked" keeps every island's shard on one
+# device (leading-axis launches); "mesh" (one island per GPU) is not ported.
+PLACEMENTS = ("stacked", "mesh")
+_instances: dict[tuple[str, int, str], ExecutionBackend] = {}
+_default_n_shards = 1
 
 
-def parse_backend_spec(spec: str) -> str:
-    """``name[@N][/placement]`` -> name, for the part of the grammar this
-    port supports: one island, stacked placement."""
-    name, _, placement = spec.partition("/")
-    name, _, count = name.partition("@")
-    if count:
-        try:
-            n = int(count)
-        except ValueError:
+@dataclasses.dataclass(frozen=True)
+class BackendSpec:
+    """``name[@N][/placement]``, parsed: ``name`` a registry key,
+    ``n_shards`` the island count (None: the default, see
+    `set_default_n_shards`), ``placement`` the island layout (None:
+    "stacked"). ``str()`` gives the string form back."""
+
+    name: str
+    n_shards: int | None = None
+    placement: str | None = None
+
+    def __post_init__(self):
+        if not self.name or not isinstance(self.name, str):
             raise ValueError(
-                f"bad backend spec {spec!r}: shard count {count!r} is not "
-                "an integer (expected e.g. 'hopper@4')") from None
-        if n < 1:
-            raise ValueError(f"bad backend spec {spec!r}: shard count must "
-                             "be >= 1")
-        if n > 1:
-            raise NotImplementedError(
-                f"backend spec {spec!r}: analytical islands (@N) are not "
-                "ported yet - ROADMAP.md queue 1, item 8 (stacked islands)")
-    if placement not in ("", "stacked"):
-        if placement == "mesh":
-            raise NotImplementedError(
-                f"backend spec {spec!r}: mesh placement is not ported yet - "
-                "ROADMAP.md queue 1, item 13 (multi-GPU islands)")
-        raise ValueError(f"bad backend spec {spec!r}: unknown placement "
-                         f"{placement!r}")
-    return name
+                f"BackendSpec needs a non-empty backend name, got "
+                f"{self.name!r} (have {sorted(BACKENDS)})")
+        if self.n_shards is not None and int(self.n_shards) < 1:
+            raise ValueError(
+                f"n_shards must be >= 1, got {self.n_shards} "
+                f"(BackendSpec for {self.name!r})")
+        if self.placement is not None and self.placement not in PLACEMENTS:
+            raise ValueError(
+                f"bad placement {self.placement!r} (BackendSpec for "
+                f"{self.name!r}); expected one of {list(PLACEMENTS)}")
+
+    def __str__(self) -> str:
+        s = self.name
+        if self.n_shards is not None:
+            s += f"@{self.n_shards}"
+        if self.placement is not None:
+            s += f"/{self.placement}"
+        return s
 
 
-def get_backend(spec: str | ExecutionBackend | None = None,
-                device=None) -> ExecutionBackend:
+def parse_backend_spec(spec: str | BackendSpec) -> BackendSpec:
+    """Validate a ``"name[@N][/placement]"`` backend spec early.
+
+    Returns a `BackendSpec` (instances pass through). An empty spec or
+    name, a non-integer count and an unknown placement raise KeyError
+    naming the expected form; a count below 1 raises ValueError.
+    """
+    if isinstance(spec, BackendSpec):
+        return spec
+    if not isinstance(spec, str) or not spec:
+        raise KeyError(
+            f"empty backend spec {spec!r}; expected 'name', 'name@N' or "
+            f"'name@N/placement' with name in {sorted(BACKENDS)}, N >= 1 "
+            f"and placement in {list(PLACEMENTS)}")
+    base, psep, placement = spec.partition("/")
+    if psep and placement not in PLACEMENTS:
+        raise KeyError(
+            f"bad placement {placement!r} in backend spec {spec!r}: "
+            f"expected one of {list(PLACEMENTS)} (e.g. 'hopper@4/stacked')")
+    name, sep, count = base.partition("@")
+    if not name:
+        raise KeyError(
+            f"backend spec {spec!r} has an empty backend name; expected "
+            f"'name', 'name@N' or 'name@N/placement' with name in "
+            f"{sorted(BACKENDS)}")
+    if not sep:
+        return BackendSpec(name, None, placement if psep else None)
+    try:
+        n = int(count)
+    except ValueError:
+        raise KeyError(
+            f"bad shard count {count!r} in backend spec {spec!r}: expected "
+            "a decimal integer >= 1 (e.g. 'hopper@4')") from None
+    if n < 1:
+        raise ValueError(
+            f"n_shards must be >= 1, got {n} (backend spec {spec!r})")
+    return BackendSpec(name, n, placement if psep else None)
+
+
+def set_default_n_shards(n: int) -> None:
+    """Set the island count used when a backend is resolved by name without
+    an explicit count (1 until set; no environment variable is read)."""
+    global _default_n_shards
+    if int(n) < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n}")
+    _default_n_shards = int(n)
+
+
+def default_n_shards() -> int:
+    return _default_n_shards
+
+
+def get_backend(spec: str | BackendSpec | ExecutionBackend | None = None,
+                device=None, n_shards: int | None = None,
+                placement: str | None = None) -> ExecutionBackend:
     """Resolve a backend argument: None -> ``"hopper"``, str -> registry,
-    instance -> itself. ``device=None`` means the GPU and raises when CUDA
-    is not available; an instance keeps the device it was built on (a
-    contradicting explicit ``device`` raises)."""
+    instance -> itself.
+
+    ``n_shards`` > 1 (or ``"name@N"``) wraps the named backend in a
+    `ShardedBackend` of N islands stacked on one device; None defers to
+    `default_n_shards`. A counted spec with a contradicting explicit
+    ``n_shards`` raises, as does an instance whose island count, placement
+    or device contradicts an explicit argument. ``device=None`` means the
+    GPU and raises when CUDA is not available. Equal resolutions share one
+    instance, keyed by (name, N, device).
+    """
     if isinstance(spec, ExecutionBackend):
         if device is not None and resolve_device(device) != spec.device:
             raise ValueError(
                 f"backend instance {spec.name!r} lives on {spec.device} but "
                 f"device={device!r} was requested")
+        if n_shards is not None and int(n_shards) != spec.n_shards:
+            raise ValueError(
+                f"backend instance {spec.name!r} has {spec.n_shards} "
+                f"shard(s) but n_shards={n_shards} was requested; pass the "
+                "spec by name (e.g. 'hopper') to let n_shards wrap it")
+        if placement is not None and placement != spec.placement:
+            raise ValueError(
+                f"backend instance {spec.name!r} uses the "
+                f"{spec.placement!r} placement but placement={placement!r} "
+                "was requested")
         return spec
-    name = parse_backend_spec(DEFAULT_BACKEND if spec is None else spec)
+    from_default = spec is None
+    parsed = parse_backend_spec(DEFAULT_BACKEND if from_default else spec)
+    name = parsed.name
+    if parsed.n_shards is not None:
+        if n_shards is None:
+            n_shards = parsed.n_shards
+        elif int(n_shards) != parsed.n_shards:
+            raise ValueError(f"backend spec {str(parsed)!r} contradicts "
+                             f"n_shards={n_shards}")
+    if parsed.placement is not None:
+        if placement is None:
+            placement = parsed.placement
+        elif placement != parsed.placement:
+            raise ValueError(f"backend spec {str(parsed)!r} contradicts "
+                             f"placement={placement!r}")
     try:
         cls = BACKENDS[name]
     except KeyError:
         raise KeyError(f"unknown backend {name!r}; have {sorted(BACKENDS)}"
                        ) from None
+    n = default_n_shards() if n_shards is None else int(n_shards)
+    if n < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n} (backend spec/"
+                         f"argument for {name!r})")
+    if placement not in (None, "stacked"):
+        if placement == "mesh":
+            raise NotImplementedError(
+                f"backend {str(parsed)!r}: mesh placement (one island per "
+                "GPU) is not ported yet - ROADMAP.md queue 1, item 13 "
+                "(multi-GPU islands)")
+        raise ValueError(f"bad placement {placement!r} (backend spec/"
+                         f"argument for {name!r}); expected one of "
+                         f"{list(PLACEMENTS)}")
     dev = resolve_device(device)
-    key = (name, str(dev))
+    key = (name, n, str(dev))
     if key not in _instances:
-        _instances[key] = cls(dev)
+        _instances[key] = (cls(dev) if n == 1
+                           else ShardedBackend(name, n, device=dev))
     return _instances[key]

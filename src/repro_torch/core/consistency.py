@@ -15,9 +15,12 @@ Key ideas reproduced exactly:
 
 The copy unit (multiple fetch/writeback engines + hash-indexed tracking
 buffer) is priced as vault-local bandwidth (`resource="copy"`); the kernel
-analog is kernels/snapshot_copy. Snapshots are device tensors. The sharded
-snapshot plane (`ShardedView`, `on_update_shards`, `rebind_backend`) comes
-with the stacked islands (ROADMAP.md queue 1).
+analog is kernels/snapshot_copy. Snapshots are device tensors.
+
+With several analytical islands the scan plane reads `ShardedView`s: each
+pinned version is sharded once, at its first pinned scan read, and shared
+by every later group pinning it; a Phase-2 swap (all-or-none over the
+islands' shards, `on_update_shards`) or GC invalidates unpinned views.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ import dataclasses
 import itertools
 
 from repro_torch.core.backend import get_backend
-from repro_torch.core.dsm import DSMReplica, EncodedColumn
+from repro_torch.core.dsm import (DSMReplica, EncodedColumn, ShardedView,
+                                  concat_columns)
 from repro_torch.core.hwmodel import CostLog
 from repro_torch.core.schema import VALUE_BYTES
 
@@ -36,6 +40,16 @@ class _Version:
     version_id: int
     column: EncodedColumn
     readers: int = 0
+    # the islands' resident shards of this version, made at the first
+    # pinned scan read (`read_scan`) and shared by every later group
+    # pinning it; invalidated when the version is garbage-collected or
+    # swapped out unpinned
+    view: ShardedView | None = None
+
+    def drop_view(self, reason: str) -> None:
+        if self.view is not None:
+            self.view.invalidate(reason)
+            self.view = None
 
 
 class SnapshotChain:
@@ -66,6 +80,8 @@ class SnapshotChain:
                 keep.append(v)
             else:
                 freed += 1
+                v.drop_view(f"snapshot {v.version_id} of column "
+                            f"{self.col_id} was garbage-collected")
         keep.sort(key=lambda v: v.version_id)
         self.versions = keep
         return freed
@@ -86,16 +102,43 @@ class ConsistencyManager:
         self._handle_ids = itertools.count()
         self.snapshots_created = 0
         self.snapshots_shared = 0
+        self.views_built = 0
+        self.views_shared = 0
+        # views adopted from a Phase-2 residency install: mesh placement
+        # only (ROADMAP.md queue 1, item 13), so 0 on stacked islands
+        self.views_resident = 0
 
     # -- transactional side ----------------------------------------------
     def on_update(self, col_id: int, new_col: EncodedColumn) -> None:
         """Phase-2 pointer swap: install the new column, mark dirty.
 
-        Snapshots still pinned by in-flight queries stay valid - that is
-        snapshot isolation - until their readers finish and GC drops the
-        version."""
+        The swap invalidates every *unpinned* ShardedView of this column's
+        snapshots (using one afterwards is a hard StaleShardedViewError).
+        Snapshots and views still pinned by in-flight queries stay valid -
+        that is snapshot isolation - until their readers finish and GC
+        drops the version."""
         self.replica.columns[col_id] = new_col
         self.chains[col_id].dirty = True
+        for v in self.chains[col_id].versions:
+            if v.readers == 0:
+                v.drop_view(f"column {col_id} was swapped out by a Phase-2 "
+                            f"update (now at version {new_col.version})")
+
+    def on_update_shards(self, col_id: int,
+                         shard_cols: list[EncodedColumn]) -> None:
+        """Phase-2 pointer swap for a sharded replica, all-or-none.
+
+        The complete shard set is validated first - one shard per island,
+        one dictionary and one version (`concat_columns` rejects mixed
+        rounds) - and only then installed with a single pointer swap; on
+        any failure the replica is left untouched.
+        """
+        expected = getattr(self.backend, "n_shards", 1)
+        if len(shard_cols) != expected:
+            raise ValueError(
+                f"partial shard set for column {col_id}: got "
+                f"{len(shard_cols)} shards, backend has {expected} islands")
+        self.on_update(col_id, concat_columns(shard_cols))
 
     # -- analytical side ---------------------------------------------------
     def _snapshot(self, col_id: int) -> _Version:
@@ -147,21 +190,36 @@ class ConsistencyManager:
         """Read the pinned version - O(1), no chain traversal (vs MVCC)."""
         return self._handles[handle][col_id].column
 
-    def read_scan(self, handle: int, col_id: int) -> EncodedColumn:
-        """Pinned read for the scan plane. On a single-replica backend it
-        is `read` (the plain pinned column)."""
-        return self._handles[handle][col_id].column
+    def read_scan(self, handle: int, col_id: int):
+        """Pinned read for the scan plane: shard at pin, once per round.
+
+        On a sharded backend this returns the pinned version's resident
+        `ShardedView`, made at its first access and reused by every later
+        group pinning the same version. On a single-replica backend it is
+        `read` (the plain pinned column).
+        """
+        v = self._handles[handle][col_id]
+        if getattr(self.backend, "n_shards", 1) <= 1:
+            return v.column
+        if v.view is None or v.view.stale:
+            v.view = self.backend.shard_view(v.column,
+                                             snapshot_id=v.version_id)
+            self.views_built += 1
+        else:
+            self.views_shared += 1
+        return v.view
 
     def pin_scan_group(self, col_sets: list[list[int]]
                        ) -> tuple[list[int], dict]:
         """Pin one snapshot handle per query of a fused same-column-set
-        group and return the group's shared scan view.
+        group and return the group's shared scan view (`read_scan`).
 
         Every query still pins its own handle (reader counts drive GC
         exactly as with per-query `begin_query` calls), but because no
         update lands between the pins, all handles resolve to the same
-        snapshot versions. Returns ``(handles, {col_id: column})``; callers
-        must `end_query` every handle when the group finishes.
+        snapshot versions. Returns ``(handles, {col_id: column or
+        ShardedView})``; callers must `end_query` every handle when the
+        group finishes.
         """
         handles = [self.begin_query(cols) for cols in col_sets]
         view = {c: self.read_scan(handles[0], c) for c in col_sets[0]}

@@ -14,6 +14,10 @@ control steps that binary-search it (``host_dictionary``). Tensors of a
 column are never written in place once the column is installed: update
 application builds new tensors and swaps the column (Phase 2), so a snapshot
 may alias them.
+
+Several analytical islands each own a row-wise shard of every column
+(`shard_bounds`); a pinned column is sharded once per round into a stacked
+`ShardedView` that all islands scan in one launch.
 """
 
 from __future__ import annotations
@@ -167,3 +171,248 @@ def replica_from_numpy(columns: dict, device=None) -> DSMReplica:
     return DSMReplica(columns={
         int(c): column_from_numpy(codes, dictionary, valid, version, dev)
         for c, (codes, dictionary, valid, version) in columns.items()})
+
+
+# ---------------------------------------------------------------------------
+# Row-wise sharding (§4's multiple analytical islands, one DSM shard each)
+# ---------------------------------------------------------------------------
+
+def shard_bounds(n_rows: int, n_shards: int) -> list[int]:
+    """Contiguous row partition boundaries: shard s owns [b[s], b[s+1]).
+
+    The split produces at most two distinct shard sizes, differing by one
+    row, so the stacked layout pads at most one slot per shard.
+    """
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    return [n_rows * s // n_shards for s in range(n_shards + 1)]
+
+
+def shard_column(col: EncodedColumn, n_shards: int) -> list[EncodedColumn]:
+    """Partition a column row-wise into `n_shards` island-local shards.
+
+    Every shard shares the (replicated) dictionary tensor, so codes remain
+    comparable across shards and `concat_columns` is an exact inverse. The
+    shards' codes and validity are views of the column's tensors; a shard
+    may be empty when n_shards > n_rows.
+    """
+    bounds = shard_bounds(col.n_rows, n_shards)
+    return [EncodedColumn(codes=col.codes[lo:hi], dictionary=col.dictionary,
+                          valid=col.valid[lo:hi], version=col.version,
+                          _host_dict=col._host_dict)
+            for lo, hi in zip(bounds, bounds[1:])]
+
+
+def _check_same_round(shards) -> None:
+    """Shards of one column must carry one version and one dictionary:
+    mixing shards of different update rounds would decode rows through
+    the wrong dictionary."""
+    head = shards[0]
+    for s in shards[1:]:
+        if s.version != head.version:
+            raise ValueError(
+                f"shard version mismatch: {s.version} != {head.version}")
+        if s.dictionary is not head.dictionary and not (
+                s.dictionary.shape == head.dictionary.shape
+                and torch.equal(s.dictionary, head.dictionary)):
+            raise ValueError("shard dictionary mismatch (different rounds?)")
+
+
+def concat_columns(shards: list[EncodedColumn]) -> EncodedColumn:
+    """Reassemble shard columns (inverse of `shard_column`); rejects shards
+    of different rounds (version or dictionary mismatch)."""
+    if not shards:
+        raise ValueError("concat_columns needs at least one shard")
+    _check_same_round(shards)
+    head = shards[0]
+    if len(shards) == 1:
+        return EncodedColumn(codes=head.codes, dictionary=head.dictionary,
+                             valid=head.valid, version=head.version,
+                             _host_dict=head._host_dict)
+    return EncodedColumn(codes=torch.cat([s.codes for s in shards]),
+                         dictionary=head.dictionary,
+                         valid=torch.cat([s.valid for s in shards]),
+                         version=head.version, _host_dict=head._host_dict)
+
+
+class StaleShardedViewError(RuntimeError):
+    """A ShardedView was used after its source column was swapped out.
+
+    The sharded snapshot plane materializes each pinned column's shards
+    once per query round; a Phase-2 pointer swap (or snapshot-chain GC)
+    invalidates any unpinned view built from the superseded column.
+    Staleness is a hard error, never a silently refreshed cache.
+    """
+
+
+@dataclasses.dataclass
+class ShardedView:
+    """Materialized island-resident shards of one pinned column.
+
+    The column's rows are partitioned by `shard_bounds` and stacked into
+    ``(n_shards, width)`` device tensors, so every island is scanned by ONE
+    launch over the leading shard axis. Padded slots (at most one per
+    shorter shard) carry ``codes=0, valid=False``: the scan identity.
+
+    ``version`` is the source column's update round and ``snapshot_id``
+    the consistency snapshot it was pinned from (-1 for ad-hoc views).
+    Every reader calls `require_fresh`, so a swapped-out view is a hard
+    `StaleShardedViewError`.
+    """
+
+    codes: torch.Tensor        # (n_shards, width) int32, padded slots = 0
+    valid: torch.Tensor        # (n_shards, width) bool, padded slots = False
+    dictionary: torch.Tensor   # replicated across islands
+    bounds: tuple[int, ...]    # row partition, len n_shards + 1
+    version: int
+    snapshot_id: int = -1
+    stale_reason: str | None = None
+    # join build side, made by `dict_counts` and dying with the view
+    _dict_counts: torch.Tensor | None = dataclasses.field(
+        default=None, repr=False, compare=False)
+    _host_dict: np.ndarray | None = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.codes.device
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.bounds) - 1
+
+    @property
+    def n_rows(self) -> int:
+        return self.bounds[-1]
+
+    @property
+    def width(self) -> int:
+        return int(self.codes.shape[1])
+
+    @property
+    def sizes(self) -> tuple[int, ...]:
+        return tuple(hi - lo for lo, hi in zip(self.bounds, self.bounds[1:]))
+
+    # priced by the cost model exactly like the column it mirrors
+    @property
+    def dict_size(self) -> int:
+        return int(self.dictionary.shape[0])
+
+    @property
+    def bit_width(self) -> int:
+        return max(1, math.ceil(math.log2(max(self.dict_size, 2))))
+
+    @property
+    def encoded_bytes(self) -> float:
+        return self.n_rows * self.bit_width / 8.0
+
+    def host_dictionary(self) -> np.ndarray:
+        """The dictionary as host numpy (cached; read-only)."""
+        if self._host_dict is None:
+            self._host_dict = self.dictionary.cpu().numpy()
+        return self._host_dict
+
+    @property
+    def stale(self) -> bool:
+        return self.stale_reason is not None
+
+    def invalidate(self, reason: str) -> None:
+        self.stale_reason = reason
+
+    def require_fresh(self) -> None:
+        if self.stale_reason is not None:
+            raise StaleShardedViewError(
+                f"sharded view of column version {self.version} "
+                f"(snapshot {self.snapshot_id}) is stale: "
+                f"{self.stale_reason}")
+
+    def dict_counts(self) -> torch.Tensor:
+        """Per-dictionary-value occurrence counts of the view's valid rows,
+        across all islands (int64, on the view's device).
+
+        This is a hash join's build side: it depends only on the pinned
+        data, so it is computed once per view and reused by every join
+        group probing it. Callers must treat it as read-only.
+        """
+        self.require_fresh()
+        if self._dict_counts is None:
+            self._dict_counts = torch.bincount(
+                self.codes[self.valid].long(),
+                minlength=self.dict_size).to(torch.int64)
+        return self._dict_counts
+
+    def shard(self, s: int) -> EncodedColumn:
+        """One island's resident shard as an (unpadded) EncodedColumn."""
+        self.require_fresh()
+        size = self.bounds[s + 1] - self.bounds[s]
+        return EncodedColumn(codes=self.codes[s, :size],
+                             dictionary=self.dictionary,
+                             valid=self.valid[s, :size],
+                             version=self.version, _host_dict=self._host_dict)
+
+    def to_column(self) -> EncodedColumn:
+        """Reassemble the full column (row-order inverse of the shard)."""
+        return concat_columns([self.shard(s) for s in range(self.n_shards)])
+
+
+def stack_rows(parts: list[torch.Tensor], width: int) -> torch.Tensor:
+    """Stack 1-D tensors of at most `width` entries into a (len(parts),
+    width) tensor, zero (False) padded - one copy per part, none per row."""
+    head = parts[0]
+    out = torch.zeros((len(parts), width), dtype=head.dtype,
+                      device=head.device)
+    for s, p in enumerate(parts):
+        out[s, :p.shape[0]] = p
+    return out
+
+
+def shard_rows(flat: torch.Tensor, bounds) -> torch.Tensor:
+    """A column's rows laid out by `bounds` as (n_shards, width), padded
+    with zeros. Equal shards are a view of `flat` (installed columns are
+    never written in place, so the view may alias it)."""
+    n_shards = len(bounds) - 1
+    sizes = [hi - lo for lo, hi in zip(bounds, bounds[1:])]
+    width = max(sizes, default=0)
+    if all(s == width for s in sizes):
+        return flat.reshape(n_shards, width)
+    return stack_rows([flat[lo:hi] for lo, hi in zip(bounds, bounds[1:])],
+                      width)
+
+
+def make_sharded_view(col: EncodedColumn, n_shards: int,
+                      snapshot_id: int = -1) -> ShardedView:
+    """Shard `col` ONCE into a resident ShardedView (the pin-time copy).
+
+    This is the only place the snapshot plane moves rows: operators after
+    this consume the stacked tensors directly, so a query round shards each
+    pinned column exactly once.
+    """
+    bounds = shard_bounds(col.n_rows, n_shards)
+    return ShardedView(codes=shard_rows(col.codes, bounds),
+                       valid=shard_rows(col.valid, bounds),
+                       dictionary=col.dictionary, bounds=tuple(bounds),
+                       version=col.version, snapshot_id=snapshot_id,
+                       _host_dict=col._host_dict)
+
+
+def stack_shard_columns(shard_cols: list[EncodedColumn],
+                        snapshot_id: int = -1) -> ShardedView:
+    """Adopt per-island shard columns as a ShardedView directly (no concat
+    and re-split). Shards must line up with `shard_bounds` and share one
+    dictionary and version, as in `concat_columns`."""
+    if not shard_cols:
+        raise ValueError("stack_shard_columns needs at least one shard")
+    _check_same_round(shard_cols)
+    head = shard_cols[0]
+    sizes = [c.n_rows for c in shard_cols]
+    bounds = shard_bounds(sum(sizes), len(shard_cols))
+    if [hi - lo for lo, hi in zip(bounds, bounds[1:])] != sizes:
+        raise ValueError(
+            f"shard sizes {sizes} do not match the shard_bounds partition "
+            f"of {sum(sizes)} rows over {len(shard_cols)} islands")
+    width = max(sizes, default=0)
+    return ShardedView(codes=stack_rows([c.codes for c in shard_cols], width),
+                       valid=stack_rows([c.valid for c in shard_cols], width),
+                       dictionary=head.dictionary, bounds=tuple(bounds),
+                       version=head.version, snapshot_id=snapshot_id,
+                       _host_dict=head._host_dict)

@@ -107,9 +107,16 @@ def run_query_dsm(
     placement: Placement | None = None,
     on_pim: bool = True,
     backend=None,
+    n_shards: int | None = None,
 ) -> int:
-    """Execute one query against (a snapshot view of) the DSM replica."""
-    be = get_backend(backend)
+    """Execute one query against (a snapshot view of) the DSM replica.
+
+    ``view`` maps column ids to columns or, on several islands, to their
+    `ShardedView`s. ``n_shards`` > 1 fans the scan out over that many
+    analytical islands with exact cross-shard reduction; an instance
+    `backend` must match it (get_backend raises on conflict).
+    """
+    be = get_backend(backend, n_shards=n_shards)
     fcol, acol = view[q.filter_col], view[q.agg_col]
     jcol = None
     if q.join_col is None:
@@ -143,19 +150,23 @@ def run_query_group_dsm(
     placement: Placement | None = None,
     on_pim: bool = True,
     backend=None,
+    n_shards: int | None = None,
 ) -> list[int]:
     """Execute a same-column-set query group as one fused multi-query scan.
 
     The backend answers all code-range predicates in a single pass over the
     encoded columns (HopperBackend: one kernel launch for the whole group,
     one device-to-host copy of the answers), which is what lets the
-    accelerator path amortize launches. Cost events stay per-query, so
-    modeled throughput matches unbatched execution. The delta-merged read
-    (`deltas=`) comes with the delta-store plane (ROADMAP.md queue 1).
+    accelerator path amortize launches. With ``n_shards`` > 1 (or a
+    ShardedBackend) every island scans its own shard of `view`'s columns
+    or ShardedViews in that same single launch and the partials reduce
+    exactly. Cost events stay per-query, so modeled throughput matches
+    unbatched execution. The delta-merged read (`deltas=`) comes with the
+    delta-store plane (ROADMAP.md queue 1, item 9).
     """
     if not queries:
         return []
-    be = get_backend(backend)
+    be = get_backend(backend, n_shards=n_shards)
     q0 = queries[0]
     fcol, acol = view[q0.filter_col], view[q0.agg_col]
     # the group key includes join_col, so a group is homogeneous: either

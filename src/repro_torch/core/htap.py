@@ -107,7 +107,7 @@ def run(system: str | SystemSpec, table, stream=None, queries=None,
     """Run a preset (by name) or an explicit spec over a batch workload.
 
     ``overrides`` refine the preset, e.g. ``run("Polynesia", t, s, q,
-    backend="torch")``.
+    backend="torch", n_shards=4)`` (four analytical islands on one device).
     """
     return run_spec(resolve_spec(system, **overrides), table, stream,
                     queries, n_rounds=n_rounds, device=device)

@@ -23,16 +23,18 @@ concurrently. This module is that contract as an API:
 
 The transactional island (row store, per-thread update logs) is the host;
 the analytical island's DSM replica and its snapshots live on `device`.
-Answers depend only on the *visibility points* (which updates executed
-before each query), so any sub-chunking of the txn stream between two query
-batches is answer- and cost-neutral.
+Several analytical islands (``n_shards=N`` or ``backend="hopper@N"``) are
+stacked on that one device: each owns a row-wise shard, updates apply per
+island and swap all-or-none, and every query group scans all islands in
+one launch. Answers depend only on the *visibility points* (which updates
+executed before each query), so any sub-chunking of the txn stream between
+two query batches, and the island count, are answer-neutral.
 
-What a spec can name beyond this slice - several analytical islands
-(``n_shards`` / ``"hopper@N"``), mesh placement, the delta-store update
-plane, ``timing="timeline"`` with ``async_propagation``, the
-single-instance kinds ``si_ss`` / ``si_mvcc``, `resize_islands`,
-`checkpoint` / `restore` - raises ``NotImplementedError`` naming the
-ROADMAP.md queue item that brings it.
+What a spec can name beyond this port so far - mesh placement (one island
+per GPU), the delta-store update plane, ``timing="timeline"`` with
+``async_propagation``, the single-instance kinds ``si_ss`` / ``si_mvcc``,
+`resize_islands`, `checkpoint` / `restore` - raises
+``NotImplementedError`` naming the ROADMAP.md queue item that brings it.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ import numpy as np
 
 from repro_torch.core import engine
 from repro_torch.core.application import (apply_updates, apply_updates_naive,
+                                          apply_updates_shards,
                                           precompute_apply_stages)
 from repro_torch.core.backend import ExecutionBackend, get_backend
 from repro_torch.core.consistency import ConsistencyManager
@@ -79,8 +82,6 @@ class SessionClosedError(RuntimeError):
 KINDS = ("multi_instance", "si_ss", "si_mvcc", "ideal_txn", "ana_only")
 
 _NOT_PORTED = {
-    "islands": "several analytical islands (n_shards > 1) are not ported "
-               "yet - ROADMAP.md queue 1, item 8 (stacked islands)",
     "mesh": "mesh placement is not ported yet - ROADMAP.md queue 1, "
             "item 13 (multi-GPU islands)",
     "delta": "the delta-store update plane is not ported yet - ROADMAP.md "
@@ -102,10 +103,12 @@ class SystemSpec:
 
     Every run is `(spec, workload)`. Presets return ready specs; keyword
     overrides refine them, e.g. ``SystemSpec.polynesia(backend="torch")``.
-    ``backend=None`` means ``"hopper"``; ``timing=None`` means ``"phase"``.
-    The fields for islands, placement, the delta store and async
-    propagation are kept so that a spec reads like the reference's; any
-    value other than their off position raises ``NotImplementedError``.
+    ``backend=None`` means ``"hopper"``; ``n_shards=None`` the default
+    island count (`backend.set_default_n_shards`, normally 1);
+    ``timing=None`` means ``"phase"``. The fields for mesh placement, the
+    delta store and async propagation are kept so that a spec reads like
+    the reference's; any value other than their off position raises
+    ``NotImplementedError``.
     """
 
     name: str
@@ -137,8 +140,6 @@ class SystemSpec:
             raise NotImplementedError(_NOT_PORTED["si"])
         if self.n_shards is not None and int(self.n_shards) < 1:
             raise ValueError(f"n_shards must be >= 1, got {self.n_shards}")
-        if self.n_shards is not None and int(self.n_shards) > 1:
-            raise NotImplementedError(_NOT_PORTED["islands"])
         if self.placement not in (None, "stacked"):
             if self.placement == "mesh":
                 raise NotImplementedError(_NOT_PORTED["mesh"])
@@ -229,6 +230,21 @@ def resolve_spec(system: str | SystemSpec, **overrides) -> SystemSpec:
     return factory(**overrides)
 
 
+def _resolve_islands(backend, n_shards, placement, hw: HardwareParams,
+                     device=None):
+    """Resolve the execution backend (a ShardedBackend when `n_shards` or a
+    ``"name@N"`` spec asks for several islands) and scale the hardware
+    model to the island count - each analytical island brings its own
+    in-memory hardware (§4), so `hw.n_ana_islands` follows the shard count
+    unless the caller already set it."""
+    be = get_backend(backend, device=device, n_shards=n_shards,
+                     placement=placement)
+    islands = be.n_shards
+    if islands > 1 and hw.n_ana_islands == 1:
+        hw = dataclasses.replace(hw, n_ana_islands=islands)
+    return be, hw
+
+
 def _cid_span(chunk: UpdateStream) -> tuple[int, int]:
     """(first, last) commit id of a chunk (-1, -1 when empty)."""
     if not len(chunk):
@@ -273,11 +289,18 @@ class HTAPSession:
         self._txn_i = 0                      # txn sub-chunks this round
         self._ana_i = 0                      # per-round query/group counter
         self._launches_at_start = kernel_launch_counts()
-        self.be = get_backend(spec.backend, device=device)
-        self.device = self.be.device
-        self.hw = spec.hw
-        self.islands = 1
         kind = spec.kind
+        if kind in ("multi_instance", "ana_only"):
+            self.be, self.hw = _resolve_islands(spec.backend, spec.n_shards,
+                                                spec.placement, spec.hw,
+                                                device)
+        else:
+            self.be = get_backend(spec.backend, device=device,
+                                  n_shards=spec.n_shards,
+                                  placement=spec.placement)
+            self.hw = spec.hw
+        self.device = self.be.device
+        self.islands = self.be.n_shards
         if kind == "multi_instance":
             self.store = RowStore(table)
             self.replica = DSMReplica.from_table(table, device=self.device)
@@ -295,7 +318,13 @@ class HTAPSession:
         elif kind == "ana_only":
             self._q_i = 0   # global query counter (rounds don't reset it)
             self.replica = DSMReplica.from_table(table, device=self.device)
-            self._view = self.replica.columns
+            view = self.replica.columns
+            if self.islands > 1:
+                # shard the read-only replica ONCE: the islands' resident
+                # shards for the whole session (no update invalidates them)
+                view = {c: self.be.shard_view(col)
+                        for c, col in self.replica.columns.items()}
+            self._view = view
 
     # -- lifecycle ---------------------------------------------------------
     def _check_open(self) -> None:
@@ -332,7 +361,10 @@ class HTAPSession:
                      "snapshots": self.cons.snapshots_created,
                      "shared": self.cons.snapshots_shared,
                      "islands": self.islands,
-                     "placement": "stacked"}
+                     "placement": self.be.placement,
+                     "sharded_views": self.cons.views_built,
+                     "views_shared": self.cons.views_shared,
+                     "views_resident": self.cons.views_resident}
         # CUDA kernel launches per kernel over this session's lifetime
         # (empty on the CPU, where the wrappers run their plain versions)
         now = kernel_launch_counts()
@@ -458,7 +490,14 @@ class HTAPSession:
         old = self.replica.columns[col_id]
         with self.cost.tagged(node, kind, round=self.round, deps=deps,
                               col=col_id, islands=self.islands):
-            if spec.optimized_application:
+            if spec.optimized_application and self.islands > 1:
+                # each island applies its own row range; the round becomes
+                # visible only as a complete shard set (all-or-none swap)
+                self.cons.on_update_shards(col_id, apply_updates_shards(
+                    old, entries, app_cost,
+                    on_pim=spec.propagation_on_pim, backend=self.be,
+                    staged=staged_col, phase=phase))
+            elif spec.optimized_application:
                 self.cons.on_update(col_id, apply_updates(
                     old, entries, app_cost,
                     on_pim=spec.propagation_on_pim, backend=self.be,

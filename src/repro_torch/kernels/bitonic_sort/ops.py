@@ -1,5 +1,6 @@
 """Public wrappers for the sort unit and the fused ship-batch pipeline
-(``csrc/bitonic.cu``): `sort_rows` / `sort_1024`, and
+(``csrc/bitonic.cu``): `sort_rows` / `sort_1024` (int32 or float32 keys;
+float32 NaN orders last, as torch.sort and jnp.sort put it), and
 `apply_pipeline_batch` (sort the update values, merge them with the old
 dictionary), with their plain PyTorch versions.
 """
@@ -12,8 +13,10 @@ from repro_torch.kernels import build
 from repro_torch.kernels.common import (I32_MAX, check_tensor, count_launch,
                                         next_pow2, on_gpu)
 
-# values one thread block sorts in shared memory (128 KB of int32)
+# values one thread block sorts in shared memory (128 KB of 4-byte keys)
 MAX_TILE = 32768
+# the kernels' key types (their `key_type` argument)
+KEY_TYPES = {torch.int32: 0, torch.float32: 1}
 
 
 def sort_rows_ref(x: torch.Tensor) -> torch.Tensor:
@@ -25,7 +28,7 @@ def _merge_rows_launch(lib, a_ptr, a_stride, wa, b_ptr, b_stride, wb, out,
                        out_stride, w_out, rows, stream) -> None:
     code = lib.bitonic_merge_rows(a_ptr, a_stride, wa, b_ptr, b_stride, wb,
                                   out.data_ptr(), out_stride, w_out, rows,
-                                  stream)
+                                  KEY_TYPES[out.dtype], stream)
     build.check(code, "bitonic_merge_rows")
 
 
@@ -37,7 +40,7 @@ def launch_sort_tiles(x, buf, tile: int) -> None:
     with torch.cuda.device(x.device):
         code = lib.bitonic_sort_tiles(x.data_ptr(), buf.data_ptr(),
                                       x.shape[0], x.shape[1], tile,
-                                      buf.shape[1],
+                                      buf.shape[1], KEY_TYPES[x.dtype],
                                       torch.cuda.current_stream().cuda_stream)
     build.check(code, "bitonic_sort_tiles")
 
@@ -57,12 +60,12 @@ def launch_bitonic_apply(old_rows, val_rows, svals, merged) -> None:
 
 def _sort_rows_gpu(x: torch.Tensor) -> torch.Tensor:
     """Tile sort in shared memory, then pairwise merges of the sorted tiles
-    for rows wider than one tile. Returns (rows, next_pow2(width)) with
-    int32.max in the padded tail."""
+    for rows wider than one tile. Returns (rows, next_pow2(width)) with the
+    padding key (int32.max, or NaN for float32) in the padded tail."""
     rows, width = x.shape
     width_pad = next_pow2(max(width, 1))
     tile = min(width_pad, MAX_TILE)
-    buf = torch.empty((rows, width_pad), dtype=torch.int32, device=x.device)
+    buf = torch.empty((rows, width_pad), dtype=x.dtype, device=x.device)
     launch_sort_tiles(x, buf, tile)
     lib = build.load_library()
     with torch.cuda.device(x.device):
@@ -80,10 +83,13 @@ def _sort_rows_gpu(x: torch.Tensor) -> torch.Tensor:
 
 
 def sort_rows(x: torch.Tensor) -> torch.Tensor:
-    """Sort each row of a (rows, width) int32 tensor ascending."""
+    """Sort each row of a (rows, width) int32 or float32 tensor ascending
+    (float32: NaN last)."""
     if not on_gpu(x):
         return sort_rows_ref(x)
-    check_tensor(x, torch.int32, "x", 2)
+    if x.dtype not in KEY_TYPES:
+        raise TypeError(f"x: expected int32 or float32, got {x.dtype}")
+    check_tensor(x, x.dtype, "x", 2)
     rows, width = x.shape
     if rows == 0 or width == 0:
         return x.clone()

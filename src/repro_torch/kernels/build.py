@@ -32,15 +32,17 @@ _L = ctypes.c_longlong
 # C entry -> argtypes. ctypes passes a Python int as a 32-bit int unless
 # told otherwise, which cuts a 64-bit pointer: every entry is listed here.
 _SIGNATURES = {
-    # fcodes acodes fvalid adict k bounds nq jcodes jvalid rcount kj n out
-    # stream
-    "scan_exact": (_P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _L, _P, _P),
+    # fcodes acodes fvalid adict bounds nq jcodes jvalid rcount n_shards
+    # width out stream
+    "scan_exact": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _L, _P, _P),
+    # queries n_shards width keys vals n_buckets slots default out stream
+    "hash_probe": (_P, _I, _L, _P, _P, _I, _I, _I, _P, _P),
     # a ai b bi out_keys out_idx rows wa wb stream
     "merge_runs": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # in out rows width tile width_pad stream
-    "bitonic_sort_tiles": (_P, _P, _I, _I, _I, _I, _P),
-    # a a_stride wa b b_stride wb out out_stride w_out rows stream
-    "bitonic_merge_rows": (_P, _L, _I, _P, _L, _I, _P, _L, _I, _I, _P),
+    # in out rows width tile width_pad key_type stream
+    "bitonic_sort_tiles": (_P, _P, _I, _I, _I, _I, _I, _P),
+    # a a_stride wa b b_stride wb out out_stride w_out rows key_type stream
+    "bitonic_merge_rows": (_P, _L, _I, _P, _L, _I, _P, _L, _I, _I, _I, _P),
     # old w_old vals w_val svals merged w_merge rows stream
     "bitonic_apply": (_P, _I, _P, _I, _P, _P, _I, _I, _P),
     # src prev dirty out n block stream

@@ -1,13 +1,17 @@
 // Exact multi-predicate scan over dictionary-encoded columns, with an
-// optional self-join lane.
+// optional self-join lane and a leading shard axis.
 //
 // Replaces the TPU kernels `_scan_exact_kernel` /
-// `scan_filter_agg_exact_kernel` (kernels/dict_ops/dict_ops.py of the JAX
-// package) and the two-call composite `_join_scan_pallas`
-// (kernels/hash_probe/ops.py): for each of Q code ranges [lo, hi) it
-// returns sum(adict[acodes]) and the count over rows with
-// lo <= fcodes < hi and fvalid, and with the join lane also
-// sum(rcount[jcodes]) over the rows that are jvalid too.
+// `scan_filter_agg_exact_kernel` and `_scan_exact_sharded_kernel` /
+// `scan_filter_agg_sharded_kernel` (kernels/dict_ops/dict_ops.py of the JAX
+// package) and the two-call composites `_join_scan_pallas` and
+// `_join_scan_sharded_pallas` (kernels/hash_probe/ops.py): for each of Q
+// code ranges [lo, hi) it returns sum(adict[acodes]) and the count over rows
+// with lo <= fcodes < hi and fvalid, and with the join lane also
+// sum(rcount[jcodes]) over the rows that are jvalid too. The columns are
+// S stacked shards of `width` rows each (one analytical island per shard,
+// padded slots carry valid = 0); each shard gets its own partials. A flat
+// column is the S = 1 case.
 //
 // What bounds it on an H100: bytes. Each row costs 4 (fcodes) + 4 (acodes)
 // + 1 (fvalid) bytes, plus 4 + 1 with the join lane; the arithmetic is a
@@ -17,16 +21,20 @@
 // composite), with 16-byte loads where the pointers allow it, and keeps
 // everything else out of device memory: the per-predicate sums live in
 // registers as native 64-bit integers, and the dictionary (a few hundred KB
-// at most, shared by every block) is gathered through L2. The TPU kernel
-// holds the dictionary in VMEM; staging it in shared memory was measured on
-// an H100 and dropped: every block has to stage the whole dictionary for
-// itself, which buys nothing for a small dictionary and costs occupancy for
-// a large one (PERF.md has the times). Blocks run in any order: each reduces
-// with warp shuffles and shared-memory atomics and adds its partial to the
-// output with one 64-bit atomicAdd per (block, predicate, lane) - integer
-// addition is associative, so the result is exact and the same from run to
-// run. Up to QT predicates are answered per pass over the rows; a larger
-// group takes one grid slice (blockIdx.y) per QT predicates.
+// at most, shared by every block) is gathered through L2, only for rows
+// that pass the mask (a padded slot's code 0 is never looked up, so an
+// empty dictionary is legal). The TPU kernel holds the dictionary in VMEM;
+// staging it in shared memory was measured on an H100 and dropped: every
+// block has to stage the whole dictionary for itself, which buys nothing
+// for a small dictionary and costs occupancy for a large one (PERF.md has
+// the times). The TPU grid walks the shards in order; here the shard is
+// the grid's z index, so every island's blocks run at once. Blocks run in
+// any order: each reduces with warp shuffles and shared-memory atomics and
+// adds its partial to its shard's output with one 64-bit atomicAdd per
+// (block, predicate, lane) - integer addition is associative, so the
+// result is exact and the same from run to run. Up to QT predicates are
+// answered per pass over the rows; a larger group takes one grid slice
+// (blockIdx.y) per QT predicates.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -75,18 +83,32 @@ __device__ __forceinline__ long long warp_sum(long long v) {
     return v;
 }
 
+// Two blocks per SM for the scan alone (at most 64 registers a thread, as
+// the flat kernel used before the shard axis); the join lane needs more
+// registers than that and keeps one.
 template <bool JOIN, bool VEC>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, JOIN ? 1 : 2)
 scan_exact_kernel(const int* __restrict__ fcodes,
                   const int* __restrict__ acodes,
                   const uint8_t* __restrict__ fvalid,
-                  const int* __restrict__ adict, int k,
+                  const int* __restrict__ adict,
                   const int* __restrict__ bounds, int nq,
                   const int* __restrict__ jcodes,
                   const uint8_t* __restrict__ jvalid,
-                  const int* __restrict__ rcount, int kj, long long n,
+                  const int* __restrict__ rcount, long long n,
                   unsigned long long* __restrict__ out) {
     __shared__ unsigned long long red[3 * QT];
+    constexpr int lanes = JOIN ? 3 : 2;
+
+    // this block's shard: n rows at a stride of n
+    const long long base = (long long)blockIdx.z * n;
+    fcodes += base;
+    acodes += base;
+    fvalid += base;
+    if (JOIN) {
+        jcodes += base;
+        jvalid += base;
+    }
 
     const int* ad = adict;
     const int* rc = rcount;
@@ -154,13 +176,13 @@ scan_exact_kernel(const int* __restrict__ fcodes,
         }
     }
     __syncthreads();
-    const int lanes = JOIN ? 3 : 2;
     if (threadIdx.x < lanes * QT) {
         const int which = threadIdx.x / QT;
         const int t = threadIdx.x % QT;
         const unsigned long long v = red[which * QT + t];
-        if (q0 + t < nq && v)
-            atomicAdd(&out[(long long)which * nq + q0 + t], v);
+        if (q0 + t < nq && v)   // the shard's partials start at lanes * nq
+            atomicAdd(&out[((long long)blockIdx.z * lanes + which) * nq + q0
+                           + t], v);
     }
 }
 
@@ -170,9 +192,9 @@ inline bool aligned(const void* p, uintptr_t a) {
 
 template <bool JOIN, bool VEC>
 cudaError_t launch(const int* fcodes, const int* acodes, const uint8_t* fvalid,
-                   const int* adict, int k, const int* bounds, int nq,
+                   const int* adict, const int* bounds, int nq,
                    const int* jcodes, const uint8_t* jvalid, const int* rcount,
-                   int kj, long long n, unsigned long long* out,
+                   int n_shards, long long width, unsigned long long* out,
                    cudaStream_t stream) {
     auto kern = scan_exact_kernel<JOIN, VEC>;
     cudaError_t err;
@@ -185,37 +207,44 @@ cudaError_t launch(const int* fcodes, const int* acodes, const uint8_t* fvalid,
              &occ, kern, THREADS, 0)) != cudaSuccess)
         return err;
     if (occ < 1) return cudaErrorLaunchOutOfResources;
+    // as many blocks as the card holds at once, shared among the shards
     const long long per_block = (long long)THREADS * (VEC ? 4 : 1);
-    long long want = (n + per_block - 1) / per_block;
-    const long long cap = (long long)sms * occ;
+    long long want = (width + per_block - 1) / per_block;
+    long long cap = (long long)sms * occ / n_shards;
+    if (cap < 1) cap = 1;
     if (want > cap) want = cap;
     if (want < 1) want = 1;
-    dim3 grid((unsigned)want, (unsigned)((nq + QT - 1) / QT));
-    kern<<<grid, THREADS, 0, stream>>>(fcodes, acodes, fvalid, adict, k,
-                                       bounds, nq, jcodes, jvalid, rcount, kj,
-                                       n, out);
+    dim3 grid((unsigned)want, (unsigned)((nq + QT - 1) / QT),
+              (unsigned)n_shards);
+    kern<<<grid, THREADS, 0, stream>>>(fcodes, acodes, fvalid, adict, bounds,
+                                       nq, jcodes, jvalid, rcount, width, out);
     return cudaGetLastError();
 }
 
 }  // namespace
 
-// out: (2, nq) int64 zeros without the join lane (sums, counts), (3, nq)
-// with it (sums, counts, join sums). jcodes == nullptr selects no join lane.
+// Columns are (n_shards, width) row-major; out: (n_shards, 2, nq) int64
+// zeros without the join lane (sums, counts), (n_shards, 3, nq) with it
+// (sums, counts, join sums). jcodes == nullptr selects no join lane.
 extern "C" int scan_exact(const int* fcodes, const int* acodes,
-                          const uint8_t* fvalid, const int* adict, int k,
+                          const uint8_t* fvalid, const int* adict,
                           const int* bounds, int nq, const int* jcodes,
-                          const uint8_t* jvalid, const int* rcount, int kj,
-                          long long n, unsigned long long* out,
-                          void* stream) {
-    if (n <= 0 || nq <= 0) return (int)cudaSuccess;
+                          const uint8_t* jvalid, const int* rcount,
+                          int n_shards, long long width,
+                          unsigned long long* out, void* stream) {
+    if (n_shards <= 0 || width <= 0 || nq <= 0) return (int)cudaSuccess;
+    if (n_shards > 65535 || (nq + QT - 1) / QT > 65535)
+        return (int)cudaErrorInvalidValue;
     const bool join = jcodes != nullptr;
-    bool vec = aligned(fcodes, 16) && aligned(acodes, 16) && aligned(fvalid, 4);
+    // 16-byte loads need every shard's first row aligned, not just the first
+    bool vec = (n_shards == 1 || width % 4 == 0) && aligned(fcodes, 16) &&
+               aligned(acodes, 16) && aligned(fvalid, 4);
     if (join) vec = vec && aligned(jcodes, 16) && aligned(jvalid, 4);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err;
 #define GO(J, V)                                                            \
-    launch<J, V>(fcodes, acodes, fvalid, adict, k, bounds, nq, jcodes,      \
-                 jvalid, rcount, kj, n, out, s)
+    launch<J, V>(fcodes, acodes, fvalid, adict, bounds, nq, jcodes, jvalid, \
+                 rcount, n_shards, width, out, s)
     if (join)
         err = vec ? GO(true, true) : GO(true, false);
     else

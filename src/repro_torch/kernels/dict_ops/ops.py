@@ -3,13 +3,15 @@
 One CUDA kernel (``csrc/scan_exact.cu``) answers Q code-range predicates in
 one pass over the encoded columns, accumulating exact int64 sums on the
 device; the optional join lane (``kernels/hash_probe/ops.py``) rides the
-same pass. The plain PyTorch version of the same function is
-``scan_exact_ref``.
+same pass. Columns are flat ``(n,)`` tensors (one island) or stacked
+``(n_shards, width)`` shards (several islands, one launch for all, padded
+slots carry ``valid = 0``). The plain PyTorch version of the same function
+is ``scan_exact_ref``.
 
-All arguments are tensors on one device: ``fcodes``/``acodes`` (n,) int32,
-``valid`` (n,) bool or uint8, ``dictionary`` (k,) int32; ``bounds`` is a
-host sequence of ``(code_lo, code_hi)`` pairs (exclusive upper bound).
-Answers come back as exact Python ints - one device-to-host copy per call.
+All arguments are tensors on one device: ``fcodes``/``acodes`` int32,
+``valid`` bool or uint8, ``dictionary`` (k,) int32; ``bounds`` is a host
+sequence of ``(code_lo, code_hi)`` pairs (exclusive upper bound). Answers
+come back as exact Python ints - one device-to-host copy per call.
 """
 
 from __future__ import annotations
@@ -22,53 +24,67 @@ from repro_torch.kernels.bitonic_sort.ops import (  # noqa: F401 (re-export)
 from repro_torch.kernels.common import (as_u8, check_tensor, count_launch,
                                         on_gpu)
 
+
 def _bounds_tensor(bounds, device) -> torch.Tensor:
     return torch.tensor([[int(lo), int(hi)] for lo, hi in bounds],
                         dtype=torch.int32, device=device).reshape(-1, 2)
+
+
+def _gathered(table, codes, keep) -> torch.Tensor:
+    """int64 ``table[codes]`` where `keep`, 0 elsewhere: the gather is
+    guarded by the mask, so a padded slot's code never indexes `table`
+    (which may be empty)."""
+    out = torch.zeros(codes.shape, dtype=torch.int64, device=codes.device)
+    out[keep] = table.to(torch.int64)[codes[keep].long()]
+    return out
 
 
 def scan_exact_ref(fcodes, acodes, fvalid, adict, bounds, jcodes=None,
                    jvalid=None, rcount=None) -> torch.Tensor:
     """Plain PyTorch version of the scan kernel.
 
-    Returns a (2, Q) int64 tensor (sums, counts), or (3, Q) with the join
-    lane (sums, counts, join sums), on the inputs' device.
+    Flat (n,) columns give a (2, Q) int64 tensor (sums, counts), or (3, Q)
+    with the join lane (sums, counts, join sums); stacked (S, W) columns
+    give one such block per shard, (S, 2|3, Q). On the inputs' device.
     """
     nq = len(bounds)
     lanes = 2 if jcodes is None else 3
-    out = torch.zeros((lanes, nq), dtype=torch.int64, device=fcodes.device)
-    if fcodes.shape[0] == 0 or nq == 0:
+    lead = tuple(fcodes.shape[:-1])
+    out = torch.zeros(lead + (lanes, nq), dtype=torch.int64,
+                      device=fcodes.device)
+    if fcodes.shape[-1] == 0 or nq == 0:
         return out
     fv = fvalid != 0
-    vals = adict.to(torch.int64)[acodes.long()]
+    vals = _gathered(adict, acodes, fv)
     zero = torch.zeros((), dtype=torch.int64, device=fcodes.device)
     if jcodes is not None:
-        weights = torch.where(jvalid != 0,
-                              rcount.to(torch.int64)[jcodes.long()], zero)
+        weights = _gathered(rcount, jcodes, fv & (jvalid != 0))
     for q, (lo, hi) in enumerate(bounds):
         mask = (fcodes >= int(lo)) & (fcodes < int(hi)) & fv
-        out[0, q] = torch.where(mask, vals, zero).sum()
-        out[1, q] = mask.sum()
+        out[..., 0, q] = torch.where(mask, vals, zero).sum(-1)
+        out[..., 1, q] = mask.sum(-1)
         if jcodes is not None:
-            out[2, q] = torch.where(mask, weights, zero).sum()
+            out[..., 2, q] = torch.where(mask, weights, zero).sum(-1)
     return out
 
 
 def launch_scan_exact(fcodes, acodes, fvalid_u8, adict, bounds_dev, out,
                       jcodes=None, jvalid_u8=None, rcount=None) -> None:
-    """The bare launch of ``scan_exact`` on checked GPU tensors: `out` is a
-    zeroed (2|3, Q) int64 tensor the kernel adds into, `bounds_dev` a
-    (Q, 2) int32 tensor. No allocation, no synchronisation."""
+    """The bare launch of ``scan_exact`` on checked GPU tensors, flat (n,)
+    or stacked (S, W): `out` is a zeroed (2|3, Q) or (S, 2|3, Q) int64
+    tensor the kernel adds into, `bounds_dev` a (Q, 2) int32 tensor. No
+    allocation, no synchronisation."""
     join = jcodes is not None
+    n_shards = fcodes.shape[0] if fcodes.dim() == 2 else 1
     lib = build.load_library()
     with torch.cuda.device(fcodes.device):
         code = lib.scan_exact(
             fcodes.data_ptr(), acodes.data_ptr(), fvalid_u8.data_ptr(),
-            adict.data_ptr(), adict.shape[0], bounds_dev.data_ptr(),
-            bounds_dev.shape[0], jcodes.data_ptr() if join else None,
+            adict.data_ptr(), bounds_dev.data_ptr(), bounds_dev.shape[0],
+            jcodes.data_ptr() if join else None,
             jvalid_u8.data_ptr() if join else None,
-            rcount.data_ptr() if join else None,
-            rcount.shape[0] if join else 0, fcodes.shape[0], out.data_ptr(),
+            rcount.data_ptr() if join else None, n_shards,
+            fcodes.shape[-1], out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     build.check(code, "scan_exact")
 
@@ -76,7 +92,10 @@ def launch_scan_exact(fcodes, acodes, fvalid_u8, adict, bounds_dev, out,
 def scan_exact(fcodes, acodes, fvalid, adict, bounds, jcodes=None,
                jvalid=None, rcount=None) -> torch.Tensor:
     """The scan on the inputs' device: the CUDA kernel for GPU tensors, the
-    plain version for CPU tensors. Same result layout as `scan_exact_ref`."""
+    plain version for CPU tensors. Same result layout as `scan_exact_ref`.
+
+    Every valid row's code must index its dictionary (rows that fail the
+    mask, such as padded slots, are never looked up)."""
     join = jcodes is not None
     tensors = [fcodes, acodes, fvalid, adict]
     if join:
@@ -84,40 +103,39 @@ def scan_exact(fcodes, acodes, fvalid, adict, bounds, jcodes=None,
     if not on_gpu(*tensors):
         return scan_exact_ref(fcodes, acodes, fvalid, adict, bounds, jcodes,
                               jvalid, rcount)
-    n = fcodes.shape[0]
+    ndim = fcodes.dim()
+    if ndim not in (1, 2):
+        raise ValueError(f"fcodes: expected (n,) or (n_shards, width), got "
+                         f"shape {tuple(fcodes.shape)}")
     nq = len(bounds)
-    out = torch.zeros((3 if join else 2, nq), dtype=torch.int64,
+    lead = tuple(fcodes.shape[:-1])
+    out = torch.zeros(lead + (3 if join else 2, nq), dtype=torch.int64,
                       device=fcodes.device)
-    if n == 0 or nq == 0:
+    if fcodes.numel() == 0 or nq == 0:
         return out
     fv = as_u8(fvalid)
-    check_tensor(fcodes, torch.int32, "fcodes", 1)
-    check_tensor(acodes, torch.int32, "acodes", 1)
-    check_tensor(fv, torch.uint8, "fvalid", 1)
+    check_tensor(fcodes, torch.int32, "fcodes", ndim)
+    check_tensor(acodes, torch.int32, "acodes", ndim)
+    check_tensor(fv, torch.uint8, "fvalid", ndim)
     check_tensor(adict, torch.int32, "dictionary", 1)
-    if acodes.shape[0] != n or fv.shape[0] != n:
-        raise ValueError("fcodes, acodes and valid must have one length")
-    if adict.shape[0] == 0:
-        raise ValueError("cannot scan rows against an empty dictionary")
+    if acodes.shape != fcodes.shape or fv.shape != fcodes.shape:
+        raise ValueError("fcodes, acodes and valid must have one shape")
     jv = None
     if join:
         jv = as_u8(jvalid)
-        check_tensor(jcodes, torch.int32, "jcodes", 1)
-        check_tensor(jv, torch.uint8, "jvalid", 1)
+        check_tensor(jcodes, torch.int32, "jcodes", ndim)
+        check_tensor(jv, torch.uint8, "jvalid", ndim)
         check_tensor(rcount, torch.int32, "rcount", 1)
-        if jcodes.shape[0] != n or jv.shape[0] != n:
-            raise ValueError("jcodes and jvalid must match fcodes' length")
-        if rcount.shape[0] == 0:
-            raise ValueError("cannot join rows against an empty histogram")
+        if jcodes.shape != fcodes.shape or jv.shape != fcodes.shape:
+            raise ValueError("jcodes and jvalid must match fcodes' shape")
     launch_scan_exact(fcodes, acodes, fv, adict,
                       _bounds_tensor(bounds, fcodes.device), out,
                       jcodes if join else None, jv if join else None,
                       rcount if join else None)
-    if join:
-        count_launch("scan_exact_join",
-                     (n, adict.shape[0], rcount.shape[0], nq))
-    else:
-        count_launch("scan_exact", (n, adict.shape[0], nq))
+    name = "scan_exact" + ("_join" if join else "") + (
+        "_sharded" if ndim == 2 else "")
+    count_launch(name, tuple(fcodes.shape) + (adict.shape[0],) + (
+        (rcount.shape[0],) if join else ()) + (nq,))
     return out
 
 
@@ -153,3 +171,31 @@ def scan_filter_agg(fcodes, acodes, valid, dictionary, code_lo, code_hi,
     [(s, c)] = scan_filter_agg_batch(fcodes, acodes, valid, dictionary,
                                      [(code_lo, code_hi)])
     return s, c
+
+
+def _per_shard(parts: torch.Tensor) -> list:
+    """(S, lanes, Q) partials -> [[(lane values...)] * Q] * S as exact
+    Python ints, with one device-to-host copy."""
+    return [[tuple(t) for t in zip(*lanes)] for lanes in parts.tolist()]
+
+
+def scan_filter_agg_sharded_ref(fcodes, acodes, valid, dictionary, bounds):
+    """Plain version of `scan_filter_agg_sharded`."""
+    return _per_shard(scan_exact_ref(fcodes, acodes, valid, dictionary,
+                                     list(bounds)))
+
+
+def scan_filter_agg_sharded(fcodes, acodes, valid, dictionary, bounds):
+    """All islands' fused scans in ONE launch over a leading shard axis.
+
+    fcodes/acodes/valid: (n_shards, width) stacked resident shards (padded
+    slots must carry valid = 0 - see dsm.ShardedView). bounds: Q (code_lo,
+    code_hi) predicates shared by every island. Returns per-island exact
+    partials ``[[(sum, count)] * Q] * n_shards`` as Python ints, equal to
+    running the flat scan on each shard.
+    """
+    n_shards, width = fcodes.shape
+    bounds = list(bounds)
+    if width == 0 or not bounds:
+        return [[(0, 0)] * len(bounds) for _ in range(n_shards)]
+    return _per_shard(scan_exact(fcodes, acodes, valid, dictionary, bounds))

@@ -328,6 +328,22 @@ def test_apply_stages_batch_matches_reference(rng, be, subset):
                                       enc_r(probe_vals), f"col {i} encode")
 
 
+@pytest.mark.parametrize("be", PORT_BACKENDS)
+@pytest.mark.parametrize("dtype", [np.int64, np.int32])
+def test_update_dictionary_keeps_the_values_dtype(rng, be, dtype):
+    """The update dictionary keeps the write values' dtype and the merged
+    dictionary the old one's, on the fused path (>= 2 fusable columns) as
+    on the fallbacks, as the reference's do."""
+    per_column = [(o.astype(dtype), wv.astype(dtype))
+                  for o, wv in _stage_columns(rng)[:6]]
+    got = port(be).apply_stages_batch(
+        [(torch.from_numpy(o), wv) for o, wv in per_column])
+    for (u_f, d_f, _, _), (u_r, d_r, _, _) in zip(
+            got, REF.apply_stages_batch(per_column)):
+        assert u_f.numpy().dtype == u_r.dtype == dtype
+        assert d_f.numpy().dtype == d_r.dtype == dtype
+
+
 def test_hopper_backend_fuses_and_falls_back_like_the_reference(rng):
     """Which kernel entry each batch reaches (on any device): two fusable
     columns ride one fused call; one fusable column takes the sort unit and

@@ -57,6 +57,24 @@ def test_sort_rows_edge_values(rng, case):
                                   np.asarray(ref_sort_rows(x)))
 
 
+@pytest.mark.parametrize("rows,width", [(2, 64), (3, 100), (1, 1), (4, 1500)])
+def test_sort_rows_float32_matches_reference(rng, rows, width):
+    x = rng.standard_normal((rows, width)).astype(np.float32) * 1e6
+    x[0, 0] = np.inf
+    x[-1, -1] = -np.inf
+    got = sort_rows(T(x))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref_sort_rows(x)))
+    np.testing.assert_array_equal(sort_1024(T(x[0, :1024])).numpy(),
+                                  np.asarray(ref_sort_1024(x[0, :1024])))
+
+
+def test_sort_rows_float32_orders_nan_last():
+    x = np.asarray([[np.nan, 1.0, -np.inf, np.inf, -0.5, np.nan, 2.0]],
+                   dtype=np.float32)
+    np.testing.assert_array_equal(sort_rows(T(x)).numpy(), np.sort(x, axis=1))
+
+
 def test_sort_1024_unit_is_sized_like_the_paper(rng):
     v = rng.integers(0, 1 << 20, size=1024).astype(np.int32)
     np.testing.assert_array_equal(sort_1024(T(v)).numpy(),

@@ -13,13 +13,21 @@ from repro.kernels import common as ref_common
 from repro.kernels.dict_ops import (scan_filter_agg as ref_scan,
                                     scan_filter_agg_batch as ref_scan_batch)
 from repro.kernels.dict_ops.ref import scan_filter_agg_batch_ref as ref_oracle
+from repro.kernels.dict_ops import \
+    scan_filter_agg_sharded as ref_scan_sharded
 from repro.kernels.hash_probe import scan_filter_agg_join as ref_join
+from repro.kernels.hash_probe import \
+    scan_filter_agg_join_sharded as ref_join_sharded
 from repro_torch.kernels.dict_ops import (scan_exact, scan_exact_ref,
                                           scan_filter_agg,
                                           scan_filter_agg_batch,
-                                          scan_filter_agg_batch_ref)
+                                          scan_filter_agg_batch_ref,
+                                          scan_filter_agg_sharded,
+                                          scan_filter_agg_sharded_ref)
 from repro_torch.kernels.hash_probe import (scan_filter_agg_join,
-                                            scan_filter_agg_join_ref)
+                                            scan_filter_agg_join_ref,
+                                            scan_filter_agg_join_sharded,
+                                            scan_filter_agg_join_sharded_ref)
 
 torch.set_num_threads(1)
 T = torch.from_numpy
@@ -136,3 +144,100 @@ def test_valid_may_be_bool_or_uint8_and_results_are_tensors_of_int64(rng):
     assert got.dtype == torch.int64 and got.shape == (3, 2)
     assert torch.equal(got, ref)
     assert scan_exact(T(f), T(a), T(fv), T(d), bounds).shape == (2, 2)
+
+
+# ---------------------------------------------------------------------------
+# the stacked (n_shards, width) form: every island in one launch
+# ---------------------------------------------------------------------------
+
+def _stacked(rng, sizes, k, kj=None):
+    """Per-island shards of random columns laid out as a ShardedView lays
+    them out: (n_shards, max size), padded slots codes 0 and invalid."""
+    width = max(sizes, default=0)
+    n = sum(sizes)
+    f, a, j, fv, jv, d, rc = _columns(rng, n, k, kj=kj)
+    out = []
+    for col, fill in ((f, 0), (a, 0), (j, 0), (fv, False), (jv, False)):
+        st = np.full((len(sizes), width), fill, dtype=col.dtype)
+        lo = 0
+        for s, size in enumerate(sizes):
+            st[s, :size] = col[lo:lo + size]
+            lo += size
+        out.append(st)
+    return (*out, d, rc)
+
+
+# shards: equal, a padded tail, an empty shard, more shards than rows,
+# one shard, wider than a 4096 block
+SHARD_SWEEP = [(250, 250, 250, 250), (334, 333, 333), (0, 40, 41),
+               (1, 1, 0, 0, 0), (777,), (5000, 4999), (0, 0)]
+
+
+@pytest.mark.parametrize("sizes", SHARD_SWEEP)
+@pytest.mark.parametrize("k", [7, 65])
+def test_sharded_scan_matches_reference(rng, sizes, k):
+    f, a, _, fv, _, d, _ = _stacked(rng, sizes, k)
+    bounds = [(k // 4, 3 * k // 4), (0, k), (3, 3), (1, 2), (0, 1)]
+    got = scan_filter_agg_sharded(T(f), T(a), T(fv), T(d), bounds)
+    assert got == ref_scan_sharded(f, a, fv, d, bounds)
+    assert got == scan_filter_agg_sharded_ref(T(f), T(a), T(fv), T(d), bounds)
+    assert len(got) == len(sizes) and all(len(p) == len(bounds) for p in got)
+    # each island's partials are the flat scan of its unpadded shard
+    for s, size in enumerate(sizes):
+        assert got[s] == scan_filter_agg_batch(
+            T(f[s, :size].copy()), T(a[s, :size].copy()),
+            T(fv[s, :size].copy()), T(d), bounds)
+
+
+@pytest.mark.parametrize("sizes", SHARD_SWEEP)
+def test_sharded_join_scan_matches_reference(rng, sizes):
+    k = 33
+    f, a, j, fv, jv, d, rc = _stacked(rng, sizes, k, kj=k + 5)
+    bounds = [(0, k), (k // 3, k), (2, 2)]
+    got = scan_filter_agg_join_sharded(T(f), T(a), T(j), T(fv), T(jv), T(d),
+                                       T(rc), bounds)
+    assert got == ref_join_sharded(f, a, j, fv, jv, d, rc, bounds)
+    assert got == scan_filter_agg_join_sharded_ref(
+        T(f), T(a), T(j), T(fv), T(jv), T(d), T(rc), bounds)
+    for s, size in enumerate(sizes):
+        assert got[s] == scan_filter_agg_join(
+            *(T(x[s, :size].copy()) for x in (f, a, j, fv, jv)), T(d), T(rc),
+            bounds)
+
+
+def test_empty_dictionary_with_only_padded_slots(rng):
+    """k = 0: no row is valid, so the guarded gather never looks a code up
+    (the reference pads its dictionary instead)."""
+    f = np.zeros((3, 5), np.int32)
+    v = np.zeros((3, 5), bool)
+    d = np.empty(0, np.int32)
+    bounds = [(0, 0), (0, 1)]
+    got = scan_filter_agg_sharded(T(f), T(f), T(v), T(d), bounds)
+    assert got == ref_scan_sharded(f, f, v, d, bounds) == [[(0, 0)] * 2] * 3
+    assert scan_filter_agg_join_sharded(T(f), T(f), T(f), T(v), T(v), T(d),
+                                        T(d), bounds) == [[(0, 0, 0)] * 2] * 3
+    assert scan_exact_ref(T(f[0]), T(f[0]), T(v[0]), T(d), bounds).shape == \
+        (2, 2)
+
+
+def test_sharded_scan_vs_pallas_interpret(interpret_mode):
+    rng = np.random.default_rng(11)
+    f, a, j, fv, jv, d, rc = _stacked(rng, (300, 299, 0), 32, kj=40)
+    bounds = [(4, 20), (0, 32)]
+    interpret_mode("1")
+    want = ref_scan_sharded(f, a, fv, d, bounds)
+    want_join = ref_join_sharded(f, a, j, fv, jv, d, rc, bounds)
+    interpret_mode(None)
+    assert scan_filter_agg_sharded(T(f), T(a), T(fv), T(d), bounds) == want
+    assert scan_filter_agg_join_sharded(T(f), T(a), T(j), T(fv), T(jv), T(d),
+                                        T(rc), bounds) == want_join
+
+
+def test_sharded_scan_layout_is_per_shard_blocks(rng):
+    f, a, j, fv, jv, d, rc = _stacked(rng, (100, 99), 12)
+    got = scan_exact(T(f), T(a), T(fv), T(d), [(0, 12), (5, 6)], T(j),
+                     T(jv), T(rc))
+    assert got.dtype == torch.int64 and got.shape == (2, 3, 2)
+    assert torch.equal(got[1], scan_exact(T(f[1]), T(a[1]), T(fv[1]), T(d),
+                                          [(0, 12), (5, 6)], T(j[1]),
+                                          T(jv[1]), T(rc)))
