@@ -15,20 +15,25 @@ Drives `repro_torch` only. Phases, each printing one JSON line:
                  over the host row store; every kernel must have been
                  launched during the run. The wrappers record the shapes
                  they launched at.
-4. ``islands``   the same session on four analytical islands stacked on the
-                 card (``n_shards=4``): answers and final columns must equal
-                 the one-island session's bit for bit (and the host
-                 evaluation every round); the sharded scan and sharded join
-                 scan must carry every query group, one launch per group as
-                 on one island.
+4. ``islands``   the same session on analytical islands stacked on the
+                 card, once per count of ``--islands`` (4, then 3: four
+                 split the 10M rows evenly, three leave padded slots, so
+                 the stacked views are copies), one line per run: answers
+                 and final columns must equal the one-island session's bit
+                 for bit (and the host evaluation every round); the sharded
+                 scan and sharded join scan must carry every query group,
+                 one launch per group as on one island.
 5. ``ana_only``  the `Ana-Only` preset at the same size on ``"hopper"`` and
-                 ``"hopper@4"``: lone join queries go through the bucket
-                 probe; answers must equal the host evaluation.
+                 ``"hopper@4"`` (the first island count): lone join queries
+                 go through the bucket probe; answers must equal the host
+                 evaluation.
 6. ``kernels``   every hand-written kernel launched on the card and held
                  against its plain PyTorch version with exact equality
                  (integers: tolerance 0), at edge shapes and at the shapes
                  the main path just gave it (the one it launched most, and
-                 the largest where that is another); times the kernel
+                 the largest where that is another; for the sharded scans
+                 also the one each other island count launched most,
+                 under ``at_islands``); times the kernel
                  (``ms``: back-to-back bare launches; ``wrapper_ms``:
                  through the public wrapper with its checks and
                  allocations), the plain version and, where one PyTorch
@@ -337,58 +342,67 @@ SHARDED_SCANS = ("scan_exact_sharded", "scan_exact_join_sharded")
 
 def phase_islands(args, wl, one_launches, one_answers, one_cols
                   ) -> tuple[dict, dict]:
-    """The main path on `args.islands` islands stacked on the card; returns
-    its launches and launch shapes."""
+    """The main path on each island count of `args.islands`, stacked on the
+    card; returns the launches and launch shapes of all its runs."""
     from repro_torch.core.session import SystemSpec
     from repro_torch.kernels.common import (kernel_launch_counts,
                                             kernel_launch_shapes,
                                             reset_kernel_launch_counts)
-    torch.cuda.reset_peak_memory_stats()
-    reset_kernel_launch_counts()
-    answers, seconds, session, result = drive_spec(
-        SystemSpec.polynesia(backend="hopper", n_shards=args.islands), wl,
-        args, check_host=True)
-    launches = kernel_launch_counts()
-    shapes = kernel_launch_shapes()
-    peak = torch.cuda.max_memory_allocated()
-
-    if answers != one_answers:
-        raise AssertionError(f"hopper@{args.islands} answers {answers} != "
-                             f"one-island answers {one_answers}")
-    same_columns(session.replica.columns, one_cols,
-                 f"hopper@{args.islands} vs one island")
-    missing = [k for k in SHARDED_SCANS if launches.get(k, 0) < 1]
-    if missing or any(launches.get(k, 0) for k in SCANS):
-        raise AssertionError(f"the islands' scans did not run sharded: "
-                             f"{launches}")
-    n_scans = sum(launches.get(k, 0) for k in SHARDED_SCANS)
     one_scans = sum(one_launches.get(k, 0) for k in SCANS)
-    if n_scans != one_scans:
-        raise AssertionError(f"{n_scans} sharded scan launches on "
-                             f"{args.islands} islands, {one_scans} on one: "
-                             "one launch per query group is the contract")
-    stats = result.stats
-    if (stats["islands"] != args.islands or stats["sharded_views"] < 1
-            or session.hw.n_ana_islands != args.islands):
-        raise AssertionError(f"the session did not run on islands: {stats}")
-    n_rows = next(iter(session.replica.columns.values())).n_rows
-    width = -(-n_rows // args.islands)
-    total = sum(seconds)
-    emit("islands", islands=args.islands, rows=n_rows,
-         padded_slots=width * args.islands - n_rows, round_seconds=seconds,
-         txns_per_s=(args.txns + 1) / total, queries_per_s=len(answers) / total,
-         peak_device_bytes=peak, launches=launches,
-         scan_launches=n_scans, one_island_scan_launches=one_scans,
-         sharded_views=stats["sharded_views"],
-         views_shared=stats["views_shared"],
-         modeled_ana_seconds=result.ana_seconds, answers_checksum=sum(answers),
-         ok=True)
-    return launches, shapes
+    reset_kernel_launch_counts()
+    for n in args.islands:
+        before = kernel_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        # the one-island session's final columns stay allocated for the
+        # comparison; the run's own peak is the peak above them
+        held = torch.cuda.memory_allocated()
+        answers, seconds, session, result = drive_spec(
+            SystemSpec.polynesia(backend="hopper", n_shards=n), wl, args,
+            check_host=True)
+        after = kernel_launch_counts()
+        launches = {k: v - before.get(k, 0) for k, v in after.items()
+                    if v != before.get(k, 0)}
+        peak = torch.cuda.max_memory_allocated()
+
+        if answers != one_answers:
+            raise AssertionError(f"hopper@{n} answers {answers} != "
+                                 f"one-island answers {one_answers}")
+        same_columns(session.replica.columns, one_cols,
+                     f"hopper@{n} vs one island")
+        missing = [k for k in SHARDED_SCANS if launches.get(k, 0) < 1]
+        if missing or any(launches.get(k, 0) for k in SCANS):
+            raise AssertionError(f"the islands' scans did not run sharded: "
+                                 f"{launches}")
+        n_scans = sum(launches.get(k, 0) for k in SHARDED_SCANS)
+        if n_scans != one_scans:
+            raise AssertionError(f"{n_scans} sharded scan launches on {n} "
+                                 f"islands, {one_scans} on one: one launch "
+                                 "per query group is the contract")
+        stats = result.stats
+        if (stats["islands"] != n or stats["sharded_views"] < 1
+                or session.hw.n_ana_islands != n):
+            raise AssertionError(f"the session did not run on islands: "
+                                 f"{stats}")
+        n_rows = next(iter(session.replica.columns.values())).n_rows
+        total = sum(seconds)
+        emit("islands", islands=n, rows=n_rows,
+             padded_slots=-(-n_rows // n) * n - n_rows,
+             round_seconds=seconds, txns_per_s=(args.txns + 1) / total,
+             queries_per_s=len(answers) / total, peak_device_bytes=peak,
+             held_device_bytes=held, launches=launches, scan_launches=n_scans,
+             one_island_scan_launches=one_scans,
+             sharded_views=stats["sharded_views"],
+             views_shared=stats["views_shared"],
+             modeled_ana_seconds=result.ana_seconds,
+             answers_checksum=sum(answers), ok=True)
+        del session
+    return kernel_launch_counts(), kernel_launch_shapes()
 
 
 def phase_ana_only(args, wl) -> tuple[dict, dict]:
     """`Ana-Only` (lone queries over the initial table) on one island and on
-    `args.islands`; returns the launches and shapes of both runs together."""
+    the first island count; returns the launches and shapes of both runs
+    together."""
     from repro_torch.core import htap
     from repro_torch.kernels.common import (kernel_launch_counts,
                                             kernel_launch_shapes,
@@ -396,7 +410,7 @@ def phase_ana_only(args, wl) -> tuple[dict, dict]:
     want = host_answers(wl["table"], wl["queries"])
     reset_kernel_launch_counts()
     seconds, probes = {}, {}
-    for spec in ("hopper", f"hopper@{args.islands}"):
+    for spec in ("hopper", f"hopper@{args.islands[0]}"):
         before = kernel_launch_counts().get("hash_probe", 0)
         t0 = time.perf_counter()
         res = htap.run("Ana-Only", wl["table"], queries=wl["queries"],
@@ -965,6 +979,21 @@ def phase_kernels(shapes: dict) -> dict:
             measured[name]["largest"] = with_bound(
                 measure(gen, dev, largest), largest, cost, seen[largest])
             cases += 1
+        if name in SHARDED_SCANS:
+            # the islands runs' other island counts, at the shape each
+            # launched most: an even split and an uneven one differ
+            by_count = {}
+            for shape, n in seen.items():
+                best = by_count.get(shape[0])
+                if best is None or (n, cost(shape)) > (seen[best],
+                                                       cost(best)):
+                    by_count[shape[0]] = shape
+            measured[name]["at_islands"] = {
+                str(count): with_bound(measure(gen, dev, shape), shape, cost,
+                                       seen[shape])
+                for count, shape in sorted(by_count.items())
+                if count != most[0]}
+            cases += len(by_count) - 1
     torch.cuda.synchronize()
     emit("kernels", cases=cases, tolerance=0,
          kernels=[dict(name=k, ok=True, **m) for k, m in measured.items()])
@@ -981,7 +1010,9 @@ def main(argv=None) -> int:
     ap.add_argument("--queries", type=int, default=32)
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--islands", type=int, default=4)
+    ap.add_argument("--islands", default="4,3",
+                    type=lambda s: [int(n) for n in s.split(",")],
+                    help="island counts of the islands phase, in order")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():

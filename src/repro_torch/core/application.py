@@ -20,9 +20,10 @@ The shipped entries are host records; the column lives on the analytical
 island's device. Stage 3 runs there as plain tensor indexing: the re-encode
 gather builds a NEW codes tensor and validity is cloned, so the scatters
 below write in place only into tensors this call made - the old column (and
-any snapshot aliasing it) is never touched. With several islands
-(`apply_updates_shards`) stages 1-2 run once on the replicated dictionary
-and stage 3 runs per island on its own row range.
+any snapshot aliasing it) is never touched. Islands stacked on one device
+(`hopper@N`) apply exactly this way, to the whole column: the stacked
+view of the next pinned read reshapes the result, so a per-island stage 3
+would only split the column and concatenate it back.
 
 Phase 2 of the consistency contract (§6): the function returns a *new*
 EncodedColumn with `version+1`; the caller atomically swaps the replica
@@ -35,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.backend import ShardedBackend, get_backend
-from repro_torch.core.dsm import EncodedColumn, concat_columns, shard_bounds
+from repro_torch.core.dsm import EncodedColumn
 from repro_torch.core.hwmodel import CostLog
 from repro_torch.core.schema import VALUE_BYTES
 from repro_torch.kernels.common import from_host
@@ -158,7 +159,7 @@ def precompute_apply_stages(columns, buffers, backend=None) -> dict:
     col_id -> that column's shipped update entries (shipping.ship_updates
     output). Returns {col_id: staged} to pass as `apply_updates(...,
     staged=...)`. With a ShardedBackend the stages run on the inner
-    backend, exactly as `apply_updates_shards` would. Purely a batching
+    backend (the dictionary is replicated). Purely a batching
     hint: results are bit-identical to each apply computing its own stages,
     because every batched op is exact and item-independent.
     """
@@ -171,18 +172,6 @@ def precompute_apply_stages(columns, buffers, backend=None) -> dict:
         per_column.append((columns[cid].dictionary,
                            np.concatenate([mods["value"], ins["value"]])))
     return dict(zip(ids, _merge_dictionary_stages_batch(inner, per_column)))
-
-
-def route_updates(updates: np.ndarray, bounds: list[int]) -> np.ndarray:
-    """Owning-shard id for each update, routed by row id on the host.
-
-    `bounds` are contiguous shard boundaries (dsm.shard_bounds over the
-    post-insert row count); rows at or past the last boundary (fresh
-    inserts) belong to the last shard.
-    """
-    shard = np.searchsorted(np.asarray(bounds), updates["row"],
-                            side="right") - 1
-    return np.clip(shard, 0, len(bounds) - 2)
 
 
 def _optimized_apply_cost(cost: CostLog, on_pim: bool, m: int, n: int,
@@ -235,13 +224,10 @@ def apply_updates(
     `staged`, when given, is this column's precomputed stages 1-2 entry
     from `precompute_apply_stages`; it MUST have been computed from this
     column's current dictionary and these updates' write values. A
-    ShardedBackend of several islands routes row ops to their owning
-    islands (`apply_updates_shards`); the result is bit-identical.
+    ShardedBackend runs stages 1-2 on its inner backend and stage 3 on the
+    whole column, which its islands share on one device.
     """
     be = get_backend(backend)
-    if isinstance(be, ShardedBackend) and be.n_shards > 1:
-        return concat_columns(apply_updates_shards(
-            col, updates, cost, on_pim, be, staged=staged, phase=phase))
     n, k_old = col.n_rows, col.dict_size
     mods, ins, dels = _split_ops(updates)
     write_vals = np.concatenate([mods["value"], ins["value"]])
@@ -271,82 +257,6 @@ def apply_updates(
 
     return EncodedColumn(codes=new_codes, dictionary=new_dict, valid=valid,
                          version=col.version + 1)
-
-
-def apply_updates_shards(
-    col: EncodedColumn,
-    updates: np.ndarray,
-    cost: CostLog | None = None,
-    on_pim: bool = True,
-    backend=None,
-    staged=None,
-    phase: str = "apply",
-) -> list[EncodedColumn]:
-    """Update application across N analytical islands (row-wise shards).
-
-    The dictionary is replicated across islands, so stages 1-2 run once on
-    the inner backend. Stage 3 is island-local: each update is routed to
-    its owning shard by row id on the host (`route_updates`; the updates
-    are host records), and each island re-encodes its own slice of the
-    column on the device through the shared index and scatters only its
-    own row ops (the last write per row, deletes after).
-
-    Returns the per-island shard columns in row order - the units the
-    Phase-2 swap installs all-or-none (`ConsistencyManager.
-    on_update_shards`). Their concatenation equals `apply_updates` on one
-    island, bit for bit.
-    """
-    be = get_backend(backend)
-    if not isinstance(be, ShardedBackend):
-        raise ValueError("apply_updates_shards needs a ShardedBackend "
-                         f"(got {getattr(be, 'name', be)!r}); use "
-                         "apply_updates for single-replica application")
-    inner = be.inner
-    n, k_old = col.n_rows, col.dict_size
-    mods, ins, dels = _split_ops(updates)
-    write_vals = np.concatenate([mods["value"], ins["value"]])
-    m = len(updates)
-
-    # Stages 1-2 once on the shared (replicated) dictionary - the same
-    # code path as the one-island apply, so the maps cannot drift apart.
-    update_dict, new_dict, encode, old_to_new = (
-        staged if staged is not None
-        else _merge_dictionary_stages(inner, col.dictionary, write_vals))
-    old_to_new = old_to_new.to(torch.int32)
-
-    # Stage 3 per island over the post-insert row span (inserts extend the
-    # last shards). Every island's write set is materialized first so the
-    # value->code encodes of all islands ride one `encode_values_shards`.
-    n_new = max(n, int(ins["row"].max()) + 1) if len(ins) else n
-    bounds = shard_bounds(n_new, be.n_shards)
-    owner = route_updates(updates, bounds)
-    island_ops = []
-    for s in range(be.n_shards):
-        ups_s = updates[owner == s]
-        ups_s["row"] = ups_s["row"] - bounds[s]  # island-local row ids
-        m_s, i_s, d_s = _split_ops(ups_s)
-        island_ops.append((m_s, i_s, d_s, _sorted_write_ops(m_s, i_s)))
-    write_codes = inner.encode_values_shards(
-        encode, [w["value"] for *_, w in island_ops])
-    shards = []
-    for s, ((m_s, i_s, d_s, w_s), wc) in enumerate(zip(island_ops,
-                                                       write_codes)):
-        lo, hi = bounds[s], bounds[s + 1]
-        src_lo, src_hi = min(lo, n), min(hi, n)
-        codes_s = torch.index_select(old_to_new, 0,
-                                     col.codes[src_lo:src_hi])
-        codes_s, valid_s = _grow(codes_s, col.valid[src_lo:src_hi].clone(),
-                                 hi - lo)  # rows this island gains
-        codes_s, valid_s = _apply_row_ops(codes_s, valid_s, new_dict,
-                                          m_s, i_s, d_s, encode=encode,
-                                          write_set=(w_s, wc))
-        shards.append(EncodedColumn(codes=codes_s, dictionary=new_dict,
-                                    valid=valid_s, version=col.version + 1))
-
-    if cost is not None and m:
-        _optimized_apply_cost(cost, on_pim, m, n, k_old, len(new_dict),
-                              len(update_dict), col.bit_width, phase=phase)
-    return shards
 
 
 def apply_updates_naive(

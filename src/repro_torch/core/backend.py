@@ -318,7 +318,9 @@ class ExecutionBackend(abc.ABC):
         """Encode every island's pending update values through one shared
         value->code map. Reference: one encoder call per island; the
         accelerator backend probes all islands in one launch when the
-        encoder is a hash table."""
+        encoder is a hash table. No path of the port calls it yet: stacked
+        islands apply to one shared column; a per-island apply comes with
+        mesh placement (ROADMAP.md queue 1, item 13)."""
         return [encoder(v) for v in values_list]
 
     # -- update propagation (§5) ------------------------------------------
@@ -511,10 +513,13 @@ class HopperBackend(TorchBackend):
     tensors each kernel wrapper runs its plain version, which is how the
     tests drive this class.
 
-    Lone join queries (`hash_join_count`) and `make_encoder` go through the
-    hash unit: a bucket table built over the right dictionary and one probe
-    launch per call. Query groups never reach it - their join is the fused
-    scan below.
+    Lone join queries (`hash_join_count`) go through the hash unit: a
+    bucket table built over the right dictionary and one probe launch per
+    query. Query groups never reach it - their join is the fused scan
+    below. `make_encoder` / `encode_values_shards` probe the same kind of
+    table; no path of the port calls them (ship batches encode through
+    `staged_encoder`), they stay for parity with the reference, whose
+    per-island apply batches its encodes through them.
     """
 
     name = "hopper"
@@ -593,7 +598,8 @@ class HopperBackend(TorchBackend):
 
     def make_encoder(self, dictionary):
         """value -> code through a bucket table of `dictionary` (one probe
-        launch per call). A dictionary the table cannot hold (empty, beyond
+        launch per call; no caller in the port, see the class docstring).
+        A dictionary the table cannot hold (empty, beyond
         int32, holding EMPTY_KEY) keeps the binary search, as do values
         beyond int32; a value missing from the dictionary encodes to -1."""
         d = (dictionary.cpu().numpy() if isinstance(dictionary, torch.Tensor)
@@ -878,9 +884,8 @@ class ShardedBackend(ExecutionBackend):
 
     Update propagation (log merge, dictionary sort and merge, value encode)
     and snapshots delegate to the inner backend: the dictionary is
-    replicated, so those stages run once (see
-    `application.apply_updates_shards`, which routes row ops to their
-    owning islands).
+    replicated, so those stages run once, and stage 3 of the apply runs on
+    the one column all stacked islands share (`application.apply_updates`).
     """
 
     def __init__(self, inner: str | ExecutionBackend, n_shards: int,
@@ -1045,14 +1050,13 @@ DEFAULT_BACKEND = "hopper"
 # device (leading-axis launches); "mesh" (one island per GPU) is not ported.
 PLACEMENTS = ("stacked", "mesh")
 _instances: dict[tuple[str, int, str], ExecutionBackend] = {}
-_default_n_shards = 1
 
 
 @dataclasses.dataclass(frozen=True)
 class BackendSpec:
     """``name[@N][/placement]``, parsed: ``name`` a registry key,
-    ``n_shards`` the island count (None: the default, see
-    `set_default_n_shards`), ``placement`` the island layout (None:
+    ``n_shards`` the island count (None: not given, so one island),
+    ``placement`` the island layout (None:
     "stacked"). ``str()`` gives the string form back."""
 
     name: str
@@ -1121,19 +1125,6 @@ def parse_backend_spec(spec: str | BackendSpec) -> BackendSpec:
     return BackendSpec(name, n, placement if psep else None)
 
 
-def set_default_n_shards(n: int) -> None:
-    """Set the island count used when a backend is resolved by name without
-    an explicit count (1 until set; no environment variable is read)."""
-    global _default_n_shards
-    if int(n) < 1:
-        raise ValueError(f"n_shards must be >= 1, got {n}")
-    _default_n_shards = int(n)
-
-
-def default_n_shards() -> int:
-    return _default_n_shards
-
-
 def get_backend(spec: str | BackendSpec | ExecutionBackend | None = None,
                 device=None, n_shards: int | None = None,
                 placement: str | None = None) -> ExecutionBackend:
@@ -1141,8 +1132,8 @@ def get_backend(spec: str | BackendSpec | ExecutionBackend | None = None,
     instance -> itself.
 
     ``n_shards`` > 1 (or ``"name@N"``) wraps the named backend in a
-    `ShardedBackend` of N islands stacked on one device; None defers to
-    `default_n_shards`. A counted spec with a contradicting explicit
+    `ShardedBackend` of N islands stacked on one device; with neither, one
+    island. A counted spec with a contradicting explicit
     ``n_shards`` raises, as does an instance whose island count, placement
     or device contradicts an explicit argument. ``device=None`` means the
     GPU and raises when CUDA is not available. Equal resolutions share one
@@ -1184,7 +1175,7 @@ def get_backend(spec: str | BackendSpec | ExecutionBackend | None = None,
     except KeyError:
         raise KeyError(f"unknown backend {name!r}; have {sorted(BACKENDS)}"
                        ) from None
-    n = default_n_shards() if n_shards is None else int(n_shards)
+    n = 1 if n_shards is None else int(n_shards)
     if n < 1:
         raise ValueError(f"n_shards must be >= 1, got {n} (backend spec/"
                          f"argument for {name!r})")

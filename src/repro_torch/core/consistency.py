@@ -19,8 +19,10 @@ analog is kernels/snapshot_copy. Snapshots are device tensors.
 
 With several analytical islands the scan plane reads `ShardedView`s: each
 pinned version is sharded once, at its first pinned scan read, and shared
-by every later group pinning it; a Phase-2 swap (all-or-none over the
-islands' shards, `on_update_shards`) or GC invalidates unpinned views.
+by every later group pinning it; a Phase-2 swap or GC invalidates unpinned
+views. Islands stacked on one device share one installed column, so the
+swap is the one-island pointer swap and all islands see the new round at
+once.
 """
 
 from __future__ import annotations
@@ -29,8 +31,7 @@ import dataclasses
 import itertools
 
 from repro_torch.core.backend import get_backend
-from repro_torch.core.dsm import (DSMReplica, EncodedColumn, ShardedView,
-                                  concat_columns)
+from repro_torch.core.dsm import DSMReplica, EncodedColumn, ShardedView
 from repro_torch.core.hwmodel import CostLog
 from repro_torch.core.schema import VALUE_BYTES
 
@@ -123,22 +124,6 @@ class ConsistencyManager:
             if v.readers == 0:
                 v.drop_view(f"column {col_id} was swapped out by a Phase-2 "
                             f"update (now at version {new_col.version})")
-
-    def on_update_shards(self, col_id: int,
-                         shard_cols: list[EncodedColumn]) -> None:
-        """Phase-2 pointer swap for a sharded replica, all-or-none.
-
-        The complete shard set is validated first - one shard per island,
-        one dictionary and one version (`concat_columns` rejects mixed
-        rounds) - and only then installed with a single pointer swap; on
-        any failure the replica is left untouched.
-        """
-        expected = getattr(self.backend, "n_shards", 1)
-        if len(shard_cols) != expected:
-            raise ValueError(
-                f"partial shard set for column {col_id}: got "
-                f"{len(shard_cols)} shards, backend has {expected} islands")
-        self.on_update(col_id, concat_columns(shard_cols))
 
     # -- analytical side ---------------------------------------------------
     def _snapshot(self, col_id: int) -> _Version:

@@ -399,7 +399,9 @@ def stack_shard_columns(shard_cols: list[EncodedColumn],
                         snapshot_id: int = -1) -> ShardedView:
     """Adopt per-island shard columns as a ShardedView directly (no concat
     and re-split). Shards must line up with `shard_bounds` and share one
-    dictionary and version, as in `concat_columns`."""
+    dictionary and version, as in `concat_columns`. No path of the port
+    calls it yet: stacked islands share one applied column; mesh placement
+    (ROADMAP.md queue 1, item 13) installs per-island shards this way."""
     if not shard_cols:
         raise ValueError("stack_shard_columns needs at least one shard")
     _check_same_round(shard_cols)

@@ -24,9 +24,10 @@ concurrently. This module is that contract as an API:
 The transactional island (row store, per-thread update logs) is the host;
 the analytical island's DSM replica and its snapshots live on `device`.
 Several analytical islands (``n_shards=N`` or ``backend="hopper@N"``) are
-stacked on that one device: each owns a row-wise shard, updates apply per
-island and swap all-or-none, and every query group scans all islands in
-one launch. Answers depend only on the *visibility points* (which updates
+stacked on that one device: each owns a row-wise shard of every pinned
+column (a stacked view, made once per pinned version), updates apply to
+the column the islands share and swap in one step, and every query group
+scans all islands in one launch. Answers depend only on the *visibility points* (which updates
 executed before each query), so any sub-chunking of the txn stream between
 two query batches, and the island count, are answer-neutral.
 
@@ -46,7 +47,6 @@ import numpy as np
 
 from repro_torch.core import engine
 from repro_torch.core.application import (apply_updates, apply_updates_naive,
-                                          apply_updates_shards,
                                           precompute_apply_stages)
 from repro_torch.core.backend import ExecutionBackend, get_backend
 from repro_torch.core.consistency import ConsistencyManager
@@ -103,8 +103,8 @@ class SystemSpec:
 
     Every run is `(spec, workload)`. Presets return ready specs; keyword
     overrides refine them, e.g. ``SystemSpec.polynesia(backend="torch")``.
-    ``backend=None`` means ``"hopper"``; ``n_shards=None`` the default
-    island count (`backend.set_default_n_shards`, normally 1);
+    ``backend=None`` means ``"hopper"``; ``n_shards=None`` the backend
+    spec's island count (``"hopper@4"``), else one island;
     ``timing=None`` means ``"phase"``. The fields for mesh placement, the
     delta store and async propagation are kept so that a spec reads like
     the reference's; any value other than their off position raises
@@ -490,14 +490,7 @@ class HTAPSession:
         old = self.replica.columns[col_id]
         with self.cost.tagged(node, kind, round=self.round, deps=deps,
                               col=col_id, islands=self.islands):
-            if spec.optimized_application and self.islands > 1:
-                # each island applies its own row range; the round becomes
-                # visible only as a complete shard set (all-or-none swap)
-                self.cons.on_update_shards(col_id, apply_updates_shards(
-                    old, entries, app_cost,
-                    on_pim=spec.propagation_on_pim, backend=self.be,
-                    staged=staged_col, phase=phase))
-            elif spec.optimized_application:
+            if spec.optimized_application:
                 self.cons.on_update(col_id, apply_updates(
                     old, entries, app_cost,
                     on_pim=spec.propagation_on_pim, backend=self.be,

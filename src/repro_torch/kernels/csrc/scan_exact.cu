@@ -18,7 +18,10 @@
 // few integer compares and adds per row, far below the card's integer
 // rate. So the design reads every column exactly once (the join lane rides
 // the same pass, so fcodes/fvalid are not read twice as in the two-call
-// composite), with 16-byte loads where the pointers allow it, and keeps
+// composite), with 16-byte loads where the pointers allow it (a shard
+// whose first row is not on a 16-byte boundary - any shard after the first
+// when the width is not a multiple of 4 - reads its first rows one at a
+// time up to the boundary, then 16 bytes at a time), and keeps
 // everything else out of device memory: the per-predicate sums live in
 // registers as native 64-bit integers, and the dictionary (a few hundred KB
 // at most, shared by every block) is gathered through L2, only for rows
@@ -102,6 +105,10 @@ scan_exact_kernel(const int* __restrict__ fcodes,
 
     // this block's shard: n rows at a stride of n
     const long long base = (long long)blockIdx.z * n;
+    // rows of this shard before its first 16-byte boundary (the column
+    // pointers themselves are aligned when VEC)
+    long long head = VEC ? (4 - (base & 3)) & 3 : 0;
+    if (head > n) head = n;
     fcodes += base;
     acodes += base;
     fvalid += base;
@@ -130,12 +137,17 @@ scan_exact_kernel(const int* __restrict__ fcodes,
     const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     const long long nthreads = (long long)gridDim.x * blockDim.x;
     if (VEC) {
-        const long long n4 = n >> 2;
-        const int4* f4 = reinterpret_cast<const int4*>(fcodes);
-        const int4* a4 = reinterpret_cast<const int4*>(acodes);
-        const uchar4* v4 = reinterpret_cast<const uchar4*>(fvalid);
-        const int4* j4 = reinterpret_cast<const int4*>(jcodes);
-        const uchar4* w4 = reinterpret_cast<const uchar4*>(jvalid);
+        if (tid < head)
+            acc.row(fcodes[tid], acodes[tid], fvalid[tid],
+                    JOIN ? jcodes[tid] : 0, JOIN ? jvalid[tid] : 0u, ad, rc);
+        const long long n4 = (n - head) >> 2;
+        const int4* f4 = reinterpret_cast<const int4*>(fcodes + head);
+        const int4* a4 = reinterpret_cast<const int4*>(acodes + head);
+        const uchar4* v4 = reinterpret_cast<const uchar4*>(fvalid + head);
+        const int4* j4 =
+            JOIN ? reinterpret_cast<const int4*>(jcodes + head) : nullptr;
+        const uchar4* w4 =
+            JOIN ? reinterpret_cast<const uchar4*>(jvalid + head) : nullptr;
         for (long long g = tid; g < n4; g += nthreads) {
             const int4 f = f4[g];
             const int4 a = a4[g];
@@ -151,8 +163,8 @@ scan_exact_kernel(const int* __restrict__ fcodes,
             acc.row(f.z, a.z, v.z, j.z, w.z, ad, rc);
             acc.row(f.w, a.w, v.w, j.w, w.w, ad, rc);
         }
-        // ragged tail (n % 4 rows), masked here rather than padded
-        const long long i = (n4 << 2) + tid;
+        // ragged tail (fewer than 4 rows), masked here rather than padded
+        const long long i = head + (n4 << 2) + tid;
         if (i < n)
             acc.row(fcodes[i], acodes[i], fvalid[i], JOIN ? jcodes[i] : 0,
                     JOIN ? jvalid[i] : 0u, ad, rc);
@@ -236,9 +248,9 @@ extern "C" int scan_exact(const int* fcodes, const int* acodes,
     if (n_shards > 65535 || (nq + QT - 1) / QT > 65535)
         return (int)cudaErrorInvalidValue;
     const bool join = jcodes != nullptr;
-    // 16-byte loads need every shard's first row aligned, not just the first
-    bool vec = (n_shards == 1 || width % 4 == 0) && aligned(fcodes, 16) &&
-               aligned(acodes, 16) && aligned(fvalid, 4);
+    // 16-byte loads from aligned columns; each shard steps up to its own
+    // first aligned row in the kernel
+    bool vec = aligned(fcodes, 16) && aligned(acodes, 16) && aligned(fvalid, 4);
     if (join) vec = vec && aligned(jcodes, 16) && aligned(jvalid, 4);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err;

@@ -4,10 +4,12 @@ package's `pallas@N`, on the same numpy inputs.
 Mirrors tests/test_sharded_backend.py and tests/test_sharded_view.py: the
 row partition and its round trip, the stacked ShardedView and its
 staleness, exact cross-shard reduction, the sharded operators on both port
-inners, update routing and the all-or-none Phase-2 swap, the "shard at
-pin, once per round" snapshot plane with its cached join build side, and
-every preset at N in {1, 2, 4} end to end (answers, stats, modeled seconds
-and energy). Integers and the hardware model's floats: tolerance 0.
+inners, the apply and Phase-2 swap of islands that share one column (equal
+to the reference's per-island apply, shard for shard), the "shard at pin,
+once per round" snapshot plane with its cached join build side, and every
+preset at N in {1, 2, 4} end to end (answers, final replica columns, stats,
+modeled seconds and energy). Integers and the hardware model's floats:
+tolerance 0.
 """
 
 import json
@@ -25,12 +27,10 @@ from repro.core import htap as ref_htap
 from repro.core import schema as ref_schema
 from repro_torch.core import backend as backend_mod
 from repro_torch.core import engine, htap, schema
-from repro_torch.core.application import (apply_updates, apply_updates_shards,
-                                          route_updates)
+from repro_torch.core.application import apply_updates
 from repro_torch.core.backend import (BackendSpec, ShardedBackend,
-                                      counting_kernel_calls, default_n_shards,
-                                      get_backend, parse_backend_spec,
-                                      reduce_partials, set_default_n_shards)
+                                      counting_kernel_calls, get_backend,
+                                      parse_backend_spec, reduce_partials)
 from repro_torch.core.consistency import ConsistencyManager
 from repro_torch.core.dsm import (DSMReplica, EncodedColumn, ShardedView,
                                   StaleShardedViewError, column_from_numpy,
@@ -273,20 +273,8 @@ def test_scan_group_is_one_call_whatever_the_island_count(small_workload):
 
 
 # ---------------------------------------------------------------------------
-# update routing, sharded apply, the all-or-none swap
+# apply and swap on islands that share one column
 # ---------------------------------------------------------------------------
-
-def test_route_updates_by_row_id():
-    bounds = [0, 5, 5, 10]  # middle shard is empty
-    ups = make_entries(np.arange(5, dtype=np.int64), np.ones(5, np.int8),
-                       np.zeros(5, np.int32),
-                       np.array([0, 4, 5, 9, 12], np.int64),
-                       np.zeros(5, np.int32))
-    owner = route_updates(ups, bounds)
-    np.testing.assert_array_equal(owner, [0, 0, 2, 2, 2])
-    np.testing.assert_array_equal(owner, ref_application.route_updates(
-        ups, bounds))
-
 
 def _mixed_updates(rng, n, m, domain=500):
     ops = rng.choice([1, 2, 3], size=m, p=[0.6, 0.2, 0.2]).astype(np.int8)
@@ -310,16 +298,15 @@ def test_sharded_apply_matches_the_reference(rng, inner, k):
                                                     backend=_ref(k)))
     _same_column(got, ref_application.apply_updates(rcol, ups,
                                                     backend="numpy"))
-    shards = apply_updates_shards(col, ups, backend=_sharded(inner, k))
+    # the reference applies per island; its shards are the islands' rows
+    # of the one applied column, shard for shard
     rshards = ref_application.apply_updates_shards(rcol, ups,
                                                    backend=_ref(k))
-    assert len(shards) == len(rshards) == k
-    for s, r in zip(shards, rshards):
+    assert len(rshards) == k
+    for s, r in zip(shard_column(got, k), rshards):
         _same_column(s, r)
-        assert s.dictionary is shards[0].dictionary   # replicated
-    with pytest.raises(ValueError, match="ShardedBackend"):
-        apply_updates_shards(col, ups, backend=get_backend(inner,
-                                                           device="cpu"))
+    _same_column(concat_columns(shard_column(got, k)),
+                 ref_dsm.concat_columns(rshards))
 
 
 def test_shard_emptied_by_deletes_still_exact(rng):
@@ -340,27 +327,34 @@ def test_shard_emptied_by_deletes_still_exact(rng):
 
 
 def test_per_shard_swap_all_or_none(rng):
+    """One swap installs the new round for every island at once: a view
+    pinned before it sees none of the batch on any island, a view pinned
+    after it sees all of it on every island."""
     table = rng.integers(0, 50, size=(900, 2)).astype(np.int32)
     rep = DSMReplica.from_table(table, device="cpu")
     be = _sharded("hopper", 3)
     cons = ConsistencyManager(rep, backend=be)
     old = rep.columns[0]
-    ups = make_entries(np.array([0], np.int64), np.array([1], np.int8),
-                       np.array([77777], np.int32), np.array([5], np.int64),
-                       np.array([0], np.int32))
-    shards = apply_updates_shards(old, ups, backend=be)
-    with pytest.raises(ValueError, match="partial shard set"):
-        cons.on_update_shards(0, shards[:2])
-    assert rep.columns[0] is old
-    with pytest.raises(ValueError):
-        cons.on_update_shards(0, shards[:2] + [shard_column(old, 3)[2]])
-    assert rep.columns[0] is old
+    rows = np.array([5, 305, 899], np.int64)     # one row on each island
+    ups = make_entries(np.arange(3, dtype=np.int64), np.ones(3, np.int8),
+                       np.full(3, 77777, np.int32), rows,
+                       np.zeros(3, np.int32))
+    h_old = cons.begin_query([0])
+    before = cons.read_scan(h_old, 0)
     cons.chains[0].dirty = False
-    cons.on_update_shards(0, shards)
-    assert cons.chains[0].dirty
-    h = cons.begin_query([0])
-    assert int(decode_column(cons.read(h, 0))[5]) == 77777
-    cons.end_query(h)
+    cons.on_update(0, apply_updates(old, ups, backend=be))
+    assert cons.chains[0].dirty and rep.columns[0] is not old
+    h_new = cons.begin_query([0])
+    after = cons.read_scan(h_new, 0)
+    for s, row in enumerate(rows):
+        local = int(row) - after.bounds[s]
+        assert int(after.dictionary[after.codes[s, local]]) == 77777
+        assert int(before.dictionary[before.codes[s, local]]) == \
+            int(table[row, 0])
+    assert be.filter_agg(after, after, 77777, 77777) == (3 * 77777, 3)
+    assert be.filter_agg(before, before, 77777, 77777) == (0, 0)
+    cons.end_query(h_old)
+    cons.end_query(h_new)
 
 
 # ---------------------------------------------------------------------------
@@ -491,18 +485,63 @@ def workload():
     return _workload(schema, engine)
 
 
+def _run_keeping_session(htap_mod, *args, **kwargs):
+    """`htap_mod.run(*args, **kwargs)`, returning the RunResult and the
+    finished session (its final replica columns are read afterwards)."""
+    made = []
+
+    class Kept(htap_mod.HTAPSession):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(htap_mod, "HTAPSession", Kept)
+        result = htap_mod.run(*args, **kwargs)
+    [session] = made
+    return result, session
+
+
+def _final_columns(session) -> dict:
+    """{col_id: (codes, dictionary, valid, version)} as numpy, or {} for a
+    system without an analytical replica (Ideal-Txn)."""
+    replica = getattr(session, "replica", None)
+    if replica is None:
+        return {}
+    out = {}
+    for c, col in replica.columns.items():
+        if isinstance(col.codes, torch.Tensor):
+            out[c] = column_to_numpy(col)
+        else:
+            out[c] = (np.asarray(col.codes), np.asarray(col.dictionary),
+                      np.asarray(col.valid), col.version)
+    return out
+
+
+def _same_final_columns(got: dict, want: dict) -> None:
+    assert got.keys() == want.keys()
+    for c, (codes, dictionary, valid, version) in want.items():
+        g = got[c]
+        np.testing.assert_array_equal(g[0], codes)
+        np.testing.assert_array_equal(g[1], dictionary)
+        np.testing.assert_array_equal(g[2], valid)
+        assert g[3] == version
+
+
 @pytest.fixture(scope="module")
 def ref_runs():
+    """(RunResult, final replica columns) of the reference's pallas@N."""
     table, stream, queries = _workload(ref_schema, ref_engine)
     cache = {}
 
     def get(name, n, n_rounds=4):
         if (name, n, n_rounds) not in cache:
-            cache[name, n, n_rounds] = ref_htap.run(
-                name, table, stream, queries, n_rounds=n_rounds,
+            result, session = _run_keeping_session(
+                ref_htap, name, table, stream, queries, n_rounds=n_rounds,
                 backend="pallas", n_shards=n, placement="stacked",
                 timing="phase",
                 delta_store=False if name in ref_htap.PRESETS else None)
+            cache[name, n, n_rounds] = (result, _final_columns(session))
         return cache[name, n, n_rounds]
     return get
 
@@ -512,10 +551,13 @@ def ref_runs():
 @pytest.mark.parametrize("name", PRESETS)
 def test_presets_match_reference_islands(workload, ref_runs, name, n, inner):
     table, stream, queries = workload
-    got = htap.run(name, table, stream, queries, n_rounds=4, backend=inner,
-                   n_shards=n, device="cpu")
-    ref = ref_runs(name, n)
+    got, session = _run_keeping_session(htap, name, table, stream, queries,
+                                        n_rounds=4, backend=inner,
+                                        n_shards=n, device="cpu")
+    ref, ref_cols = ref_runs(name, n)
     assert got.results == [int(a) for a in ref.results]
+    _same_final_columns(_final_columns(session), ref_cols)
+    assert (name == "Ideal-Txn") == (not ref_cols)
     assert (got.name, got.n_txn, got.n_ana) == (ref.name, ref.n_txn, ref.n_ana)
     assert got.txn_seconds == ref.txn_seconds
     assert got.ana_seconds == ref.ana_seconds
@@ -534,6 +576,25 @@ def test_islands_reproduce_the_golden_answers(workload, spec):
         res = htap.run(name, table, stream, queries, backend=spec,
                        device="cpu")
         assert res.results == GOLDEN[name], name
+
+
+@pytest.mark.parametrize("inner", INNERS)
+def test_uneven_islands_equal_one_island(workload, inner):
+    """Three islands over 4,000 rows leave a padded slot in two of them;
+    answers and final columns equal the one-island session's, and every
+    pinned column was sharded into a padded stacked view."""
+    table, stream, queries = workload
+    one, one_session = _run_keeping_session(
+        htap, "Polynesia", table, stream, queries, n_rounds=4,
+        backend=inner, device="cpu")
+    three, session = _run_keeping_session(
+        htap, "Polynesia", table, stream, queries, n_rounds=4,
+        backend=f"{inner}@3", device="cpu")
+    assert three.results == one.results
+    _same_final_columns(_final_columns(session), _final_columns(one_session))
+    assert three.stats["sharded_views"] > 0
+    view = make_sharded_view(session.replica.columns[0], 3)
+    assert view.width * 3 > view.n_rows == ROWS
 
 
 def test_island_sessions_keep_the_one_island_launch_count(workload):
@@ -619,18 +680,16 @@ def test_get_backend_islands_and_conflicts():
         BackendSpec("hopper", 0)
 
 
-def test_default_n_shards_roundtrip():
-    old = default_n_shards()
-    try:
-        set_default_n_shards(3)
-        be = get_backend("torch", device="cpu")
-        assert isinstance(be, ShardedBackend) and be.n_shards == 3
-        assert get_backend("torch", device="cpu", n_shards=1).n_shards == 1
-    finally:
-        set_default_n_shards(old)
-    assert default_n_shards() == old == 1
-    with pytest.raises(ValueError):
-        set_default_n_shards(0)
+def test_absent_island_count_means_one_island(monkeypatch):
+    """No process-wide default and no environment variable: without a
+    count in the spec or the argument a backend is one island."""
+    monkeypatch.setenv("REPRO_SHARDS", "4")
+    for name in ("torch", "hopper"):
+        be = get_backend(name, device="cpu")
+        assert not isinstance(be, ShardedBackend) and be.n_shards == 1
+        assert get_backend(name, device="cpu", n_shards=None) is be
+    assert SystemSpec.polynesia(backend="torch").n_shards is None
+    assert not hasattr(backend_mod, "set_default_n_shards")
 
 
 def test_island_delta_operators_name_their_roadmap_item(rng):
