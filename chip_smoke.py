@@ -23,11 +23,22 @@ Drives `repro_torch` only. Phases, each printing one JSON line:
                  for bit (and the host evaluation every round); the sharded
                  scan and sharded join scan must carry every query group,
                  one launch per group as on one island.
-5. ``ana_only``  the `Ana-Only` preset at the same size on ``"hopper"`` and
+5. ``delta``     the same session on the delta-store update plane
+                 (``delta_store=True``, compaction every
+                 ``--delta-capacity`` appended entries), once per count of
+                 ``--delta-islands`` (1, then 4), one line per run: answers
+                 must equal the eager one-island session's (and the host
+                 evaluation every round), and the final columns, each
+                 decoded with its live overlay folded in, its values and
+                 validity; the query groups must have gone through the
+                 fused delta kernels with a non-empty correction stack (the
+                 group scan and the join group scan on one island, the
+                 sharded group scan and the values delta on islands).
+6. ``ana_only``  the `Ana-Only` preset at the same size on ``"hopper"`` and
                  ``"hopper@4"`` (the first island count): lone join queries
                  go through the bucket probe; answers must equal the host
                  evaluation.
-6. ``kernels``   every hand-written kernel launched on the card and held
+7. ``kernels``   every hand-written kernel launched on the card and held
                  against its plain PyTorch version with exact equality
                  (integers: tolerance 0), at edge shapes and at the shapes
                  the main path just gave it (the one it launched most, and
@@ -37,16 +48,21 @@ Drives `repro_torch` only. Phases, each printing one JSON line:
                  (``ms``: back-to-back bare launches; ``wrapper_ms``:
                  through the public wrapper with its checks and
                  allocations), the plain version and, where one PyTorch
-                 call computes the same function, that call.
+                 call computes the same function, that call; for the delta
+                 groups also the same launch without the correction lane
+                 (``base_ms``).
 
 Each kernel is checked against the path that runs it (counts set to 0 just
 before the path, read just after): the one-island kernels against
-``main_path``, the sharded scans against ``islands``, the bucket probe
-against ``ana_only``. Then the ``{"kernels": [...]}`` summary, the card's
-name and power limit, and as the last line ``{"ok": true, "device":
-{...}}``. Any failed phase
-raises: the script exits non-zero and prints no result. Without CUDA it
-exits with code 2 before doing anything.
+``main_path``, the sharded scans against ``islands``, the delta kernels
+against ``delta``, the bucket probe against ``ana_only``. The raw-value
+scan has no caller on these paths (nor in the reference's kernel backend):
+it is the values delta's kernel over a 3-row stack and is held and timed
+beside it, under ``raw_value_scan``. Then the ``{"kernels": [...]}``
+summary, the card's name and power limit, and as the last line ``{"ok":
+true, "device": {...}}``. Any failed phase raises: the script exits
+non-zero and prints no result. Without CUDA it exits with code 2 before
+doing anything.
 """
 
 from __future__ import annotations
@@ -83,6 +99,15 @@ REPLACES = {
     "bitonic_apply": "src/repro/kernels/dict_ops/ops.py:310 "
                      "(bitonic_sort.py:103 + bitonic_sort.py:123)",
     "snapshot_copy": "src/repro/kernels/snapshot_copy/snapshot_copy.py:54",
+    "scan_exact_group": "src/repro/kernels/dict_ops/ops.py:372 "
+                        "(dict_ops.py:63 + 2 x dict_ops.py:176)",
+    "scan_exact_group_sharded": "src/repro/kernels/dict_ops/ops.py:414 "
+                                "(dict_ops.py:121 + 2 x dict_ops.py:176)",
+    "scan_exact_join_group": "src/repro/kernels/hash_probe/ops.py:383 "
+                             "(2 x dict_ops.py:63 + 4 x dict_ops.py:176)",
+    "scan_values_delta": "src/repro/kernels/dict_ops/ops.py:453 "
+                         "(2 x dict_ops.py:176; the raw-value scan "
+                         "dict_ops.py:176 alone is raw_value_scan)",
 }
 SOURCES = {
     "scan_exact": "src/repro_torch/kernels/csrc/scan_exact.cu",
@@ -94,11 +119,17 @@ SOURCES = {
     "bitonic_sort": "src/repro_torch/kernels/csrc/bitonic.cu",
     "bitonic_apply": "src/repro_torch/kernels/csrc/bitonic.cu",
     "snapshot_copy": "src/repro_torch/kernels/csrc/snapshot_copy.cu",
+    "scan_exact_group": "src/repro_torch/kernels/csrc/scan_exact.cu",
+    "scan_exact_group_sharded": "src/repro_torch/kernels/csrc/scan_exact.cu",
+    "scan_exact_join_group": "src/repro_torch/kernels/csrc/scan_exact.cu",
+    "scan_values_delta": "src/repro_torch/kernels/csrc/scan_exact.cu",
 }
 # the path that runs each kernel: its launches are counted on that path
 PATH_OF = {"scan_exact_sharded": "islands",
-           "scan_exact_join_sharded": "islands", "hash_probe": "ana_only"}
-I32_MAX = 2**31 - 1
+           "scan_exact_join_sharded": "islands", "hash_probe": "ana_only",
+           "scan_exact_group": "delta", "scan_exact_group_sharded": "delta",
+           "scan_exact_join_group": "delta", "scan_values_delta": "delta"}
+I32_MIN, I32_MAX = -2**31, 2**31 - 1
 
 
 def emit(phase: str, **fields) -> None:
@@ -279,10 +310,10 @@ def same_columns(got: dict, want: dict, what: str) -> None:
             raise AssertionError(f"final column {c} differs: {what}")
 
 
-def phase_main_path(args, wl) -> tuple[dict, dict, list, dict]:
+def phase_main_path(args, wl) -> tuple[dict, dict, list, dict, list]:
     """Returns the launches per kernel and, per kernel, the launches each
     shape got, both of the `hopper` session alone, and that session's
-    answers and final columns."""
+    answers, final columns and round seconds."""
     from repro_torch.core.session import SystemSpec
     from repro_torch.kernels.common import (kernel_launch_counts,
                                             kernel_launch_shapes,
@@ -333,7 +364,7 @@ def phase_main_path(args, wl) -> tuple[dict, dict, list, dict]:
          peak_device_bytes=peak, modeled_txn_seconds=result.txn_seconds,
          modeled_ana_seconds=result.ana_seconds,
          answers_checksum=sum(answers), ok=True)
-    return launches, shapes, answers, cols
+    return launches, shapes, answers, cols, seconds
 
 
 SCANS = ("scan_exact", "scan_exact_join")
@@ -393,6 +424,99 @@ def phase_islands(args, wl, one_launches, one_answers, one_cols
              one_island_scan_launches=one_scans,
              sharded_views=stats["sharded_views"],
              views_shared=stats["views_shared"],
+             modeled_ana_seconds=result.ana_seconds,
+             answers_checksum=sum(answers), ok=True)
+        del session
+    return kernel_launch_counts(), kernel_launch_shapes()
+
+
+# rows of the correction stack(s) of a delta kernel's launch, from the shape
+# its wrapper recorded
+STACK_ROWS = {"scan_exact_group": lambda s: s[-1],
+              "scan_exact_group_sharded": lambda s: s[-1],
+              "scan_exact_join_group": lambda s: s[-2] + s[-1],
+              "scan_values_delta": lambda s: s[0]}
+# the delta kernels that must carry query groups with a non-empty stack:
+# on one island, and on several
+DELTA_ONE = ("scan_exact_group", "scan_exact_join_group")
+DELTA_ISLANDS = ("scan_exact_group_sharded", "scan_values_delta")
+
+
+def folded_columns(session) -> dict:
+    """Each final column decoded, with its live overlay folded in:
+    {col: (values, valid)} on the card."""
+    out = {}
+    for c, col in session.replica.columns.items():
+        vals = col.dictionary[col.codes.long()].clone()
+        valid = col.valid.clone()
+        d = session._deltas.get(c)
+        if d is not None and d.n_overlay:
+            rows, dvals, dvalid = d.on(col.device)
+            vals[rows] = dvals.to(vals.dtype)
+            valid[rows] = dvalid
+        out[c] = (vals, valid)
+    return out
+
+
+def phase_delta(args, wl, one_answers, one_cols, one_seconds
+                ) -> tuple[dict, dict]:
+    """The main path on the delta-store plane, once per count of
+    `args.delta_islands`; returns the launches and launch shapes of all its
+    runs."""
+    from repro_torch.core.session import SystemSpec
+    from repro_torch.kernels.common import (kernel_launch_counts,
+                                            kernel_launch_shapes,
+                                            reset_kernel_launch_counts)
+    want = {c: (col.dictionary[col.codes.long()], col.valid)
+            for c, col in one_cols.items()}
+    reset_kernel_launch_counts()
+    for n in args.delta_islands:
+        before, shapes_before = kernel_launch_counts(), kernel_launch_shapes()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        answers, seconds, session, result = drive_spec(
+            SystemSpec.polynesia(backend="hopper", n_shards=n,
+                                 delta_store=True,
+                                 delta_capacity=args.delta_capacity),
+            wl, args, check_host=True)
+        after, shapes_after = kernel_launch_counts(), kernel_launch_shapes()
+        launches = {k: v - before.get(k, 0) for k, v in after.items()
+                    if v != before.get(k, 0)}
+        peak = torch.cuda.max_memory_allocated()
+
+        if answers != one_answers:
+            raise AssertionError(f"delta plane on {n} island(s): answers "
+                                 f"{answers} != eager answers {one_answers}")
+        for c, (vals, valid) in folded_columns(session).items():
+            if not (torch.equal(vals, want[c][0])
+                    and torch.equal(valid, want[c][1])):
+                raise AssertionError(f"delta plane on {n} island(s): final "
+                                     f"column {c} with its overlay folded "
+                                     "differs from the eager column")
+        stack_rows = {}
+        for k, rows_of in STACK_ROWS.items():
+            run = {s: m - shapes_before.get(k, {}).get(s, 0)
+                   for s, m in shapes_after.get(k, {}).items()}
+            stack_rows[k] = sum(rows_of(s) * m for s, m in run.items())
+        need = DELTA_ONE if n == 1 else DELTA_ISLANDS
+        missing = [k for k in need if stack_rows[k] < 1]
+        if missing:
+            raise AssertionError(f"delta plane on {n} island(s): no query "
+                                 f"group went through {missing} with a "
+                                 f"non-empty stack (launches {launches})")
+        stats = result.stats
+        total = sum(seconds)
+        emit("delta", islands=n, capacity=session.delta_capacity,
+             round_seconds=seconds, eager_round_seconds=one_seconds,
+             txns_per_s=(args.txns + 1) / total,
+             queries_per_s=len(answers) / total,
+             delta_appends=stats["delta_appends"],
+             compactions=stats["compactions"],
+             delta_live_entries=stats["delta_live_entries"],
+             applications=stats["applications"],
+             peak_device_bytes=peak, held_device_bytes=held,
+             launches=launches, stack_rows_scanned=stack_rows,
+             modeled_txn_seconds=result.txn_seconds,
              modeled_ana_seconds=result.ana_seconds,
              answers_checksum=sum(answers), ok=True)
         del session
@@ -927,6 +1051,186 @@ def measure_snapshot(gen, dev, shape) -> dict:
         library_ms=time_ms(lambda: torch.where(mask, src, prev), 20))
 
 
+def values_cost(shape, rows=6):
+    """(nr, Q): the stack read once, bounds in, (2, Q) int64 out; per row
+    and predicate two compares, a select and an add per triple."""
+    nr, nq = shape
+    return nr * rows * 4 + nq * 8 + 2 * nq * 8, nr * nq * 4 * (rows // 3)
+
+
+def group_cost(shape, kind):
+    """The base scan's cost plus the correction lane's over its stack(s)
+    and the output's one more row."""
+    if kind == "flat":
+        *base, nr = shape
+        nbytes, ops = scan_cost(tuple(base), False)
+        stacks = (nr,)
+    elif kind == "sharded":
+        *base, nr = shape
+        nbytes, ops = scan_sharded_cost(tuple(base), False)
+        stacks = (nr,)
+    else:
+        *base, nr_a, nr_j = shape
+        nbytes, ops = scan_cost(tuple(base), True)
+        stacks = (nr_a, nr_j)
+    nq = base[-1]
+    for nr in stacks:
+        b, o = values_cost((nr, nq))
+        nbytes, ops = nbytes + b - 2 * nq * 8, ops + o
+    return nbytes + (3 if kind == "join" else 2) * nq * 8, ops
+
+
+EDGE_VBOUNDS = [(I32_MIN, I32_MAX), (5, -5), (0, I32_MAX), (-1000, 1000),
+                (I32_MIN, I32_MIN), (-7, 7), (100, 900), (-900, -100), (0, 0)]
+
+
+def corr_stack(gen, dev, rows, nr, lo=-1000, hi=1000, extremes=True):
+    """A (rows, nr) int32 correction stack: values in [lo, hi) (and the
+    int32 ends), validity lanes 0/1."""
+    x = torch.randint(lo, hi, (rows, nr), generator=gen, device=dev,
+                      dtype=torch.int32)
+    if extremes and nr:
+        x[0, 0], x[1, 0] = I32_MIN, I32_MAX
+        if rows == 6:
+            x[3, 0], x[4, 0] = I32_MAX, I32_MIN
+    for r in (2, 5)[:rows // 3]:
+        x[r] = torch.rand(nr, generator=gen, device=dev) < 0.8
+    return x
+
+
+def edge_delta(gen, dev) -> int:
+    """The correction lane alone (3- and 6-row stacks) and fused with the
+    flat, the sharded (3 and 4 islands, padded slots) and the join scans:
+    stacks of 0, 1, 3 and 4097 rows, negative and int32-extreme values,
+    empty ranges, hi = int32.max, Q of 1, 3 and 9 (two predicate
+    slices)."""
+    from repro_torch.kernels.dict_ops import (scan_exact_group,
+                                              scan_exact_group_ref,
+                                              scan_values_exact,
+                                              scan_values_exact_ref)
+    cases = 0
+    n, k = 65_537, 40
+    f, a, j, fv, jv, ad, rc = scan_inputs(gen, n, k, k, k, dev)
+    for nr in (0, 1, 3, 4097):
+        for nq in (1, 3, 9):
+            vb = EDGE_VBOUNDS[-nq:] if nq == 3 else EDGE_VBOUNDS[:nq]
+            for rows in (3, 6):
+                st = corr_stack(gen, dev, rows, nr)
+                must_equal(f"values lane {rows}x{nr} Q={nq}",
+                           scan_values_exact(st, vb),
+                           scan_values_exact_ref(st, vb))
+                cases += 1
+            bounds = [(0, k)] + [(i % k, i % k + 1 + i % 7)
+                                 for i in range(nq - 1)]
+            ca = corr_stack(gen, dev, 6, nr)
+            cj = corr_stack(gen, dev, 6, nr + 2 if nr else 0, 0, 5000)
+            off = nr % 2                        # odd: unaligned pointers
+            args = (f[off:], a[off:], fv[off:], ad, bounds, ca, vb)
+            must_equal(f"group nr={nr} Q={nq}", scan_exact_group(*args),
+                       scan_exact_group_ref(*args))
+            jargs = args + (j[off:], jv[off:], rc, cj)
+            must_equal(f"join group nr={nr} Q={nq}",
+                       scan_exact_group(*jargs), scan_exact_group_ref(*jargs))
+            for sizes in ((21_846, 21_846, 21_845), (16_385,) * 4):
+                m = sum(sizes)
+                lay = [stacked(t[:m], sizes) for t in (f, a, fv)]
+                sargs = (lay[0], lay[1], lay[2], ad, bounds, ca, vb)
+                must_equal(f"sharded group {len(sizes)} nr={nr} Q={nq}",
+                           scan_exact_group(*sargs),
+                           scan_exact_group_ref(*sargs))
+            cases += 4
+    return cases
+
+
+def delta_vbounds(nq):
+    """Q inclusive ranges over the workload's value domain, ~30 % each."""
+    dom = 1 << 24
+    return [((q * dom) // (nq + 1), (q * dom) // (nq + 1) + 3 * dom // 10)
+            for q in range(nq)]
+
+
+def measure_group(gen, dev, shape, kind) -> dict:
+    """At a recorded shape: the fused kernel (`ms`, the bare launch), the
+    same launch without the correction lane (`base_ms`: the flat, sharded
+    or join scan alone over the same columns), the wrapper and the plain
+    version."""
+    from repro_torch.kernels.dict_ops import (launch_scan_exact,
+                                              scan_exact_group,
+                                              scan_exact_group_ref)
+    join = kind == "join"
+    if kind == "sharded":
+        n_shards, width, k, nq, nr = shape
+        n = n_shards * width
+    elif join:
+        n, k, kj, nq, nr, nr_j = shape
+    else:
+        n, k, nq, nr = shape
+    f, a, j, fv, jv, ad, rc = scan_inputs(gen, n, k, k, kj if join else 1,
+                                          dev, invalid=0.0)
+    if kind == "sharded":
+        f, a, fv = (t.reshape(n_shards, width) for t in (f, a, fv))
+    span = max(1, 3 * k // 10)
+    bounds = [((q * k) // (nq + 1), (q * k) // (nq + 1) + span)
+              for q in range(nq)]
+    vb = delta_vbounds(nq)
+    ca = corr_stack(gen, dev, 6, nr, 0, 1 << 24, extremes=False)
+    extra = ()
+    if join:
+        extra = (j, jv, rc, corr_stack(gen, dev, 6, nr_j, 0, 1 << 24,
+                                       extremes=False))
+    args = (f, a, fv, ad, bounds, ca, vb) + extra
+    err = must_equal(f"{kind} group {shape}", scan_exact_group(*args),
+                     scan_exact_group_ref(*args))
+    slices = 1 if f.dim() == 1 else f.shape[0]
+    lanes = 3 if join else 2
+    res = torch.zeros((slices + 1, lanes, nq), dtype=torch.int64, device=dev)
+    base_res = torch.zeros((slices, lanes, nq), dtype=torch.int64,
+                           device=dev)
+    barr = torch.tensor(bounds, dtype=torch.int32, device=dev)
+    vbarr = torch.tensor(vb, dtype=torch.int32, device=dev)
+    cols = (f, a, fv.view(torch.uint8), ad, barr)
+    jl = (j, jv.view(torch.uint8), rc) if join else ()
+    return dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: launch_scan_exact(
+            *cols, res, *jl, corr_a=ca, corr_j=extra[3] if join else None,
+            vbounds_dev=vbarr), 50),
+        base_ms=time_ms(lambda: launch_scan_exact(*cols, base_res, *jl), 50),
+        wrapper_ms=time_ms(lambda: scan_exact_group(*args), 20),
+        plain_ms=time_ms(lambda: scan_exact_group_ref(*args), 3),
+        library_ms=None)
+
+
+def measure_values(gen, dev, shape, rows) -> dict:
+    from repro_torch.kernels.dict_ops import (launch_scan_exact,
+                                              scan_values_exact,
+                                              scan_values_exact_ref)
+    nr, nq = shape
+    st = corr_stack(gen, dev, rows, nr, 0, 1 << 24, extremes=False)
+    vb = delta_vbounds(nq)
+    err = must_equal(f"values lane {rows}x{shape}", scan_values_exact(st, vb),
+                     scan_values_exact_ref(st, vb))
+    res = torch.zeros((1, 2, nq), dtype=torch.int64, device=dev)
+    vbarr = torch.tensor(vb, dtype=torch.int32, device=dev)
+    return dict(max_abs_err=err,
+                ms=time_ms(lambda: launch_scan_exact(
+                    None, None, None, None, None, res, corr_a=st,
+                    vbounds_dev=vbarr), 200),
+                wrapper_ms=time_ms(lambda: scan_values_exact(st, vb), 200),
+                plain_ms=time_ms(lambda: scan_values_exact_ref(st, vb), 20),
+                library_ms=None)
+
+
+def measure_values_delta(gen, dev, shape) -> dict:
+    """The values delta at its recorded shape; beside it the raw-value scan
+    (the same kernel over a 3-row stack), which no path launches, at the
+    same made-up shape."""
+    m = measure_values(gen, dev, shape, 6)
+    m["raw_value_scan"] = with_bound(measure_values(gen, dev, shape, 3),
+                                     shape, lambda s: values_cost(s, 3), 0)
+    return m
+
+
 # kernel name -> (cost of one launch at a shape, measurement at a shape)
 KERNELS = {
     "scan_exact": (lambda s: scan_cost(s, False),
@@ -944,6 +1248,14 @@ KERNELS = {
     "bitonic_sort": (sort_cost, measure_sort),
     "bitonic_apply": (apply_cost, measure_apply),
     "snapshot_copy": (snapshot_cost, measure_snapshot),
+    "scan_exact_group": (lambda s: group_cost(s, "flat"),
+                         lambda g, d, s: measure_group(g, d, s, "flat")),
+    "scan_exact_group_sharded": (
+        lambda s: group_cost(s, "sharded"),
+        lambda g, d, s: measure_group(g, d, s, "sharded")),
+    "scan_exact_join_group": (lambda s: group_cost(s, "join"),
+                              lambda g, d, s: measure_group(g, d, s, "join")),
+    "scan_values_delta": (values_cost, measure_values_delta),
 }
 
 
@@ -966,7 +1278,8 @@ def phase_kernels(shapes: dict) -> dict:
     gen.manual_seed(0)
     cases = (edge_scan(gen, dev) + edge_scan_sharded(gen, dev)
              + edge_probe(gen, dev) + edge_merge(gen, dev)
-             + edge_bitonic(gen, dev) + edge_snapshot(gen, dev))
+             + edge_bitonic(gen, dev) + edge_snapshot(gen, dev)
+             + edge_delta(gen, dev))
     measured = {}
     for name, (cost, measure) in KERNELS.items():
         seen = shapes[name]
@@ -1013,6 +1326,11 @@ def main(argv=None) -> int:
     ap.add_argument("--islands", default="4,3",
                     type=lambda s: [int(n) for n in s.split(",")],
                     help="island counts of the islands phase, in order")
+    ap.add_argument("--delta-islands", default="1,4",
+                    type=lambda s: [int(n) for n in s.split(",")],
+                    help="island counts of the delta phase, in order")
+    ap.add_argument("--delta-capacity", type=int, default=4096,
+                    help="appended entries per column between compactions")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1029,9 +1347,11 @@ def main(argv=None) -> int:
     phase_build()
     wl = make_workload(args)
     runs = {}
-    main_launches, main_shapes, answers, cols = phase_main_path(args, wl)
+    main_launches, main_shapes, answers, cols, seconds = phase_main_path(
+        args, wl)
     runs["main_path"] = (main_launches, main_shapes)
     runs["islands"] = phase_islands(args, wl, main_launches, answers, cols)
+    runs["delta"] = phase_delta(args, wl, answers, cols, seconds)
     del cols
     runs["ana_only"] = phase_ana_only(args, wl)
     # every kernel's launches and shapes from the path that runs it

@@ -28,6 +28,12 @@ would only split the column and concatenate it back.
 Phase 2 of the consistency contract (§6): the function returns a *new*
 EncodedColumn with `version+1`; the caller atomically swaps the replica
 pointer, so analytics never observe a half-applied column.
+
+The delta-store plane (`apply_updates_delta`) leaves the column alone: a
+batch that only modifies or deletes existing rows collapses to one overlay
+entry per row and merges into the column's sorted `ColumnDelta` (on the
+merge unit on the accelerator backend); `compaction_entries` later folds
+the overlay back through `apply_updates`.
 """
 
 from __future__ import annotations
@@ -35,16 +41,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.backend import ShardedBackend, get_backend
-from repro_torch.core.dsm import EncodedColumn
+from repro_torch.core.backend import (HopperBackend, ShardedBackend,
+                                      get_backend)
+from repro_torch.core.dsm import ColumnDelta, EncodedColumn
 from repro_torch.core.hwmodel import CostLog
+from repro_torch.core.nsm import UPDATE_DTYPE
 from repro_torch.core.schema import VALUE_BYTES
 from repro_torch.kernels.common import from_host
+from repro_torch.kernels.merge_runs import merge_sorted_runs
 
 # software (CPU) costs for the same steps, for the MI baseline
 CPU_CYCLES_PER_CMP = 8.0
 CPU_CYCLES_PER_LOOKUP = 30.0   # random dictionary access (cache-missing)
 CPU_CYCLES_PER_SCAN_ITEM = 3.0
+# One delta-overlay entry: row id (8) + value (4) + cid (8) + valid/pad (4)
+DELTA_ENTRY_BYTES = 24
 # Soft partitioning (§5.1, [49,51,62]): columns are partitioned so the
 # dictionary/hash-table working set stays bounded; an update batch touches
 # only the partitions containing its rows, so (de)compression cost scales
@@ -320,3 +331,206 @@ def apply_updates_naive(
     return EncodedColumn(codes=new_codes,
                          dictionary=new_dict.to(col.dictionary.dtype),
                          valid=valid, version=col.version + 1)
+
+
+# ---------------------------------------------------------------------------
+# Delta-store update plane: append-only overlay + background compaction
+# ---------------------------------------------------------------------------
+
+def delta_eligible(updates: np.ndarray, n_base: int) -> bool:
+    """A batch can ride the delta overlay iff it only modifies/deletes
+    EXISTING base rows. Inserts (op 2) and writes past the base row count
+    would change the column length, which the overlay algebra does not
+    model - those batches fall back to compact-then-eager-apply."""
+    if len(updates) == 0:
+        return True
+    if np.any(updates["op"] == 2):
+        return False
+    return int(updates["row"].max()) < n_base
+
+
+def _base_values(col: EncodedColumn, rows: np.ndarray) -> np.ndarray:
+    """The column's raw values at host row ids, gathered on its device
+    (one small device-to-host copy, never the column)."""
+    idx = torch.from_numpy(np.ascontiguousarray(rows, dtype=np.int64)).to(
+        col.device)
+    return col.dictionary[col.codes[idx].long()].cpu().numpy().astype(
+        np.int32)
+
+
+def apply_updates_delta(
+    col: EncodedColumn,
+    delta: ColumnDelta,
+    updates: np.ndarray,
+    cost: CostLog | None = None,
+    on_pim: bool = True,
+    backend=None,
+) -> ColumnDelta:
+    """Append a shipped update batch to the column's delta overlay.
+
+    Instead of the two-stage rebuild (`apply_updates`), the batch collapses
+    to one overlay entry per touched row (last-writer-wins, reproducing
+    `_apply_row_ops`' writes-then-deletes batch semantics) and merges into
+    the sorted overlay keyed by row id - on the merge unit
+    (kernels/merge_runs) on the accelerator backend. Work is O(m + d),
+    never O(n): the base column is untouched (delete-only rows read their
+    current value with one small gather on the device). Scans see the
+    batch through the query-time correction (engine.run_query_group_dsm)
+    and compaction later folds the overlay into the base
+    (`compaction_entries` -> `apply_updates`).
+
+    Requires `delta_eligible(updates, delta.n_base)`; raises ValueError
+    otherwise. Returns the NEW overlay (the caller swaps the pointer).
+    """
+    if not delta_eligible(updates, delta.n_base):
+        raise ValueError(
+            "update batch has inserts or rows past the overlay's base row "
+            "count; compact the overlay and use the eager apply instead")
+    m = len(updates)
+    if m == 0:
+        return delta
+    be = get_backend(backend)
+    inner = be.inner if isinstance(be, ShardedBackend) else be
+
+    mods = updates[updates["op"] == 1]
+    dels = updates[updates["op"] == 3]
+    # commit order within the batch (ship buffers are commit-ordered per
+    # column already; sort defensively, as _sorted_write_ops does)
+    if len(mods):
+        mods = mods[np.argsort(mods["commit_id"], kind="stable")]
+    if len(dels):
+        dels = dels[np.argsort(dels["commit_id"], kind="stable")]
+
+    rows_b = np.unique(np.concatenate([mods["row"], dels["row"]])
+                       ).astype(np.int64)
+    d_batch = len(rows_b)
+    if d_batch == 0:  # read-only batch: state-neutral, still priced below
+        new = ColumnDelta(rows=delta.rows, values=delta.values,
+                          valid=delta.valid, cids=delta.cids,
+                          n_base=delta.n_base,
+                          n_entries=delta.n_entries + m)
+        _delta_append_cost(cost, on_pim, m, delta.n_overlay, 0,
+                           new.n_overlay)
+        return new
+
+    # Per-row batch state, matching the eager batch semantics exactly:
+    # ALL writes land in commit order (last one wins), then deletes clear
+    # validity - a written+deleted row keeps its written value.
+    has_w = np.zeros(d_batch, dtype=bool)
+    last_val = np.zeros(d_batch, dtype=np.int32)
+    if len(mods):
+        wi = np.searchsorted(rows_b, mods["row"].astype(np.int64))
+        has_w[wi] = True
+        last_val[wi] = mods["value"]          # in-order scatter: last wins
+    has_d = np.zeros(d_batch, dtype=bool)
+    if len(dels):
+        has_d[np.searchsorted(rows_b, dels["row"].astype(np.int64))] = True
+    valid_b = has_w & ~has_d
+    # delete-only rows carry the row's CURRENT effective value (the eager
+    # path keeps a deleted row's code, and f-selected aggregates still read
+    # it) - the overlay's value if the row is overlayed, else the base's
+    value_b = last_val.copy()
+    carry = ~has_w
+    if carry.any():
+        rows_c = rows_b[carry]
+        vals_c = _base_values(col, rows_c)
+        if delta.n_overlay:
+            oi = np.searchsorted(delta.rows, rows_c)
+            oic = np.minimum(oi, delta.n_overlay - 1)
+            hit = delta.rows[oic] == rows_c
+            vals_c = np.where(hit, delta.values[oic], vals_c)
+        value_b[carry] = vals_c
+    cid_b = np.zeros(d_batch, dtype=np.int64)
+    touch = np.concatenate([mods, dels]) if len(dels) else mods
+    if len(touch):
+        touch = touch[np.argsort(touch["commit_id"], kind="stable")]
+        cid_b[np.searchsorted(rows_b, touch["row"].astype(np.int64))] = \
+            touch["commit_id"]                # in-order scatter: latest wins
+
+    # Merge old overlay + batch rows (a sorted-run merge on the merge unit
+    # when both runs exist); normalize to keep-LAST per key with the batch
+    # winning, whatever the merge's tie order (a stable host lexsort).
+    d_old = delta.n_overlay
+    if d_old == 0:
+        keys_sorted, sel = rows_b, np.arange(d_batch, dtype=np.int64)
+    else:
+        if isinstance(inner, HopperBackend):
+            merged_keys, src = merge_sorted_runs([delta.rows, rows_b],
+                                                 device=inner.device)
+            keys = merged_keys.cpu().numpy()
+            src = src.cpu().numpy().astype(np.int64)
+        else:
+            keys = np.concatenate([delta.rows, rows_b])
+            src = np.arange(d_old + d_batch, dtype=np.int64)
+        order = np.lexsort((src, keys))
+        keys_sorted, sel = keys[order], src[order]
+        keep = np.append(keys_sorted[1:] != keys_sorted[:-1], True)
+        keys_sorted, sel = keys_sorted[keep], sel[keep]
+    cat_vals = np.concatenate([delta.values, value_b])
+    cat_valid = np.concatenate([delta.valid, valid_b])
+    cat_cids = np.concatenate([delta.cids, cid_b])
+    new = ColumnDelta(rows=keys_sorted.astype(np.int64),
+                      values=cat_vals[sel], valid=cat_valid[sel],
+                      cids=cat_cids[sel], n_base=delta.n_base,
+                      n_entries=delta.n_entries + m)
+    _delta_append_cost(cost, on_pim, m, d_old, d_batch, new.n_overlay)
+    return new
+
+
+def _delta_append_cost(cost: CostLog | None, on_pim: bool, m: int,
+                       d_old: int, d_batch: int, d_new: int) -> None:
+    """Cost events for one overlay append: collapse the batch to per-row
+    state (sorter), write the collapsed run into the overlay's run list
+    (copy unit), and the amortized run-list bookkeeping (merge unit). No
+    O(n) re-encode term and no O(d_old) overlay rewrite: appends stay
+    O(batch). The deferred work is paid by every scan's correction pass
+    and by compaction."""
+    if cost is None or m == 0:
+        return
+    cost.annotate_add(n_applied=int(m))
+    if on_pim:
+        cost.add(phase="apply", island="ana", resource="sorter", items=m)
+        cost.add(phase="apply", island="ana", resource="merge",
+                 items=d_batch, bytes_local=d_batch * DELTA_ENTRY_BYTES)
+        cost.add(phase="apply", island="ana", resource="copy",
+                 bytes_local=2 * d_batch * DELTA_ENTRY_BYTES)
+    else:
+        cost.add(
+            phase="apply", island="txn", resource="cpu",
+            cycles=m * np.log2(max(m, 2)) * CPU_CYCLES_PER_CMP
+            + m * CPU_CYCLES_PER_SCAN_ITEM
+            + m * CPU_CYCLES_PER_LOOKUP,
+            bytes_offchip=2 * d_batch * DELTA_ENTRY_BYTES,
+        )
+
+
+def compaction_entries(delta: ColumnDelta, col_id: int = 0) -> np.ndarray:
+    """Synthesize the update batch that folds an overlay into the base.
+
+    One write per overlay row (every row carries a defined value, see
+    `ColumnDelta.values`, so a deleted row's last value lands in the base
+    codes as the eager path would have left it) plus a delete for each
+    invalid row, stamped with the overlay's commit ids and sorted back into
+    commit order. Through `apply_updates` this reproduces the eager end
+    state, modulo a possibly SMALLER dictionary (the eager path keeps
+    overwritten values in its dictionary; both are sorted supersets of the
+    live values, so every value range maps to the same rows and answers
+    are unchanged)."""
+    d = delta.n_overlay
+    writes = np.zeros(d, dtype=UPDATE_DTYPE)
+    writes["commit_id"] = delta.cids
+    writes["op"] = 1
+    writes["value"] = delta.values
+    writes["row"] = delta.rows
+    writes["col"] = col_id
+    invalid = ~delta.valid
+    dels = np.zeros(int(invalid.sum()), dtype=UPDATE_DTYPE)
+    dels["commit_id"] = delta.cids[invalid]
+    dels["op"] = 3
+    dels["value"] = delta.values[invalid]
+    dels["row"] = delta.rows[invalid]
+    dels["col"] = col_id
+    cat = np.concatenate([writes, dels])
+    # stable: a row's delete sorts after its equal-cid write, reproducing
+    # the eager writes-then-deletes batch order
+    return cat[np.argsort(cat["commit_id"], kind="stable")]

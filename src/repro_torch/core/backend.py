@@ -23,6 +23,10 @@ below, so the same code runs either on
                                 _sharded for all islands at once)
     filter + aggregate + join   kernels/hash_probe.scan_filter_agg_join
                                 (+ _sharded)
+    delta-store corrections     kernels/dict_ops.scan_values_agg,
+                                scan_values_delta, scan_filter_agg_group
+                                (+ _sharded); kernels/hash_probe.
+                                scan_filter_agg_join_group
     hash join / value encode    kernels/hash_probe.build_table/probe
                                 (+ probe_sharded)
     update-log / dict merge     kernels/merge_runs
@@ -38,8 +42,8 @@ backends in the tests. A backend is bound to one device at construction
 when there is none. Columns and dictionaries are tensors on that device;
 update logs are host numpy records (the transactional island is the host).
 
-Mesh placement (``"/mesh"``, one island per GPU) and the delta-store
-operators are not ported yet and raise ``NotImplementedError``.
+Mesh placement (``"/mesh"``, one island per GPU) is not ported yet and
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -62,10 +66,15 @@ from repro_torch.kernels.common import (I32_MAX, from_host, resolve_device,
 from repro_torch.kernels.dict_ops import (apply_pipeline_batch,
                                           scan_filter_agg,
                                           scan_filter_agg_batch,
-                                          scan_filter_agg_sharded)
+                                          scan_filter_agg_group,
+                                          scan_filter_agg_group_sharded,
+                                          scan_filter_agg_sharded,
+                                          scan_values_agg, scan_values_agg_ref,
+                                          scan_values_delta)
 from repro_torch.kernels.hash_probe import (EMPTY_KEY, build_table, probe,
                                             probe_sharded,
                                             scan_filter_agg_join,
+                                            scan_filter_agg_join_group,
                                             scan_filter_agg_join_sharded)
 from repro_torch.kernels.merge_runs import merge_sorted_pairs, merge_sorted_runs
 from repro_torch.kernels.snapshot_copy import snapshot_copy
@@ -77,11 +86,15 @@ SNAPSHOT_BLOCK = 8192  # copy-unit chunk size (kernels/snapshot_copy default)
 # monkeypatch wrappers) wrap exactly these names - keep it next to the
 # imports so adding a kernel here keeps the count honest.
 KERNEL_ENTRY_POINTS = ("scan_filter_agg", "scan_filter_agg_batch",
+                       "scan_filter_agg_group",
+                       "scan_filter_agg_group_sharded",
                        "scan_filter_agg_sharded", "scan_filter_agg_join",
+                       "scan_filter_agg_join_group",
                        "scan_filter_agg_join_sharded", "probe",
                        "probe_sharded", "build_table", "merge_sorted_runs",
                        "merge_sorted_pairs", "sort_1024", "sort_rows",
-                       "snapshot_copy", "apply_pipeline_batch")
+                       "snapshot_copy", "scan_values_agg",
+                       "scan_values_delta", "apply_pipeline_batch")
 
 
 @contextlib.contextmanager
@@ -249,6 +262,72 @@ class ExecutionBackend(abc.ABC):
                 j = int(rc[jcol.codes[keep].long()].sum())
             out.append((s, c, j))
         return out
+
+    # -- the delta store's corrections ----------------------------------------
+    def filter_agg_values_batch(self, fvals, avals, valid,
+                                bounds: Sequence[tuple[int, int]]
+                                ) -> list[tuple[int, int]]:
+        """Fused multi-query scan over RAW (decoded) rows - the delta-store
+        correction pass. bounds are INCLUSIVE value ranges (the overlay
+        carries values, so there is no dictionary to push predicates into);
+        returns exact [(sum, count), ...]. This default is the plain
+        version; HopperBackend launches the raw-value scan kernel."""
+        return scan_values_agg_ref(self.to_device(fvals),
+                                   self.to_device(avals),
+                                   self.to_device(valid), bounds)
+
+    def filter_agg_values_delta(self, corr, bounds: Sequence[tuple[int, int]]
+                                ) -> list[tuple[int, int]]:
+        """Effective-minus-base correction of one overlay stack: per bound,
+        the exact (d_sum, d_count) a delta overlay adds to the base scan.
+        ``corr`` is a (6, nr) int32 tensor of [fv_eff, av_eff, valid_eff,
+        fv_base, av_base, valid_base] rows (engine._corr_stack); None is no
+        overlay. This default is two raw-value scans subtracted;
+        HopperBackend runs both in ONE launch (scan_values_delta)."""
+        if corr is None:
+            return [(0, 0)] * len(bounds)
+        eff = self.filter_agg_values_batch(corr[0], corr[1], corr[2], bounds)
+        base = self.filter_agg_values_batch(corr[3], corr[4], corr[5], bounds)
+        return [(e[0] - b[0], e[1] - b[1]) for e, b in zip(eff, base)]
+
+    def filter_agg_delta_batch(self, fcol: EncodedColumn, acol: EncodedColumn,
+                               bounds: Sequence[tuple[int, int]], corr
+                               ) -> list[tuple[int, int]]:
+        """Fused multi-query scan over the pinned base WITH the overlay
+        correction folded in: ``filter_agg_batch`` answers plus the
+        ``corr`` stack's per-bound deltas. This default composes the two
+        operators; HopperBackend runs the base scan and the correction as
+        ONE launch (scan_filter_agg_group)."""
+        fused = self.filter_agg_batch(fcol, acol, bounds)
+        if corr is None:
+            return fused
+        deltas = self.filter_agg_values_delta(corr, bounds)
+        return [(s + ds, c + dc)
+                for (s, c), (ds, dc) in zip(fused, deltas)]
+
+    def filter_agg_join_delta_batch(self, fcol: EncodedColumn,
+                                    acol: EncodedColumn, jcol: EncodedColumn,
+                                    bounds: Sequence[tuple[int, int]],
+                                    rcount, corr_a, corr_j
+                                    ) -> list[tuple[int, int, int]]:
+        """Delta-merged join group: ``filter_agg_join_batch`` with the
+        EFFECTIVE build-side histogram override plus the aggregate
+        (``corr_a``) and weighted probe-row (``corr_j``) corrections -
+        ``corr_j``'s value lanes carry effective join-histogram weights and
+        only its sum delta applies (to the join term). Either stack may be
+        None. HopperBackend overrides with ONE launch
+        (scan_filter_agg_join_group)."""
+        fused = self.filter_agg_join_batch(fcol, acol, jcol, bounds,
+                                           rcount=rcount)
+        if corr_a is not None:
+            da = self.filter_agg_values_delta(corr_a, bounds)
+            fused = [(s + ds, c + dc, j)
+                     for (s, c, j), (ds, dc) in zip(fused, da)]
+        if corr_j is not None:
+            dj = self.filter_agg_values_delta(corr_j, bounds)
+            fused = [(s, c, j + djs)
+                     for (s, c, j), (djs, _) in zip(fused, dj)]
+        return fused
 
     def scan_view(self, fview: ShardedView, aview: ShardedView,
                   code_bounds: Sequence[tuple[int, int]]
@@ -581,6 +660,41 @@ class HopperBackend(TorchBackend):
             fview.codes, aview.codes, jview.codes, fview.valid, jview.valid,
             aview.dictionary, rc, code_bounds)
 
+    def filter_agg_values_batch(self, fvals, avals, valid, bounds):
+        # the raw-value scan: one launch over the flat overlay rows
+        return scan_values_agg(self.to_device(fvals), self.to_device(avals),
+                               self.to_device(valid), bounds)
+
+    def filter_agg_values_delta(self, corr, bounds):
+        # effective and base correction scans in ONE launch
+        return scan_values_delta(corr, bounds)
+
+    def filter_agg_delta_batch(self, fcol, acol, bounds, corr):
+        # the whole delta-merged group - base multi-predicate scan plus the
+        # overlay correction - as ONE launch
+        if corr is None:
+            return self.filter_agg_batch(fcol, acol, bounds)
+        code_bounds = [self.code_range(fcol, lo, hi) for lo, hi in bounds]
+        return scan_filter_agg_group(fcol.codes, acol.codes, fcol.valid,
+                                     acol.dictionary, code_bounds, corr,
+                                     bounds)
+
+    def filter_agg_join_delta_batch(self, fcol, acol, jcol, bounds, rcount,
+                                    corr_a, corr_j):
+        # delta-merged join group in ONE launch: aggregate + join scans and
+        # both corrections
+        if corr_a is None and corr_j is None:
+            return self.filter_agg_join_batch(fcol, acol, jcol, bounds,
+                                              rcount=rcount)
+        code_bounds = [self.code_range(fcol, lo, hi) for lo, hi in bounds]
+        if rcount is None:
+            rcount = torch.bincount(jcol.codes[jcol.valid].long(),
+                                    minlength=jcol.dict_size)
+        return scan_filter_agg_join_group(
+            fcol.codes, acol.codes, jcol.codes, fcol.valid, jcol.valid,
+            acol.dictionary, rcount.to(torch.int32), code_bounds, corr_a,
+            corr_j, bounds)
+
     def _join_match(self, lv, rv, lcount, rcount):
         # hash unit: probe each left dictionary value against a table of
         # the right dictionary; hits multiply pre-grouped occurrence
@@ -863,10 +977,6 @@ def _unshard_rows(rows2d: torch.Tensor, sizes: Sequence[int]) -> torch.Tensor:
     return torch.cat([rows2d[s, :size] for s, size in enumerate(sizes)])
 
 
-_NO_DELTA = ("the delta-store operators of the islands are not ported yet - "
-             "ROADMAP.md queue 1, item 9 (delta-store plane)")
-
-
 class ShardedBackend(ExecutionBackend):
     """Several analytical islands: N row-wise DSM shards over one inner backend.
 
@@ -958,16 +1068,31 @@ class ShardedBackend(ExecutionBackend):
                  reduce_partials("sum", [p[q][2] for p in per_shard]))
                 for q in range(len(bounds))]
 
-    def filter_agg_delta_batch(self, fcol, acol, bounds, corr):
-        if corr is None:
-            return self.filter_agg_batch(fcol, acol, bounds)
-        raise NotImplementedError(_NO_DELTA)
-
     def filter_agg_values_batch(self, fvals, avals, valid, bounds):
-        raise NotImplementedError(_NO_DELTA)
+        # the correction runs over the flat overlay union, which is not
+        # row-partitioned across islands (overlays are tiny next to the
+        # shards): the inner backend's single launch
+        return self.inner.filter_agg_values_batch(fvals, avals, valid, bounds)
 
     def filter_agg_values_delta(self, corr, bounds):
-        raise NotImplementedError(_NO_DELTA)
+        # flat overlay stack, as above
+        return self.inner.filter_agg_values_delta(corr, bounds)
+
+    def filter_agg_delta_batch(self, fcol, acol, bounds, corr):
+        # on the kernel inner every island's base scan over its resident
+        # shard AND the flat overlay correction ride ONE launch; other
+        # inners keep the composition (sharded base + inner correction).
+        # Join groups keep the composition on every inner: the sharded join
+        # scan with the effective histogram plus two values deltas.
+        if corr is None:
+            return self.filter_agg_batch(fcol, acol, bounds)
+        if not isinstance(self.inner, HopperBackend):
+            return super().filter_agg_delta_batch(fcol, acol, bounds, corr)
+        fv, av = self._as_view(fcol), self._as_view(acol)
+        code_bounds = [self.code_range(fv, lo, hi) for lo, hi in bounds]
+        return scan_filter_agg_group_sharded(fv.codes, av.codes, fv.valid,
+                                             av.dictionary, code_bounds,
+                                             corr, bounds)
 
     def hash_join_count(self, left, right, left_mask=None):
         # Each island histograms only its own resident probe-side shard;

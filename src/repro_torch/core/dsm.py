@@ -18,6 +18,13 @@ may alias them.
 Several analytical islands each own a row-wise shard of every column
 (`shard_bounds`); a pinned column is sharded once per round into a stacked
 `ShardedView` that all islands scan in one launch.
+
+The delta store's per-column overlay (`ColumnDelta`) is host numpy, as in
+the reference: it is built from the host's ship batches, holds at most a
+few thousand rows (the compaction capacity bounds it), and its algebra -
+searchsorted, lexsort, last-writer-wins - is small, ordered host work. A
+query group reads it through a device copy made once per overlay version
+(`ColumnDelta.on`), beside the base rows gathered on the device.
 """
 
 from __future__ import annotations
@@ -171,6 +178,69 @@ def replica_from_numpy(columns: dict, device=None) -> DSMReplica:
     return DSMReplica(columns={
         int(c): column_from_numpy(codes, dictionary, valid, version, dev)
         for c, (codes, dictionary, valid, version) in columns.items()})
+
+
+# ---------------------------------------------------------------------------
+# Delta store: sorted per-column overlay of not-yet-compacted updates
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ColumnDelta:
+    """Sorted row-keyed overlay of updates not yet folded into the base.
+
+    The delta-store update plane appends shipped updates here instead of
+    rebuilding the column (no dictionary merge, no re-encode); scans fold
+    base + overlay as an exact correction and a background compaction
+    folds the overlay into the base column once `n_entries` reaches the
+    capacity. One entry per touched row (last-writer-wins within and across
+    batches):
+
+    rows:      (d,) int64 sorted unique row ids, all < n_base
+    values:    (d,) int32 the row's current raw value - the last written
+               value, or the value carried over for delete-only rows
+               (deletes keep the row's value, as the eager path keeps a
+               deleted row's code)
+    valid:     (d,) bool  row validity after the overlayed ops
+    cids:      (d,) int64 latest commit id touching the row (compaction
+               replays entries in this order)
+    n_base:    base-column row count the overlay is relative to
+    n_entries: RAW appended entry count since the last compaction - the
+               capacity trigger (overlay rows dedupe, work done doesn't)
+    """
+
+    rows: np.ndarray
+    values: np.ndarray
+    valid: np.ndarray
+    cids: np.ndarray
+    n_base: int
+    n_entries: int = 0
+    # the overlay's copies on devices, made once each by `on`
+    _on: dict = dataclasses.field(default_factory=dict, repr=False,
+                                  compare=False)
+
+    @property
+    def n_overlay(self) -> int:
+        return int(self.rows.shape[0])
+
+    def on(self, device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(rows int64, values int32, valid bool) as tensors on `device`
+        (copied once per overlay; an append makes a new overlay)."""
+        dev = torch.device(device)
+        if dev not in self._on:
+            self._on[dev] = tuple(
+                torch.from_numpy(np.ascontiguousarray(a, dtype=t)).to(dev)
+                for a, t in ((self.rows, np.int64), (self.values, np.int32),
+                             (self.valid, bool)))
+        return self._on[dev]
+
+
+def empty_delta(col: EncodedColumn) -> ColumnDelta:
+    """Fresh (empty) overlay relative to `col`'s current row count."""
+    return ColumnDelta(rows=np.empty(0, dtype=np.int64),
+                       values=np.empty(0, dtype=np.int32),
+                       valid=np.empty(0, dtype=bool),
+                       cids=np.empty(0, dtype=np.int64),
+                       n_base=col.n_rows, n_entries=0)
 
 
 # ---------------------------------------------------------------------------

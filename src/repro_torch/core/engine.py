@@ -16,9 +16,10 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core.backend import get_backend
-from repro_torch.core.dsm import EncodedColumn
+from repro_torch.core.dsm import ColumnDelta, EncodedColumn
 from repro_torch.core.hwmodel import CostLog
 from repro_torch.core.placement import Placement
 
@@ -143,6 +144,153 @@ def group_queries(queries: list[Query]) -> list[list[Query]]:
     return list(groups.values())
 
 
+def _live_delta(deltas, col_id) -> ColumnDelta | None:
+    """The column's overlay, or None when absent/empty (no correction)."""
+    if deltas is None or col_id is None:
+        return None
+    d = deltas.get(col_id)
+    return d if d is not None and d.n_overlay else None
+
+
+def _union_rows(*ds: ColumnDelta | None) -> np.ndarray | None:
+    """Sorted union of the overlays' touched rows (None when all empty);
+    host numpy, like the overlays."""
+    parts = [d.rows for d in ds if d is not None and d.n_overlay]
+    if not parts:
+        return None
+    return parts[0] if len(parts) == 1 else np.unique(np.concatenate(parts))
+
+
+def _row_state(col: EncodedColumn, rows: torch.Tensor):
+    """Base-column (value, valid) state of the given rows, gathered on the
+    column's device (`rows`: int64 row ids there)."""
+    codes = col.codes[rows]
+    return col.dictionary[codes.long()].to(torch.int32), col.valid[rows]
+
+
+def _overlayed(vals, valid, delta: ColumnDelta | None, rows):
+    """Effective (value, valid) state: base overridden where overlayed."""
+    if delta is None or delta.n_overlay == 0:
+        return vals, valid
+    d_rows, d_vals, d_valid = delta.on(rows.device)
+    idx = torch.searchsorted(d_rows, rows).clamp_(max=delta.n_overlay - 1)
+    hit = d_rows[idx] == rows
+    return (torch.where(hit, d_vals[idx], vals),
+            torch.where(hit, d_valid[idx], valid))
+
+
+def _stack6(*lanes) -> torch.Tensor:
+    return torch.stack([t.to(torch.int32) for t in lanes])
+
+
+def _corr_stack(bf, ba, df, da):
+    """(corr, n_rows): the aggregate correction stack the fused delta scan
+    consumes - a (6, nr) int32 tensor of [fv_eff, av_eff, valid_eff,
+    fv_base, av_base, valid_base] over the filter/agg overlays' touched-row
+    union ((None, 0) when both overlays are empty), built on the columns'
+    device from one upload of the row ids. Only touched rows can change;
+    for those the effective contribution replaces the base one, so the
+    backend folds ``effective - base`` into the base scan and everything
+    else cancels exactly in integer arithmetic. The aggregate reads a row's
+    value regardless of the aggregate column's own validity (matching the
+    eager scan), hence valid=True on the agg side.
+    """
+    rows = _union_rows(df, da)
+    if rows is None:
+        return None, 0
+    r = torch.from_numpy(rows).to(bf.device)
+    fv_b, fvalid_b = _row_state(bf, r)
+    av_b, _ = _row_state(ba, r)
+    fv_e, fvalid_e = _overlayed(fv_b, fvalid_b, df, r)
+    av_e, _ = _overlayed(av_b, torch.ones_like(fvalid_b), da, r)
+    return _stack6(fv_e, av_e, fvalid_e, fv_b, av_b, fvalid_b), len(rows)
+
+
+def _join_eff_histogram(bj: EncodedColumn, dj: ColumnDelta | None):
+    """(rcount_eff, c_eff): the delta-merged self-join build side, on the
+    column's device.
+
+    rcount_eff[c] is the EFFECTIVE occurrence count of base dictionary
+    value c - the base histogram (one `torch.bincount` over the column)
+    adjusted by the join overlay's removals (overlay rows' base
+    contributions) and additions (overlay rows' valid effective values).
+    Nonnegative by construction (a true histogram). `c_eff(vals)` evaluates
+    the same effective histogram at arbitrary raw values, including values
+    absent from the base dictionary (freshly written ones).
+    """
+    dev = bj.device
+    jdict = bj.dictionary.to(torch.int64)
+    bc = torch.bincount(bj.codes[bj.valid].long(), minlength=bj.dict_size)
+    if dj is None or dj.n_overlay == 0:
+        dvals = torch.empty(0, dtype=torch.int64, device=dev)
+        dcnt = dvals
+        rc = bc
+    else:
+        rows, d_vals, d_valid = dj.on(dev)
+        rem = jdict[bj.codes[rows][bj.valid[rows]].long()]
+        add = d_vals[d_valid].to(torch.int64)
+        sign = torch.cat([torch.full_like(rem, -1), torch.ones_like(add)])
+        dvals, inv = torch.unique(torch.cat([rem, add]), sorted=True,
+                                  return_inverse=True)
+        dcnt = torch.zeros_like(dvals).index_add_(0, inv, sign)
+        rc = bc.clone()
+        if len(jdict):
+            di = torch.searchsorted(jdict, dvals).clamp_(max=len(jdict) - 1)
+            hit = jdict[di] == dvals
+            rc.index_add_(0, di[hit], dcnt[hit])
+
+    def c_eff(vals):
+        vals = vals.to(torch.int64)
+        out = torch.zeros_like(vals)
+        for keys, counts in ((jdict, bc), (dvals, dcnt)):
+            if len(keys):
+                i = torch.searchsorted(keys, vals).clamp_(max=len(keys) - 1)
+                out += torch.where(keys[i] == vals, counts[i], 0)
+        return out
+
+    return rc, c_eff
+
+
+def _join_corr_stack(bf, bj, df, dj, c_eff):
+    """(corr_j, n_rows): the self-join correction stack. The fused base
+    scan (with the rcount_eff override) already counts every BASE-state
+    probe row against the effective build side; rows whose filter or join
+    state the overlays changed are swapped out by subtracting their
+    base-state contribution and adding their effective-state contribution.
+    The stack's value lanes carry the WEIGHTS of those two weighted
+    raw-value scans - effective build-side counts of each row's join value
+    - so the backend folds only the sum delta into the join term."""
+    rows = _union_rows(df, dj)
+    if rows is None:
+        return None, 0
+    r = torch.from_numpy(rows).to(bf.device)
+    fv_b, fvalid_b = _row_state(bf, r)
+    jv_b, jvalid_b = _row_state(bj, r)
+    fv_e, fvalid_e = _overlayed(fv_b, fvalid_b, df, r)
+    jv_e, jvalid_e = _overlayed(jv_b, jvalid_b, dj, r)
+    w_b = torch.where(jvalid_b, c_eff(jv_b), 0)
+    w_e = torch.where(jvalid_e, c_eff(jv_e), 0)
+    return _stack6(fv_e, w_e, fvalid_e, fv_b, w_b, fvalid_b), len(rows)
+
+
+def _correction_cost(cost: CostLog | None, on_pim: bool,
+                     n_rows_scanned: int, n_rows_touched: int) -> None:
+    """Correction-pass traffic: the overlay unions are tiny relative to the
+    base column, so this prices a few short raw-value scans (value + weight
+    + validity per row), not another column pass. Memory traffic is per
+    TOUCHED row; compute cycles are per scanned row."""
+    if cost is None or n_rows_scanned == 0:
+        return
+    if on_pim:
+        cost.add(phase="ana", island="ana", resource="pim",
+                 cycles=n_rows_scanned * PIM_CYCLES_PER_ROW,
+                 bytes_local=n_rows_touched * 12.0)
+    else:
+        cost.add(phase="ana", island="ana", resource="cpu",
+                 cycles=n_rows_scanned * CPU_CYCLES_PER_ROW * 2.0,
+                 bytes_offchip=n_rows_touched * 12.0 * ANA_MISS_FRACTION)
+
+
 def run_query_group_dsm(
     view: dict[int, EncodedColumn],
     queries: list[Query],
@@ -151,6 +299,8 @@ def run_query_group_dsm(
     on_pim: bool = True,
     backend=None,
     n_shards: int | None = None,
+    deltas: dict[int, ColumnDelta] | None = None,
+    base_cols: dict[int, EncodedColumn] | None = None,
 ) -> list[int]:
     """Execute a same-column-set query group as one fused multi-query scan.
 
@@ -161,8 +311,18 @@ def run_query_group_dsm(
     ShardedBackend) every island scans its own shard of `view`'s columns
     or ShardedViews in that same single launch and the partials reduce
     exactly. Cost events stay per-query, so modeled throughput matches
-    unbatched execution. The delta-merged read (`deltas=`) comes with the
-    delta-store plane (ROADMAP.md queue 1, item 9).
+    unbatched execution.
+
+    ``deltas`` enables the delta-merged read: the base scan runs over the
+    pinned snapshot and the overlays' exact corrections are folded in - an
+    aggregate correction over the filter/agg overlays' touched rows and,
+    for join groups, an effective build-side histogram plus a weighted
+    probe-row correction (`_corr_stack` / `_join_corr_stack`); on
+    HopperBackend base scan and corrections are ONE launch.
+    ``base_cols`` must then map the involved columns to the base columns
+    the overlays are relative to (appends never dirty the snapshot chain,
+    so the pinned snapshot holds the same rows). Answers are those of
+    applying the overlays eagerly.
     """
     if not queries:
         return []
@@ -174,16 +334,43 @@ def run_query_group_dsm(
     # query self-joins the same column (one fused scan+join call)
     no_join = [q for q in queries if q.join_col is None]
     joins = [q for q in queries if q.join_col is not None]
+    df = _live_delta(deltas, q0.filter_col)
+    da = _live_delta(deltas, q0.agg_col)
+    dj = _live_delta(deltas, q0.join_col)
+    if (df or da or dj) and base_cols is None:
+        raise ValueError("delta-merged reads need base_cols (the columns "
+                         "the overlays are relative to)")
+    corr_rows = corr_touched = 0
     answers: dict[int, tuple] = {}
     if no_join:
         bounds = [(q.lo, q.hi) for q in no_join]
-        for q, sc in zip(no_join, be.filter_agg_batch(fcol, acol, bounds)):
+        if df or da:
+            corr, nr = _corr_stack(base_cols[q0.filter_col],
+                                   base_cols[q0.agg_col], df, da)
+            fused = be.filter_agg_delta_batch(fcol, acol, bounds, corr)
+            corr_rows += 2 * nr
+            corr_touched += nr
+        else:
+            fused = be.filter_agg_batch(fcol, acol, bounds)
+        for q, sc in zip(no_join, fused):
             answers[id(q)] = sc
     if joins:
         bounds = [(q.lo, q.hi) for q in joins]
         jcol_v = view[q0.join_col]
-        for q, scj in zip(joins, be.filter_agg_join_batch(fcol, acol, jcol_v,
-                                                          bounds)):
+        if df or da or dj:
+            bf, ba = base_cols[q0.filter_col], base_cols[q0.agg_col]
+            bj = base_cols[q0.join_col]
+            rc, c_eff = _join_eff_histogram(bj, dj)
+            corr_a, nr_a = _corr_stack(bf, ba, df, da)
+            corr_j, nr_j = _join_corr_stack(bf, bj, df, dj, c_eff)
+            fused_j = be.filter_agg_join_delta_batch(fcol, acol, jcol_v,
+                                                     bounds, rc, corr_a,
+                                                     corr_j)
+            corr_rows += 2 * (nr_a + nr_j)
+            corr_touched += nr_a + nr_j
+        else:
+            fused_j = be.filter_agg_join_batch(fcol, acol, jcol_v, bounds)
+        for q, scj in zip(joins, fused_j):
             answers[id(q)] = scj
     out = []
     for q in queries:
@@ -200,7 +387,10 @@ def run_query_group_dsm(
     if cost is not None:
         # launch amortization: one fused launch answers every join-free
         # predicate in the group and one fused scan+join launch answers
-        # every join predicate
+        # every join predicate - the delta corrections ride INSIDE those
+        # launches, so they add scan work (_correction_cost) but no
+        # launches of their own
         _launch_cost(cost, on_pim,
                      (1 if no_join else 0) + (1 if joins else 0))
+        _correction_cost(cost, on_pim, corr_rows, corr_touched)
     return out

@@ -31,11 +31,17 @@ scans all islands in one launch. Answers depend only on the *visibility points* 
 executed before each query), so any sub-chunking of the txn stream between
 two query batches, and the island count, are answer-neutral.
 
+``delta_store=True`` (MI family) switches Phase 2 of update propagation
+from the eager column rebuild to the delta store: batches append to
+per-column sorted overlays, query groups fold the overlays in as exact
+corrections, and a background compaction folds an overlay into its column
+every ``delta_capacity`` appended entries.
+
 What a spec can name beyond this port so far - mesh placement (one island
-per GPU), the delta-store update plane, ``timing="timeline"`` with
-``async_propagation``, the single-instance kinds ``si_ss`` / ``si_mvcc``,
-`resize_islands`, `checkpoint` / `restore` - raises
-``NotImplementedError`` naming the ROADMAP.md queue item that brings it.
+per GPU), ``timing="timeline"`` with ``async_propagation``, the
+single-instance kinds ``si_ss`` / ``si_mvcc``, `resize_islands`,
+`checkpoint` / `restore` - raises ``NotImplementedError`` naming the
+ROADMAP.md queue item that brings it.
 """
 
 from __future__ import annotations
@@ -46,11 +52,13 @@ from typing import Callable
 import numpy as np
 
 from repro_torch.core import engine
-from repro_torch.core.application import (apply_updates, apply_updates_naive,
+from repro_torch.core.application import (apply_updates, apply_updates_delta,
+                                          apply_updates_naive,
+                                          compaction_entries, delta_eligible,
                                           precompute_apply_stages)
 from repro_torch.core.backend import ExecutionBackend, get_backend
 from repro_torch.core.consistency import ConsistencyManager
-from repro_torch.core.dsm import DSMReplica
+from repro_torch.core.dsm import ColumnDelta, DSMReplica, empty_delta
 from repro_torch.core.hwmodel import (CostLog, HardwareParams, HB_PARAMS,
                                       HMC_PARAMS)
 from repro_torch.core.nsm import RowStore
@@ -64,6 +72,25 @@ from repro_torch.kernels.common import kernel_launch_counts
 PIM_TXN_CYCLE_FACTOR = 1.4
 
 TIMINGS = ("phase", "timeline")
+
+# Delta-store compaction trigger: raw overlay entries appended to a column
+# before a background compaction folds the overlay into the base (§5.3's
+# capacity-triggered maintenance; the overlay stays small enough that the
+# query-time corrections stay cheap).
+DELTA_CAPACITY_DEFAULT = 4096
+
+
+def _resolve_delta(spec: "SystemSpec") -> tuple[bool, int]:
+    """(enabled, capacity) of a spec: ``delta_store=None`` means off and
+    ``delta_capacity=None`` the default (no environment variable is read:
+    a run's configuration is in its arguments). Only the MI family has a
+    replica to overlay; an explicit ``delta_store=True`` on another kind
+    raises in ``SystemSpec.__post_init__``."""
+    if spec.kind != "multi_instance":
+        return False, DELTA_CAPACITY_DEFAULT
+    cap = spec.delta_capacity
+    return bool(spec.delta_store), int(
+        DELTA_CAPACITY_DEFAULT if cap is None else cap)
 
 
 class SessionClosedError(RuntimeError):
@@ -84,8 +111,6 @@ KINDS = ("multi_instance", "si_ss", "si_mvcc", "ideal_txn", "ana_only")
 _NOT_PORTED = {
     "mesh": "mesh placement is not ported yet - ROADMAP.md queue 1, "
             "item 13 (multi-GPU islands)",
-    "delta": "the delta-store update plane is not ported yet - ROADMAP.md "
-             "queue 1, item 9 (delta-store plane)",
     "timeline": "timing='timeline' and async_propagation are not ported "
                 "yet - ROADMAP.md queue 1, item 10 (timeline timing + "
                 "async propagation + mixed-traffic serving)",
@@ -105,10 +130,12 @@ class SystemSpec:
     overrides refine them, e.g. ``SystemSpec.polynesia(backend="torch")``.
     ``backend=None`` means ``"hopper"``; ``n_shards=None`` the backend
     spec's island count (``"hopper@4"``), else one island;
-    ``timing=None`` means ``"phase"``. The fields for mesh placement, the
-    delta store and async propagation are kept so that a spec reads like
-    the reference's; any value other than their off position raises
-    ``NotImplementedError``.
+    ``timing=None`` means ``"phase"``. ``delta_store`` (MI family only)
+    switches Phase 2 to the delta-store overlays, compacted every
+    ``delta_capacity`` appended entries (None: `DELTA_CAPACITY_DEFAULT`);
+    answers are the eager path's. The fields for mesh placement and async
+    propagation are kept so that a spec reads like the reference's; any
+    value other than their off position raises ``NotImplementedError``.
     """
 
     name: str
@@ -144,8 +171,13 @@ class SystemSpec:
             if self.placement == "mesh":
                 raise NotImplementedError(_NOT_PORTED["mesh"])
             raise ValueError(f"bad placement {self.placement!r}")
-        if self.delta_store or self.delta_capacity is not None:
-            raise NotImplementedError(_NOT_PORTED["delta"])
+        if self.delta_store and self.kind != "multi_instance":
+            raise ValueError(
+                f"delta_store is a multiple-instance mechanism (there is "
+                f"no DSM replica to overlay); kind {self.kind!r} cannot "
+                f"enable it")
+        if self.delta_capacity is not None and self.delta_capacity <= 0:
+            raise ValueError("delta_capacity must be a positive entry count")
         if self.timing is not None and self.timing not in TIMINGS:
             raise ValueError(f"unknown timing {self.timing!r}; have {TIMINGS}")
         if self.timing == "timeline" or self.async_propagation:
@@ -313,6 +345,10 @@ class HTAPSession:
             self._vis_node: dict[int, str] = {}    # col -> last Phase-2 node
             self._round_prop: list[str] = []       # this round's apply nodes
             self._prev_round_prop: tuple[str, ...] = ()
+            self.delta_enabled, self.delta_capacity = _resolve_delta(spec)
+            self._deltas: dict[int, ColumnDelta] = {}  # col -> live overlay
+            self.delta_appends = 0
+            self.compactions = 0
         elif kind == "ideal_txn":
             self.store = RowStore(table)
         elif kind == "ana_only":
@@ -365,6 +401,11 @@ class HTAPSession:
                      "sharded_views": self.cons.views_built,
                      "views_shared": self.cons.views_shared,
                      "views_resident": self.cons.views_resident}
+            if self.delta_enabled:
+                stats["delta_appends"] = self.delta_appends
+                stats["compactions"] = self.compactions
+                stats["delta_live_entries"] = sum(
+                    d.n_overlay for d in self._deltas.values())
         # CUDA kernel launches per kernel over this session's lifetime
         # (empty on the CPU, where the wrappers run their plain versions)
         now = kernel_launch_counts()
@@ -463,15 +504,21 @@ class HTAPSession:
                                    price=not spec.zero_cost_propagation)
         # The whole batch's dictionary stages ride one fused dispatch (cost
         # events stay per column below - tags are structural, and the cost
-        # model is analytic, not measured).
+        # model is analytic, not measured). The delta plane skips it:
+        # eligible batches never touch the dictionary, and the rare
+        # fallback stages its own.
         staged = (precompute_apply_stages(self.replica.columns, buffers,
                                           backend=self.be)
                   if spec.optimized_application and len(buffers) > 1
-                  else {})
+                  and not self.delta_enabled else {})
         app_cost = (None if (spec.shipping_only
                              or spec.zero_cost_propagation)
                     else self.cost)
         for col_id, entries in buffers.items():
+            if self.delta_enabled:
+                self._apply_column_delta(col_id, entries, ship_node,
+                                         app_cost)
+                continue
             apply_node = f"{ship_node}:c{col_id}"
             self._apply_column_eager(col_id, entries, apply_node,
                                      app_cost, staged.get(col_id),
@@ -485,7 +532,9 @@ class HTAPSession:
                             kind: str = "apply",
                             phase: str = "apply") -> None:
         """One column's batch through the standard two-stage apply (Phase-2
-        swap via the consistency manager)."""
+        swap via the consistency manager). Also the compaction executor:
+        kind/phase "compact" reuses the same machinery, so the folded base
+        is what eager application would have built."""
         spec = self.spec
         old = self.replica.columns[col_id]
         with self.cost.tagged(node, kind, round=self.round, deps=deps,
@@ -499,6 +548,74 @@ class HTAPSession:
                 # the naive software baseline rebuilds a whole column
                 self.cons.on_update(col_id, apply_updates_naive(
                     old, entries, app_cost, phase=phase))
+
+    def _apply_column_delta(self, col_id: int, entries: np.ndarray,
+                            ship_node: str, app_cost) -> None:
+        """Delta-plane Phase 2: append the batch to the column's overlay.
+
+        The append is O(batch + overlay) - the base column is untouched -
+        so the apply node the next round's transactions wait for is cheap.
+        When the overlay's raw entry count reaches the capacity, a
+        background compaction node (kind "compact") folds it into the base
+        through the standard apply and resets the overlay. A batch with
+        inserts (or rows past the base) changes the column's length, which
+        the overlay does not model: the overlay is compacted first (commit
+        order), then the batch is applied eagerly.
+        """
+        old = self.replica.columns[col_id]
+        delta = self._deltas.get(col_id)
+        if delta is None or delta.n_base != old.n_rows:
+            delta = empty_delta(old)
+        apply_node = f"{ship_node}:c{col_id}"
+        if not delta_eligible(entries, old.n_rows):
+            deps = (ship_node,)
+            if delta.n_overlay:
+                comp = self._compact_column(col_id, delta, deps=deps,
+                                            ship_node=ship_node)
+                deps = (ship_node, comp)
+            self._apply_column_eager(col_id, entries, apply_node, app_cost,
+                                     None, deps=deps)
+            self._deltas[col_id] = empty_delta(self.replica.columns[col_id])
+        else:
+            with self.cost.tagged(apply_node, "apply", round=self.round,
+                                  deps=(ship_node,), col=col_id,
+                                  islands=self.islands):
+                delta = apply_updates_delta(
+                    old, delta, entries, app_cost,
+                    on_pim=self.spec.propagation_on_pim, backend=self.be)
+            self._deltas[col_id] = delta
+            self.delta_appends += 1
+        self._vis_node[col_id] = apply_node
+        self._round_prop.append(apply_node)
+        self.applications += 1
+        delta = self._deltas[col_id]
+        if delta.n_entries >= self.delta_capacity and delta.n_overlay:
+            self._compact_column(col_id, delta, deps=(apply_node,),
+                                 ship_node=ship_node)
+
+    def _compact_column(self, col_id: int, delta: ColumnDelta, deps,
+                        ship_node: str) -> str:
+        """Fold a column's overlay into its base (background compaction).
+
+        Synthesizes the overlay's write/delete entries (commit-id ordered)
+        and runs them through the standard apply, so the compacted base
+        goes through the usual Phase-2 swap. The node is not added to
+        ``_round_prop``: compaction overlaps analytics instead of stalling
+        the next round's transactions. Queries still wait for it
+        (``_vis_node``) - they read the compacted base.
+        """
+        spec = self.spec
+        app_cost = (None if (spec.shipping_only
+                             or spec.zero_cost_propagation)
+                    else self.cost)
+        node = f"{ship_node}:compact{col_id}"
+        self._apply_column_eager(col_id, compaction_entries(delta, col_id),
+                                 node, app_cost, None, deps=deps,
+                                 kind="compact", phase="compact")
+        self._deltas[col_id] = empty_delta(self.replica.columns[col_id])
+        self._vis_node[col_id] = node
+        self.compactions += 1
+        return node
 
     def flush_updates(self) -> None:
         """Ship and apply the entire pending update backlog now.
@@ -564,9 +681,15 @@ class HTAPSession:
             with self.cost.tagged(f"r{self.round}:ana{g}", "ana",
                                   round=self.round, deps=(snap_node,),
                                   islands=self.islands, n=len(group)):
+                # delta plane: scans fold each column's live overlay into
+                # the pinned base (appends never dirty the snapshot chain,
+                # so the pinned base holds the overlay's base rows)
                 group_answers = engine.run_query_group_dsm(
                     view, group, self.cost, self.placement,
-                    on_pim=self.spec.analytics_on_pim, backend=self.be)
+                    on_pim=self.spec.analytics_on_pim, backend=self.be,
+                    deltas=self._deltas if self.delta_enabled else None,
+                    base_cols=(self.replica.columns
+                               if self.delta_enabled else None))
             for q, a in zip(group, group_answers):
                 batch_results[id(q)] = a
             for h in handles:

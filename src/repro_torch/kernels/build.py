@@ -33,8 +33,9 @@ _L = ctypes.c_longlong
 # told otherwise, which cuts a 64-bit pointer: every entry is listed here.
 _SIGNATURES = {
     # fcodes acodes fvalid adict bounds nq jcodes jvalid rcount n_shards
-    # width out stream
-    "scan_exact": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _L, _P, _P),
+    # width corr_a nr_a corr_base corr_j nr_j vbounds out stream
+    "scan_exact": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _L, _P, _L, _I,
+                   _P, _L, _P, _P, _P),
     # queries n_shards width keys vals n_buckets slots default out stream
     "hash_probe": (_P, _I, _L, _P, _P, _I, _I, _I, _P, _P),
     # a ai b bi out_keys out_idx rows wa wb stream

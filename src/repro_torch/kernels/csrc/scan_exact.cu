@@ -38,6 +38,33 @@
 // result is exact and the same from run to run. Up to QT predicates are
 // answered per pass over the rows; a larger group takes one grid slice
 // (blockIdx.y) per QT predicates.
+//
+// The correction lane (the delta store). It replaces the raw-value scan
+// `_scan_values_kernel` / `scan_values_agg_exact_kernel`
+// (kernels/dict_ops/dict_ops.py) and the fused composites built on it:
+// `_scan_group_kernel_body` / `scan_filter_agg_group`, its sharded sibling
+// `_scan_group_sharded_kernel_body`, `_scan_values_delta_kernel_body` /
+// `scan_values_delta` (kernels/dict_ops/ops.py) and
+// `_join_group_pallas_body` / `scan_filter_agg_join_group`
+// (kernels/hash_probe/ops.py). A correction stack is a (6, nr) int32 array
+// of overlay rows [fv_eff, av_eff, valid_eff, fv_base, av_base,
+// valid_base]; for each of Q INCLUSIVE raw-value ranges [lo, hi] the lane
+// adds [lo <= fv_eff <= hi and valid_eff] * av_eff minus the same for the
+// base triple to a sum, and the difference of the two indicators to a
+// count. Integer subtraction is exact, so one signed delta accumulator
+// stands where the TPU composites ran an effective and a base scan and
+// subtracted their partials on the host. The lane is one more z slice of
+// the same grid, after the S shard slices: its blocks walk the stack(s)
+// and add their partial to output row S, beside the shards' rows. So a
+// query group on the delta plane is one launch: the base scan (flat or
+// sharded) plus the lane over the aggregate stack into the (sum, count)
+// lanes and, with the join lane, the lane over the join-weight stack into
+// the join sum. With no shard slices the lane runs alone (the values
+// delta), and a 3-row stack holding only the effective triple is the plain
+// raw-value scan. Stacks are read one int32 a thread per row, coalesced,
+// with no padding: a stack is a few thousand rows (bounded by the
+// compaction capacity) against the base column's millions, so its bytes
+// (24 a row) add a fraction of a percent to the scan's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -86,10 +113,63 @@ __device__ __forceinline__ long long warp_sum(long long v) {
     return v;
 }
 
+// Lane 0 of each warp adds the warp's total to the block's shared partial.
+__device__ __forceinline__ void add_warp(unsigned long long* red,
+                                         long long v) {
+    v = warp_sum(v);
+    if ((threadIdx.x & 31) == 0 && v) atomicAdd(red, (unsigned long long)v);
+}
+
+// One correction pass of this block over a (3 or 6, nr) stack: per
+// predicate, the effective row's contribution minus the base row's, into
+// red[sum_lane] and (cnt_lane >= 0) red[cnt_lane]. A 3-row stack has no
+// base triple.
+__device__ __forceinline__ void corr_pass(const int* __restrict__ stack,
+                                          long long nr, bool has_base,
+                                          const int* __restrict__ vbounds,
+                                          int nq, int q0,
+                                          unsigned long long* red,
+                                          int sum_lane, int cnt_lane) {
+    long long sum[QT];
+    int cnt[QT], lo[QT], hi[QT];
+#pragma unroll
+    for (int t = 0; t < QT; ++t) {
+        const bool live = q0 + t < nq;
+        lo[t] = live ? vbounds[2 * (q0 + t)] : 1;        // 1 > 0: empty
+        hi[t] = live ? vbounds[2 * (q0 + t) + 1] : 0;
+        sum[t] = 0;
+        cnt[t] = 0;
+    }
+    const long long step = (long long)gridDim.x * blockDim.x;
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         i < nr; i += step) {
+        const int fe = stack[i], ae = stack[nr + i], ve = stack[2 * nr + i];
+        int fb = 0, ab = 0, vb = 0;
+        if (has_base) {
+            fb = stack[3 * nr + i];
+            ab = stack[4 * nr + i];
+            vb = stack[5 * nr + i];
+        }
+#pragma unroll
+        for (int t = 0; t < QT; ++t) {
+            const bool e = ve != 0 && fe >= lo[t] && fe <= hi[t];
+            const bool b = vb != 0 && fb >= lo[t] && fb <= hi[t];
+            sum[t] += (e ? (long long)ae : 0ll) - (b ? (long long)ab : 0ll);
+            cnt[t] += (int)e - (int)b;
+        }
+    }
+#pragma unroll
+    for (int t = 0; t < QT; ++t) {
+        add_warp(&red[sum_lane * QT + t], sum[t]);
+        if (cnt_lane >= 0) add_warp(&red[cnt_lane * QT + t], (long long)cnt[t]);
+    }
+}
+
 // Two blocks per SM for the scan alone (at most 64 registers a thread, as
 // the flat kernel used before the shard axis); the join lane needs more
-// registers than that and keeps one.
-template <bool JOIN, bool VEC>
+// registers than that and keeps one. With CORR the grid has one more z
+// slice than shards: the correction lane's (see the header).
+template <bool JOIN, bool VEC, bool CORR>
 __global__ void __launch_bounds__(THREADS, JOIN ? 1 : 2)
 scan_exact_kernel(const int* __restrict__ fcodes,
                   const int* __restrict__ acodes,
@@ -99,92 +179,100 @@ scan_exact_kernel(const int* __restrict__ fcodes,
                   const int* __restrict__ jcodes,
                   const uint8_t* __restrict__ jvalid,
                   const int* __restrict__ rcount, long long n,
+                  const int* __restrict__ corr_a, long long nr_a,
+                  int corr_base, const int* __restrict__ corr_j,
+                  long long nr_j, const int* __restrict__ vbounds,
                   unsigned long long* __restrict__ out) {
     __shared__ unsigned long long red[3 * QT];
     constexpr int lanes = JOIN ? 3 : 2;
-
-    // this block's shard: n rows at a stride of n
-    const long long base = (long long)blockIdx.z * n;
-    // rows of this shard before its first 16-byte boundary (the column
-    // pointers themselves are aligned when VEC)
-    long long head = VEC ? (4 - (base & 3)) & 3 : 0;
-    if (head > n) head = n;
-    fcodes += base;
-    acodes += base;
-    fvalid += base;
-    if (JOIN) {
-        jcodes += base;
-        jvalid += base;
-    }
-
-    const int* ad = adict;
-    const int* rc = rcount;
+    const bool corr_slice = CORR && blockIdx.z == gridDim.z - 1;
+    // blocks of the correction slice beyond the stacks' rows have nothing
+    // to add (the whole block leaves together)
+    if (corr_slice && (long long)blockIdx.x * blockDim.x >= nr_a &&
+        (long long)blockIdx.x * blockDim.x >= nr_j)
+        return;
     if (threadIdx.x < 3 * QT) red[threadIdx.x] = 0ull;
     __syncthreads();
-
     const int q0 = blockIdx.y * QT;
-    Acc<JOIN> acc;
-#pragma unroll
-    for (int t = 0; t < QT; ++t) {
-        const bool live = q0 + t < nq;
-        acc.lo[t] = live ? bounds[2 * (q0 + t)] : 0;
-        acc.hi[t] = live ? bounds[2 * (q0 + t) + 1] : 0;   // empty range
-        acc.sum[t] = 0;
-        acc.jsum[t] = 0;
-        acc.cnt[t] = 0;
-    }
 
-    const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    const long long nthreads = (long long)gridDim.x * blockDim.x;
-    if (VEC) {
-        if (tid < head)
-            acc.row(fcodes[tid], acodes[tid], fvalid[tid],
-                    JOIN ? jcodes[tid] : 0, JOIN ? jvalid[tid] : 0u, ad, rc);
-        const long long n4 = (n - head) >> 2;
-        const int4* f4 = reinterpret_cast<const int4*>(fcodes + head);
-        const int4* a4 = reinterpret_cast<const int4*>(acodes + head);
-        const uchar4* v4 = reinterpret_cast<const uchar4*>(fvalid + head);
-        const int4* j4 =
-            JOIN ? reinterpret_cast<const int4*>(jcodes + head) : nullptr;
-        const uchar4* w4 =
-            JOIN ? reinterpret_cast<const uchar4*>(jvalid + head) : nullptr;
-        for (long long g = tid; g < n4; g += nthreads) {
-            const int4 f = f4[g];
-            const int4 a = a4[g];
-            const uchar4 v = v4[g];
-            int4 j = make_int4(0, 0, 0, 0);
-            uchar4 w = make_uchar4(0, 0, 0, 0);
-            if (JOIN) {
-                j = j4[g];
-                w = w4[g];
-            }
-            acc.row(f.x, a.x, v.x, j.x, w.x, ad, rc);
-            acc.row(f.y, a.y, v.y, j.y, w.y, ad, rc);
-            acc.row(f.z, a.z, v.z, j.z, w.z, ad, rc);
-            acc.row(f.w, a.w, v.w, j.w, w.w, ad, rc);
-        }
-        // ragged tail (fewer than 4 rows), masked here rather than padded
-        const long long i = head + (n4 << 2) + tid;
-        if (i < n)
-            acc.row(fcodes[i], acodes[i], fvalid[i], JOIN ? jcodes[i] : 0,
-                    JOIN ? jvalid[i] : 0u, ad, rc);
+    if (corr_slice) {
+        corr_pass(corr_a, nr_a, corr_base != 0, vbounds, nq, q0, red, 0, 1);
+        if (JOIN)   // join weights: only the sum delta, into the join sum
+            corr_pass(corr_j, nr_j, true, vbounds, nq, q0, red, 2, -1);
     } else {
-        for (long long i = tid; i < n; i += nthreads)
-            acc.row(fcodes[i], acodes[i], fvalid[i], JOIN ? jcodes[i] : 0,
-                    JOIN ? jvalid[i] : 0u, ad, rc);
-    }
+        // this block's shard: n rows at a stride of n
+        const long long base = (long long)blockIdx.z * n;
+        // rows of this shard before its first 16-byte boundary (the column
+        // pointers themselves are aligned when VEC)
+        long long head = VEC ? (4 - (base & 3)) & 3 : 0;
+        if (head > n) head = n;
+        fcodes += base;
+        acodes += base;
+        fvalid += base;
+        if (JOIN) {
+            jcodes += base;
+            jvalid += base;
+        }
+        const int* ad = adict;
+        const int* rc = rcount;
 
-    const int lane = threadIdx.x & 31;
+        Acc<JOIN> acc;
 #pragma unroll
-    for (int t = 0; t < QT; ++t) {
-        const long long s = warp_sum(acc.sum[t]);
-        const long long c = warp_sum((long long)acc.cnt[t]);
-        long long js = 0;
-        if (JOIN) js = warp_sum(acc.jsum[t]);
-        if (lane == 0) {
-            if (s) atomicAdd(&red[t], (unsigned long long)s);
-            if (c) atomicAdd(&red[QT + t], (unsigned long long)c);
-            if (JOIN && js) atomicAdd(&red[2 * QT + t], (unsigned long long)js);
+        for (int t = 0; t < QT; ++t) {
+            const bool live = q0 + t < nq;
+            acc.lo[t] = live ? bounds[2 * (q0 + t)] : 0;
+            acc.hi[t] = live ? bounds[2 * (q0 + t) + 1] : 0;   // empty range
+            acc.sum[t] = 0;
+            acc.jsum[t] = 0;
+            acc.cnt[t] = 0;
+        }
+
+        const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+        const long long nthreads = (long long)gridDim.x * blockDim.x;
+        if (VEC) {
+            if (tid < head)
+                acc.row(fcodes[tid], acodes[tid], fvalid[tid],
+                        JOIN ? jcodes[tid] : 0, JOIN ? jvalid[tid] : 0u, ad,
+                        rc);
+            const long long n4 = (n - head) >> 2;
+            const int4* f4 = reinterpret_cast<const int4*>(fcodes + head);
+            const int4* a4 = reinterpret_cast<const int4*>(acodes + head);
+            const uchar4* v4 = reinterpret_cast<const uchar4*>(fvalid + head);
+            const int4* j4 =
+                JOIN ? reinterpret_cast<const int4*>(jcodes + head) : nullptr;
+            const uchar4* w4 =
+                JOIN ? reinterpret_cast<const uchar4*>(jvalid + head) : nullptr;
+            for (long long g = tid; g < n4; g += nthreads) {
+                const int4 f = f4[g];
+                const int4 a = a4[g];
+                const uchar4 v = v4[g];
+                int4 j = make_int4(0, 0, 0, 0);
+                uchar4 w = make_uchar4(0, 0, 0, 0);
+                if (JOIN) {
+                    j = j4[g];
+                    w = w4[g];
+                }
+                acc.row(f.x, a.x, v.x, j.x, w.x, ad, rc);
+                acc.row(f.y, a.y, v.y, j.y, w.y, ad, rc);
+                acc.row(f.z, a.z, v.z, j.z, w.z, ad, rc);
+                acc.row(f.w, a.w, v.w, j.w, w.w, ad, rc);
+            }
+            // ragged tail (fewer than 4 rows), masked here rather than padded
+            const long long i = head + (n4 << 2) + tid;
+            if (i < n)
+                acc.row(fcodes[i], acodes[i], fvalid[i], JOIN ? jcodes[i] : 0,
+                        JOIN ? jvalid[i] : 0u, ad, rc);
+        } else {
+            for (long long i = tid; i < n; i += nthreads)
+                acc.row(fcodes[i], acodes[i], fvalid[i], JOIN ? jcodes[i] : 0,
+                        JOIN ? jvalid[i] : 0u, ad, rc);
+        }
+
+#pragma unroll
+        for (int t = 0; t < QT; ++t) {
+            add_warp(&red[t], acc.sum[t]);
+            add_warp(&red[QT + t], (long long)acc.cnt[t]);
+            if (JOIN) add_warp(&red[2 * QT + t], acc.jsum[t]);
         }
     }
     __syncthreads();
@@ -192,7 +280,7 @@ scan_exact_kernel(const int* __restrict__ fcodes,
         const int which = threadIdx.x / QT;
         const int t = threadIdx.x % QT;
         const unsigned long long v = red[which * QT + t];
-        if (q0 + t < nq && v)   // the shard's partials start at lanes * nq
+        if (q0 + t < nq && v)   // slice z's partials start at z * lanes * nq
             atomicAdd(&out[((long long)blockIdx.z * lanes + which) * nq + q0
                            + t], v);
     }
@@ -202,13 +290,15 @@ inline bool aligned(const void* p, uintptr_t a) {
     return (reinterpret_cast<uintptr_t>(p) & (a - 1)) == 0;
 }
 
-template <bool JOIN, bool VEC>
+template <bool JOIN, bool VEC, bool CORR>
 cudaError_t launch(const int* fcodes, const int* acodes, const uint8_t* fvalid,
                    const int* adict, const int* bounds, int nq,
                    const int* jcodes, const uint8_t* jvalid, const int* rcount,
-                   int n_shards, long long width, unsigned long long* out,
-                   cudaStream_t stream) {
-    auto kern = scan_exact_kernel<JOIN, VEC>;
+                   int n_shards, long long width, const int* corr_a,
+                   long long nr_a, int corr_base, const int* corr_j,
+                   long long nr_j, const int* vbounds,
+                   unsigned long long* out, cudaStream_t stream) {
+    auto kern = scan_exact_kernel<JOIN, VEC, CORR>;
     cudaError_t err;
     int dev = 0, sms = 0, occ = 0;
     if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
@@ -219,17 +309,26 @@ cudaError_t launch(const int* fcodes, const int* acodes, const uint8_t* fvalid,
              &occ, kern, THREADS, 0)) != cudaSuccess)
         return err;
     if (occ < 1) return cudaErrorLaunchOutOfResources;
-    // as many blocks as the card holds at once, shared among the shards
+    // as many blocks as the card holds at once, shared among the shards;
+    // the correction slice gets as many, of which those past the stacks'
+    // rows leave at once
     const long long per_block = (long long)THREADS * (VEC ? 4 : 1);
-    long long want = (width + per_block - 1) / per_block;
-    long long cap = (long long)sms * occ / n_shards;
+    long long want = n_shards > 0 ? (width + per_block - 1) / per_block : 0;
+    if (CORR) {
+        const long long nr = nr_a > nr_j ? nr_a : nr_j;
+        const long long cw = (nr + THREADS - 1) / THREADS;
+        if (cw > want) want = cw;
+    }
+    long long cap = (long long)sms * occ / (n_shards > 0 ? n_shards : 1);
     if (cap < 1) cap = 1;
     if (want > cap) want = cap;
     if (want < 1) want = 1;
     dim3 grid((unsigned)want, (unsigned)((nq + QT - 1) / QT),
-              (unsigned)n_shards);
+              (unsigned)(n_shards + (CORR ? 1 : 0)));
     kern<<<grid, THREADS, 0, stream>>>(fcodes, acodes, fvalid, adict, bounds,
-                                       nq, jcodes, jvalid, rcount, width, out);
+                                       nq, jcodes, jvalid, rcount, width,
+                                       corr_a, nr_a, corr_base, corr_j, nr_j,
+                                       vbounds, out);
     return cudaGetLastError();
 }
 
@@ -238,14 +337,25 @@ cudaError_t launch(const int* fcodes, const int* acodes, const uint8_t* fvalid,
 // Columns are (n_shards, width) row-major; out: (n_shards, 2, nq) int64
 // zeros without the join lane (sums, counts), (n_shards, 3, nq) with it
 // (sums, counts, join sums). jcodes == nullptr selects no join lane.
+// vbounds != nullptr adds the correction lane and one output row after the
+// shards' (out: (n_shards + 1, lanes, nq)): corr_a is the aggregate stack,
+// (6, nr_a) int32, or (3, nr_a) with only the effective triple when
+// corr_base is 0; corr_j the join-weight stack, (6, nr_j), with the join
+// lane only; vbounds (nq, 2) inclusive raw-value ranges. n_shards == 0
+// runs the lane alone.
 extern "C" int scan_exact(const int* fcodes, const int* acodes,
                           const uint8_t* fvalid, const int* adict,
                           const int* bounds, int nq, const int* jcodes,
                           const uint8_t* jvalid, const int* rcount,
-                          int n_shards, long long width,
+                          int n_shards, long long width, const int* corr_a,
+                          long long nr_a, int corr_base, const int* corr_j,
+                          long long nr_j, const int* vbounds,
                           unsigned long long* out, void* stream) {
-    if (n_shards <= 0 || width <= 0 || nq <= 0) return (int)cudaSuccess;
-    if (n_shards > 65535 || (nq + QT - 1) / QT > 65535)
+    const bool corr = vbounds != nullptr;
+    if (nq <= 0 || n_shards < 0) return (int)cudaSuccess;
+    if (!corr && (n_shards == 0 || width <= 0)) return (int)cudaSuccess;
+    if (width < 0 || nr_a < 0 || nr_j < 0) return (int)cudaErrorInvalidValue;
+    if (n_shards + (corr ? 1 : 0) > 65535 || (nq + QT - 1) / QT > 65535)
         return (int)cudaErrorInvalidValue;
     const bool join = jcodes != nullptr;
     // 16-byte loads from aligned columns; each shard steps up to its own
@@ -254,13 +364,21 @@ extern "C" int scan_exact(const int* fcodes, const int* acodes,
     if (join) vec = vec && aligned(jcodes, 16) && aligned(jvalid, 4);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err;
-#define GO(J, V)                                                            \
-    launch<J, V>(fcodes, acodes, fvalid, adict, bounds, nq, jcodes, jvalid, \
-                 rcount, n_shards, width, out, s)
-    if (join)
-        err = vec ? GO(true, true) : GO(true, false);
-    else
-        err = vec ? GO(false, true) : GO(false, false);
+#define GO(J, V, C)                                                         \
+    launch<J, V, C>(fcodes, acodes, fvalid, adict, bounds, nq, jcodes,      \
+                    jvalid, rcount, n_shards, width, corr_a, nr_a,          \
+                    corr_base, corr_j, nr_j, vbounds, out, s)
+    if (corr) {
+        if (join)
+            err = vec ? GO(true, true, true) : GO(true, false, true);
+        else
+            err = vec ? GO(false, true, true) : GO(false, false, true);
+    } else {
+        if (join)
+            err = vec ? GO(true, true, false) : GO(true, false, false);
+        else
+            err = vec ? GO(false, true, false) : GO(false, false, false);
+    }
 #undef GO
     return (int)err;
 }

@@ -12,6 +12,17 @@ All arguments are tensors on one device: ``fcodes``/``acodes`` int32,
 ``valid`` bool or uint8, ``dictionary`` (k,) int32; ``bounds`` is a host
 sequence of ``(code_lo, code_hi)`` pairs (exclusive upper bound). Answers
 come back as exact Python ints - one device-to-host copy per call.
+
+The delta store's correction lane rides the same kernel: a correction
+stack is a (6, nr) int32 tensor of overlay rows ``[fv_eff, av_eff,
+valid_eff, fv_base, av_base, valid_base]`` and ``vbounds`` the same
+predicates as INCLUSIVE raw-value ranges ``(lo, hi)``. `scan_exact_group`
+is a base scan plus the lane in one launch (a query group on the delta
+plane: `scan_filter_agg_group`, its sharded sibling, and the join group of
+``kernels/hash_probe``); `scan_values_exact` is the lane alone
+(`scan_values_delta`, and `scan_values_agg` over a 3-row stack holding only
+the effective triple). ``None`` for a stack is a zero-row stack; stacks are
+not padded.
 """
 
 from __future__ import annotations
@@ -68,24 +79,41 @@ def scan_exact_ref(fcodes, acodes, fvalid, adict, bounds, jcodes=None,
     return out
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def launch_scan_exact(fcodes, acodes, fvalid_u8, adict, bounds_dev, out,
-                      jcodes=None, jvalid_u8=None, rcount=None) -> None:
+                      jcodes=None, jvalid_u8=None, rcount=None, corr_a=None,
+                      corr_j=None, vbounds_dev=None) -> None:
     """The bare launch of ``scan_exact`` on checked GPU tensors, flat (n,)
     or stacked (S, W): `out` is a zeroed (2|3, Q) or (S, 2|3, Q) int64
     tensor the kernel adds into, `bounds_dev` a (Q, 2) int32 tensor. No
-    allocation, no synchronisation."""
+    allocation, no synchronisation.
+
+    With `vbounds_dev` ((Q, 2) int32, inclusive) the correction lane runs
+    in the same launch over `corr_a` ((6 or 3, nr) int32) and, with the
+    join lane, `corr_j` ((6, nr) int32), into one more row of `out`:
+    (S + 1, 2|3, Q), a flat column counting as S = 1. `fcodes` None runs
+    the lane alone into a (1, 2, Q) `out`."""
     join = jcodes is not None
-    n_shards = fcodes.shape[0] if fcodes.dim() == 2 else 1
+    if fcodes is None:
+        n_shards, width = 0, 0
+    else:
+        n_shards = fcodes.shape[0] if fcodes.dim() == 2 else 1
+        width = fcodes.shape[-1]
+    nq = (bounds_dev if bounds_dev is not None else vbounds_dev).shape[0]
+    nr_a = 0 if corr_a is None else corr_a.shape[1]
+    nr_j = 0 if corr_j is None else corr_j.shape[1]
     lib = build.load_library()
-    with torch.cuda.device(fcodes.device):
+    with torch.cuda.device(out.device):
         code = lib.scan_exact(
-            fcodes.data_ptr(), acodes.data_ptr(), fvalid_u8.data_ptr(),
-            adict.data_ptr(), bounds_dev.data_ptr(), bounds_dev.shape[0],
-            jcodes.data_ptr() if join else None,
-            jvalid_u8.data_ptr() if join else None,
-            rcount.data_ptr() if join else None, n_shards,
-            fcodes.shape[-1], out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            _ptr(fcodes), _ptr(acodes), _ptr(fvalid_u8), _ptr(adict),
+            _ptr(bounds_dev), nq, _ptr(jcodes), _ptr(jvalid_u8),
+            _ptr(rcount), n_shards, width,
+            _ptr(corr_a), nr_a, int(corr_a is None or corr_a.shape[0] == 6),
+            _ptr(corr_j), nr_j, _ptr(vbounds_dev),
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     build.check(code, "scan_exact")
 
 
@@ -199,3 +227,246 @@ def scan_filter_agg_sharded(fcodes, acodes, valid, dictionary, bounds):
     if width == 0 or not bounds:
         return [[(0, 0)] * len(bounds) for _ in range(n_shards)]
     return _per_shard(scan_exact(fcodes, acodes, valid, dictionary, bounds))
+
+
+# ---------------------------------------------------------------------------
+# The delta store's correction lane (one launch with the base scan, or alone)
+# ---------------------------------------------------------------------------
+
+def _stack(corr, device) -> torch.Tensor:
+    """A correction stack as a tensor; None is a zero-row (6, 0) stack."""
+    if corr is None:
+        return torch.zeros((6, 0), dtype=torch.int32, device=device)
+    return corr
+
+
+def _check_stack(stack: torch.Tensor, name: str) -> None:
+    check_tensor(stack, torch.int32, name, 2)
+    if stack.shape[0] not in (3, 6):
+        raise ValueError(f"{name}: expected 6 (or 3) rows, got shape "
+                         f"{tuple(stack.shape)}")
+
+
+def scan_values_exact_ref(stack, vbounds) -> torch.Tensor:
+    """Plain PyTorch version of the correction lane alone: a (2, Q) int64
+    tensor holding, per inclusive range ``(lo, hi)``, the sum of the
+    effective rows' values minus the base rows' and the difference of their
+    counts (a row counts where ``lo <= fv <= hi`` and its valid lane is not
+    0). A 3-row stack has only the effective triple: the plain raw-value
+    scan."""
+    nq = len(vbounds)
+    out = torch.zeros((2, nq), dtype=torch.int64, device=stack.device)
+    if stack.shape[1] == 0 or nq == 0:
+        return out
+    zero = torch.zeros((), dtype=torch.int64, device=stack.device)
+    triples = [(stack[0], stack[1].to(torch.int64), stack[2] != 0, 1)]
+    if stack.shape[0] == 6:
+        triples.append((stack[3], stack[4].to(torch.int64), stack[5] != 0,
+                        -1))
+    for q, (lo, hi) in enumerate(vbounds):
+        for fv, av, valid, sign in triples:
+            mask = (fv >= int(lo)) & (fv <= int(hi)) & valid
+            out[0, q] += sign * torch.where(mask, av, zero).sum()
+            out[1, q] += sign * mask.sum()
+    return out
+
+
+def scan_values_exact(stack, vbounds) -> torch.Tensor:
+    """The correction lane alone on the stack's device (the CUDA kernel
+    for a GPU tensor, one launch; the plain version for a CPU tensor).
+    Same layout as `scan_values_exact_ref`."""
+    if not on_gpu(stack):
+        return scan_values_exact_ref(stack, vbounds)
+    nq = len(vbounds)
+    out = torch.zeros((1, 2, nq), dtype=torch.int64, device=stack.device)
+    if stack.shape[1] == 0 or nq == 0:
+        return out[0]
+    _check_stack(stack, "correction stack")
+    launch_scan_exact(None, None, None, None, None, out, corr_a=stack,
+                      vbounds_dev=_bounds_tensor(vbounds, stack.device))
+    count_launch("scan_values" if stack.shape[0] == 3 else
+                 "scan_values_delta", (stack.shape[1], nq))
+    return out[0]
+
+
+def scan_exact_group_ref(fcodes, acodes, fvalid, adict, bounds, corr_a,
+                         vbounds, jcodes=None, jvalid=None, rcount=None,
+                         corr_j=None) -> torch.Tensor:
+    """Plain version of `scan_exact_group`: the base scan's partials (one
+    row per shard, a flat column being one shard) and, as one more row,
+    the correction lane's (the aggregate stack's deltas in the sum and
+    count lanes, the join-weight stack's sum delta in the join lane)."""
+    base = scan_exact_ref(fcodes, acodes, fvalid, adict, bounds, jcodes,
+                          jvalid, rcount)
+    if base.dim() == 2:
+        base = base[None]
+    corr = torch.zeros((1,) + tuple(base.shape[1:]), dtype=torch.int64,
+                       device=base.device)
+    corr[0, :2] = scan_values_exact_ref(_stack(corr_a, base.device), vbounds)
+    if jcodes is not None:
+        corr[0, 2] = scan_values_exact_ref(_stack(corr_j, base.device),
+                                           vbounds)[0]
+    return torch.cat([base, corr])
+
+
+def scan_exact_group(fcodes, acodes, fvalid, adict, bounds, corr_a, vbounds,
+                     jcodes=None, jvalid=None, rcount=None, corr_j=None
+                     ) -> torch.Tensor:
+    """A base scan (flat or stacked, with or without the join lane) plus
+    the correction lane in ONE launch on the inputs' device. `bounds` are
+    the Q code ranges of the base scan, `vbounds` the same Q predicates as
+    inclusive raw-value ranges; `corr_a` the aggregate stack, `corr_j` the
+    join-weight stack (join lane only). Same layout as
+    `scan_exact_group_ref`; the answer is the sum over its first axis."""
+    join = jcodes is not None
+    dev = fcodes.device
+    corr_a, corr_j = _stack(corr_a, dev), _stack(corr_j, dev)
+    tensors = [fcodes, acodes, fvalid, adict, corr_a]
+    if join:
+        tensors += [jcodes, jvalid, rcount, corr_j]
+    if not on_gpu(*tensors):
+        return scan_exact_group_ref(fcodes, acodes, fvalid, adict, bounds,
+                                    corr_a, vbounds, jcodes, jvalid, rcount,
+                                    corr_j)
+    ndim = fcodes.dim()
+    if ndim not in (1, 2):
+        raise ValueError(f"fcodes: expected (n,) or (n_shards, width), got "
+                         f"shape {tuple(fcodes.shape)}")
+    nq = len(bounds)
+    if len(vbounds) != nq:
+        raise ValueError(f"{nq} code ranges but {len(vbounds)} value ranges")
+    n_shards = fcodes.shape[0] if ndim == 2 else 1
+    out = torch.zeros((n_shards + 1, 3 if join else 2, nq),
+                      dtype=torch.int64, device=dev)
+    if nq == 0:
+        return out
+    fv = as_u8(fvalid)
+    check_tensor(fcodes, torch.int32, "fcodes", ndim)
+    check_tensor(acodes, torch.int32, "acodes", ndim)
+    check_tensor(fv, torch.uint8, "fvalid", ndim)
+    check_tensor(adict, torch.int32, "dictionary", 1)
+    if acodes.shape != fcodes.shape or fv.shape != fcodes.shape:
+        raise ValueError("fcodes, acodes and valid must have one shape")
+    _check_stack(corr_a, "corr_a")
+    jv = None
+    if join:
+        jv = as_u8(jvalid)
+        check_tensor(jcodes, torch.int32, "jcodes", ndim)
+        check_tensor(jv, torch.uint8, "jvalid", ndim)
+        check_tensor(rcount, torch.int32, "rcount", 1)
+        if jcodes.shape != fcodes.shape or jv.shape != fcodes.shape:
+            raise ValueError("jcodes and jvalid must match fcodes' shape")
+        _check_stack(corr_j, "corr_j")
+        if corr_j.shape[0] != 6:
+            raise ValueError("corr_j: the join-weight stack has 6 rows")
+    launch_scan_exact(fcodes, acodes, fv, adict, _bounds_tensor(bounds, dev),
+                      out, jcodes if join else None, jv,
+                      rcount if join else None, corr_a=corr_a,
+                      corr_j=corr_j if join else None,
+                      vbounds_dev=_bounds_tensor(vbounds, dev))
+    name = "scan_exact" + ("_join" if join else "") + "_group" + (
+        "_sharded" if ndim == 2 else "")
+    count_launch(name, tuple(fcodes.shape) + (adict.shape[0],) + (
+        (rcount.shape[0],) if join else ()) + (nq, corr_a.shape[1]) + (
+        (corr_j.shape[1],) if join else ()))
+    return out
+
+
+def _pairs(parts: torch.Tensor) -> list:
+    """(lanes, Q) -> [(lane values...)] * Q as exact Python ints (one
+    device-to-host copy)."""
+    return [tuple(t) for t in zip(*parts.tolist())]
+
+
+def _values_stack(fvals, avals, valid) -> torch.Tensor:
+    """Raw overlay rows as a 3-row stack (the effective triple only)."""
+    return torch.stack([fvals.to(torch.int32), avals.to(torch.int32),
+                        valid.to(torch.int32)])
+
+
+def scan_values_agg_ref(fvals, avals, valid, bounds):
+    """Plain version of `scan_values_agg`."""
+    return _pairs(scan_values_exact_ref(_values_stack(fvals, avals, valid),
+                                        list(bounds)))
+
+
+def scan_values_agg(fvals, avals, valid, bounds):
+    """One pass answering Q INCLUSIVE value-range queries over raw
+    (decoded) rows: per ``(lo, hi)`` the exact ``(sum(avals), count)``
+    over rows with ``lo <= fvals <= hi`` and `valid`. fvals/avals int32
+    tensors (no dictionary), valid bool or integer, all on one device."""
+    bounds = list(bounds)
+    if fvals.shape[0] == 0 or not bounds:
+        return [(0, 0) for _ in bounds]
+    return _pairs(scan_values_exact(_values_stack(fvals, avals, valid),
+                                    bounds))
+
+
+def scan_values_delta_ref(corr, vbounds):
+    """Plain version of `scan_values_delta`."""
+    vbounds = list(vbounds)
+    return _pairs(scan_values_exact_ref(_stack(corr, "cpu"), vbounds))
+
+
+def scan_values_delta(corr, vbounds):
+    """Effective-minus-base correction of one (6, nr) overlay stack in ONE
+    launch: per inclusive range, the exact ``(d_sum, d_count)`` the
+    overlay adds to a base scan. ``None`` is a zero-row stack."""
+    vbounds = list(vbounds)
+    if not vbounds:
+        return []
+    if corr is None or corr.shape[1] == 0:
+        return [(0, 0)] * len(vbounds)
+    return _pairs(scan_values_exact(corr, vbounds))
+
+
+def _group(fcodes, acodes, valid, dictionary, code_bounds, corr, vbounds,
+           scan):
+    nq = len(code_bounds)
+    if nq == 0:
+        return []
+    if fcodes.shape[-1] == 0:
+        return [(0, 0)] * nq
+    return _pairs(scan(fcodes, acodes, valid, dictionary, list(code_bounds),
+                       corr, list(vbounds)).sum(0))
+
+
+def scan_filter_agg_group_ref(fcodes, acodes, valid, dictionary, code_bounds,
+                              corr, vbounds):
+    """Plain version of `scan_filter_agg_group`."""
+    return _group(fcodes, acodes, valid, dictionary, code_bounds, corr,
+                  vbounds, scan_exact_group_ref)
+
+
+def scan_filter_agg_group(fcodes, acodes, valid, dictionary, code_bounds,
+                          corr, vbounds):
+    """One no-join query group on the delta plane - base scan PLUS the
+    overlay correction - in ONE launch.
+
+    code_bounds: Q exclusive code ranges over the (n,) base columns;
+    vbounds: the same Q predicates as inclusive raw-value ranges; corr: the
+    (6, nr) correction stack (None: no overlay). Returns [(sum, count)]
+    exact Python ints: base + effective state - base state of the overlay
+    rows."""
+    return _group(fcodes, acodes, valid, dictionary, code_bounds, corr,
+                  vbounds, scan_exact_group)
+
+
+def scan_filter_agg_group_sharded_ref(fcodes, acodes, valid, dictionary,
+                                      code_bounds, corr, vbounds):
+    """Plain version of `scan_filter_agg_group_sharded`."""
+    return _group(fcodes, acodes, valid, dictionary, code_bounds, corr,
+                  vbounds, scan_exact_group_ref)
+
+
+def scan_filter_agg_group_sharded(fcodes, acodes, valid, dictionary,
+                                  code_bounds, corr, vbounds):
+    """Sharded sibling of `scan_filter_agg_group`: every island's base scan
+    over the stacked (n_shards, width) shards and the correction over the
+    flat (global) overlay stack, in ONE launch. Returns the reduced
+    [(sum, count)]: cross-island totals with the correction folded."""
+    if fcodes.dim() != 2:
+        raise ValueError(f"fcodes: expected (n_shards, width), got shape "
+                         f"{tuple(fcodes.shape)}")
+    return _group(fcodes, acodes, valid, dictionary, code_bounds, corr,
+                  vbounds, scan_exact_group)

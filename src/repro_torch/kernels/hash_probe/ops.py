@@ -14,6 +14,9 @@
   histogram as the dictionary. ``csrc/scan_exact.cu`` answers both lanes in
   one pass, reading the filter column once; the sharded form takes the
   GLOBAL histogram, so the per-island join partials sum exactly.
+* `scan_filter_agg_join_group`: the join group on the delta plane - the
+  same scan with the EFFECTIVE histogram plus the correction lane over the
+  aggregate stack and the join-weight stack, in one launch.
 """
 
 from __future__ import annotations
@@ -26,7 +29,9 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (check_tensor, count_launch,
                                         next_pow2, on_gpu)
-from repro_torch.kernels.dict_ops.ops import (_per_shard, scan_exact,
+from repro_torch.kernels.dict_ops.ops import (_pairs, _per_shard,
+                                              scan_exact, scan_exact_group,
+                                              scan_exact_group_ref,
                                               scan_exact_ref)
 
 EMPTY = -2**31                       # reserved free-slot key (int32.min)
@@ -223,3 +228,42 @@ def scan_filter_agg_join_sharded(fcodes, acodes, jcodes, fvalid, jvalid,
         return [[(0, 0, 0)] * len(bounds) for _ in range(n_shards)]
     return _per_shard(scan_exact(fcodes, acodes, fvalid, adict, bounds,
                                  jcodes, jvalid, rcount))
+
+
+def _join_group(fcodes, acodes, jcodes, fvalid, jvalid, adict, rcount,
+                code_bounds, corr_a, corr_j, vbounds, scan):
+    nq = len(code_bounds)
+    if nq == 0:
+        return []
+    if fcodes.shape[0] == 0:
+        return [(0, 0, 0)] * nq
+    return _pairs(scan(fcodes, acodes, fvalid, adict, list(code_bounds),
+                       corr_a, list(vbounds), jcodes, jvalid, rcount,
+                       corr_j).sum(0))
+
+
+def scan_filter_agg_join_group_ref(fcodes, acodes, jcodes, fvalid, jvalid,
+                                   adict, rcount, code_bounds, corr_a,
+                                   corr_j, vbounds):
+    """Plain version of `scan_filter_agg_join_group`."""
+    return _join_group(fcodes, acodes, jcodes, fvalid, jvalid, adict, rcount,
+                       code_bounds, corr_a, corr_j, vbounds,
+                       scan_exact_group_ref)
+
+
+def scan_filter_agg_join_group(fcodes, acodes, jcodes, fvalid, jvalid,
+                               adict, rcount, code_bounds, corr_a, corr_j,
+                               vbounds):
+    """One join-query group on the delta plane - aggregate and self-join
+    scans PLUS both overlay corrections - in ONE launch (flat columns).
+
+    `corr_a` is the (6, nr) aggregate correction stack (as
+    `dict_ops.scan_filter_agg_group`); `corr_j` carries ``[fv_eff, w_eff,
+    valid_eff, fv_base, w_base, valid_base]``, the w lanes being each
+    overlay row's effective join-histogram weight, of which only the sum
+    delta applies (to the join count). Either may be None. `rcount` must
+    already be the EFFECTIVE (delta-corrected) int32 histogram. Returns
+    [(sum, count, join_count)] with the corrections folded."""
+    return _join_group(fcodes, acodes, jcodes, fvalid, jvalid, adict, rcount,
+                       code_bounds, corr_a, corr_j, vbounds,
+                       scan_exact_group)

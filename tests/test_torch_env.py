@@ -4,7 +4,8 @@
 JAX package; its entry points mean the GPU when no device is given and
 raise when there is none (they never carry on on the CPU by themselves);
 everything a spec can name beyond the ported slice raises
-`NotImplementedError` naming the ROADMAP.md queue that brings it.
+`NotImplementedError` naming the ROADMAP.md queue that brings it (and what
+once raised, since ported, answers as the reference does).
 """
 
 import pathlib
@@ -15,7 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import backend as ref_backend_mod
+from repro.core import session as ref_session
 from repro_torch.core import engine, htap, schema
+from repro_torch.core import session as session_mod
 from repro_torch.core.backend import (HopperBackend, TorchBackend,
                                       get_backend)
 from repro_torch.core.dsm import DSMReplica
@@ -104,15 +108,28 @@ def test_get_backend_rejects_unknown_names_and_device_conflicts():
             get_backend(be, device="cuda")
 
 
+def _delta_spec(**kw):
+    """A delta-store spec's fields and resolved plane, in the port and in
+    the reference."""
+    port = SystemSpec.polynesia(**kw)
+    ref = ref_session.SystemSpec.polynesia(**kw)
+    return ((port.delta_store, port.delta_capacity,
+             session_mod._resolve_delta(port)),
+            (ref.delta_store, ref.delta_capacity,
+             ref_session._resolve_delta(ref)))
+
+
 @pytest.mark.parametrize("make,queue", [
-    (lambda: get_backend("hopper@4", device="cpu").filter_agg_values_delta(
-        None, []), "item 9"),
+    (lambda: (get_backend("hopper@4", device="cpu").filter_agg_values_delta(
+        None, []), ref_backend_mod.get_backend(
+            "pallas", n_shards=4, placement="stacked").filter_agg_values_delta(
+        None, [])), "item 9"),
     (lambda: get_backend("hopper@2/mesh", device="cpu"), "item 13"),
     (lambda: get_backend("hopper/mesh", device="cpu"), "item 13"),
     (lambda: SystemSpec.polynesia(n_shards=4, placement="mesh"), "item 13"),
     (lambda: SystemSpec.polynesia(placement="mesh"), "item 13"),
-    (lambda: SystemSpec.polynesia(delta_store=True), "item 9"),
-    (lambda: SystemSpec.polynesia(delta_capacity=64), "item 9"),
+    (lambda: _delta_spec(delta_store=True), "item 9"),
+    (lambda: _delta_spec(delta_capacity=64), "item 9"),
     (lambda: SystemSpec.polynesia(timing="timeline"), "item 10"),
     (lambda: SystemSpec.polynesia(async_propagation=True), "item 10"),
     (lambda: SystemSpec.si_ss(), "item 12"),
@@ -129,6 +146,12 @@ def test_get_backend_rejects_unknown_names_and_device_conflicts():
                              exact=False), "K18"),
 ])
 def test_unported_features_raise_and_name_their_roadmap_queue(make, queue):
+    if queue == "item 9":
+        # the delta store is ported: the call that raised now answers as
+        # the reference's does
+        got, want = make()
+        assert got == want
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue") as err:
         make()
     assert queue in str(err.value)

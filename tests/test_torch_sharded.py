@@ -693,15 +693,30 @@ def test_absent_island_count_means_one_island(monkeypatch):
 
 
 def test_island_delta_operators_name_their_roadmap_item(rng):
-    be = _sharded("hopper", 2)
-    _, col = _pair(rng, 10)
+    """The islands' delta operators (ROADMAP item 9, once stubs) now
+    answer, equal to the reference's pallas@2: the values scan and the
+    values delta on the inner backend, the delta group in one sharded
+    launch."""
+    be, ref = _sharded("hopper", 2), _ref(2)
+    rcol, col = _pair(rng, 10)
     assert be.filter_agg_delta_batch(col, col, [(0, 500)], None) == \
-        be.filter_agg_batch(col, col, [(0, 500)])
-    for call in (lambda: be.filter_agg_delta_batch(col, col, [(0, 1)], 0),
-                 lambda: be.filter_agg_values_batch(None, None, None, []),
-                 lambda: be.filter_agg_values_delta(None, [])):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            call()
+        be.filter_agg_batch(col, col, [(0, 500)]) == \
+        ref.filter_agg_delta_batch(rcol, rcol, [(0, 500)], None)
+    stack = np.stack([rng.integers(0, 500, 7), rng.integers(-9, 9, 7),
+                      rng.integers(0, 2, 7), rng.integers(0, 500, 7),
+                      rng.integers(-9, 9, 7), rng.integers(0, 2, 7)]
+                     ).astype(np.int32)
+    bounds = [(0, 1), (0, 500), (300, 100)]
+    assert be.filter_agg_delta_batch(col, col, bounds, T(stack)) == \
+        ref.filter_agg_delta_batch(rcol, rcol, bounds, stack)
+    assert be.filter_agg_values_batch(T(stack[0]), T(stack[1]),
+                                      T(stack[2]), bounds) == \
+        ref.filter_agg_values_batch(stack[0], stack[1], stack[2], bounds)
+    assert be.filter_agg_values_delta(T(stack), bounds) == \
+        ref.filter_agg_values_delta(stack, bounds)
+    assert be.filter_agg_values_delta(None, []) == []
     assert set(backend_mod.KERNEL_ENTRY_POINTS) >= {
         "scan_filter_agg_sharded", "scan_filter_agg_join_sharded", "probe",
-        "probe_sharded", "build_table"}
+        "probe_sharded", "build_table", "scan_values_agg",
+        "scan_values_delta", "scan_filter_agg_group",
+        "scan_filter_agg_group_sharded", "scan_filter_agg_join_group"}
