@@ -38,16 +38,49 @@ Drives `repro_torch` only. Phases, each printing one JSON line:
                  ``"hopper@4"`` (the first island count): lone join queries
                  go through the bucket probe; answers must equal the host
                  evaluation.
-7. ``kernels``   every hand-written kernel launched on the card and held
-                 against its plain PyTorch version with exact equality
-                 (integers: tolerance 0), at edge shapes and at the shapes
-                 the main path just gave it (the one it launched most, and
+7. ``float_scan`` the reference's original float32 scan
+                 (``scan_filter_agg(exact=False)``, as
+                 ``examples/htap_analytics.py`` calls it) for every query's
+                 filter and aggregate column over the main path's final
+                 columns: one launch per query; counts must equal the exact
+                 scan's, sums within ``n * 2**-24 * sum(|v|)`` of its exact
+                 int64 sums.
+8. ``lm_serve``  the LM serving path at full width, one line per model of
+                 ``--lm-models``: gemma2-9b (42 layers, bf16 weights from
+                 `init_lm` on the card, seed ``--seed``) serves ``--lm-batch``
+                 4 requests of ``--lm-prompt`` 256 prompt tokens fed one at a
+                 time through `make_serve_step`, then ``--lm-gen`` 32
+                 generated tokens, with a cache of 4096 slots:
+                 every attention layer of every step is one flash-decode
+                 launch (42 x (P + G - 1)) and every logit is finite;
+                 falcon-mamba-7b (64 layers) runs `make_prefill_step` over 4 x
+                 ``--lm-prefill`` 2048 tokens twice (64 selective-scan
+                 launches a call), then serves as gemma2 through the plain
+                 Mamba step. Before each, a cross-check at full width, float32
+                 weights and reduced depth (one period of gemma2; two layers
+                 of falcon-mamba): prefill logits against token-by-token
+                 decode logits at every one of 64 positions,
+                 2e-3 relative plus absolute (the reference's
+                 ``test_decode_matches_parallel_apply``); the prefill takes
+                 the plain attention or the scan kernel, the decode the
+                 decode kernel or the plain step. After each model's run,
+                 4 more serve steps under `torch.profiler` give the device
+                 time per step and the device's busy share.
+9. ``kernels``   every hand-written kernel launched on the card and held
+                 against its plain PyTorch version - the HTAP kernels with
+                 exact equality (integers: tolerance 0), flash-decode
+                 attention at 2e-5 and the selective scan at 3e-5 in float32
+                 (a bf16 cache is compared after up-casting), the float32
+                 scan with an exact count and its sum within ``n * 2**-24 *
+                 sum(|v|)`` of the exact sum - at edge shapes and at the
+                 shapes the path just gave it (the one it launched most, and
                  the largest where that is another; for the sharded scans
-                 also the one each other island count launched most,
-                 under ``at_islands``); times the kernel
-                 (``ms``: back-to-back bare launches; ``wrapper_ms``:
-                 through the public wrapper with its checks and
-                 allocations), the plain version and, where one PyTorch
+                 also the one each other island count launched most, under
+                 ``at_islands``; for flash-decode also the ``decode_32k``
+                 cache length, S = 32768 at B = 4, under ``at_decode_32k``);
+                 times the kernel (``ms``: back-to-back bare launches;
+                 ``wrapper_ms``: through the public wrapper with its checks
+                 and allocations), the plain version and, where one PyTorch
                  call computes the same function, that call; for the delta
                  groups also the same launch without the correction lane
                  (``base_ms``).
@@ -55,7 +88,9 @@ Drives `repro_torch` only. Phases, each printing one JSON line:
 Each kernel is checked against the path that runs it (counts set to 0 just
 before the path, read just after): the one-island kernels against
 ``main_path``, the sharded scans against ``islands``, the delta kernels
-against ``delta``, the bucket probe against ``ana_only``. The raw-value
+against ``delta``, the bucket probe against ``ana_only``, the float32 scan
+against ``float_scan``, flash-decode attention and the selective scan
+against ``lm_serve`` (each model's serve run). The raw-value
 scan has no caller on these paths (nor in the reference's kernel backend):
 it is the values delta's kernel over a 3-row stack and is held and timed
 beside it, under ``raw_value_scan``. Then the ``{"kernels": [...]}``
@@ -108,6 +143,9 @@ REPLACES = {
     "scan_values_delta": "src/repro/kernels/dict_ops/ops.py:453 "
                          "(2 x dict_ops.py:176; the raw-value scan "
                          "dict_ops.py:176 alone is raw_value_scan)",
+    "scan_float": "src/repro/kernels/dict_ops/dict_ops.py:218",
+    "decode_attn": "src/repro/kernels/decode_attn/decode_attn.py:74",
+    "selective_scan": "src/repro/kernels/selective_scan/selective_scan.py:59",
 }
 SOURCES = {
     "scan_exact": "src/repro_torch/kernels/csrc/scan_exact.cu",
@@ -123,12 +161,17 @@ SOURCES = {
     "scan_exact_group_sharded": "src/repro_torch/kernels/csrc/scan_exact.cu",
     "scan_exact_join_group": "src/repro_torch/kernels/csrc/scan_exact.cu",
     "scan_values_delta": "src/repro_torch/kernels/csrc/scan_exact.cu",
+    "scan_float": "src/repro_torch/kernels/csrc/scan_float.cu",
+    "decode_attn": "src/repro_torch/kernels/csrc/decode_attn.cu",
+    "selective_scan": "src/repro_torch/kernels/csrc/selective_scan.cu",
 }
 # the path that runs each kernel: its launches are counted on that path
 PATH_OF = {"scan_exact_sharded": "islands",
            "scan_exact_join_sharded": "islands", "hash_probe": "ana_only",
            "scan_exact_group": "delta", "scan_exact_group_sharded": "delta",
-           "scan_exact_join_group": "delta", "scan_values_delta": "delta"}
+           "scan_exact_join_group": "delta", "scan_values_delta": "delta",
+           "scan_float": "float_scan", "decode_attn": "lm_serve",
+           "selective_scan": "lm_serve"}
 I32_MIN, I32_MAX = -2**31, 2**31 - 1
 
 
@@ -169,6 +212,21 @@ def max_abs_err(got, want) -> int:
         if g.numel():
             err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
                                .abs().max()))
+    return err
+
+
+def must_be_close(name: str, got, want, tol: float) -> float:
+    """Largest absolute difference of two float tensors (after up-casting
+    to float32); raises above `tol` relative plus absolute."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if not torch.allclose(got, want, rtol=tol, atol=tol):
+        raise AssertionError(f"kernel check {name!r}: differs from its plain "
+                             f"version (max abs err {err}, tolerance {tol} "
+                             "relative plus absolute)")
     return err
 
 
@@ -556,7 +614,304 @@ def phase_ana_only(args, wl) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: every kernel against its plain version
+# phase 7: the float32 scan over the main path's columns
+# ---------------------------------------------------------------------------
+
+def float_scan_check(name, s, c, exact_sum, exact_count, abs_sum, n) -> float:
+    """Count exact; the float32 sum within n * 2**-24 * sum(|v|) of the
+    exact sum (the worst case of a float32 sum of n terms). Returns the
+    error relative to sum(|v|)."""
+    err = abs(float(s) - exact_sum)
+    if int(c) != exact_count or err > n * 2.0**-24 * abs_sum:
+        raise AssertionError(
+            f"{name}: float32 scan ({float(s)}, {int(c)}) against exact "
+            f"({exact_sum}, {exact_count}), sum(|v|) {abs_sum}, n {n}")
+    return err / abs_sum if abs_sum else 0.0
+
+
+def abs_sum(fcodes, acodes, valid, adict, lo, hi) -> int:
+    """sum(|dict[acodes]|) over the rows a predicate selects (int64)."""
+    mask = (fcodes >= lo) & (fcodes < hi) & valid
+    return int(torch.where(mask, adict[acodes.long()].long().abs(), 0).sum())
+
+
+def phase_float_scan(args, wl, cols) -> tuple[dict, dict]:
+    """Every query's filter and aggregate columns through the float32 scan
+    over the main path's final columns (one launch a query), then the same
+    predicates through the exact scan to hold it against."""
+    from repro_torch.core.backend import get_backend
+    from repro_torch.kernels.common import (kernel_launch_counts,
+                                            kernel_launch_shapes,
+                                            reset_kernel_launch_counts)
+    from repro_torch.kernels.dict_ops import scan_filter_agg
+    be = get_backend("hopper")
+    queries = list(wl["queries"]) + [wl["late_query"]]
+    preds = []
+    for q in queries:
+        fcol, acol = cols[q.filter_col], cols[q.agg_col]
+        preds.append((fcol, acol) + be.code_range(fcol, q.lo, q.hi))
+    reset_kernel_launch_counts()
+    t0 = time.perf_counter()
+    got = [scan_filter_agg(f.codes, a.codes, f.valid, a.dictionary, lo, hi,
+                           exact=False) for f, a, lo, hi in preds]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, shapes = kernel_launch_counts(), kernel_launch_shapes()
+    if launches != {"scan_float": len(queries)}:
+        raise AssertionError(f"float scan launches {launches} for "
+                             f"{len(queries)} queries")
+    rel = []
+    for (f, a, lo, hi), (s, c) in zip(preds, got):
+        es, ec = scan_filter_agg(f.codes, a.codes, f.valid, a.dictionary, lo,
+                                 hi)
+        rel.append(float_scan_check(
+            "float_scan", s, c, es, ec,
+            abs_sum(f.codes, a.codes, f.valid, a.dictionary, lo, hi),
+            f.n_rows))
+    emit("float_scan", queries=len(queries), seconds=seconds,
+         launches=launches, max_rel_err=max(rel),
+         tolerance="n * 2**-24 * sum(|v|)", ok=True)
+    return launches, shapes
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the LM serving path
+# ---------------------------------------------------------------------------
+
+class FiniteLogits:
+    """Holds every logit `make_serve_step` produces to be finite: wraps the
+    decode step it calls with a check that stays on the device (one flag,
+    read once at the end)."""
+
+    def __init__(self, dev):
+        self.ok = torch.ones((), dtype=torch.bool, device=dev)
+        self.steps = 0
+
+    def __enter__(self):
+        from repro_torch.launch import steps
+        self.orig = steps.lm_decode_step
+
+        def checked(*a, **kw):
+            logits, cache = self.orig(*a, **kw)
+            self.ok &= torch.isfinite(logits).all()
+            self.steps += 1
+            return logits, cache
+
+        steps.lm_decode_step = checked
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import steps
+        steps.lm_decode_step = self.orig
+        return False
+
+
+def serve(model, cfg, prompts, n_gen: int, max_len: int):
+    """Greedy serving as `examples/serve_lm.py`: the prompt fed one token
+    at a time through `make_serve_step`, then the generated tokens fed
+    back. Returns (generated (B, n_gen), prompt seconds, generation
+    seconds, steps)."""
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models.lm import init_lm_cache
+    dev = prompts.device
+    batch, n_prompt = prompts.shape
+    cache = init_lm_cache(cfg, batch, max_len, dtype=cfg.adtype, device=dev)
+    step = make_serve_step(cfg)
+    with FiniteLogits(dev) as finite:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n_prompt):
+            tok, cache = step(model, cache, prompts[:, i:i + 1], i)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = [tok]
+        for i in range(n_prompt, n_prompt + n_gen - 1):
+            tok, cache = step(model, cache, tok, i)
+            out.append(tok)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    if not bool(finite.ok):
+        raise AssertionError(f"{cfg.name}: a decode step gave a logit that "
+                             "is not finite")
+    gen = torch.cat(out, dim=1)
+    if gen.shape != (batch, n_gen) or int(gen.min()) < 0 \
+            or int(gen.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{cfg.name}: bad generated tokens {gen.shape}")
+    return gen, t1 - t0, t2 - t1, finite.steps, cache
+
+
+def profile_steps(model, cfg, cache, tok, start: int, n: int) -> dict:
+    """`n` more serve steps under `torch.profiler`: device time per step
+    (the CUDA kernels' own times, summed) against the wall time, which the
+    profiler inflates; "not measured" when it records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.steps import make_serve_step
+    step = make_serve_step(cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(start, start + n):
+            tok, cache = step(model, cache, tok, i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [(e.key, e.self_device_time_total, e.count)
+               for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")
+               and e.self_device_time_total > 0]
+    device_us = sum(k[1] for k in kernels)
+    if not device_us:
+        return {"device_time": "not measured (no device events)"}
+    top = sorted(kernels, key=lambda k: -k[1])[:6]
+    return dict(steps=n, wall_ms_per_step=wall / n * 1e3,
+                device_ms_per_step=device_us / 1e3 / n,
+                device_busy_share=device_us / 1e6 / wall,
+                kernel_launches_per_step=sum(k[2] for k in kernels) / n,
+                top_kernels=[dict(name=k[0][:60], ms_per_step=k[1] / 1e3 / n,
+                                  calls_per_step=k[2] / n) for k in top])
+
+
+def cross_check(cfg, args, dev) -> dict:
+    """Full width, float32 weights, reduced depth: the prefill's logits
+    against token-by-token decode logits at every prompt position."""
+    import dataclasses
+    from repro_torch.models.lm import (init_lm, init_lm_cache, lm_apply,
+                                       lm_decode_step)
+    depth = cfg.period if cfg.period > 1 else 2
+    small = dataclasses.replace(cfg, n_layers=depth, param_dtype="float32",
+                                activ_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    model = init_lm(small, generator=gen, device=dev)
+    n = LM_CHECK
+    toks = torch.randint(0, cfg.vocab_size, (2, n), generator=gen,
+                         device=dev, dtype=torch.int32)
+    want, _ = lm_apply(model, toks, small)
+    cache = init_lm_cache(small, 2, n, dtype=torch.float32, device=dev)
+    err, scale = 0.0, float(want.abs().max())
+    for i in range(n):
+        got, cache = lm_decode_step(model, cache, toks[:, i:i + 1], i, small)
+        if not torch.allclose(got[:, 0], want[:, i], rtol=2e-3, atol=2e-3):
+            raise AssertionError(
+                f"{cfg.name} cross-check: decode logits at position {i} "
+                f"differ from the prefill's (max abs err "
+                f"{float((got[:, 0] - want[:, i]).abs().max())}, tolerance "
+                "2e-3 relative plus absolute)")
+        err = max(err, float((got[:, 0] - want[:, i]).abs().max()))
+    if not bool(torch.isfinite(want).all()):
+        raise AssertionError(f"{cfg.name} cross-check: prefill logits not "
+                             "finite")
+    del model, cache
+    return dict(layers=depth, dtype="float32", batch=2, positions=n,
+                max_abs_err=err, max_abs_logit=scale, tolerance=2e-3)
+
+
+def add_counts(into: tuple[dict, dict], launches: dict, shapes: dict):
+    counts, seen = into
+    for k, v in launches.items():
+        counts[k] = counts.get(k, 0) + v
+    for k, by_shape in shapes.items():
+        acc = seen.setdefault(k, {})
+        for shape, v in by_shape.items():
+            acc[shape] = acc.get(shape, 0) + v
+
+
+LM_MAX_LEN = 4096        # KV cache slots per request
+LM_CHECK = 64            # positions of the reduced-depth cross-check
+LM_PROFILE_STEPS = 4     # serve steps traced after each model's run
+
+
+def phase_lm_serve(args, dev=None) -> tuple[dict, dict]:
+    """Each model of `--lm-models` at full width and depth in bf16; returns
+    the launches and launch shapes of the models' runs together (the
+    cross-checks are not counted). `dev` is the card (a rehearsal on the
+    CPU passes the CPU and smoke configs)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.common import (kernel_launch_counts,
+                                            kernel_launch_shapes,
+                                            reset_kernel_launch_counts)
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.lm import init_lm
+    dev = torch.device("cuda", 0) if dev is None else dev
+    torch.backends.cuda.matmul.allow_tf32 = False    # float32 is float32
+    torch.backends.cudnn.allow_tf32 = False
+    total = ({}, {})
+    for name in args.lm_models:
+        cfg = get_config(name)
+        check = cross_check(cfg, args, dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        t0 = time.perf_counter()
+        model = init_lm(cfg, generator=gen, device=dev)
+        torch.cuda.synchronize()
+        init_seconds = time.perf_counter() - t0
+        weight_bytes = sum(p.numel() * p.element_size()
+                           for p in model.parameters())
+        B, P, G = args.lm_batch, args.lm_prompt, args.lm_gen
+        n_attn = sum(cfg.blocks[i % cfg.period].mixer != "mamba"
+                     for i in range(cfg.n_layers))
+        n_mamba = cfg.n_layers - n_attn
+        fields = {}
+        reset_kernel_launch_counts()
+        if n_mamba:
+            prefill = make_prefill_step(cfg)
+            toks = torch.randint(0, cfg.vocab_size, (B, args.lm_prefill),
+                                 generator=gen, device=dev,
+                                 dtype=torch.int32)
+            secs = []
+            for _ in range(2):                     # the first call warms up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits = prefill(model, {"tokens": toks})
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            if logits.shape != (B, cfg.vocab_size) or \
+                    not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"{name}: bad prefill logits")
+            fields.update(prefill_tokens=B * args.lm_prefill,
+                          prefill_seconds=secs,
+                          prefill_tokens_per_s=B * args.lm_prefill / secs[1])
+        prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                                device=dev, dtype=torch.int32)
+        out, prompt_s, gen_s, steps, cache = serve(model, cfg, prompts, G,
+                                                   LM_MAX_LEN)
+        torch.cuda.synchronize()
+        launches, shapes = kernel_launch_counts(), kernel_launch_shapes()
+        # after the counts: the profiled steps are not part of the run
+        prof = profile_steps(model, cfg, cache, out[:, -1:], P + G - 1,
+                             LM_PROFILE_STEPS)
+        del cache
+        want = {}
+        if n_attn:
+            want["decode_attn"] = n_attn * (P + G - 1)
+        if n_mamba:
+            want["selective_scan"] = n_mamba * 2
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches}, expected "
+                                 f"{want} ({n_attn} attention layers x "
+                                 f"{P + G - 1} decode steps, {n_mamba} Mamba "
+                                 "layers x 2 prefill calls)")
+        peak = torch.cuda.max_memory_allocated()
+        add_counts(total, launches, shapes)
+        emit("lm_serve", model=name, layers=cfg.n_layers,
+             d_model=cfg.d_model, vocab=cfg.vocab_size,
+             params=sum(p.numel() for p in model.parameters()),
+             weight_bytes=weight_bytes, dtype=str(cfg.pdtype), batch=B,
+             prompt=P, generated=G, max_len=LM_MAX_LEN, seed=args.seed,
+             init_seconds=init_seconds, decode_steps=steps,
+             prompt_seconds=prompt_s, prompt_ms_per_step=prompt_s / P * 1e3,
+             gen_seconds=gen_s, gen_ms_per_step=gen_s / (G - 1) * 1e3,
+             decode_tokens_per_s=B * (G - 1) / gen_s,
+             peak_device_bytes=peak, launches=launches,
+             first_tokens=out[0, :8].tolist(), cross_check=check,
+             profile=prof, **fields, ok=True)
+        del model, out
+        torch.cuda.empty_cache()
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 9: every kernel against its plain version
 # ---------------------------------------------------------------------------
 # Each kernel has a `*_cost(shape)` -> (bytes, operations) of one launch at a
 # shape its wrapper recorded (each input read once, each output written
@@ -1231,6 +1586,200 @@ def measure_values_delta(gen, dev, shape) -> dict:
     return m
 
 
+# -- the float32 scan, flash-decode attention, the selective scan ----------
+
+def float_scan_cost(shape):
+    """(n, k): each row's 9 bytes read once, the (1,) sum and count out; a
+    gather of 4 bytes per selected row is data-dependent and not counted;
+    two compares, an and, a convert and an add per row."""
+    n, k = shape
+    return n * 9 + 8, n * 5
+
+
+def edge_float_scan(gen, dev) -> int:
+    """Ragged tails, one row, unaligned views, an empty range."""
+    from repro_torch.kernels.dict_ops import scan_filter_agg
+    cases = 0
+    for n, k in ((1, 3), (255, 40), (257, 1000), (1_000_003, 50_000)):
+        f, a, _, fv, _, ad, _ = scan_inputs(gen, n + 1, k, k, 1, dev)
+        for off in (0, 1):
+            fc, ac, vv = f[off:off + n], a[off:off + n], fv[off:off + n]
+            for lo, hi in ((0, k), (k // 3, k // 2 + 1), (1, 1)):
+                s, c = scan_filter_agg(fc, ac, vv, ad, lo, hi, exact=False)
+                es, ec = scan_filter_agg(fc, ac, vv, ad, lo, hi)
+                float_scan_check(f"float scan n={n} off={off}", s, c, es, ec,
+                                 abs_sum(fc, ac, vv, ad, lo, hi), n)
+                cases += 1
+    return cases
+
+
+def measure_float_scan(gen, dev, shape) -> dict:
+    from repro_torch.kernels.dict_ops import (launch_scan_float,
+                                              scan_filter_agg,
+                                              scan_filter_agg_float_ref)
+    from repro_torch.kernels.dict_ops.ops import float_scan_parts
+    n, k = shape
+    f, a, _, fv, _, ad, _ = scan_inputs(gen, n, k, k, 1, dev, invalid=0.0)
+    lo, hi = k // 4, k // 4 + max(1, 3 * k // 10)   # about 30 % of rows
+    s, c = scan_filter_agg(f, a, fv, ad, lo, hi, exact=False)
+    es, ec = scan_filter_agg(f, a, fv, ad, lo, hi)
+    rel = float_scan_check(f"float scan {shape}", s, c, es, ec,
+                           abs_sum(f, a, fv, ad, lo, hi), n)
+    parts = float_scan_parts(dev, n)
+    psum = torch.empty(parts, dtype=torch.float32, device=dev)
+    pcnt = torch.empty(parts, dtype=torch.int32, device=dev)
+    out_s = torch.empty(1, dtype=torch.float32, device=dev)
+    out_c = torch.empty(1, dtype=torch.int32, device=dev)
+    fvu = fv.view(torch.uint8)
+    return dict(
+        max_abs_err=abs(float(s) - es), rel_err=rel,
+        tolerance="count exact, sum n * 2**-24 * sum(|v|)",
+        ms=time_ms(lambda: launch_scan_float(f, a, fvu, ad, lo, hi, psum,
+                                             pcnt, out_s, out_c), 50),
+        wrapper_ms=time_ms(lambda: scan_filter_agg(f, a, fv, ad, lo, hi,
+                                                   exact=False), 20),
+        plain_ms=time_ms(lambda: scan_filter_agg_float_ref(f, a, fv, ad, lo,
+                                                           hi), 3),
+        library_ms=None)
+
+
+def decode_cost(shape, kv_bytes=2, q_bytes=2):
+    """(B, S, H, Hkv, d, length): the valid prefix of K and V read once
+    (slots past `length` are never read), q in, out written; a dot product
+    and an update of the output (two multiply-adds) per (head, slot,
+    element), a softcap and an exponential per (head, slot)."""
+    B, S, H, Hkv, d, length = shape
+    nbytes = 2 * B * length * Hkv * d * kv_bytes + 2 * B * H * d * q_bytes
+    return nbytes, B * H * length * (4 * d + 8)
+
+
+def decode_inputs(gen, dev, shape, q_dtype, kv_dtype):
+    B, S, H, Hkv, d, length = shape
+    q = torch.randn((B, H, d), generator=gen, device=dev).to(q_dtype)
+    k = torch.randn((B, S, Hkv, d), generator=gen, device=dev).to(kv_dtype)
+    v = torch.randn((B, S, Hkv, d), generator=gen, device=dev).to(kv_dtype)
+    return q, k, v
+
+
+def edge_decode(gen, dev) -> int:
+    """Ragged S, length 1 and length = S, G 1 to 8, d 64 to 256, softcap on
+    and off, a full rolling cache (S = window = length), a float32 and a
+    bf16 cache (float32 queries: the plain version up-casts the cache)."""
+    from repro_torch.kernels.decode_attn import (decode_attention,
+                                                 decode_attention_ref)
+    cases = 0
+    for shape, cap in (((2, 1000, 8, 8, 128, 1), 0.0),
+                       ((3, 777, 10, 2, 128, 777), 50.0),
+                       ((1, 4097, 56, 8, 128, 3001), 0.0),
+                       ((2, 9, 4, 2, 64, 5), 30.0),
+                       ((1, 300, 8, 1, 256, 300), 0.0),
+                       ((2, 4096, 16, 8, 256, 4096), 50.0),   # rolling, full
+                       ((1, 5000, 28, 4, 128, 4999), 0.0)):   # G 7
+        B, S, H, Hkv, d, length = shape
+        for kv in (torch.float32, torch.bfloat16):
+            q, k, v = decode_inputs(gen, dev, shape, torch.float32, kv)
+            must_be_close(f"decode {shape} cap={cap} {kv}",
+                          decode_attention(q, k, v, length, softcap=cap),
+                          decode_attention_ref(q, k, v, length, d ** -0.5,
+                                               cap), 2e-5)
+            cases += 1
+    return cases
+
+
+def measure_decode(gen, dev, shape) -> dict:
+    """Checked with float32 queries against the plain version (2e-5), then
+    timed at the path's types: bf16 queries and cache."""
+    from repro_torch.kernels.decode_attn import (decode_attention,
+                                                 decode_attention_ref,
+                                                 launch_decode_attention)
+    from repro_torch.kernels.decode_attn.ops import n_splits
+    import torch.nn.functional as F
+    B, S, H, Hkv, d, length = shape
+    cap = 50.0
+    q, k, v = decode_inputs(gen, dev, shape, torch.float32, torch.bfloat16)
+    err = must_be_close(f"decode {shape}",
+                        decode_attention(q, k, v, length, softcap=cap),
+                        decode_attention_ref(q, k, v, length, d ** -0.5, cap),
+                        2e-5)
+    q = q.bfloat16()
+    out = torch.empty_like(q)
+    ns = n_splits(dev, B, Hkv, length)
+    pm = torch.empty(B * H * ns, dtype=torch.float32, device=dev)
+    pl = torch.empty_like(pm)
+    pa = torch.empty(B * H * ns * d, dtype=torch.float32, device=dev)
+    scale = d ** -0.5
+    q4 = q[:, :, None, :]
+    kl = k[:, :length].transpose(1, 2)
+    vl = v[:, :length].transpose(1, 2)
+    return dict(
+        max_abs_err=err, tolerance=2e-5, splits=ns,
+        ms=time_ms(lambda: launch_decode_attention(q, k, v, length, out,
+                                                   scale, cap, ns, pm, pl, pa),
+                   50),
+        wrapper_ms=time_ms(lambda: decode_attention(q, k, v, length,
+                                                    softcap=cap), 20),
+        plain_ms=time_ms(lambda: decode_attention_ref(q, k, v, length, scale,
+                                                      cap), 3),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q4, kl, vl, enable_gqa=True), 20),
+        library="F.scaled_dot_product_attention, softcap 0, on the valid "
+                "prefix (a transposed view of the cache)")
+
+
+def ssm_cost(shape):
+    """(B, T, D, N): x and dt read and y written (12 B per (t, channel)),
+    B_t and C_t (8 N B per step), A and the skip; per (t, channel, state)
+    an exponential, three multiply-adds and a multiply."""
+    B, T, D, N = shape
+    return (12 * B * T * D + 8 * B * T * N + 4 * D * (N + 1),
+            B * T * D * (7 * N + 3))
+
+
+def ssm_inputs(gen, dev, shape):
+    B, T, D, N = shape
+    x = torch.randn((B, T, D), generator=gen, device=dev)
+    dt = torch.randn((B, T, D), generator=gen, device=dev).abs() * 0.1
+    a = -torch.randn((D, N), generator=gen, device=dev).abs()
+    b = torch.randn((B, T, N), generator=gen, device=dev)
+    c = torch.randn((B, T, N), generator=gen, device=dev)
+    d = torch.randn((D,), generator=gen, device=dev)
+    return x, dt, a, b, c, d
+
+
+def edge_ssm(gen, dev) -> int:
+    """T and D not multiples of the tiles, one step, one channel, N 4, 8
+    and 16."""
+    from repro_torch.kernels.selective_scan import (selective_scan,
+                                                    selective_scan_ref)
+    cases = 0
+    for shape in ((1, 1, 1, 4), (2, 257, 100, 8), (3, 1000, 130, 16),
+                  (1, 33, 8192, 16), (4, 31, 4096, 4)):
+        args = ssm_inputs(gen, dev, shape)
+        must_be_close(f"selective scan {shape}", selective_scan(*args),
+                      selective_scan_ref(*args), 3e-5)
+        cases += 1
+    return cases
+
+
+def measure_ssm(gen, dev, shape) -> dict:
+    from repro_torch.kernels.selective_scan import (launch_selective_scan,
+                                                    selective_scan,
+                                                    selective_scan_ref)
+    args = ssm_inputs(gen, dev, shape)
+    t0 = time.perf_counter()
+    want = selective_scan_ref(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = must_be_close(f"selective scan {shape}", selective_scan(*args),
+                        want, 3e-5)
+    y = torch.empty_like(args[0])
+    return dict(
+        max_abs_err=err, tolerance=3e-5,
+        ms=time_ms(lambda: launch_selective_scan(*args, y), 10),
+        wrapper_ms=time_ms(lambda: selective_scan(*args), 10),
+        plain_ms=plain_ms, library_ms=None)
+
+
 # kernel name -> (cost of one launch at a shape, measurement at a shape)
 KERNELS = {
     "scan_exact": (lambda s: scan_cost(s, False),
@@ -1256,7 +1805,11 @@ KERNELS = {
     "scan_exact_join_group": (lambda s: group_cost(s, "join"),
                               lambda g, d, s: measure_group(g, d, s, "join")),
     "scan_values_delta": (values_cost, measure_values_delta),
+    "scan_float": (float_scan_cost, measure_float_scan),
+    "decode_attn": (decode_cost, measure_decode),
+    "selective_scan": (ssm_cost, measure_ssm),
 }
+DECODE_32K = (4, 32768, 16, 8, 256, 32768)    # gemma2's heads at decode_32k
 
 
 def with_bound(m: dict, shape, cost, launches: int) -> dict:
@@ -1279,7 +1832,8 @@ def phase_kernels(shapes: dict) -> dict:
     cases = (edge_scan(gen, dev) + edge_scan_sharded(gen, dev)
              + edge_probe(gen, dev) + edge_merge(gen, dev)
              + edge_bitonic(gen, dev) + edge_snapshot(gen, dev)
-             + edge_delta(gen, dev))
+             + edge_delta(gen, dev) + edge_float_scan(gen, dev)
+             + edge_decode(gen, dev) + edge_ssm(gen, dev))
     measured = {}
     for name, (cost, measure) in KERNELS.items():
         seen = shapes[name]
@@ -1307,8 +1861,14 @@ def phase_kernels(shapes: dict) -> dict:
                 for count, shape in sorted(by_count.items())
                 if count != most[0]}
             cases += len(by_count) - 1
+        if name == "decode_attn":
+            measured[name]["at_decode_32k"] = with_bound(
+                measure(gen, dev, DECODE_32K), DECODE_32K, cost, 0)
+            cases += 1
     torch.cuda.synchronize()
-    emit("kernels", cases=cases, tolerance=0,
+    emit("kernels", cases=cases,
+         tolerance="0 (integers); float32: decode_attn 2e-5, "
+                   "selective_scan 3e-5, scan_float n * 2**-24 * sum(|v|)",
          kernels=[dict(name=k, ok=True, **m) for k, m in measured.items()])
     return measured
 
@@ -1331,7 +1891,23 @@ def main(argv=None) -> int:
                     help="island counts of the delta phase, in order")
     ap.add_argument("--delta-capacity", type=int, default=4096,
                     help="appended entries per column between compactions")
+    ap.add_argument("--lm-models", default="gemma2-9b,falcon-mamba-7b",
+                    type=lambda s: [m for m in s.split(",") if m],
+                    help="models of the lm_serve phase, in order (full "
+                         "configs)")
+    ap.add_argument("--lm-batch", type=int, default=4,
+                    help="requests served at once")
+    ap.add_argument("--lm-prompt", type=int, default=256,
+                    help="prompt tokens per request, fed one at a time")
+    ap.add_argument("--lm-gen", type=int, default=32,
+                    help="generated tokens per request (at least 2)")
+    ap.add_argument("--lm-prefill", type=int, default=2048,
+                    help="prompt length of the Mamba model's prefill calls")
     args = ap.parse_args(argv)
+    if args.lm_gen < 2 or (args.lm_prompt + args.lm_gen - 1
+                           + LM_PROFILE_STEPS > LM_MAX_LEN):
+        ap.error(f"--lm-gen must be at least 2 and the prompt plus the "
+                 f"generated tokens must fit {LM_MAX_LEN} cache slots")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device - this script runs only on a GPU",
@@ -1352,9 +1928,17 @@ def main(argv=None) -> int:
     runs["main_path"] = (main_launches, main_shapes)
     runs["islands"] = phase_islands(args, wl, main_launches, answers, cols)
     runs["delta"] = phase_delta(args, wl, answers, cols, seconds)
-    del cols
     runs["ana_only"] = phase_ana_only(args, wl)
+    runs["float_scan"] = phase_float_scan(args, wl, cols)
+    del cols
+    torch.cuda.empty_cache()
+    runs["lm_serve"] = phase_lm_serve(args)
     # every kernel's launches and shapes from the path that runs it
+    missing = [k for k in REPLACES
+               if k not in runs[PATH_OF.get(k, "main_path")][0]]
+    if missing:
+        raise AssertionError(f"kernels never launched on their paths: "
+                             f"{missing}")
     launches = {k: runs[PATH_OF.get(k, "main_path")][0][k] for k in REPLACES}
     measured = phase_kernels({k: runs[PATH_OF.get(k, "main_path")][1][k]
                               for k in REPLACES})

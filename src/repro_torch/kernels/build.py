@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p      # every pointer and the stream
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 
 # C entry -> argtypes. ctypes passes a Python int as a 32-bit int unless
 # told otherwise, which cuts a 64-bit pointer: every entry is listed here.
@@ -48,6 +49,14 @@ _SIGNATURES = {
     "bitonic_apply": (_P, _I, _P, _I, _P, _P, _I, _I, _P),
     # src prev dirty out n block stream
     "snapshot_copy": (_P, _P, _P, _P, _L, _I, _P),
+    # q q_bf16 k v kv_bf16 out part_m part_l part_acc B S H Hkv d length
+    # n_split scale softcap stream
+    "decode_attn": (_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                    _I, _I, _F, _F, _P),
+    # x dt a b c d y B T D N stream
+    "selective_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # fcodes acodes valid dict n lo hi psum pcnt n_parts out_sum out_cnt stream
+    "scan_float": (_P, _P, _P, _P, _L, _I, _I, _P, _P, _I, _P, _P, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -85,6 +85,17 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+_sm_counts: dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (asked once)."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sm_counts[idx]
+
+
 def from_host(values, dtype=None) -> torch.Tensor:
     """Host numpy (any strides - a field of a packed record array has an
     odd one, which `torch.from_numpy` refuses) -> a CPU tensor. Copies, so

@@ -23,6 +23,11 @@ plane: `scan_filter_agg_group`, its sharded sibling, and the join group of
 (`scan_values_delta`, and `scan_values_agg` over a 3-row stack holding only
 the effective triple). ``None`` for a stack is a zero-row stack; stacks are
 not padded.
+
+The reference's original float32 single-predicate scan
+(``scan_filter_agg(exact=False)``) is a kernel of its own,
+``csrc/scan_float.cu``: a float32 sum and an int32 count, left on the
+device as 0-d tensors.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.bitonic_sort.ops import (  # noqa: F401 (re-export)
     apply_pipeline_batch)
 from repro_torch.kernels.common import (as_u8, check_tensor, count_launch,
-                                        on_gpu)
+                                        on_gpu, sm_count)
 
 
 def _bounds_tensor(bounds, device) -> torch.Tensor:
@@ -188,14 +193,81 @@ def scan_filter_agg_batch(fcodes, acodes, valid, dictionary, bounds):
     return list(zip(sums, counts))
 
 
+def scan_filter_agg_float_ref(fcodes, acodes, valid, dictionary, code_lo,
+                              code_hi):
+    """Plain version of the float32 scan: (0-d float32 sum, 0-d int32
+    count)."""
+    mask = (fcodes >= code_lo) & (fcodes < code_hi) & (valid != 0)
+    vals = dictionary[acodes.long()].to(torch.float32)
+    return (torch.where(mask, vals, 0.0).sum(),
+            mask.sum(dtype=torch.int32))
+
+
+FLOAT_SCAN_THREADS = 256     # the block size of csrc/scan_float.cu
+
+
+def float_scan_parts(device, n: int) -> int:
+    """Blocks of the float scan's first pass (its scratch length): one per
+    256 rows, at most four per SM (the blocks stride over the rows)."""
+    return max(1, min(-(-n // FLOAT_SCAN_THREADS), 4 * sm_count(device)))
+
+
+def launch_scan_float(fcodes, acodes, valid_u8, dictionary, code_lo: int,
+                      code_hi: int, psum, pcnt, out_sum, out_cnt) -> None:
+    """The bare launch on checked GPU tensors: ``psum``/``pcnt`` scratch
+    of the first pass's blocks, ``out_sum`` (1,) float32, ``out_cnt`` (1,)
+    int32. No allocation, no synchronisation."""
+    lib = build.load_library()
+    with torch.cuda.device(fcodes.device):
+        code = lib.scan_float(
+            fcodes.data_ptr(), acodes.data_ptr(), valid_u8.data_ptr(),
+            dictionary.data_ptr(), fcodes.shape[0], int(code_lo),
+            int(code_hi), psum.data_ptr(), pcnt.data_ptr(), psum.shape[0],
+            out_sum.data_ptr(), out_cnt.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    build.check(code, "scan_float")
+
+
+def scan_filter_agg_float(fcodes, acodes, valid, dictionary, code_lo,
+                          code_hi):
+    """The float32 single-predicate scan: (0-d float32 sum of
+    dict[acodes], 0-d int32 count) over rows with code_lo <= fcodes <
+    code_hi and valid, both left on the device."""
+    if not on_gpu(fcodes, acodes, valid, dictionary):
+        return scan_filter_agg_float_ref(fcodes, acodes, valid, dictionary,
+                                         code_lo, code_hi)
+    (n,) = fcodes.shape
+    fv = as_u8(valid)
+    check_tensor(fcodes, torch.int32, "fcodes", 1)
+    check_tensor(acodes, torch.int32, "acodes", 1)
+    check_tensor(fv, torch.uint8, "valid", 1)
+    check_tensor(dictionary, torch.int32, "dictionary", 1)
+    if acodes.shape != fcodes.shape or fv.shape != fcodes.shape:
+        raise ValueError("fcodes, acodes and valid must have one shape")
+    dev = fcodes.device
+    if n == 0:
+        return (torch.zeros((), dtype=torch.float32, device=dev),
+                torch.zeros((), dtype=torch.int32, device=dev))
+    out_sum = torch.empty((1,), dtype=torch.float32, device=dev)
+    out_cnt = torch.empty((1,), dtype=torch.int32, device=dev)
+    parts = float_scan_parts(dev, n)
+    psum = torch.empty((parts,), dtype=torch.float32, device=dev)
+    pcnt = torch.empty((parts,), dtype=torch.int32, device=dev)
+    launch_scan_float(fcodes, acodes, fv, dictionary, code_lo, code_hi, psum,
+                      pcnt, out_sum, out_cnt)
+    count_launch("scan_float", (n, dictionary.shape[0]))
+    return out_sum[0], out_cnt[0]
+
+
 def scan_filter_agg(fcodes, acodes, valid, dictionary, code_lo, code_hi,
                     exact: bool = True):
-    """sum(dict[acodes]) and count over rows with code_lo <= fcodes < code_hi,
-    as exact Python ints."""
+    """sum(dict[acodes]) and count over rows with code_lo <= fcodes <
+    code_hi: exact Python ints (the execution backend's path), or with
+    ``exact=False`` the reference's original float32 scan, (0-d float32
+    sum, 0-d int32 count) on the device."""
     if not exact:
-        raise NotImplementedError(
-            "the float32 single-predicate scan (exact=False) is not ported "
-            "yet: ROADMAP.md queue 2, K18")
+        return scan_filter_agg_float(fcodes, acodes, valid, dictionary,
+                                     code_lo, code_hi)
     [(s, c)] = scan_filter_agg_batch(fcodes, acodes, valid, dictionary,
                                      [(code_lo, code_hi)])
     return s, c

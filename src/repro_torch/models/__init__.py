@@ -1,0 +1,8 @@
+"""Model zoo: the unified block-pattern LM (``lm.py``) over the configs of
+``repro_torch.configs``. The encoder-decoder assembly (whisper) is not
+ported yet."""
+
+from repro_torch.models.config import BlockSpec, ModelConfig  # noqa: F401
+from repro_torch.models.lm import (LM, init_lm, init_lm_cache,  # noqa: F401
+                                   lm_apply, lm_decode_step,
+                                   params_from_reference)

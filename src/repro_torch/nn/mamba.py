@@ -1,0 +1,99 @@
+"""Mamba-1 block (falcon-mamba; jamba's SSM layers).
+
+in_proj -> (x, z); causal depthwise conv (d_conv taps); x_proj -> (dt,B,C);
+selective scan (the hand-written kernel on CUDA tensors, its plain version
+on the CPU); silu(z) gate; out_proj. Decode keeps a (d_conv-1)-tap conv
+state and the (D, N) ssm state and steps with the plain recurrence, as the
+reference does.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.nn import functional as F
+
+from repro_torch.kernels.selective_scan import (selective_scan,
+                                                selective_scan_step_ref)
+from repro_torch.nn.layers import Params, init_dense, normal, silu
+
+
+def init_mamba(gen, d_model: int, d_inner: int, d_state: int, d_conv: int,
+               dt_rank: int, dtype=torch.float32, device=None) -> Params:
+    kw = dict(dtype=dtype, device=device)
+    p = Params(
+        in_proj=init_dense(gen, d_model, 2 * d_inner, **kw),
+        conv_w=normal(gen, (d_conv, d_inner), d_conv ** -0.5, dtype, device),
+        x_proj=init_dense(gen, d_inner, dt_rank + 2 * d_state, **kw),
+        dt_proj=init_dense(gen, dt_rank, d_inner, bias=True, **kw),
+        out_proj=init_dense(gen, d_inner, d_model, **kw))
+    dev = p["conv_w"].device
+    p["conv_b"] = torch.zeros((d_inner,), dtype=dtype, device=dev)
+    # S4D-real init: A = -(1..N) per channel; A and the skip stay float32
+    p["a_log"] = torch.log(torch.arange(1, d_state + 1, dtype=torch.float32,
+                                        device=dev)).repeat(d_inner, 1)
+    p["d_skip"] = torch.ones((d_inner,), dtype=torch.float32, device=dev)
+    return p
+
+
+def _causal_conv(x, w, b):
+    """x: (B,T,D); w: (K,D) depthwise; left-pad K-1."""
+    K = w.shape[0]
+    T = x.shape[1]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    out = sum(xp[:, i:i + T, :] * w[i][None, None, :] for i in range(K))
+    return out + b[None, None, :]
+
+
+def _ssm_params(p, xc, d_state, dt_rank):
+    proj = xc @ p["x_proj"]["w"]                               # (B,T,R+2N)
+    dt_r, b_mat, c_mat = torch.split(proj, [dt_rank, d_state, d_state],
+                                     dim=-1)
+    dt = F.softplus(dt_r @ p["dt_proj"]["w"] + p["dt_proj"]["b"])
+    a = -torch.exp(p["a_log"])                                 # (D, N)
+    return dt, a, b_mat, c_mat
+
+
+def _f32(t):
+    return t.to(torch.float32).contiguous()
+
+
+def mamba_train(p, x, *, d_inner, d_state, d_conv, dt_rank):
+    """x: (B,T,d_model) -> (B,T,d_model). The scan is the kernel on CUDA
+    tensors (any T), its plain version on the CPU."""
+    xz = x @ p["in_proj"]["w"]
+    xin, z = xz.chunk(2, dim=-1)
+    xc = silu(_causal_conv(xin, p["conv_w"], p["conv_b"]))
+    dt, a, b_mat, c_mat = _ssm_params(p, xc, d_state, dt_rank)
+    y = selective_scan(_f32(xc), _f32(dt), _f32(a), _f32(b_mat),
+                       _f32(c_mat), _f32(p["d_skip"]))
+    y = y.to(x.dtype) * silu(z)
+    return y @ p["out_proj"]["w"]
+
+
+def init_mamba_cache(batch: int, d_inner: int, d_state: int, d_conv: int,
+                     dtype=torch.float32, device=None) -> dict:
+    return {
+        "conv": torch.zeros((batch, d_conv - 1, d_inner), dtype=dtype,
+                            device=device),
+        "ssm": torch.zeros((batch, d_inner, d_state), dtype=torch.float32,
+                           device=device),
+    }
+
+
+def mamba_decode(p, x, cache, *, d_inner, d_state, d_conv, dt_rank):
+    """One-token step. x: (B,1,d_model) -> (y (B,1,d_model), cache); the
+    cache dict's entries are replaced by the new states."""
+    xz = x[:, 0] @ p["in_proj"]["w"]
+    xin, z = xz.chunk(2, dim=-1)                               # (B, d_inner)
+    window = torch.cat([cache["conv"],
+                        xin[:, None].to(cache["conv"].dtype)], dim=1)
+    xc = silu((window * p["conv_w"][None]).sum(dim=1) + p["conv_b"])
+    dt, a, b_mat, c_mat = _ssm_params(p, xc[:, None], d_state, dt_rank)
+    h, y = selective_scan_step_ref(cache["ssm"], xc.float(),
+                                   dt[:, 0].float(), a,
+                                   b_mat[:, 0].float(), c_mat[:, 0].float(),
+                                   p["d_skip"])
+    y = y.to(x.dtype) * silu(z)
+    cache["conv"] = window[:, 1:]
+    cache["ssm"] = h
+    return (y @ p["out_proj"]["w"])[:, None], cache

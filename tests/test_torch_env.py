@@ -18,6 +18,8 @@ import torch
 
 from repro.core import backend as ref_backend_mod
 from repro.core import session as ref_session
+from repro.kernels.dict_ops import scan_filter_agg as ref_scan_filter_agg
+from repro_torch import configs
 from repro_torch.core import engine, htap, schema
 from repro_torch.core import session as session_mod
 from repro_torch.core.backend import (HopperBackend, TorchBackend,
@@ -26,6 +28,9 @@ from repro_torch.core.dsm import DSMReplica
 from repro_torch.core.session import HTAPSession, SystemSpec
 from repro_torch.kernels import common
 from repro_torch.kernels.dict_ops import scan_filter_agg
+from repro_torch.launch.steps import make_prefill_step, make_serve_step
+from repro_torch.models.lm import init_lm, init_lm_cache
+from repro_torch.nn.moe import init_moe, moe_apply
 
 torch.set_num_threads(1)
 
@@ -61,13 +66,19 @@ def test_every_port_module_is_covered_by_the_import_check():
 
 
 @pytest.mark.parametrize("entry", ["session", "backend", "replica", "run",
-                                   "resolve_device"])
+                                   "resolve_device", "init_lm",
+                                   "init_lm_cache"])
 def test_no_device_means_the_gpu_and_raises_without_one(entry):
     if torch.cuda.is_available():
         pytest.skip("this check is for a machine without a GPU")
     table = _table()
+    cfg = configs.get_smoke_config("gemma2-9b")
     with pytest.raises(RuntimeError, match="CUDA"):
-        if entry == "session":
+        if entry == "init_lm":
+            init_lm(cfg, generator=torch.Generator())
+        elif entry == "init_lm_cache":
+            init_lm_cache(cfg, 1, 8)
+        elif entry == "session":
             HTAPSession(SystemSpec.polynesia(), table)
         elif entry == "backend":
             get_backend("hopper")
@@ -108,6 +119,22 @@ def test_get_backend_rejects_unknown_names_and_device_conflicts():
             get_backend(be, device="cuda")
 
 
+def _float_scan():
+    """The float32 scan (K18) on one row, in the port and in the
+    reference, as (sum, count) pairs."""
+    z = np.zeros(1, np.int32)
+    s, c = scan_filter_agg(torch.from_numpy(z), torch.from_numpy(z),
+                           torch.ones(1, dtype=torch.bool),
+                           torch.from_numpy(z), 0, 1, exact=False)
+    rs, rc = ref_scan_filter_agg(z, z, np.ones(1, bool), z, 0, 1,
+                                 exact=False)
+    return (float(s), int(c)), (float(rs), int(rc))
+
+
+def _lm(name, make):
+    return make(configs.get_smoke_config(name))
+
+
 def _delta_spec(**kw):
     """A delta-store spec's fields and resolved plane, in the port and in
     the reference."""
@@ -140,15 +167,25 @@ def _delta_spec(**kw):
     (lambda: HTAPSession(SystemSpec.polynesia(backend="torch"), _table(),
                          device="cpu").checkpoint("/nonexistent"), "item 11"),
     (lambda: HTAPSession.restore("/nonexistent"), "item 11"),
-    (lambda: scan_filter_agg(*[torch.zeros(1, dtype=torch.int32)] * 2,
-                             torch.ones(1, dtype=torch.bool),
-                             torch.zeros(1, dtype=torch.int32), 0, 1,
-                             exact=False), "K18"),
+    (_float_scan, "K18"),
+    (lambda: _lm("kimi-k2-1t-a32b", lambda c: init_lm(
+        c, generator=torch.Generator(), device="cpu")), "item 14 (MoE)"),
+    (lambda: _lm("llama4-scout-17b-a16e", lambda c: init_lm_cache(
+        c, 1, 8, device="cpu")), "item 14 (MoE)"),
+    (lambda: _lm("jamba-1.5-large-398b", lambda c: init_lm(
+        c, generator=torch.Generator(), device="cpu")), "item 14 (MoE)"),
+    (lambda: init_moe(torch.Generator(), 8, 16, 4, 2), "item 14 (MoE)"),
+    (lambda: moe_apply({}, torch.zeros(1, 2, 8), n_experts=4, top_k=2),
+     "item 14 (MoE)"),
+    (lambda: _lm("whisper-base", lambda c: init_lm(
+        c, generator=torch.Generator(), device="cpu")), "item 14 (whisper)"),
+    (lambda: _lm("whisper-base", make_prefill_step), "item 14 (whisper)"),
+    (lambda: _lm("whisper-base", make_serve_step), "item 14 (whisper)"),
 ])
 def test_unported_features_raise_and_name_their_roadmap_queue(make, queue):
-    if queue == "item 9":
-        # the delta store is ported: the call that raised now answers as
-        # the reference's does
+    if queue in ("item 9", "K18"):
+        # the delta store and the float32 scan are ported: the call that
+        # raised now answers as the reference's does
         got, want = make()
         assert got == want
         return
@@ -213,5 +250,5 @@ def test_build_module_names_every_c_entry_and_needs_nvcc_only_at_first_use():
     text = "".join(p.read_text() for p in build.CSRC.glob("*.cu"))
     for entry in build._SIGNATURES:
         assert f'extern "C" int {entry}(' in text
-    assert len(list(build.CSRC.glob("*.cu"))) == 5
+    assert len(list(build.CSRC.glob("*.cu"))) == 8
     assert build.build_dir().parts[-2:] == ("build", "repro_torch_kernels")

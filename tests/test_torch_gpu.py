@@ -1,6 +1,8 @@
-"""Kernel checks that need the card: each CUDA kernel of the islands and
-delta-store slices against its plain PyTorch version on CUDA tensors,
-tolerance 0.
+"""Kernel checks that need the card: each CUDA kernel against its plain
+PyTorch version on CUDA tensors - the HTAP kernels with tolerance 0, the
+LM serving kernels (flash-decode attention, selective scan) at the float32
+tolerances of the reference's kernel tests (2e-5, 3e-5), the float32 scan
+with an exact count and its sum within n * 2**-24 * sum(|v|).
 
 Marked ``gpu``; every test skips when no GPU is present (decided when the
 test runs, never at import). This file imports nothing of the JAX package,
@@ -20,8 +22,14 @@ from repro_torch.kernels.dict_ops import (scan_exact, scan_exact_group,
                                           scan_exact_group_ref,
                                           scan_exact_ref, scan_values_exact,
                                           scan_values_exact_ref)
+from repro_torch.kernels.decode_attn import (decode_attention,
+                                             decode_attention_ref)
+from repro_torch.kernels.dict_ops import (scan_filter_agg,
+                                          scan_filter_agg_float_ref)
 from repro_torch.kernels.hash_probe import (EMPTY, build_table, probe,
                                             probe_ref, probe_sharded)
+from repro_torch.kernels.selective_scan import (selective_scan,
+                                                selective_scan_ref)
 
 pytestmark = pytest.mark.gpu
 
@@ -169,3 +177,119 @@ def test_group_kernel_matches_its_plain_version(cuda, nr, sizes, join):
     got = scan_exact_group(*args, *extra)
     torch.cuda.synchronize()
     assert torch.equal(got, scan_exact_group_ref(*args, *extra))
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,d,length,cap,kv", [
+    (2, 1000, 8, 8, 128, 1, 0.0, torch.float32),       # G 1, one slot
+    (3, 777, 10, 2, 128, 777, 50.0, torch.float32),    # G 5, full cache
+    (1, 4097, 56, 8, 128, 3001, 0.0, torch.bfloat16),  # G 7 (deepseek)
+    (4, 4096, 16, 8, 256, 287, 50.0, torch.bfloat16),  # gemma2's decode
+    (2, 9, 4, 2, 64, 5, 30.0, torch.float32),
+    (1, 33000, 16, 8, 256, 32999, 50.0, torch.bfloat16),
+])
+def test_decode_attention_kernel_matches_its_plain_version(
+        cuda, B, S, H, Hkv, d, length, cap, kv):
+    """float32 queries; a bf16 cache is compared after up-casting (both
+    versions read it as float32)."""
+    gen = torch.Generator(device=cuda).manual_seed(S + H)
+    q = torch.randn((B, H, d), generator=gen, device=cuda)
+    k = torch.randn((B, S, Hkv, d), generator=gen, device=cuda).to(kv)
+    v = torch.randn((B, S, Hkv, d), generator=gen, device=cuda).to(kv)
+    reset_kernel_launch_counts()
+    got = decode_attention(q, k, v, length, softcap=cap)
+    torch.cuda.synchronize()
+    assert kernel_launch_counts() == {"decode_attn": 1}
+    want = decode_attention_ref(q, k, v, length, d ** -0.5, cap)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_decode_attention_kernel_in_bf16_and_with_a_tensor_length(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn((2, 16, 256), generator=gen, device=cuda).bfloat16()
+    k = torch.randn((2, 300, 8, 256), generator=gen,
+                    device=cuda).bfloat16()
+    v = torch.randn((2, 300, 8, 256), generator=gen,
+                    device=cuda).bfloat16()
+    length = torch.tensor(123, device=cuda)
+    got = decode_attention(q, k, v, length, softcap=50.0)
+    want = decode_attention_ref(q, k, v, 123, 256 ** -0.5, 50.0)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+
+
+@pytest.mark.parametrize("B,T,D,N", [(1, 1, 1, 4), (2, 257, 100, 8),
+                                     (3, 1000, 130, 16), (1, 64, 8192, 16),
+                                     (4, 2048, 512, 16)])
+def test_selective_scan_kernel_matches_its_plain_version(cuda, B, T, D, N):
+    gen = torch.Generator(device=cuda).manual_seed(T + D)
+    x = torch.randn((B, T, D), generator=gen, device=cuda)
+    dt = torch.randn((B, T, D), generator=gen, device=cuda).abs() * 0.1
+    a = -torch.randn((D, N), generator=gen, device=cuda).abs()
+    b = torch.randn((B, T, N), generator=gen, device=cuda)
+    c = torch.randn((B, T, N), generator=gen, device=cuda)
+    d = torch.randn((D,), generator=gen, device=cuda)
+    reset_kernel_launch_counts()
+    got = selective_scan(x, dt, a, b, c, d)
+    torch.cuda.synchronize()
+    assert kernel_launch_counts() == {"selective_scan": 1}
+    torch.testing.assert_close(got, selective_scan_ref(x, dt, a, b, c, d),
+                               rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.parametrize("n", [1, 255, 257, 1_000_003])
+def test_float_scan_kernel_matches_its_plain_version(cuda, n):
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    k = 5000
+    f = torch.randint(0, k, (n,), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    a = torch.randint(0, k, (n,), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    fv = torch.rand(n, generator=gen, device=cuda) < 0.9
+    dic = torch.sort(torch.randint(-2**24, 2**24, (k,), generator=gen,
+                                   device=cuda, dtype=torch.int32)).values
+    for lo, hi in ((0, k), (k // 4, k // 2), (7, 7)):
+        s, c = scan_filter_agg(f, a, fv, dic, lo, hi, exact=False)
+        ws, wc = scan_filter_agg_float_ref(f, a, fv, dic, lo, hi)
+        mask = (f >= lo) & (f < hi) & fv
+        vals = dic[a.long()].long()
+        exact = int(torch.where(mask, vals, 0).sum())
+        assert (s.dtype, c.dtype) == (torch.float32, torch.int32)
+        assert int(c) == int(wc) == int(mask.sum())
+        tol = n * 2.0**-24 * int(torch.where(mask, vals, 0).abs().sum())
+        assert abs(float(s) - exact) <= tol
+        assert abs(float(s) - float(ws)) <= tol
+
+
+@pytest.mark.parametrize("name", ["gemma2-9b", "falcon-mamba-7b",
+                                  "qwen2.5-14b"])
+def test_lm_decode_matches_prefill_on_the_card(cuda, name):
+    """A smoke-size model with head_dim 64 (the decode kernel takes 64, 128
+    and 256): token-by-token decode (the decode-attention kernel, or the
+    plain Mamba step) against the parallel prefill (plain attention, or
+    the scan kernel), 2e-3 as the reference's own test; float32."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.lm import (init_lm, init_lm_cache, lm_apply,
+                                       lm_decode_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config(name), head_dim=64)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    model = init_lm(cfg, generator=gen, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen,
+                         device=cuda, dtype=torch.int32)
+    reset_kernel_launch_counts()
+    want, _ = lm_apply(model, toks, cfg)
+    cache = init_lm_cache(cfg, 2, 12, dtype=torch.float32, device=cuda)
+    for i in range(12):
+        got, cache = lm_decode_step(model, cache, toks[:, i:i + 1], i, cfg)
+        torch.testing.assert_close(got[:, 0], want[:, i], rtol=2e-3,
+                                   atol=2e-3)
+    n_mamba = sum(s.mixer == "mamba" for s in cfg.blocks) * cfg.n_periods
+    want_counts = {}
+    if n_mamba:
+        want_counts["selective_scan"] = n_mamba
+    if cfg.n_layers - n_mamba:
+        want_counts["decode_attn"] = (cfg.n_layers - n_mamba) * 12
+    assert kernel_launch_counts() == want_counts
