@@ -212,6 +212,21 @@ def float_scan_parts(device, n: int) -> int:
     return max(1, min(-(-n // FLOAT_SCAN_THREADS), 4 * sm_count(device)))
 
 
+def float_scan_error_bound(n: int, parts: int, abs_sum) -> float:
+    """Most the float scan's sum over ``n`` rows with ``parts`` first-pass
+    blocks can differ from the exact sum, given sum(|v|) over the rows it
+    selects: gamma_h * sum(|v|), gamma_h = h u / (1 - h u), u = 2**-24, for
+    a summation tree of height h (Higham, Accuracy and Stability, 4.2).
+    Here h counts the roundings on a value's way to the result: its
+    conversion to float32 (1), a thread's sequential sum in each pass
+    (ceil(n / (parts * 256)) and ceil(parts / 256)), and each block's
+    reduction (5 warp-shuffle levels, 3 over the 8 warps' sums) in both."""
+    per_thread = -(-n // (parts * FLOAT_SCAN_THREADS))
+    height = 1 + per_thread + -(-parts // FLOAT_SCAN_THREADS) + 2 * (5 + 3)
+    hu = height * 2.0**-24
+    return hu / (1.0 - hu) * float(abs_sum)
+
+
 def launch_scan_float(fcodes, acodes, valid_u8, dictionary, code_lo: int,
                       code_hi: int, psum, pcnt, out_sum, out_cnt) -> None:
     """The bare launch on checked GPU tensors: ``psum``/``pcnt`` scratch
