@@ -34,11 +34,28 @@ Drives `repro_torch` only. Phases, each printing one JSON line:
                  fused delta kernels with a non-empty correction stack (the
                  group scan and the join group scan on one island, the
                  sharded group scan and the values delta on islands).
-6. ``ana_only``  the `Ana-Only` preset at the same size on ``"hopper"`` and
+6. ``mesh``      the same session on the mesh placement: analytical island
+                 s resident on its own device, each island applying its
+                 own rows there, a query group one scan launch per island
+                 with the int64 partials added on island 0's device. With
+                 one card the islands share it (``devices=[cuda:0] * 4``,
+                 then ``hopper@1/mesh``; ``--mesh-islands 4,1``), one line
+                 per run: answers and final columns must equal the
+                 one-island session's (and the host evaluation every
+                 round), every view must be adopted from the Phase-2
+                 install (``views_resident`` > 0, ``sharded_views`` 0), no
+                 stacked scan may launch, and the flat scans must launch
+                 exactly N times as often as on one island. Then the same
+                 four islands on the delta store (answers equal the eager
+                 session's; the values-delta launches are reported). With
+                 two or more cards, ``hopper@min(4, cards)/mesh`` over
+                 distinct cards with the same checks (``mesh_cards``);
+                 with one, a line saying it was skipped.
+7. ``ana_only``  the `Ana-Only` preset at the same size on ``"hopper"`` and
                  ``"hopper@4"`` (the first island count): lone join queries
                  go through the bucket probe; answers must equal the host
                  evaluation.
-7. ``float_scan`` the reference's original float32 scan
+8. ``float_scan`` the reference's original float32 scan
                  (``scan_filter_agg(exact=False)``, as
                  ``examples/htap_analytics.py`` calls it) for every query's
                  filter and aggregate column over the main path's final
@@ -48,7 +65,7 @@ Drives `repro_torch` only. Phases, each printing one JSON line:
                  case of the kernel's summation order, about 6e-6 of
                  sum(|v|) at 10M rows) and within 1e-5 * sum(|v|) of the
                  plain version's.
-8. ``lm_serve``  the LM serving path at full width, one line per model of
+9. ``lm_serve``  the LM serving path at full width, one line per model of
                  ``--lm-models``: gemma2-9b (42 layers, bf16 weights from
                  `init_lm` on the card, seed ``--seed``) serves ``--lm-batch``
                  4 requests of ``--lm-prompt`` 256 prompt tokens fed one at a
@@ -71,7 +88,7 @@ Drives `repro_torch` only. Phases, each printing one JSON line:
                  decode kernel or the plain step. After each model's run,
                  4 more serve steps under `torch.profiler` give the device
                  time per step and the device's busy share.
-9. ``kernels``   every hand-written kernel launched on the card and held
+10. ``kernels``   every hand-written kernel launched on the card and held
                  against its plain PyTorch version - the HTAP kernels with
                  exact equality (integers: tolerance 0), flash-decode
                  attention at 2e-5 and the selective scan at 3e-5 in float32
@@ -94,7 +111,11 @@ Drives `repro_torch` only. Phases, each printing one JSON line:
 Each kernel is checked against the path that runs it (counts set to 0 just
 before the path, read just after): the one-island kernels against
 ``main_path``, the sharded scans against ``islands``, the delta kernels
-against ``delta``, the bucket probe against ``ana_only``, the float32 scan
+against ``delta``, the mesh scans against ``mesh`` (their launches are
+counted per island under the flat scans' names; the kernels line reports
+them as ``scan_exact_mesh`` and ``scan_exact_join_mesh``, measured at
+(islands, island width, ...) with the islands on one card), the bucket
+probe against ``ana_only``, the float32 scan
 against ``float_scan``, flash-decode attention and the selective scan
 against ``lm_serve`` (each model's serve run). The raw-value
 scan has no caller on these paths (nor in the reference's kernel backend):
@@ -149,6 +170,11 @@ REPLACES = {
     "scan_values_delta": "src/repro/kernels/dict_ops/ops.py:453 "
                          "(2 x dict_ops.py:176; the raw-value scan "
                          "dict_ops.py:176 alone is raw_value_scan)",
+    "scan_exact_mesh": "src/repro/kernels/dict_ops/ops.py:539 "
+                       "(_mesh_scan_call; dict_ops.py:121 per island)",
+    "scan_exact_join_mesh": "src/repro/kernels/hash_probe/ops.py:431 "
+                            "(_mesh_join_call; 2 x dict_ops.py:121 per "
+                            "island)",
     "scan_float": "src/repro/kernels/dict_ops/dict_ops.py:218",
     "decode_attn": "src/repro/kernels/decode_attn/decode_attn.py:74",
     "selective_scan": "src/repro/kernels/selective_scan/selective_scan.py:59",
@@ -167,6 +193,8 @@ SOURCES = {
     "scan_exact_group_sharded": "src/repro_torch/kernels/csrc/scan_exact.cu",
     "scan_exact_join_group": "src/repro_torch/kernels/csrc/scan_exact.cu",
     "scan_values_delta": "src/repro_torch/kernels/csrc/scan_exact.cu",
+    "scan_exact_mesh": "src/repro_torch/kernels/csrc/scan_exact.cu",
+    "scan_exact_join_mesh": "src/repro_torch/kernels/csrc/scan_exact.cu",
     "scan_float": "src/repro_torch/kernels/csrc/scan_float.cu",
     "decode_attn": "src/repro_torch/kernels/csrc/decode_attn.cu",
     "selective_scan": "src/repro_torch/kernels/csrc/selective_scan.cu",
@@ -176,6 +204,7 @@ PATH_OF = {"scan_exact_sharded": "islands",
            "scan_exact_join_sharded": "islands", "hash_probe": "ana_only",
            "scan_exact_group": "delta", "scan_exact_group_sharded": "delta",
            "scan_exact_join_group": "delta", "scan_values_delta": "delta",
+           "scan_exact_mesh": "mesh", "scan_exact_join_mesh": "mesh",
            "scan_float": "float_scan", "decode_attn": "lm_serve",
            "selective_scan": "lm_serve"}
 I32_MIN, I32_MAX = -2**31, 2**31 - 1
@@ -327,13 +356,13 @@ def host_answers(data: np.ndarray, queries) -> list[int]:
 
 
 def drive(spec, table, stream, late, queries, late_query, n_rounds,
-          check_host: bool):
+          check_host: bool, devices=None):
     """One session through the public entry points: n_rounds of
     execute + query_batch, then one late single write and one query.
     Returns (answers, seconds per round, session, RunResult)."""
     from repro_torch.core.session import HTAPSession
     from repro_torch.core.workload import split_queries, split_stream
-    session = HTAPSession(spec, table)
+    session = HTAPSession(spec, table, devices=devices)
     answers, seconds = [], []
     rounds = list(zip(split_stream(stream, n_rounds),
                       split_queries(queries, n_rounds)))
@@ -382,9 +411,9 @@ def make_workload(args) -> dict:
                 setup_seconds=time.perf_counter() - t0)
 
 
-def drive_spec(spec, wl, args, check_host: bool):
+def drive_spec(spec, wl, args, check_host: bool, devices=None):
     return drive(spec, wl["table"], wl["stream"], wl["late"], wl["queries"],
-                 wl["late_query"], args.rounds, check_host)
+                 wl["late_query"], args.rounds, check_host, devices)
 
 
 def same_columns(got: dict, want: dict, what: str) -> None:
@@ -608,6 +637,150 @@ def phase_delta(args, wl, one_answers, one_cols, one_seconds
              answers_checksum=sum(answers), ok=True)
         del session
     return kernel_launch_counts(), kernel_launch_shapes()
+
+
+# the mesh scans' entries in the kernels line, and the flat scans whose
+# names their per-island launches are counted under
+MESH_SCANS = {"scan_exact_mesh": "scan_exact",
+              "scan_exact_join_mesh": "scan_exact_join"}
+
+
+def mesh_run(args, wl, spec, devices, one_launches, one_answers, one_cols,
+             what: str) -> dict:
+    """One eager session on the mesh placement, checked against the
+    one-island session; returns the mesh scans' launch shapes, per mesh
+    call."""
+    from repro_torch.kernels.common import (kernel_launch_counts,
+                                            kernel_launch_shapes)
+    before, shapes_before = kernel_launch_counts(), kernel_launch_shapes()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    answers, seconds, session, result = drive_spec(spec, wl, args,
+                                                   check_host=True,
+                                                   devices=devices)
+    after, shapes_after = kernel_launch_counts(), kernel_launch_shapes()
+    launches = {k: v - before.get(k, 0) for k, v in after.items()
+                if v != before.get(k, 0)}
+    shapes = {k: {sh: c - shapes_before.get(k, {}).get(sh, 0)
+                  for sh, c in seen.items()
+                  if c != shapes_before.get(k, {}).get(sh, 0)}
+              for k, seen in shapes_after.items()}
+    peak = torch.cuda.max_memory_allocated()
+    n = session.islands
+    if answers != one_answers:
+        raise AssertionError(f"{what}: answers {answers} != one-island "
+                             f"answers {one_answers}")
+    same_columns(session.replica.columns, one_cols, f"{what} vs one island")
+    stats = result.stats
+    if (stats["placement"] != "mesh" or stats["views_resident"] < 1
+            or stats["sharded_views"] != 0 or stats["islands"] != n):
+        raise AssertionError(f"{what}: not the mesh's resident views: "
+                             f"{stats}")
+    sharded = [k for k in launches if k.endswith("_sharded")]
+    if sharded:
+        raise AssertionError(f"{what}: stacked scans launched: {sharded}")
+    for k in SCANS:
+        if launches.get(k, 0) != n * one_launches.get(k, 0):
+            raise AssertionError(
+                f"{what}: {launches.get(k, 0)} {k} launches, {n} x the "
+                f"one-island {one_launches.get(k, 0)} expected")
+    total = sum(seconds)
+    emit("mesh", run=what, islands=n,
+         devices=[str(d) for d in session.be.devices],
+         round_seconds=seconds, txns_per_s=(args.txns + 1) / total,
+         queries_per_s=len(answers) / total, peak_device_bytes=peak,
+         held_device_bytes=held, launches=launches,
+         scan_launches={k: launches.get(k, 0) for k in SCANS},
+         one_island_scan_launches={k: one_launches.get(k, 0) for k in SCANS},
+         views_resident=stats["views_resident"],
+         views_shared=stats["views_shared"],
+         modeled_ana_seconds=result.ana_seconds,
+         answers_checksum=sum(answers), ok=True)
+    del session
+    # the mesh scans' shapes: (islands, island width, ...) - each call
+    # launched once on every island, which the even splits run here share
+    mesh_shapes = {}
+    for name, flat in MESH_SCANS.items():
+        for sh, c in shapes.get(flat, {}).items():
+            key = (n,) + sh
+            mesh_shapes.setdefault(name, {})
+            mesh_shapes[name][key] = mesh_shapes[name].get(key, 0) + c // n
+    return mesh_shapes
+
+
+def phase_mesh(args, wl, one_launches, one_answers, one_cols, dev=None
+               ) -> tuple[dict, dict]:
+    """The main path on the mesh placement: each island count of
+    `args.mesh_islands` with the islands on the one card (`dev`, default
+    cuda:0), the first on the delta store, and over distinct cards when
+    there are two or more. Returns the mesh scans' launches and shapes."""
+    from repro_torch.core.session import SystemSpec
+    from repro_torch.kernels.common import (kernel_launch_counts,
+                                            kernel_launch_shapes,
+                                            reset_kernel_launch_counts)
+    card0 = torch.device("cuda", 0) if dev is None else dev
+    reset_kernel_launch_counts()
+    runs = []                     # each run's mesh_shapes
+    for n in args.mesh_islands:
+        runs.append(mesh_run(args, wl, SystemSpec.polynesia(
+            backend=f"hopper@{n}/mesh"), [card0] * n, one_launches,
+            one_answers, one_cols, f"hopper@{n}/mesh on one card"))
+
+    # the delta store on the first island count, islands on the one card
+    n = args.mesh_islands[0]
+    want = {c: (col.dictionary[col.codes.long()], col.valid)
+            for c, col in one_cols.items()}
+    before = kernel_launch_counts()
+    answers, seconds, session, result = drive_spec(
+        SystemSpec.polynesia(backend=f"hopper@{n}/mesh", delta_store=True,
+                             delta_capacity=args.delta_capacity),
+        wl, args, check_host=True, devices=[card0] * n)
+    launches = {k: v - before.get(k, 0)
+                for k, v in kernel_launch_counts().items()
+                if v != before.get(k, 0)}
+    if answers != one_answers:
+        raise AssertionError(f"delta plane on hopper@{n}/mesh: answers "
+                             f"{answers} != eager answers {one_answers}")
+    for c, (vals, valid) in folded_columns(session).items():
+        if not (torch.equal(vals, want[c][0])
+                and torch.equal(valid, want[c][1])):
+            raise AssertionError(f"delta plane on hopper@{n}/mesh: final "
+                                 f"column {c} with its overlay folded "
+                                 "differs from the eager column")
+    if result.stats["placement"] != "mesh" or any(
+            k.endswith("_sharded") for k in launches):
+        raise AssertionError(f"delta plane on hopper@{n}/mesh did not stay "
+                             f"on the mesh: {launches}")
+    total = sum(seconds)
+    emit("mesh", run=f"hopper@{n}/mesh delta store on one card", islands=n,
+         capacity=session.delta_capacity, round_seconds=seconds,
+         txns_per_s=(args.txns + 1) / total,
+         queries_per_s=len(answers) / total,
+         delta_appends=result.stats["delta_appends"],
+         compactions=result.stats["compactions"],
+         values_delta_launches=launches.get("scan_values_delta", 0),
+         launches=launches, answers_checksum=sum(answers), ok=True)
+    del session
+
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        n = min(4, cards)
+        runs.append(mesh_run(args, wl, SystemSpec.polynesia(
+            backend=f"hopper@{n}/mesh"), None, one_launches, one_answers,
+            one_cols, f"hopper@{n}/mesh on {n} cards"))
+    else:
+        emit("mesh_cards", skipped="1 card visible")
+
+    launches = kernel_launch_counts()
+    shapes = {}
+    for r in runs:
+        for name, seen in r.items():
+            for sh, c in seen.items():
+                shapes.setdefault(name, {})
+                shapes[name][sh] = shapes[name].get(sh, 0) + c
+    mesh_launches = {name: launches[flat] for name, flat in MESH_SCANS.items()
+                     if launches.get(flat, 0)}
+    return mesh_launches, shapes
 
 
 def phase_ana_only(args, wl) -> tuple[dict, dict]:
@@ -1156,6 +1329,85 @@ def measure_scan_sharded(gen, dev, shape, join: bool) -> dict:
                 ms=time_ms(lambda: launch_scan_exact(*bare), 50),
                 wrapper_ms=time_ms(lambda: scan_exact(*args), 20),
                 plain_ms=time_ms(lambda: scan_exact_ref(*args), 3),
+                library_ms=None)
+
+
+def scan_mesh_cost(shape, join):
+    """(N, W, k[, kj], Q): every island's scan over its W rows (its own
+    dictionary copy and partials), then the N - 1 partials read for the
+    reduction on island 0."""
+    n_isl = shape[0]
+    nbytes, ops = scan_cost(tuple(shape[1:]), join)
+    lanes = 3 if join else 2
+    return (n_isl * nbytes + (n_isl - 1) * lanes * shape[-1] * 8,
+            n_isl * ops + (n_isl - 1) * lanes * shape[-1])
+
+
+def mesh_islands(flat_tensors, sizes):
+    """Split flat tensors into per-island slices of `sizes`."""
+    cuts = np.concatenate([[0], np.cumsum(sizes)]).tolist()
+    return [[t[lo:hi] for lo, hi in zip(cuts, cuts[1:])]
+            for t in flat_tensors]
+
+
+def edge_scan_mesh(gen, dev) -> int:
+    """The mesh scans' edges, islands on the one card: an empty island,
+    more islands than rows, uneven splits, many islands, Q = 1, 3 and 33,
+    a dictionary holding int32's extremes (and negatives)."""
+    from repro_torch.kernels.dict_ops import (scan_exact_mesh,
+                                              scan_exact_mesh_ref)
+    cases = 0
+    for sizes, k, nq in (((0, 40, 41), 30, 3), ((1, 1, 0, 0, 0), 3, 1),
+                         ((250_001, 250_000, 250_000, 250_000), 25_000, 33),
+                         ((1001, 1000), 64, 3), ((7,) * 100, 5, 1),
+                         ((2_500_000,) * 4, 100_000, 33)):
+        n = sum(sizes)
+        f, a, j, fv, jv, ad, rc = scan_inputs(gen, max(n, 1), k, k, k, dev)
+        ad[0], ad[-1] = I32_MIN, I32_MAX
+        ad = torch.sort(ad).values
+        fi, ai, ji, fvi, jvi = mesh_islands(
+            [t[:n] for t in (f, a, j, fv, jv)], sizes)
+        bounds = [(0, k)] + [(i % k, i % k + 1 + i % 7)
+                             for i in range(nq - 1)]
+        args = (fi, ai, fvi, [ad] * len(sizes), bounds)
+        must_equal(f"mesh scan {sizes[:4]} Q={nq}", scan_exact_mesh(*args),
+                   scan_exact_mesh_ref(*args))
+        jargs = args + (ji, jvi, [rc] * len(sizes))
+        must_equal(f"mesh join scan {sizes[:4]} Q={nq}",
+                   scan_exact_mesh(*jargs), scan_exact_mesh_ref(*jargs))
+        cases += 2
+    return cases
+
+
+def measure_scan_mesh(gen, dev, shape, join: bool) -> dict:
+    """At (N, W, k[, kj], Q), the N islands on the one card: `ms` is the
+    bare launches plus the reduction, `wrapper_ms` through the wrapper."""
+    from repro_torch.kernels.dict_ops import (launch_scan_exact_mesh,
+                                              scan_exact_mesh,
+                                              scan_exact_mesh_ref)
+    n_isl, width, k, nq = shape[0], shape[1], shape[2], shape[-1]
+    kj = shape[3] if join else 1
+    f, a, j, fv, jv, ad, rc = scan_inputs(gen, n_isl * width, k, k, kj, dev,
+                                          invalid=0.0)
+    fi, ai, ji, fvi, jvi = mesh_islands((f, a, j, fv, jv), [width] * n_isl)
+    span = max(1, 3 * k // 10)
+    bounds = [((q * k) // (nq + 1), (q * k) // (nq + 1) + span)
+              for q in range(nq)]
+    extra = (ji, jvi, [rc] * n_isl) if join else ()
+    args = (fi, ai, fvi, [ad] * n_isl, bounds) + extra
+    err = must_equal(f"mesh scan {shape}", scan_exact_mesh(*args),
+                     scan_exact_mesh_ref(*args))
+    barr = torch.tensor(bounds, dtype=torch.int32, device=dev)
+    islands = [(fi[s], ai[s], fvi[s].view(torch.uint8), ad) + (
+        (ji[s], jvi[s].view(torch.uint8), rc) if join else ())
+        for s in range(n_isl)]
+    outs = [torch.zeros((3 if join else 2, nq), dtype=torch.int64,
+                        device=dev) for _ in range(n_isl)]
+    return dict(max_abs_err=err,
+                ms=time_ms(lambda: launch_scan_exact_mesh(
+                    islands, [barr] * n_isl, outs), 50),
+                wrapper_ms=time_ms(lambda: scan_exact_mesh(*args), 20),
+                plain_ms=time_ms(lambda: scan_exact_mesh_ref(*args), 3),
                 library_ms=None)
 
 
@@ -1871,6 +2123,11 @@ KERNELS = {
     "scan_exact_join_group": (lambda s: group_cost(s, "join"),
                               lambda g, d, s: measure_group(g, d, s, "join")),
     "scan_values_delta": (values_cost, measure_values_delta),
+    "scan_exact_mesh": (lambda s: scan_mesh_cost(s, False),
+                        lambda g, d, s: measure_scan_mesh(g, d, s, False)),
+    "scan_exact_join_mesh": (
+        lambda s: scan_mesh_cost(s, True),
+        lambda g, d, s: measure_scan_mesh(g, d, s, True)),
     "scan_float": (float_scan_cost, measure_float_scan),
     "decode_attn": (decode_cost, measure_decode),
     "selective_scan": (ssm_cost, measure_ssm),
@@ -1896,7 +2153,7 @@ def phase_kernels(shapes: dict) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     cases = (edge_scan(gen, dev) + edge_scan_sharded(gen, dev)
-             + edge_probe(gen, dev) + edge_merge(gen, dev)
+             + edge_scan_mesh(gen, dev) + edge_probe(gen, dev) + edge_merge(gen, dev)
              + edge_bitonic(gen, dev) + edge_snapshot(gen, dev)
              + edge_delta(gen, dev) + edge_float_scan(gen, dev)
              + edge_decode(gen, dev) + edge_ssm(gen, dev))
@@ -1958,6 +2215,11 @@ def main(argv=None) -> int:
                     help="island counts of the delta phase, in order")
     ap.add_argument("--delta-capacity", type=int, default=4096,
                     help="appended entries per column between compactions")
+    ap.add_argument("--mesh-islands", default="4,1",
+                    type=lambda s: [int(n) for n in s.split(",")],
+                    help="island counts of the mesh phase with the islands "
+                         "on one card, in order (the first also runs the "
+                         "delta store)")
     ap.add_argument("--lm-models", default="gemma2-9b,falcon-mamba-7b",
                     type=lambda s: [m for m in s.split(",") if m],
                     help="models of the lm_serve phase, in order (full "
@@ -1995,6 +2257,7 @@ def main(argv=None) -> int:
     runs["main_path"] = (main_launches, main_shapes)
     runs["islands"] = phase_islands(args, wl, main_launches, answers, cols)
     runs["delta"] = phase_delta(args, wl, answers, cols, seconds)
+    runs["mesh"] = phase_mesh(args, wl, main_launches, answers, cols)
     runs["ana_only"] = phase_ana_only(args, wl)
     runs["float_scan"] = phase_float_scan(args, wl, cols)
     del cols

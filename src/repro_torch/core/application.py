@@ -23,7 +23,10 @@ below write in place only into tensors this call made - the old column (and
 any snapshot aliasing it) is never touched. Islands stacked on one device
 (`hopper@N`) apply exactly this way, to the whole column: the stacked
 view of the next pinned read reshapes the result, so a per-island stage 3
-would only split the column and concatenate it back.
+would only split the column and concatenate it back. Islands on their own
+devices (the mesh placement, `hopper@N/mesh`) run stage 3 per island, on
+the island's device over its own rows (`apply_updates_shards`): its shard
+columns become the islands' resident view at the Phase-2 swap.
 
 Phase 2 of the consistency contract (§6): the function returns a *new*
 EncodedColumn with `version+1`; the caller atomically swaps the replica
@@ -43,7 +46,7 @@ import torch
 
 from repro_torch.core.backend import (HopperBackend, ShardedBackend,
                                       get_backend)
-from repro_torch.core.dsm import ColumnDelta, EncodedColumn
+from repro_torch.core.dsm import ColumnDelta, EncodedColumn, shard_bounds
 from repro_torch.core.hwmodel import CostLog
 from repro_torch.core.nsm import UPDATE_DTYPE
 from repro_torch.core.schema import VALUE_BYTES
@@ -185,6 +188,18 @@ def precompute_apply_stages(columns, buffers, backend=None) -> dict:
     return dict(zip(ids, _merge_dictionary_stages_batch(inner, per_column)))
 
 
+def route_updates(updates: np.ndarray, bounds: list[int]) -> np.ndarray:
+    """Owning-island id of each update, routed by row id.
+
+    `bounds` are contiguous shard boundaries (`dsm.shard_bounds` over the
+    post-insert row count); rows at or past the last boundary (fresh
+    inserts) belong to the last island.
+    """
+    shard = np.searchsorted(np.asarray(bounds), updates["row"],
+                            side="right") - 1
+    return np.clip(shard, 0, len(bounds) - 2)
+
+
 def _optimized_apply_cost(cost: CostLog, on_pim: bool, m: int, n: int,
                           k_old: int, k_new: int, n_update_dict: int,
                           bit_width: int, phase: str = "apply") -> None:
@@ -268,6 +283,93 @@ def apply_updates(
 
     return EncodedColumn(codes=new_codes, dictionary=new_dict, valid=valid,
                          version=col.version + 1)
+
+
+def apply_updates_shards(
+    col: EncodedColumn,
+    updates: np.ndarray,
+    cost: CostLog | None = None,
+    on_pim: bool = True,
+    backend=None,
+    staged=None,
+    phase: str = "apply",
+) -> list[EncodedColumn]:
+    """Update application across the mesh's analytical islands, each on
+    its own device (`backend`: a `MeshBackend`).
+
+    The dictionary is replicated, so stages 1-2 (update-dictionary sort,
+    dictionary merge, old->new index) run once on the inner backend, on
+    island 0's device (the fused sort + merge launch, or `staged`). Stage 3
+    is island-local: each update is routed to its owning island by row id
+    (`route_updates`), and island s re-encodes its rows of `col` through
+    the index and scatters its own row ops, on ``backend.devices[s]``.
+
+    Returns one shard column per island in row order - codes and validity
+    on the island's device, the one merged dictionary tensor shared by all
+    (on island 0's device) - the units the Phase-2 swap installs
+    all-or-none (`ConsistencyManager.on_update_shards`). Their
+    concatenation equals `apply_updates` on the whole column. Islands
+    stacked on one device keep that one shared apply.
+    """
+    be = get_backend(backend)
+    if be.placement != "mesh":
+        raise ValueError(
+            "apply_updates_shards applies per island of the mesh placement "
+            f"(got {be.name!r}); stacked islands and one island use "
+            "apply_updates")
+    inner = be.inner
+    n, k_old = col.n_rows, col.dict_size
+    mods, ins, dels = _split_ops(updates)
+    write_vals = np.concatenate([mods["value"], ins["value"]])
+    m = len(updates)
+
+    # Stages 1-2 once on the shared (replicated) dictionary.
+    update_dict, new_dict, encode, old_to_new = (
+        staged if staged is not None
+        else _merge_dictionary_stages(inner, col.dictionary, write_vals))
+
+    # Route row ops to their islands over the post-insert row span
+    # (inserts extend the last island). Each island's write set is made
+    # first so that all islands' encodes go through one
+    # encode_values_shards call.
+    n_new = max(n, int(ins["row"].max()) + 1) if len(ins) else n
+    bounds = shard_bounds(n_new, be.n_shards)
+    owner = route_updates(updates, bounds)
+    island_ops = []
+    for s in range(be.n_shards):
+        ups_s = updates[owner == s]
+        ups_s["row"] = ups_s["row"] - bounds[s]     # island-local row ids
+        m_s, i_s, d_s = _split_ops(ups_s)
+        island_ops.append((m_s, i_s, d_s, _sorted_write_ops(m_s, i_s)))
+    write_codes = inner.encode_values_shards(
+        encode, [w["value"] for *_, w in island_ops])
+
+    # Stage 3 per island, on its device: the index is copied there once per
+    # distinct device, then the island's old codes are re-encoded through it.
+    index = old_to_new.to(torch.int32)
+    index_on: dict = {}
+    shards = []
+    for s, ((m_s, i_s, d_s, w_s), wc) in enumerate(zip(island_ops,
+                                                       write_codes)):
+        dev = be.devices[s]
+        lo, hi = bounds[s], bounds[s + 1]
+        src_lo, src_hi = min(lo, n), min(hi, n)
+        idx = index_on.setdefault(dev, index.to(dev))
+        codes_s = torch.index_select(idx, 0,
+                                     col.codes[src_lo:src_hi].to(dev))
+        valid_s = col.valid[src_lo:src_hi].to(dev, copy=True)
+        # rows this island gains from inserts: code 0, invalid
+        codes_s, valid_s = _grow(codes_s, valid_s, hi - lo)
+        codes_s, valid_s = _apply_row_ops(codes_s, valid_s, new_dict,
+                                          m_s, i_s, d_s, encode=encode,
+                                          write_set=(w_s, wc.to(dev)))
+        shards.append(EncodedColumn(codes=codes_s, dictionary=new_dict,
+                                    valid=valid_s, version=col.version + 1))
+
+    if cost is not None and m:
+        _optimized_apply_cost(cost, on_pim, m, n, k_old, len(new_dict),
+                              len(update_dict), col.bit_width, phase=phase)
+    return shards
 
 
 def apply_updates_naive(

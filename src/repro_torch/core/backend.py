@@ -13,16 +13,22 @@ below, so the same code runs either on
   N analytical islands, each owning a row-wise shard of every column,
   stacked on one device: every island's scan rides one launch of the inner
   backend over the leading shard axis, and the exact per-island partials
-  reduce with `reduce_partials`:
+  reduce with `reduce_partials`, or
+* ``MeshBackend`` (``"hopper@N/mesh"``, ``placement="mesh"``) - the same N
+  islands, island *s* resident on its own device ``devices[s]``
+  (``get_backend(..., devices=[...])``, default ``cuda:0 .. cuda:N-1``;
+  a list may repeat a device): a scan group is one launch per island on
+  its device, the exact int64 partials added on island 0's:
 
     ==========================  =================================
     operator                    kernel
     ==========================  =================================
     filter + aggregate          kernels/dict_ops.scan_filter_agg
                                 (+ _batch for fused multi-query,
-                                _sharded for all islands at once)
+                                _sharded for all islands at once,
+                                _mesh for one launch per island device)
     filter + aggregate + join   kernels/hash_probe.scan_filter_agg_join
-                                (+ _sharded)
+                                (+ _sharded, _mesh)
     delta-store corrections     kernels/dict_ops.scan_values_agg,
                                 scan_values_delta, scan_filter_agg_group
                                 (+ _sharded); kernels/hash_probe.
@@ -38,12 +44,10 @@ below, so the same code runs either on
 Every backend must produce *bit-identical* results: the integer query
 answers, merged logs, dictionaries and snapshots are asserted equal across
 backends in the tests. A backend is bound to one device at construction
-(``get_backend(spec, device)``); ``device=None`` means the GPU and raises
-when there is none. Columns and dictionaries are tensors on that device;
-update logs are host numpy records (the transactional island is the host).
-
-Mesh placement (``"/mesh"``, one island per GPU) is not ported yet and
-raises ``NotImplementedError``.
+(``get_backend(spec, device)``; a mesh backend's is island 0's);
+``device=None`` means the GPU and raises when there is none. Columns and
+dictionaries are tensors on that device; update logs are host numpy
+records (the transactional island is the host).
 """
 
 from __future__ import annotations
@@ -57,9 +61,11 @@ from typing import Callable, Iterable, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.dsm import (EncodedColumn, ShardedView,
-                                  make_sharded_view, shard_rows)
+from repro_torch.core.dsm import (EncodedColumn, MeshView, ShardedView,
+                                  make_sharded_view, replicate, shard_column,
+                                  shard_rows, stack_shard_columns)
 from repro_torch.core.nsm import UPDATE_DTYPE
+from repro_torch.distributed import island_mesh
 from repro_torch.kernels.bitonic_sort import sort_1024, sort_rows
 from repro_torch.kernels.common import (I32_MAX, from_host, resolve_device,
                                         width_bucket)
@@ -68,6 +74,7 @@ from repro_torch.kernels.dict_ops import (apply_pipeline_batch,
                                           scan_filter_agg_batch,
                                           scan_filter_agg_group,
                                           scan_filter_agg_group_sharded,
+                                          scan_filter_agg_mesh,
                                           scan_filter_agg_sharded,
                                           scan_values_agg, scan_values_agg_ref,
                                           scan_values_delta)
@@ -75,6 +82,7 @@ from repro_torch.kernels.hash_probe import (EMPTY_KEY, build_table, probe,
                                             probe_sharded,
                                             scan_filter_agg_join,
                                             scan_filter_agg_join_group,
+                                            scan_filter_agg_join_mesh,
                                             scan_filter_agg_join_sharded)
 from repro_torch.kernels.merge_runs import merge_sorted_pairs, merge_sorted_runs
 from repro_torch.kernels.snapshot_copy import snapshot_copy
@@ -88,9 +96,11 @@ SNAPSHOT_BLOCK = 8192  # copy-unit chunk size (kernels/snapshot_copy default)
 KERNEL_ENTRY_POINTS = ("scan_filter_agg", "scan_filter_agg_batch",
                        "scan_filter_agg_group",
                        "scan_filter_agg_group_sharded",
-                       "scan_filter_agg_sharded", "scan_filter_agg_join",
+                       "scan_filter_agg_sharded", "scan_filter_agg_mesh",
+                       "scan_filter_agg_join",
                        "scan_filter_agg_join_group",
-                       "scan_filter_agg_join_sharded", "probe",
+                       "scan_filter_agg_join_sharded",
+                       "scan_filter_agg_join_mesh", "probe",
                        "probe_sharded", "build_table", "merge_sorted_runs",
                        "merge_sorted_pairs", "sort_1024", "sort_rows",
                        "snapshot_copy", "scan_values_agg",
@@ -397,9 +407,9 @@ class ExecutionBackend(abc.ABC):
         """Encode every island's pending update values through one shared
         value->code map. Reference: one encoder call per island; the
         accelerator backend probes all islands in one launch when the
-        encoder is a hash table. No path of the port calls it yet: stacked
-        islands apply to one shared column; a per-island apply comes with
-        mesh placement (ROADMAP.md queue 1, item 13)."""
+        encoder is a hash table. The mesh's per-island apply
+        (`application.apply_updates_shards`) calls it with the staged
+        encoder, a binary search, so it never reaches the probe there."""
         return [encoder(v) for v in values_list]
 
     # -- update propagation (§5) ------------------------------------------
@@ -596,9 +606,9 @@ class HopperBackend(TorchBackend):
     bucket table built over the right dictionary and one probe launch per
     query. Query groups never reach it - their join is the fused scan
     below. `make_encoder` / `encode_values_shards` probe the same kind of
-    table; no path of the port calls them (ship batches encode through
-    `staged_encoder`), they stay for parity with the reference, whose
-    per-island apply batches its encodes through them.
+    table; no path of the port reaches that probe (ship batches encode
+    through `staged_encoder`, which has no table - also in the mesh's
+    per-island apply), they stay for parity with the reference.
     """
 
     name = "hopper"
@@ -1107,7 +1117,7 @@ class ShardedBackend(ExecutionBackend):
         lcount = self._view_side_counts(lview, left_mask)
         if right is left:  # the engine's self-join fast path
             rv, rcount = lv, lview.dict_counts()
-        elif isinstance(right, ShardedView):
+        elif isinstance(right, (ShardedView, MeshView)):
             rv, rcount = right.dictionary, right.dict_counts()
         else:
             rv, rcount = _side_counts(right, None)
@@ -1163,6 +1173,145 @@ class ShardedBackend(ExecutionBackend):
 
 
 # ---------------------------------------------------------------------------
+# Analytical islands one per device: the mesh placement (§4, Fig. 5)
+# ---------------------------------------------------------------------------
+
+class MeshBackend(ShardedBackend):
+    """N analytical islands, island *s* resident on its own device.
+
+    The mesh placement (spec ``"hopper@4/mesh"``): where `ShardedBackend`
+    stacks every island's shard on one device, this backend keeps island
+    *s*'s shard of each pinned column on ``devices[s]`` (`dsm.MeshView`),
+    made once per pinned version (`shard_view`) or, at the Phase-2 swap,
+    adopted straight from the per-island apply's shard columns
+    (`place_shards`; `application.apply_updates_shards`,
+    `ConsistencyManager.on_update_shards`). A scan group is one launch of
+    the scan kernel per island on its device, and the exact int64
+    partials add on island 0's device (`kernels.dict_ops.
+    scan_filter_agg_mesh`, `kernels.hash_probe.scan_filter_agg_join_mesh`).
+
+    Everything off the scan plane - log merge, the dictionary stages,
+    snapshots, the delta store's corrections, the lone join's match - runs
+    once on the inner backend, on island 0's device, where the replica
+    lives. The device list may repeat a device: islands sharing a card
+    keep their own shard tensors and launches. Only the kernel inner
+    (HopperBackend) drives the mesh, as only the reference's Pallas
+    backend does.
+    """
+
+    placement = "mesh"
+
+    def __init__(self, inner: str | ExecutionBackend, n_shards: int,
+                 devices):
+        devices = tuple(resolve_device(d) for d in devices)
+        if len(devices) != int(n_shards):
+            raise ValueError(f"{len(devices)} island devices for "
+                             f"{n_shards} islands")
+        super().__init__(inner, n_shards, device=devices[0])
+        if not isinstance(self.inner, HopperBackend):
+            raise ValueError(_mesh_inner_error(self.inner.name,
+                                               self.n_shards))
+        self.devices = devices
+        self.name = f"{self.inner.name}@{self.n_shards}/mesh"
+
+    # -- the mesh-resident snapshot plane ----------------------------------
+    def _place_view(self, shard_cols, snapshot_id: int = -1) -> MeshView:
+        return stack_shard_columns(shard_cols, snapshot_id,
+                                   devices=self.devices)
+
+    def shard_view(self, col: EncodedColumn, snapshot_id: int = -1
+                   ) -> MeshView:
+        """Shard once, each island's rows on its own device (a shard
+        already there is a slice of the column, not a copy)."""
+        return self._place_view(shard_column(col, self.n_shards),
+                                snapshot_id)
+
+    def place_shards(self, shard_cols, snapshot_id: int = -1) -> MeshView:
+        """Phase-2 residency install: the per-island apply's shard columns
+        become the islands' resident view directly - each on its own device
+        already, no concat and re-split."""
+        return self._place_view(shard_cols, snapshot_id)
+
+    def _as_view(self, col) -> MeshView:
+        if isinstance(col, ShardedView):
+            raise ValueError(f"backend {self.name!r} scans MeshViews; got a "
+                             "stacked ShardedView")
+        if isinstance(col, MeshView):
+            col.require_fresh()
+            if col.n_shards != self.n_shards:
+                raise ValueError(
+                    f"MeshView has {col.n_shards} islands but backend "
+                    f"{self.name!r} has {self.n_shards}")
+            return col
+        return self.shard_view(col)
+
+    # -- analytical engine: one launch per island, int64 reduction ---------
+    def filter_mask(self, col, lo, hi):
+        view = self._as_view(col)
+        code_lo, code_hi = self.code_range(view, lo, hi)
+        return torch.cat([((c >= code_lo) & (c < code_hi) & v).to(self.device)
+                          for c, v in zip(view.codes, view.valid)])
+
+    def filter_agg_mask(self, fcol, acol, lo, hi):
+        fv, av = self._as_view(fcol), self._as_view(acol)
+        [(s, c)] = scan_filter_agg_mesh(fv.codes, av.codes, fv.valid,
+                                        av.island_dicts(),
+                                        [self.code_range(fv, lo, hi)])
+        return s, c, self.filter_mask(fv, lo, hi)
+
+    def filter_agg_batch(self, fcol, acol, bounds):
+        fv, av = self._as_view(fcol), self._as_view(acol)
+        code_bounds = [self.code_range(fv, lo, hi) for lo, hi in bounds]
+        return scan_filter_agg_mesh(fv.codes, av.codes, fv.valid,
+                                    av.island_dicts(), code_bounds)
+
+    def filter_agg_join_batch(self, fcol, acol, jcol, bounds, rcount=None):
+        # the build side is the view's GLOBAL histogram, replicated to
+        # every island once per view (or the delta-corrected override,
+        # copied per call), so the per-island join partials sum exactly
+        fv, av, jv = (self._as_view(fcol), self._as_view(acol),
+                      self._as_view(jcol))
+        code_bounds = [self.code_range(fv, lo, hi) for lo, hi in bounds]
+        rc = (jv.island_rcounts() if rcount is None
+              else replicate(rcount.to(torch.int32), jv.devices))
+        return scan_filter_agg_join_mesh(fv.codes, av.codes, jv.codes,
+                                         fv.valid, jv.valid,
+                                         av.island_dicts(), rc, code_bounds)
+
+    def filter_agg_delta_batch(self, fcol, acol, bounds, corr):
+        # the base scan stays on the islands' devices; the flat overlay
+        # correction folds in from the inner backend's one launch (the
+        # stacked fused group kernel would need every shard on one device)
+        fused = self.filter_agg_batch(fcol, acol, bounds)
+        if corr is None:
+            return fused
+        deltas = self.inner.filter_agg_values_delta(corr, bounds)
+        return [(s + ds, c + dc)
+                for (s, c), (ds, dc) in zip(fused, deltas)]
+
+    @staticmethod
+    def _view_side_counts(view: MeshView, mask) -> torch.Tensor:
+        """A join side's occurrence counts: each island's rows (under its
+        slice of `mask`) histogrammed on its device, summed on island 0's."""
+        if mask is None:
+            return view.dict_counts()
+        total = torch.zeros(view.dict_size, dtype=torch.int64,
+                            device=view.device)
+        for s, (c, v) in enumerate(zip(view.codes, view.valid)):
+            keep = v & mask[view.bounds[s]:view.bounds[s + 1]].to(v.device)
+            total += torch.bincount(c[keep].long(), minlength=view.dict_size
+                                    ).to(view.device)
+        return total
+
+
+def _mesh_inner_error(name: str, n: int) -> str:
+    return (f"mesh placement runs the scan plane as kernel launches on the "
+            f"island devices, which the {name!r} backend does not drive; use "
+            f"'hopper@{n}/mesh', or keep {name!r} islands on the stacked "
+            f"placement (e.g. '{name}@{n}')")
+
+
+# ---------------------------------------------------------------------------
 # Backend resolution
 # ---------------------------------------------------------------------------
 
@@ -1172,9 +1321,9 @@ BACKENDS: dict[str, type[ExecutionBackend]] = {
 }
 DEFAULT_BACKEND = "hopper"
 # How islands are laid out: "stacked" keeps every island's shard on one
-# device (leading-axis launches); "mesh" (one island per GPU) is not ported.
+# device (leading-axis launches); "mesh" lays island s on its own device.
 PLACEMENTS = ("stacked", "mesh")
-_instances: dict[tuple[str, int, str], ExecutionBackend] = {}
+_instances: dict[tuple, ExecutionBackend] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1229,7 +1378,7 @@ def parse_backend_spec(spec: str | BackendSpec) -> BackendSpec:
     if psep and placement not in PLACEMENTS:
         raise KeyError(
             f"bad placement {placement!r} in backend spec {spec!r}: "
-            f"expected one of {list(PLACEMENTS)} (e.g. 'hopper@4/stacked')")
+            f"expected one of {list(PLACEMENTS)} (e.g. 'hopper@4/mesh')")
     name, sep, count = base.partition("@")
     if not name:
         raise KeyError(
@@ -1252,17 +1401,23 @@ def parse_backend_spec(spec: str | BackendSpec) -> BackendSpec:
 
 def get_backend(spec: str | BackendSpec | ExecutionBackend | None = None,
                 device=None, n_shards: int | None = None,
-                placement: str | None = None) -> ExecutionBackend:
+                placement: str | None = None,
+                devices=None) -> ExecutionBackend:
     """Resolve a backend argument: None -> ``"hopper"``, str -> registry,
     instance -> itself.
 
     ``n_shards`` > 1 (or ``"name@N"``) wraps the named backend in a
     `ShardedBackend` of N islands stacked on one device; with neither, one
-    island. A counted spec with a contradicting explicit
-    ``n_shards`` raises, as does an instance whose island count, placement
-    or device contradicts an explicit argument. ``device=None`` means the
-    GPU and raises when CUDA is not available. Equal resolutions share one
-    instance, keyed by (name, N, device).
+    island. ``placement="mesh"`` (or ``"name@N/mesh"``) makes it a
+    `MeshBackend` instead: island s on ``devices[s]``, which default to the
+    installed island devices or ``cuda:0 .. cuda:N-1``
+    (`distributed.island_mesh`; a list may repeat a device, and gives the
+    island count when the spec does not). A counted spec with a
+    contradicting explicit ``n_shards`` raises, as does an instance whose
+    island count, placement or devices contradict an explicit argument.
+    ``device=None`` means the GPU and raises when CUDA is not available; a
+    mesh backend's device is island 0's. Equal resolutions share one
+    instance, keyed by (name, N, placement, devices).
     """
     if isinstance(spec, ExecutionBackend):
         if device is not None and resolve_device(device) != spec.device:
@@ -1278,6 +1433,13 @@ def get_backend(spec: str | BackendSpec | ExecutionBackend | None = None,
             raise ValueError(
                 f"backend instance {spec.name!r} uses the "
                 f"{spec.placement!r} placement but placement={placement!r} "
+                "was requested")
+        if devices is not None and tuple(
+                resolve_device(d) for d in devices) != getattr(
+                    spec, "devices", None):
+            raise ValueError(
+                f"backend instance {spec.name!r} has island devices "
+                f"{getattr(spec, 'devices', None)} but devices={devices!r} "
                 "was requested")
         return spec
     from_default = spec is None
@@ -1300,21 +1462,35 @@ def get_backend(spec: str | BackendSpec | ExecutionBackend | None = None,
     except KeyError:
         raise KeyError(f"unknown backend {name!r}; have {sorted(BACKENDS)}"
                        ) from None
+    if placement not in (None, *PLACEMENTS):
+        raise ValueError(f"bad placement {placement!r} (backend spec/"
+                         f"argument for {name!r}); expected one of "
+                         f"{list(PLACEMENTS)}")
+    if n_shards is None and devices is not None and placement == "mesh":
+        n_shards = len(devices)
     n = 1 if n_shards is None else int(n_shards)
     if n < 1:
         raise ValueError(f"n_shards must be >= 1, got {n} (backend spec/"
                          f"argument for {name!r})")
-    if placement not in (None, "stacked"):
-        if placement == "mesh":
-            raise NotImplementedError(
-                f"backend {str(parsed)!r}: mesh placement (one island per "
-                "GPU) is not ported yet - ROADMAP.md queue 1, item 13 "
-                "(multi-GPU islands)")
-        raise ValueError(f"bad placement {placement!r} (backend spec/"
-                         f"argument for {name!r}); expected one of "
-                         f"{list(PLACEMENTS)}")
+    if placement == "mesh":
+        # a one-island mesh is legal: the scan plane still takes the mesh
+        # entry points, so the placement's semantics do not change with N
+        if not issubclass(cls, HopperBackend):
+            raise ValueError(_mesh_inner_error(name, n))
+        devs = island_mesh(n, devices)
+        if device is not None and resolve_device(device) != devs[0]:
+            raise ValueError(f"device={device!r} is not island 0's device "
+                             f"{devs[0]} (a mesh backend lives on island 0)")
+        key = (name, n, "mesh", tuple(str(d) for d in devs))
+        if key not in _instances:
+            _instances[key] = MeshBackend(name, n, devs)
+        return _instances[key]
+    if devices is not None:
+        raise ValueError("devices= lists the islands' devices of the mesh "
+                         f"placement; backend {str(parsed)!r} is stacked "
+                         "(use e.g. 'hopper@4/mesh')")
     dev = resolve_device(device)
-    key = (name, n, str(dev))
+    key = (name, n, "stacked", (str(dev),))
     if key not in _instances:
         _instances[key] = (cls(dev) if n == 1
                            else ShardedBackend(name, n, device=dev))

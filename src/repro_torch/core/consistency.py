@@ -22,7 +22,11 @@ pinned version is sharded once, at its first pinned scan read, and shared
 by every later group pinning it; a Phase-2 swap or GC invalidates unpinned
 views. Islands stacked on one device share one installed column, so the
 swap is the one-island pointer swap and all islands see the new round at
-once.
+once. Islands on their own devices (the mesh placement) apply per island:
+`on_update_shards` swaps in the complete shard set or nothing, installs
+the shards, already on their islands' devices, as the next pinned read's
+`MeshView` (Phase-2 residency), and keeps their concatenation on the
+replica's device as the column.
 """
 
 from __future__ import annotations
@@ -31,7 +35,9 @@ import dataclasses
 import itertools
 
 from repro_torch.core.backend import get_backend
-from repro_torch.core.dsm import DSMReplica, EncodedColumn, ShardedView
+from repro_torch.core.dsm import (DSMReplica, EncodedColumn, MeshView,
+                                  ShardedView, check_shard_set,
+                                  concat_columns)
 from repro_torch.core.hwmodel import CostLog
 from repro_torch.core.schema import VALUE_BYTES
 
@@ -45,7 +51,7 @@ class _Version:
     # pinned scan read (`read_scan`) and shared by every later group
     # pinning it; invalidated when the version is garbage-collected or
     # swapped out unpinned
-    view: ShardedView | None = None
+    view: ShardedView | MeshView | None = None
 
     def drop_view(self, reason: str) -> None:
         if self.view is not None:
@@ -105,9 +111,14 @@ class ConsistencyManager:
         self.snapshots_shared = 0
         self.views_built = 0
         self.views_shared = 0
-        # views adopted from a Phase-2 residency install: mesh placement
-        # only (ROADMAP.md queue 1, item 13), so 0 on stacked islands
         self.views_resident = 0
+        # Phase-2 residency (mesh placement): the freshly applied per-island
+        # shards, installed on their islands' devices by `on_update_shards`
+        # and adopted by the next pinned `read_scan`, so mesh islands keep
+        # their shards resident across rounds instead of re-sharding the
+        # concatenated column. One pending view per column; superseded by
+        # the next swap.
+        self._resident: dict[int, MeshView] = {}
 
     # -- transactional side ----------------------------------------------
     def on_update(self, col_id: int, new_col: EncodedColumn) -> None:
@@ -120,10 +131,36 @@ class ConsistencyManager:
         drops the version."""
         self.replica.columns[col_id] = new_col
         self.chains[col_id].dirty = True
+        self._resident.pop(col_id, None)  # superseded before adoption
         for v in self.chains[col_id].versions:
             if v.readers == 0:
                 v.drop_view(f"column {col_id} was swapped out by a Phase-2 "
                             f"update (now at version {new_col.version})")
+
+    def on_update_shards(self, col_id: int,
+                         shard_cols: list[EncodedColumn]) -> None:
+        """Phase-2 pointer swap for the mesh's per-island apply, all or none.
+
+        A round's apply produces one shard column per island; queries must
+        never see some islands at the new round and others at the old. So
+        the complete set is checked first - one shard per island, one
+        dictionary and version, sizes of the row partition - before
+        anything is installed: on a failure the replica is untouched. Then
+        the shards' concatenation, on the replica's device, is swapped in
+        as the column, and the shards themselves, already on their islands'
+        devices, become the view the next pinned read adopts.
+        """
+        expected = self.backend.n_shards
+        if len(shard_cols) != expected:
+            raise ValueError(
+                f"partial shard set for column {col_id}: got "
+                f"{len(shard_cols)} shards, backend has {expected} islands")
+        check_shard_set(shard_cols)          # rejects mixed-round shards
+        self.on_update(col_id, concat_columns(
+            shard_cols, device=self.replica.columns[col_id].device))
+        place = getattr(self.backend, "place_shards", None)
+        if place is not None:
+            self._resident[col_id] = place(shard_cols)
 
     # -- analytical side ---------------------------------------------------
     def _snapshot(self, col_id: int) -> _Version:
@@ -178,18 +215,29 @@ class ConsistencyManager:
     def read_scan(self, handle: int, col_id: int):
         """Pinned read for the scan plane: shard at pin, once per round.
 
-        On a sharded backend this returns the pinned version's resident
-        `ShardedView`, made at its first access and reused by every later
-        group pinning the same version. On a single-replica backend it is
+        On an island backend this returns the pinned version's resident
+        view (`ShardedView`, or `MeshView` on the mesh placement, even with
+        one island), made at its first access and reused by every later
+        group pinning the same version. On the mesh a view installed by the
+        Phase-2 swap of the pinned version is adopted instead of made
+        (counted in ``views_resident``). On a single-replica backend it is
         `read` (the plain pinned column).
         """
         v = self._handles[handle][col_id]
-        if getattr(self.backend, "n_shards", 1) <= 1:
+        if self.backend.n_shards <= 1 and self.backend.placement != "mesh":
             return v.column
         if v.view is None or v.view.stale:
-            v.view = self.backend.shard_view(v.column,
-                                             snapshot_id=v.version_id)
-            self.views_built += 1
+            resident = self._resident.pop(col_id, None)
+            if (resident is not None and not resident.stale
+                    and resident.version == v.column.version):
+                # the islands' devices already hold these shards
+                resident.snapshot_id = v.version_id
+                v.view = resident
+                self.views_resident += 1
+            else:
+                v.view = self.backend.shard_view(v.column,
+                                                 snapshot_id=v.version_id)
+                self.views_built += 1
         else:
             self.views_shared += 1
         return v.view

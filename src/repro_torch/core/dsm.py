@@ -17,7 +17,9 @@ may alias them.
 
 Several analytical islands each own a row-wise shard of every column
 (`shard_bounds`); a pinned column is sharded once per round into a stacked
-`ShardedView` that all islands scan in one launch.
+`ShardedView` that all islands scan in one launch on one device, or, on the
+mesh placement, into a `MeshView` whose island *s* is a flat tensor on its
+own device (island device lists: ``repro_torch.distributed``).
 
 The delta store's per-column overlay (`ColumnDelta`) is host numpy, as in
 the reference: it is built from the host's ship batches, holds at most a
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.schema import VALUE_BYTES
+from repro_torch.distributed.sharding import place_shard_arrays
 from repro_torch.kernels.common import resolve_device
 
 
@@ -284,24 +287,46 @@ def _check_same_round(shards) -> None:
                 f"shard version mismatch: {s.version} != {head.version}")
         if s.dictionary is not head.dictionary and not (
                 s.dictionary.shape == head.dictionary.shape
-                and torch.equal(s.dictionary, head.dictionary)):
+                and torch.equal(s.dictionary,
+                                head.dictionary.to(s.dictionary.device))):
             raise ValueError("shard dictionary mismatch (different rounds?)")
 
 
-def concat_columns(shards: list[EncodedColumn]) -> EncodedColumn:
-    """Reassemble shard columns (inverse of `shard_column`); rejects shards
-    of different rounds (version or dictionary mismatch)."""
+def check_shard_set(shards: list[EncodedColumn]) -> list[int]:
+    """Validate a complete per-island shard set of one column - one round
+    (version and dictionary), sizes of the `shard_bounds` partition - and
+    return its bounds. Touches no device state, so a caller can check a
+    set before installing any of it."""
+    if not shards:
+        raise ValueError("a shard set needs at least one shard")
+    _check_same_round(shards)
+    sizes = [c.n_rows for c in shards]
+    bounds = shard_bounds(sum(sizes), len(shards))
+    if [hi - lo for lo, hi in zip(bounds, bounds[1:])] != sizes:
+        raise ValueError(
+            f"shard sizes {sizes} do not match the shard_bounds partition "
+            f"of {sum(sizes)} rows over {len(shards)} islands")
+    return bounds
+
+
+def concat_columns(shards: list[EncodedColumn], device=None) -> EncodedColumn:
+    """Reassemble shard columns (inverse of `shard_column`) on `device`
+    (None: the first shard's); rejects shards of different rounds (version
+    or dictionary mismatch). Shards may lie on different devices (mesh
+    islands): each is copied to `device` once."""
     if not shards:
         raise ValueError("concat_columns needs at least one shard")
     _check_same_round(shards)
     head = shards[0]
+    dev = head.codes.device if device is None else torch.device(device)
     if len(shards) == 1:
-        return EncodedColumn(codes=head.codes, dictionary=head.dictionary,
-                             valid=head.valid, version=head.version,
+        return EncodedColumn(codes=head.codes.to(dev),
+                             dictionary=head.dictionary.to(dev),
+                             valid=head.valid.to(dev), version=head.version,
                              _host_dict=head._host_dict)
-    return EncodedColumn(codes=torch.cat([s.codes for s in shards]),
-                         dictionary=head.dictionary,
-                         valid=torch.cat([s.valid for s in shards]),
+    return EncodedColumn(codes=torch.cat([s.codes.to(dev) for s in shards]),
+                         dictionary=head.dictionary.to(dev),
+                         valid=torch.cat([s.valid.to(dev) for s in shards]),
                          version=head.version, _host_dict=head._host_dict)
 
 
@@ -315,37 +340,11 @@ class StaleShardedViewError(RuntimeError):
     """
 
 
-@dataclasses.dataclass
-class ShardedView:
-    """Materialized island-resident shards of one pinned column.
-
-    The column's rows are partitioned by `shard_bounds` and stacked into
-    ``(n_shards, width)`` device tensors, so every island is scanned by ONE
-    launch over the leading shard axis. Padded slots (at most one per
-    shorter shard) carry ``codes=0, valid=False``: the scan identity.
-
-    ``version`` is the source column's update round and ``snapshot_id``
-    the consistency snapshot it was pinned from (-1 for ad-hoc views).
-    Every reader calls `require_fresh`, so a swapped-out view is a hard
-    `StaleShardedViewError`.
-    """
-
-    codes: torch.Tensor        # (n_shards, width) int32, padded slots = 0
-    valid: torch.Tensor        # (n_shards, width) bool, padded slots = False
-    dictionary: torch.Tensor   # replicated across islands
-    bounds: tuple[int, ...]    # row partition, len n_shards + 1
-    version: int
-    snapshot_id: int = -1
-    stale_reason: str | None = None
-    # join build side, made by `dict_counts` and dying with the view
-    _dict_counts: torch.Tensor | None = dataclasses.field(
-        default=None, repr=False, compare=False)
-    _host_dict: np.ndarray | None = dataclasses.field(
-        default=None, repr=False, compare=False)
-
-    @property
-    def device(self) -> torch.device:
-        return self.codes.device
+class _IslandView:
+    """What the islands' two resident layouts share (`ShardedView`,
+    `MeshView`): the row partition ``bounds``, the pinned provenance
+    (``version``, ``snapshot_id``), staleness, and the properties the cost
+    model prices, which are the column's."""
 
     @property
     def n_shards(self) -> int:
@@ -356,14 +355,9 @@ class ShardedView:
         return self.bounds[-1]
 
     @property
-    def width(self) -> int:
-        return int(self.codes.shape[1])
-
-    @property
     def sizes(self) -> tuple[int, ...]:
         return tuple(hi - lo for lo, hi in zip(self.bounds, self.bounds[1:]))
 
-    # priced by the cost model exactly like the column it mirrors
     @property
     def dict_size(self) -> int:
         return int(self.dictionary.shape[0])
@@ -396,6 +390,43 @@ class ShardedView:
                 f"(snapshot {self.snapshot_id}) is stale: "
                 f"{self.stale_reason}")
 
+
+@dataclasses.dataclass
+class ShardedView(_IslandView):
+    """Materialized island-resident shards of one pinned column.
+
+    The column's rows are partitioned by `shard_bounds` and stacked into
+    ``(n_shards, width)`` device tensors, so every island is scanned by ONE
+    launch over the leading shard axis. Padded slots (at most one per
+    shorter shard) carry ``codes=0, valid=False``: the scan identity.
+
+    ``version`` is the source column's update round and ``snapshot_id``
+    the consistency snapshot it was pinned from (-1 for ad-hoc views).
+    Every reader calls `require_fresh`, so a swapped-out view is a hard
+    `StaleShardedViewError`.
+    """
+
+    codes: torch.Tensor        # (n_shards, width) int32, padded slots = 0
+    valid: torch.Tensor        # (n_shards, width) bool, padded slots = False
+    dictionary: torch.Tensor   # replicated across islands
+    bounds: tuple[int, ...]    # row partition, len n_shards + 1
+    version: int
+    snapshot_id: int = -1
+    stale_reason: str | None = None
+    # join build side, made by `dict_counts` and dying with the view
+    _dict_counts: torch.Tensor | None = dataclasses.field(
+        default=None, repr=False, compare=False)
+    _host_dict: np.ndarray | None = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.codes.device
+
+    @property
+    def width(self) -> int:
+        return int(self.codes.shape[1])
+
     def dict_counts(self) -> torch.Tensor:
         """Per-dictionary-value occurrence counts of the view's valid rows,
         across all islands (int64, on the view's device).
@@ -423,6 +454,97 @@ class ShardedView:
     def to_column(self) -> EncodedColumn:
         """Reassemble the full column (row-order inverse of the shard)."""
         return concat_columns([self.shard(s) for s in range(self.n_shards)])
+
+
+def replicate(t: torch.Tensor, devices) -> tuple[torch.Tensor, ...]:
+    """`t` on each of `devices`, one copy per distinct device (none for
+    `t`'s own): the mesh's replicated tensors."""
+    copies: dict = {}
+    return tuple(copies.setdefault(d, t.to(d)) for d in devices)
+
+
+@dataclasses.dataclass
+class MeshView(_IslandView):
+    """One pinned column's island shards on the mesh placement: island *s*
+    holds its rows as flat ``(width_s,)`` tensors on its own device
+    (``codes[s].device``), unpadded. The dictionary lives on island 0's
+    device (the replica's); `island_dicts` replicates it to every island
+    once per view, and the join's build side (`dict_counts`, reduced across
+    islands) likewise (`island_rcounts`), so a query copies neither.
+
+    Provenance, staleness (`StaleShardedViewError`) and the cost model's
+    properties are those of `ShardedView`.
+    """
+
+    codes: tuple[torch.Tensor, ...]   # per island (width_s,) int32
+    valid: tuple[torch.Tensor, ...]   # per island (width_s,) bool
+    dictionary: torch.Tensor          # on island 0's device
+    bounds: tuple[int, ...]           # row partition, len n_shards + 1
+    version: int
+    snapshot_id: int = -1
+    stale_reason: str | None = None
+    _dict_counts: torch.Tensor | None = dataclasses.field(
+        default=None, repr=False, compare=False)
+    _host_dict: np.ndarray | None = dataclasses.field(
+        default=None, repr=False, compare=False)
+    _island_dicts: tuple | None = dataclasses.field(
+        default=None, repr=False, compare=False)
+    _island_rcounts: tuple | None = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.dictionary.device
+
+    @property
+    def devices(self) -> tuple[torch.device, ...]:
+        return tuple(c.device for c in self.codes)
+
+    def island_dicts(self) -> tuple[torch.Tensor, ...]:
+        """The replicated dictionary, one tensor per island on its device
+        (made once per view; read-only)."""
+        self.require_fresh()
+        if self._island_dicts is None:
+            self._island_dicts = replicate(self.dictionary, self.devices)
+        return self._island_dicts
+
+    def dict_counts(self) -> torch.Tensor:
+        """The join's build side: occurrence counts of the view's valid
+        rows per dictionary value, each island's histogram made on its own
+        device and summed on island 0's, in island order (int64, exact;
+        once per view; read-only)."""
+        self.require_fresh()
+        if self._dict_counts is None:
+            total = torch.zeros(self.dict_size, dtype=torch.int64,
+                                device=self.device)
+            for c, v in zip(self.codes, self.valid):
+                total += torch.bincount(c[v].long(), minlength=self.dict_size
+                                        ).to(self.device)
+            self._dict_counts = total
+        return self._dict_counts
+
+    def island_rcounts(self) -> tuple[torch.Tensor, ...]:
+        """`dict_counts` as int32 (counts never exceed the row count), one
+        copy per island device (made once per view; read-only)."""
+        self.require_fresh()
+        if self._island_rcounts is None:
+            self._island_rcounts = replicate(
+                self.dict_counts().to(torch.int32), self.devices)
+        return self._island_rcounts
+
+    def shard(self, s: int) -> EncodedColumn:
+        """One island's resident shard as an EncodedColumn: codes and
+        validity on the island's device, the shared dictionary tensor on
+        island 0's."""
+        self.require_fresh()
+        return EncodedColumn(codes=self.codes[s], dictionary=self.dictionary,
+                             valid=self.valid[s], version=self.version,
+                             _host_dict=self._host_dict)
+
+    def to_column(self) -> EncodedColumn:
+        """Reassemble the full column on island 0's device."""
+        return concat_columns([self.shard(s) for s in range(self.n_shards)],
+                              device=self.device)
 
 
 def stack_rows(parts: list[torch.Tensor], width: int) -> torch.Tensor:
@@ -466,25 +588,29 @@ def make_sharded_view(col: EncodedColumn, n_shards: int,
 
 
 def stack_shard_columns(shard_cols: list[EncodedColumn],
-                        snapshot_id: int = -1) -> ShardedView:
-    """Adopt per-island shard columns as a ShardedView directly (no concat
-    and re-split). Shards must line up with `shard_bounds` and share one
-    dictionary and version, as in `concat_columns`. No path of the port
-    calls it yet: stacked islands share one applied column; mesh placement
-    (ROADMAP.md queue 1, item 13) installs per-island shards this way."""
-    if not shard_cols:
-        raise ValueError("stack_shard_columns needs at least one shard")
-    _check_same_round(shard_cols)
+                        snapshot_id: int = -1, devices=None):
+    """Adopt per-island shard columns as a resident view directly (no
+    concat and re-split): the Phase-2 residency install of the mesh
+    placement (`core.backend.MeshBackend.place_shards`). Shards must line
+    up with `shard_bounds` and share one dictionary and version
+    (`check_shard_set`).
+
+    With `devices` (one per island) island *s*'s shard is laid on
+    ``devices[s]`` as a `MeshView`; without, the shards are stacked on one
+    device into a `ShardedView`."""
+    bounds = check_shard_set(shard_cols)
     head = shard_cols[0]
-    sizes = [c.n_rows for c in shard_cols]
-    bounds = shard_bounds(sum(sizes), len(shard_cols))
-    if [hi - lo for lo, hi in zip(bounds, bounds[1:])] != sizes:
-        raise ValueError(
-            f"shard sizes {sizes} do not match the shard_bounds partition "
-            f"of {sum(sizes)} rows over {len(shard_cols)} islands")
-    width = max(sizes, default=0)
+    if devices is not None:
+        codes, valid = place_shard_arrays(devices,
+                                          [c.codes for c in shard_cols],
+                                          [c.valid for c in shard_cols])
+        return MeshView(codes=codes, valid=valid, dictionary=head.dictionary,
+                        bounds=tuple(bounds), version=head.version,
+                        snapshot_id=snapshot_id, _host_dict=head._host_dict)
+    width = max(c.n_rows for c in shard_cols)
     return ShardedView(codes=stack_rows([c.codes for c in shard_cols], width),
                        valid=stack_rows([c.valid for c in shard_cols], width),
                        dictionary=head.dictionary, bounds=tuple(bounds),
                        version=head.version, snapshot_id=snapshot_id,
                        _host_dict=head._host_dict)
+

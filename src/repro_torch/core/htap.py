@@ -74,16 +74,17 @@ def _price(name: str, cost: CostLog, hw: HardwareParams, timing: str,
 
 
 def run_spec(spec: SystemSpec, table, stream=None, queries=None,
-             n_rounds: int = 8, device=None) -> RunResult:
+             n_rounds: int = 8, device=None, devices=None) -> RunResult:
     """Run a pre-generated workload through ``spec``'s system.
 
     Splits the stream/queries into ``n_rounds`` uniform rounds and drives
-    an `HTAPSession` on `device` (None = the GPU). The normalization
+    an `HTAPSession` on `device` (None = the GPU), its mesh islands on
+    `devices` (see `HTAPSession`). The normalization
     baselines ignore the side they don't model (Ideal-Txn takes the whole
     stream in one round; Ana-Only answers each query individually over the
     initial table).
     """
-    session = HTAPSession(spec, table, device=device)
+    session = HTAPSession(spec, table, device=device, devices=devices)
     if spec.kind == "ideal_txn":
         session.execute(stream)
         return session.finish()
@@ -103,11 +104,15 @@ def run_spec(spec: SystemSpec, table, stream=None, queries=None,
 
 
 def run(system: str | SystemSpec, table, stream=None, queries=None,
-        n_rounds: int = 8, device=None, **overrides) -> RunResult:
+        n_rounds: int = 8, device=None, devices=None,
+        **overrides) -> RunResult:
     """Run a preset (by name) or an explicit spec over a batch workload.
 
     ``overrides`` refine the preset, e.g. ``run("Polynesia", t, s, q,
-    backend="torch", n_shards=4)`` (four analytical islands on one device).
+    backend="torch", n_shards=4)`` (four analytical islands on one device)
+    or ``run("Polynesia", t, s, q, backend="hopper@4/mesh",
+    devices=["cuda:0", "cuda:1", "cuda:2", "cuda:3"])`` (one per card).
     """
     return run_spec(resolve_spec(system, **overrides), table, stream,
-                    queries, n_rounds=n_rounds, device=device)
+                    queries, n_rounds=n_rounds, device=device,
+                    devices=devices)

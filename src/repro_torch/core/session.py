@@ -27,9 +27,16 @@ Several analytical islands (``n_shards=N`` or ``backend="hopper@N"``) are
 stacked on that one device: each owns a row-wise shard of every pinned
 column (a stacked view, made once per pinned version), updates apply to
 the column the islands share and swap in one step, and every query group
-scans all islands in one launch. Answers depend only on the *visibility points* (which updates
-executed before each query), so any sub-chunking of the txn stream between
-two query batches, and the island count, are answer-neutral.
+scans all islands in one launch. On the mesh placement
+(``backend="hopper@N/mesh"`` or ``placement="mesh"``, island devices from
+``devices=``, default ``cuda:0 .. cuda:N-1``) island *s* lives on its own
+device: each island applies its own rows there, the swap installs the
+complete shard set as the next round's resident view, and a query group
+is one scan launch per island with the partials added on island 0's
+device, which also holds the replica. Answers depend only on the
+*visibility points* (which updates executed before each query), so any
+sub-chunking of the txn stream between two query batches, the island
+count and the placement are answer-neutral.
 
 ``delta_store=True`` (MI family) switches Phase 2 of update propagation
 from the eager column rebuild to the delta store: batches append to
@@ -37,11 +44,10 @@ per-column sorted overlays, query groups fold the overlays in as exact
 corrections, and a background compaction folds an overlay into its column
 every ``delta_capacity`` appended entries.
 
-What a spec can name beyond this port so far - mesh placement (one island
-per GPU), ``timing="timeline"`` with ``async_propagation``, the
-single-instance kinds ``si_ss`` / ``si_mvcc``, `resize_islands`,
-`checkpoint` / `restore` - raises ``NotImplementedError`` naming the
-ROADMAP.md queue item that brings it.
+What a spec can name beyond this port so far - ``timing="timeline"`` with
+``async_propagation``, the single-instance kinds ``si_ss`` / ``si_mvcc``,
+`resize_islands`, `checkpoint` / `restore` - raises
+``NotImplementedError`` naming the ROADMAP.md queue item that brings it.
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ import numpy as np
 from repro_torch.core import engine
 from repro_torch.core.application import (apply_updates, apply_updates_delta,
                                           apply_updates_naive,
+                                          apply_updates_shards,
                                           compaction_entries, delta_eligible,
                                           precompute_apply_stages)
 from repro_torch.core.backend import ExecutionBackend, get_backend
@@ -65,6 +72,8 @@ from repro_torch.core.nsm import RowStore
 from repro_torch.core.placement import hybrid
 from repro_torch.core.schema import UpdateStream
 from repro_torch.core.shipping import ship_updates, FINAL_LOG_CAPACITY
+from repro_torch.distributed import (clear_island_mesh, current_island_mesh,
+                                     install_island_mesh)
 from repro_torch.kernels.common import kernel_launch_counts
 
 # PIM-Only calibration: OLTP on in-order PIM cores pays extra cycles (no OoO
@@ -109,8 +118,6 @@ class SessionClosedError(RuntimeError):
 KINDS = ("multi_instance", "si_ss", "si_mvcc", "ideal_txn", "ana_only")
 
 _NOT_PORTED = {
-    "mesh": "mesh placement is not ported yet - ROADMAP.md queue 1, "
-            "item 13 (multi-GPU islands)",
     "timeline": "timing='timeline' and async_propagation are not ported "
                 "yet - ROADMAP.md queue 1, item 10 (timeline timing + "
                 "async propagation + mixed-traffic serving)",
@@ -133,9 +140,11 @@ class SystemSpec:
     ``timing=None`` means ``"phase"``. ``delta_store`` (MI family only)
     switches Phase 2 to the delta-store overlays, compacted every
     ``delta_capacity`` appended entries (None: `DELTA_CAPACITY_DEFAULT`);
-    answers are the eager path's. The fields for mesh placement and async
-    propagation are kept so that a spec reads like the reference's; any
-    value other than their off position raises ``NotImplementedError``.
+    answers are the eager path's. ``placement="mesh"`` (or a
+    ``"name@N/mesh"`` backend) lays island *s* on its own device (the
+    session's ``devices``). The fields for async propagation are kept so
+    that a spec reads like the reference's; any value other than their off
+    position raises ``NotImplementedError``.
     """
 
     name: str
@@ -167,9 +176,7 @@ class SystemSpec:
             raise NotImplementedError(_NOT_PORTED["si"])
         if self.n_shards is not None and int(self.n_shards) < 1:
             raise ValueError(f"n_shards must be >= 1, got {self.n_shards}")
-        if self.placement not in (None, "stacked"):
-            if self.placement == "mesh":
-                raise NotImplementedError(_NOT_PORTED["mesh"])
+        if self.placement not in (None, "stacked", "mesh"):
             raise ValueError(f"bad placement {self.placement!r}")
         if self.delta_store and self.kind != "multi_instance":
             raise ValueError(
@@ -263,14 +270,15 @@ def resolve_spec(system: str | SystemSpec, **overrides) -> SystemSpec:
 
 
 def _resolve_islands(backend, n_shards, placement, hw: HardwareParams,
-                     device=None):
+                     device=None, devices=None):
     """Resolve the execution backend (a ShardedBackend when `n_shards` or a
-    ``"name@N"`` spec asks for several islands) and scale the hardware
-    model to the island count - each analytical island brings its own
-    in-memory hardware (§4), so `hw.n_ana_islands` follows the shard count
-    unless the caller already set it."""
+    ``"name@N"`` spec asks for several islands, a MeshBackend on the mesh
+    placement) and scale the hardware model to the island count - each
+    analytical island brings its own in-memory hardware (§4), so
+    `hw.n_ana_islands` follows the shard count unless the caller already
+    set it."""
     be = get_backend(backend, device=device, n_shards=n_shards,
-                     placement=placement)
+                     placement=placement, devices=devices)
     islands = be.n_shards
     if islands > 1 and hw.n_ana_islands == 1:
         hw = dataclasses.replace(hw, n_ana_islands=islands)
@@ -305,10 +313,15 @@ class HTAPSession:
 
     ``device`` is where the analytical island lives: ``None`` means the
     GPU and raises when CUDA is not available; it never falls back to the
-    CPU by itself.
+    CPU by itself. On the mesh placement ``devices`` lists the islands'
+    devices, island 0's holding the replica (None: the installed island
+    devices, else ``cuda:0 .. cuda:N-1``; a list may repeat a device). The
+    session installs them as the process's island devices until it
+    closes.
     """
 
-    def __init__(self, spec: SystemSpec, table: np.ndarray, device=None):
+    def __init__(self, spec: SystemSpec, table: np.ndarray, device=None,
+                 devices=None):
         self.spec = spec
         self.timing = spec.timing or "phase"
         self.cost = CostLog()
@@ -325,14 +338,22 @@ class HTAPSession:
         if kind in ("multi_instance", "ana_only"):
             self.be, self.hw = _resolve_islands(spec.backend, spec.n_shards,
                                                 spec.placement, spec.hw,
-                                                device)
+                                                device, devices)
         else:
             self.be = get_backend(spec.backend, device=device,
                                   n_shards=spec.n_shards,
-                                  placement=spec.placement)
+                                  placement=spec.placement, devices=devices)
             self.hw = spec.hw
         self.device = self.be.device
         self.islands = self.be.n_shards
+        self.mesh = self.be.placement == "mesh"
+        self._prev_mesh = None
+        if self.mesh:
+            # the islands' devices become the process's, so ad-hoc
+            # get_backend("...@N/mesh") calls land on them; closing the
+            # session restores what was installed before
+            self._prev_mesh = current_island_mesh()
+            install_island_mesh(self.be.devices)
         if kind == "multi_instance":
             self.store = RowStore(table)
             self.replica = DSMReplica.from_table(table, device=self.device)
@@ -355,7 +376,7 @@ class HTAPSession:
             self._q_i = 0   # global query counter (rounds don't reset it)
             self.replica = DSMReplica.from_table(table, device=self.device)
             view = self.replica.columns
-            if self.islands > 1:
+            if self.islands > 1 or self.mesh:
                 # shard the read-only replica ONCE: the islands' resident
                 # shards for the whole session (no update invalidates them)
                 view = {c: self.be.shard_view(col)
@@ -384,10 +405,20 @@ class HTAPSession:
             self._prev_round_prop = tuple(self._round_prop)
             self._round_prop = []
 
+    def _release_mesh(self) -> None:
+        """Restore the island devices installed before this session."""
+        if not self.mesh:
+            return
+        if self._prev_mesh is not None:
+            install_island_mesh(self._prev_mesh)
+        else:
+            clear_island_mesh()
+
     def finish(self) -> "htap.RunResult":  # noqa: F821 (circular import)
         """Price the accumulated cost log -> RunResult (closes the session)."""
         self._check_open()
         self._finished = True
+        self._release_mesh()
         from repro_torch.core import htap
         spec = self.spec
         stats: dict = {}
@@ -419,6 +450,8 @@ class HTAPSession:
     def abort(self) -> None:
         """Close the session without pricing (no RunResult). Idempotent; a
         later `finish()` raises `SessionClosedError`."""
+        if not self._finished:
+            self._release_mesh()
         self._finished = True
 
     # -- not ported yet ----------------------------------------------------
@@ -539,7 +572,14 @@ class HTAPSession:
         old = self.replica.columns[col_id]
         with self.cost.tagged(node, kind, round=self.round, deps=deps,
                               col=col_id, islands=self.islands):
-            if spec.optimized_application:
+            if spec.optimized_application and self.mesh:
+                # each island applies its own rows on its device; the
+                # round becomes visible only as a complete shard set
+                self.cons.on_update_shards(col_id, apply_updates_shards(
+                    old, entries, app_cost,
+                    on_pim=spec.propagation_on_pim, backend=self.be,
+                    staged=staged_col, phase=phase))
+            elif spec.optimized_application:
                 self.cons.on_update(col_id, apply_updates(
                     old, entries, app_cost,
                     on_pim=spec.propagation_on_pim, backend=self.be,

@@ -24,6 +24,11 @@ plane: `scan_filter_agg_group`, its sharded sibling, and the join group of
 the effective triple). ``None`` for a stack is a zero-row stack; stacks are
 not padded.
 
+On the mesh placement (`scan_filter_agg_mesh`, and the join group's
+`scan_filter_agg_join_mesh` in ``kernels/hash_probe``) each island's shard
+is a flat column on its own device: one launch of the same kernel per
+island there, and the int64 partials added on island 0's device.
+
 The reference's original float32 single-predicate scan
 (``scan_filter_agg(exact=False)``) is a kernel of its own,
 ``csrc/scan_float.cu``: a float32 sum and an int32 count, left on the
@@ -557,3 +562,136 @@ def scan_filter_agg_group_sharded(fcodes, acodes, valid, dictionary,
                          f"{tuple(fcodes.shape)}")
     return _group(fcodes, acodes, valid, dictionary, code_bounds, corr,
                   vbounds, scan_exact_group)
+
+
+# ---------------------------------------------------------------------------
+# The mesh placement: one launch per island device, int64 reduction
+# ---------------------------------------------------------------------------
+#
+# The JAX package runs every island's scan in one `shard_map` call and
+# psums the partials over the island axis as 16-bit lanes (its kernels had
+# no int64). Here island s's flat shard lies on its own device, so the scan
+# is one `scan_exact.cu` launch per island on that device, and the (2|3, Q)
+# int64 partials are added exactly on island 0's device, in island order:
+# no lanes, and no NCCL (its collectives refuse a device listed twice, and
+# the partials are 3 * Q int64s an island). A copy of a partial to island
+# 0's device is ordered after its launch on the source device's current
+# stream. Arguments are sequences with one tensor per island (codes,
+# validity, and the replicated dictionary and build-side histogram, each
+# on its island's device); `bounds` is the host sequence of code ranges.
+
+def _islands(*per_island) -> list[tuple]:
+    """Regroup per-argument sequences into per-island tuples."""
+    n = len(per_island[0])
+    if n < 1 or any(len(p) != n for p in per_island):
+        raise ValueError("every mesh argument needs one tensor per island "
+                         f"(got {[len(p) for p in per_island]})")
+    return list(zip(*per_island))
+
+
+def scan_exact_mesh_ref(fcodes, acodes, fvalid, adict, bounds, jcodes=None,
+                        jvalid=None, rcount=None) -> torch.Tensor:
+    """Plain version of `scan_exact_mesh`: `scan_exact_ref` on each island,
+    the partials summed on island 0's device in island order."""
+    join = jcodes is not None
+    extra = (jcodes, jvalid, rcount) if join else ()
+    total = None
+    for isl in _islands(fcodes, acodes, fvalid, adict, *extra):
+        part = scan_exact_ref(*isl[:4], list(bounds), *isl[4:])
+        total = part if total is None else total + part.to(total.device)
+    return total
+
+
+def launch_scan_exact_mesh(islands, bounds_devs, outs) -> torch.Tensor:
+    """The bare launches of a mesh scan on checked GPU tensors: island s's
+    ``islands[s]`` = (fcodes, acodes, fvalid_u8, adict[, jcodes, jvalid_u8,
+    rcount]) flat on its device, ``bounds_devs[s]`` its (Q, 2) int32 bounds
+    there, ``outs[s]`` its zeroed (2|3, Q) int64 partials there. Empty
+    islands launch nothing. Adds the partials into ``outs[0]`` in island
+    order and returns it. No allocation beyond the copies of the partials,
+    no synchronisation."""
+    for isl, barr, out in zip(islands, bounds_devs, outs):
+        if isl[0].shape[0]:
+            launch_scan_exact(*isl[:4], barr, out, *isl[4:])
+    total = outs[0]
+    for out in outs[1:]:
+        total.add_(out.to(total.device))
+    return total
+
+
+def scan_exact_mesh(fcodes, acodes, fvalid, adict, bounds, jcodes=None,
+                    jvalid=None, rcount=None) -> torch.Tensor:
+    """Every island's scan on its own device, reduced exactly: a (2, Q)
+    int64 tensor (sums, counts), or (3, Q) with the join lane, on island
+    0's device. On GPU islands one `scan_exact.cu` launch per non-empty
+    island (counted under ``scan_exact`` / ``scan_exact_join`` with that
+    island's shape); on CPU islands the plain version. Islands must all be
+    on GPUs or all on the CPU."""
+    join = jcodes is not None
+    extra = (jcodes, jvalid, rcount) if join else ()
+    islands = _islands(fcodes, acodes, fvalid, adict, *extra)
+    kinds = {on_gpu(*isl) for isl in islands}
+    if len(kinds) != 1:
+        raise ValueError("mesh islands must all lie on GPUs or all on the CPU")
+    if not kinds.pop():
+        return scan_exact_mesh_ref(fcodes, acodes, fvalid, adict, bounds,
+                                   jcodes, jvalid, rcount)
+    bounds = list(bounds)
+    nq, lanes = len(bounds), 3 if join else 2
+    checked, bounds_devs, outs, per_device = [], [], [], {}
+    for isl in islands:
+        f, a, fv, ad = isl[:4]
+        dev = f.device
+        fv = as_u8(fv)
+        check_tensor(f, torch.int32, "fcodes", 1)
+        check_tensor(a, torch.int32, "acodes", 1)
+        check_tensor(fv, torch.uint8, "fvalid", 1)
+        check_tensor(ad, torch.int32, "dictionary", 1)
+        if a.shape != f.shape or fv.shape != f.shape:
+            raise ValueError("an island's fcodes, acodes and valid must have "
+                             "one shape")
+        rest = ()
+        if join:
+            j, jv, rc = isl[4], as_u8(isl[5]), isl[6]
+            check_tensor(j, torch.int32, "jcodes", 1)
+            check_tensor(jv, torch.uint8, "jvalid", 1)
+            check_tensor(rc, torch.int32, "rcount", 1)
+            if j.shape != f.shape or jv.shape != f.shape:
+                raise ValueError("an island's jcodes and jvalid must match "
+                                 "its fcodes")
+            rest = (j, jv, rc)
+        checked.append((f, a, fv, ad) + rest)
+        if dev not in per_device:                   # one upload per device
+            per_device[dev] = _bounds_tensor(bounds, dev)
+        bounds_devs.append(per_device[dev])
+        outs.append(torch.zeros((lanes, nq), dtype=torch.int64, device=dev))
+    if nq == 0:
+        return outs[0]
+    total = launch_scan_exact_mesh(checked, bounds_devs, outs)
+    name = "scan_exact_join" if join else "scan_exact"
+    for isl in checked:
+        if isl[0].shape[0]:
+            count_launch(name, (isl[0].shape[0], isl[3].shape[0]) + (
+                (isl[6].shape[0],) if join else ()) + (nq,))
+    return total
+
+
+def scan_filter_agg_mesh_ref(fcodes, acodes, valid, dictionary, bounds):
+    """Plain version of `scan_filter_agg_mesh`."""
+    return _pairs(scan_exact_mesh_ref(fcodes, acodes, valid, dictionary,
+                                      list(bounds)))
+
+
+def scan_filter_agg_mesh(fcodes, acodes, valid, dictionary, bounds):
+    """Every island's fused multi-query scan on its OWN device, reduced.
+
+    The mesh sibling of `scan_filter_agg_sharded`: island s's resident
+    shard is the flat ``fcodes[s]`` / ``acodes[s]`` / ``valid[s]`` on its
+    device, ``dictionary[s]`` the replicated dictionary there. bounds: Q
+    (code_lo, code_hi) predicates shared by every island. Returns the
+    cross-island totals ``[(sum, count)] * Q`` as exact Python ints (one
+    device-to-host copy), equal to the flat scan of the whole column."""
+    bounds = list(bounds)
+    if not bounds:
+        return []
+    return _pairs(scan_exact_mesh(fcodes, acodes, valid, dictionary, bounds))

@@ -17,6 +17,9 @@
 * `scan_filter_agg_join_group`: the join group on the delta plane - the
   same scan with the EFFECTIVE histogram plus the correction lane over the
   aggregate stack and the join-weight stack, in one launch.
+* `scan_filter_agg_join_mesh`: the join group on the mesh placement - one
+  launch of the same scan per island, on the island's own device, and the
+  exact int64 partials added on island 0's device.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ from repro_torch.kernels.common import (check_tensor, count_launch,
 from repro_torch.kernels.dict_ops.ops import (_pairs, _per_shard,
                                               scan_exact, scan_exact_group,
                                               scan_exact_group_ref,
+                                              scan_exact_mesh,
+                                              scan_exact_mesh_ref,
                                               scan_exact_ref)
 
 EMPTY = -2**31                       # reserved free-slot key (int32.min)
@@ -267,3 +272,29 @@ def scan_filter_agg_join_group(fcodes, acodes, jcodes, fvalid, jvalid,
     return _join_group(fcodes, acodes, jcodes, fvalid, jvalid, adict, rcount,
                        code_bounds, corr_a, corr_j, vbounds,
                        scan_exact_group)
+
+
+def scan_filter_agg_join_mesh_ref(fcodes, acodes, jcodes, fvalid, jvalid,
+                                  adict, rcount, bounds):
+    """Plain version of `scan_filter_agg_join_mesh`."""
+    return _pairs(scan_exact_mesh_ref(fcodes, acodes, fvalid, adict,
+                                      list(bounds), jcodes, jvalid, rcount))
+
+
+def scan_filter_agg_join_mesh(fcodes, acodes, jcodes, fvalid, jvalid, adict,
+                              rcount, bounds):
+    """Every island's join-query group on its OWN device, reduced.
+
+    The mesh sibling of `scan_filter_agg_join_sharded`: each argument is a
+    sequence of one flat tensor per island on that island's device; `adict`
+    and `rcount` are the replicated dictionary and the GLOBAL build-side
+    histogram (int32, e.g. ``MeshView.island_rcounts``), so each island's
+    partial join count probes the full build side. One launch of the scan
+    with its join lane per island, the partials added exactly on island
+    0's device. Returns ``[(sum, count, join_count)] * Q`` as exact Python
+    ints."""
+    bounds = list(bounds)
+    if not bounds:
+        return []
+    return _pairs(scan_exact_mesh(fcodes, acodes, fvalid, adict, bounds,
+                                  jcodes, jvalid, rcount))

@@ -131,6 +131,13 @@ def _float_scan():
     return (float(s), int(c)), (float(rs), int(rc))
 
 
+def _mesh_fields(port, ref):
+    """(placement, island count) of a port backend or spec and of the
+    reference's."""
+    return ((port.placement, port.n_shards or 1),
+            (ref.placement, ref.n_shards or 1))
+
+
 def _lm(name, make):
     return make(configs.get_smoke_config(name))
 
@@ -151,10 +158,18 @@ def _delta_spec(**kw):
         None, []), ref_backend_mod.get_backend(
             "pallas", n_shards=4, placement="stacked").filter_agg_values_delta(
         None, [])), "item 9"),
-    (lambda: get_backend("hopper@2/mesh", device="cpu"), "item 13"),
-    (lambda: get_backend("hopper/mesh", device="cpu"), "item 13"),
-    (lambda: SystemSpec.polynesia(n_shards=4, placement="mesh"), "item 13"),
-    (lambda: SystemSpec.polynesia(placement="mesh"), "item 13"),
+    (lambda: _mesh_fields(get_backend("hopper@2/mesh", devices=["cpu"] * 2),
+                          ref_backend_mod.parse_backend_spec("pallas@2/mesh")),
+     "item 13"),
+    (lambda: _mesh_fields(get_backend("hopper/mesh", devices=["cpu"]),
+                          ref_backend_mod.get_backend("pallas/mesh")),
+     "item 13"),
+    (lambda: _mesh_fields(SystemSpec.polynesia(n_shards=4, placement="mesh"),
+                          ref_session.SystemSpec.polynesia(
+                              n_shards=4, placement="mesh")), "item 13"),
+    (lambda: _mesh_fields(SystemSpec.polynesia(placement="mesh"),
+                          ref_session.SystemSpec.polynesia(
+                              placement="mesh")), "item 13"),
     (lambda: _delta_spec(delta_store=True), "item 9"),
     (lambda: _delta_spec(delta_capacity=64), "item 9"),
     (lambda: SystemSpec.polynesia(timing="timeline"), "item 10"),
@@ -183,9 +198,9 @@ def _delta_spec(**kw):
     (lambda: _lm("whisper-base", make_serve_step), "item 14 (whisper)"),
 ])
 def test_unported_features_raise_and_name_their_roadmap_queue(make, queue):
-    if queue in ("item 9", "K18"):
-        # the delta store and the float32 scan are ported: the call that
-        # raised now answers as the reference's does
+    if queue in ("item 9", "K18", "item 13"):
+        # the delta store, the float32 scan and the mesh placement are
+        # ported: the call that raised now answers as the reference's does
         got, want = make()
         assert got == want
         return

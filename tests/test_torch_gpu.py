@@ -22,6 +22,8 @@ from repro_torch.kernels.common import (kernel_launch_counts,
                                         reset_kernel_launch_counts)
 from repro_torch.kernels.dict_ops import (scan_exact, scan_exact_group,
                                           scan_exact_group_ref,
+                                          scan_exact_mesh,
+                                          scan_exact_mesh_ref,
                                           scan_exact_ref, scan_values_exact,
                                           scan_values_exact_ref)
 from repro_torch.kernels.decode_attn import (decode_attention,
@@ -90,6 +92,48 @@ def test_sharded_scan_kernel_matches_its_plain_version(cuda, sizes, join):
     got = scan_exact(f, a, fv, d, bounds, *extra)
     torch.cuda.synchronize()
     assert torch.equal(got, scan_exact_ref(f, a, fv, d, bounds, *extra))
+
+
+@pytest.mark.parametrize("sizes", [(0, 40, 41), (1, 1, 0, 0),
+                                   (5000, 4999, 5000, 5000), (777,)])
+@pytest.mark.parametrize("join", [False, True])
+def test_mesh_scan_kernel_matches_its_plain_version(cuda, sizes, join):
+    """Four (or fewer) islands on the one card, as chip_smoke's mesh phase
+    runs them: one launch per non-empty island, partials added on island
+    0's device; equal to the plain version and to the flat scan."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    n, k = sum(sizes), 300
+    f = torch.randint(0, k, (n,), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    a = torch.randint(0, k, (n,), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    fv = torch.rand(n, generator=gen, device=cuda) < 0.9
+    d = torch.sort(torch.randint(-2**31, 2**31 - 1, (k,), generator=gen,
+                                 device=cuda, dtype=torch.int64)
+                   ).values.to(torch.int32)
+    j = torch.randint(0, 50, (n,), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    jv = torch.rand(n, generator=gen, device=cuda) < 0.8
+    rc = torch.randint(0, 10_000, (50,), generator=gen, device=cuda,
+                       dtype=torch.int32)
+    bounds = [(0, k), (k // 4, k // 2), (7, 7)] + [(i, i + 9)
+                                                   for i in range(30)]
+    cuts = np.cumsum([0, *sizes]).tolist()
+
+    def split(t):
+        return [t[lo:hi] for lo, hi in zip(cuts, cuts[1:])]
+
+    isl = len(sizes)
+    args = (split(f), split(a), split(fv), [d] * isl, bounds)
+    extra = (split(j), split(jv), [rc] * isl) if join else ()
+    reset_kernel_launch_counts()
+    got = scan_exact_mesh(*args, *extra)
+    torch.cuda.synchronize()
+    name = "scan_exact_join" if join else "scan_exact"
+    assert kernel_launch_counts() == {name: sum(1 for s in sizes if s)}
+    assert torch.equal(got, scan_exact_mesh_ref(*args, *extra))
+    flat = (j, jv, rc) if join else ()
+    assert torch.equal(got, scan_exact_ref(f, a, fv, d, bounds, *flat))
 
 
 @pytest.mark.parametrize("n_keys", [1, 37, 25_000])
