@@ -53,8 +53,10 @@ Drives `repro_torch` only. Phases, each printing one JSON line:
                  with one, a line saying it was skipped.
 7. ``ana_only``  the `Ana-Only` preset at the same size on ``"hopper"`` and
                  ``"hopper@4"`` (the first island count): lone join queries
-                 go through the bucket probe; answers must equal the host
-                 evaluation.
+                 go through the bucket probe, one launch a query, against a
+                 table built once per joined dictionary (``tables_built``,
+                 at most the distinct join columns); answers must equal the
+                 host evaluation.
 8. ``float_scan`` the reference's original float32 scan
                  (``scan_filter_agg(exact=False)``, as
                  ``examples/htap_analytics.py`` calls it) for every query's
@@ -100,7 +102,12 @@ Drives `repro_torch` only. Phases, each printing one JSON line:
                  the largest where that is another; for the sharded scans
                  also the one each other island count launched most, under
                  ``at_islands``; for flash-decode also the ``decode_32k``
-                 cache length, S = 32768 at B = 4, under ``at_decode_32k``);
+                 cache length, S = 32768 at B = 4, with gemma2's heads under
+                 ``at_decode_32k`` and kimi-k2's (H 64, Hkv 8, d 112) under
+                 ``at_decode_32k_d112``, each with its splits, waves,
+                 achieved GB/s and ptxas' registers; for the bucket probe
+                 the host's cost of one launch, item by item, under
+                 ``host_us``);
                  times the kernel (``ms``: back-to-back bare launches;
                  ``wrapper_ms``: through the public wrapper with its checks
                  and allocations), the plain version and, where one PyTorch
@@ -133,6 +140,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -223,8 +231,10 @@ def card_line() -> str:
 
 def time_ms(fn, reps: int) -> float:
     """Mean milliseconds of `fn` on the card over `reps` launches (CUDA
-    events around the whole run, after a warm-up call)."""
-    fn()
+    events around the whole run, after min(reps, 10) warm-up calls: after
+    one, a long kernel's first timed launches still ran slower)."""
+    for _ in range(min(reps, 10)):
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -326,10 +336,29 @@ def phase_build() -> None:
             entry = line.split("'")[1]
         elif "registers" in line and entry:
             registers[entry] = int(line.split("Used ")[1].split()[0])
+    REGISTERS.update(registers)
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          nvcc_seconds=nvcc_seconds,
          sources=sorted(p.name for p in build.CSRC.glob("*.cu")),
          library=str(build.build_library().name), registers=registers)
+
+
+REGISTERS: dict[str, int] = {}     # ptxas' count per kernel entry (build)
+
+
+def decode_registers() -> dict[str, int]:
+    """ptxas' registers of each instance of the flash-decode split pass:
+    the float32-cache pass by G bucket, the bf16-cache (mma) pass by query
+    type."""
+    out = {}
+    for entry, n in REGISTERS.items():
+        m = re.search(r"decode_attn_(simt|mma)ILi(\d+)E", entry)
+        if m and m.group(1) == "simt":
+            out[f"float32 cache, G<={m.group(2)}"] = n
+        elif m:
+            q = "bf16" if m.group(2) == "1" else "float32"
+            out[f"bf16 cache, {q} q"] = n
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -791,11 +820,14 @@ def phase_ana_only(args, wl) -> tuple[dict, dict]:
     from repro_torch.kernels.common import (kernel_launch_counts,
                                             kernel_launch_shapes,
                                             reset_kernel_launch_counts)
+    from repro_torch.kernels.hash_probe import tables_built
     want = host_answers(wl["table"], wl["queries"])
+    joined = {q.join_col for q in wl["queries"] if q.join_col is not None}
     reset_kernel_launch_counts()
-    seconds, probes = {}, {}
+    seconds, probes, tables = {}, {}, {}
     for spec in ("hopper", f"hopper@{args.islands[0]}"):
         before = kernel_launch_counts().get("hash_probe", 0)
+        built = tables_built()
         t0 = time.perf_counter()
         res = htap.run("Ana-Only", wl["table"], queries=wl["queries"],
                        backend=spec)
@@ -809,9 +841,15 @@ def phase_ana_only(args, wl) -> tuple[dict, dict]:
         if probes[spec] != n_joins:
             raise AssertionError(f"Ana-Only on {spec}: {probes[spec]} probe "
                                  f"launches for {n_joins} lone join queries")
+        tables[spec] = tables_built() - built
+        if tables[spec] > len(joined):
+            raise AssertionError(f"Ana-Only on {spec}: {tables[spec]} bucket "
+                                 f"tables built for {len(joined)} joined "
+                                 "dictionaries")
     launches = kernel_launch_counts()
     emit("ana_only", queries=len(want), seconds=seconds, probe_launches=probes,
-         launches=launches, answers_checksum=sum(want), ok=True)
+         tables_built=tables, joined_columns=len(joined), launches=launches,
+         answers_checksum=sum(want), ok=True)
     return launches, kernel_launch_shapes()
 
 
@@ -1484,6 +1522,8 @@ def measure_probe(gen, dev, shape) -> dict:
     stack4 = torch.stack(four)
     out4 = torch.empty_like(stack4)
     return dict(max_abs_err=err, slots_measured=int(kt.shape[1]),
+                host_us=probe_host_costs(table, flat.reshape(-1), kt, vt,
+                                         out.reshape(-1), skeys),
                 ms=time_ms(lambda: launch_hash_probe(flat, kt, vt, -1, out),
                            200),
                 wrapper_ms=time_ms(lambda: probe(table, flat.reshape(-1)),
@@ -1500,6 +1540,69 @@ def measure_probe(gen, dev, shape) -> dict:
                                        200),
                     plain_ms=time_ms(lambda: probe_ref(kt, vt, stack4, -1),
                                      50)))
+
+
+HOST_REPS = 10_000
+
+
+def host_us(fn) -> float:
+    """Microseconds of the host's clock per call of `fn` over HOST_REPS
+    calls (after one warm-up; the card is synchronised after the loop, not
+    inside it)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_REPS):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / HOST_REPS * 1e6
+
+
+def probe_host_costs(table, q, kt, vt, out, skeys) -> dict:
+    """The host's cost of one probe launch at the path's shape, item by
+    item: what `build.launch` and the wrapper `probe` do, each in a loop of
+    its own; beside them what the first design did instead (a device guard
+    and a `torch.cuda.Stream` object a launch) and `torch.searchsorted`."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.common import check_tensor, count_launch, on_gpu
+    from repro_torch.kernels.hash_probe import launch_hash_probe, probe
+    fn = build.entry("hash_probe")
+    idx = q.device.index
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    shape = (1, q.shape[0]) + tuple(kt.shape)
+
+    def arguments():
+        return (q.data_ptr(), 1, q.shape[-1], kt.data_ptr(), vt.data_ptr(),
+                kt.shape[0], kt.shape[1], -1, out.data_ptr())
+
+    args = arguments() + (stream,)
+
+    def checks():
+        table.on(q.device)
+        on_gpu(q)
+        check_tensor(q, torch.int32, "queries", 1)
+
+    def old_guard():
+        with torch.cuda.device(q.device):
+            pass
+
+    return dict(
+        reps=HOST_REPS,
+        ctypes_call_and_launch=host_us(lambda: fn(*args)),
+        stream_lookup=host_us(
+            lambda: torch._C._cuda_getCurrentRawStream(idx)),
+        device_check=host_us(torch._C._cuda_getDevice),
+        arguments=host_us(arguments),
+        bare_launch=host_us(lambda: launch_hash_probe(q, kt, vt, -1, out)),
+        checks=host_us(checks),
+        allocation=host_us(lambda: torch.empty_like(q)),
+        count_launch=host_us(lambda: count_launch("hash_probe", shape)),
+        wrapper=host_us(lambda: probe(table, q)),
+        first_design_guard=host_us(old_guard),
+        first_design_stream=host_us(
+            lambda: torch.cuda.current_stream().cuda_stream),
+        library_searchsorted=host_us(lambda: torch.searchsorted(skeys, q)))
 
 
 def sorted_runs(gen, dev, rows, w, lo=-2**62, hi=2**62):
@@ -1967,9 +2070,10 @@ def decode_inputs(gen, dev, shape, q_dtype, kv_dtype):
 
 
 def edge_decode(gen, dev) -> int:
-    """Ragged S, length 1 and length = S, G 1 to 8, d 64 to 256, softcap on
-    and off, a full rolling cache (S = window = length), a float32 and a
-    bf16 cache (float32 queries: the plain version up-casts the cache)."""
+    """Ragged S, length 1 and length = S, G 1 to 8, d 16 to 256 (kimi-k2's
+    112 with G 8 among them), softcap on and off, a full rolling cache (S =
+    window = length), a float32 and a bf16 cache (float32 queries: the
+    plain version up-casts the cache), then bf16 queries and output."""
     from repro_torch.kernels.decode_attn import (decode_attention,
                                                  decode_attention_ref)
     cases = 0
@@ -1979,7 +2083,15 @@ def edge_decode(gen, dev) -> int:
                        ((2, 9, 4, 2, 64, 5), 30.0),
                        ((1, 300, 8, 1, 256, 300), 0.0),
                        ((2, 4096, 16, 8, 256, 4096), 50.0),   # rolling, full
-                       ((1, 5000, 28, 4, 128, 4999), 0.0)):   # G 7
+                       ((1, 5000, 28, 4, 128, 4999), 0.0),    # G 7
+                       ((2, 1001, 64, 8, 112, 1), 50.0),      # kimi-k2: d 112
+                       ((1, 777, 64, 8, 112, 777), 0.0),
+                       ((3, 4099, 64, 8, 112, 2050), 50.0),
+                       ((2, 300, 4, 2, 16, 300), 30.0),       # smoke configs
+                       ((1, 97, 8, 8, 16, 1), 0.0),
+                       ((2, 513, 12, 4, 48, 400), 50.0),
+                       ((1, 2000, 24, 8, 96, 1999), 0.0),
+                       ((1, 65, 8, 2, 240, 64), 50.0)):
         B, S, H, Hkv, d, length = shape
         for kv in (torch.float32, torch.bfloat16):
             q, k, v = decode_inputs(gen, dev, shape, torch.float32, kv)
@@ -2000,11 +2112,15 @@ def edge_decode(gen, dev) -> int:
 def measure_decode(gen, dev, shape) -> dict:
     """Checked against the plain version with float32 queries (2e-5) and
     at the path's types, bf16 queries and cache (one bf16 rounding more),
-    then timed at the path's types."""
+    then timed at the path's types; with the split plan (splits, the
+    resident blocks of one wave, waves), the achieved rate and ptxas'
+    registers of the instance that ran."""
     from repro_torch.kernels.decode_attn import (decode_attention,
                                                  decode_attention_ref,
                                                  launch_decode_attention)
-    from repro_torch.kernels.decode_attn.ops import n_splits
+    from repro_torch.kernels.decode_attn.ops import (resident_blocks,
+                                                     split_counters,
+                                                     split_plan)
     import torch.nn.functional as F
     B, S, H, Hkv, d, length = shape
     cap = 50.0
@@ -2019,21 +2135,27 @@ def measure_decode(gen, dev, shape) -> dict:
                                                    softcap=cap),
         decode_attention_ref(q.float(), k, v, length, d ** -0.5, cap))
     out = torch.empty_like(q)
-    ns = n_splits(dev, B, Hkv, length)
+    G = H // Hkv
+    resident = resident_blocks(dev, True, True, d, G)
+    ns, chunk = split_plan(length, B, Hkv, resident)
     pm = torch.empty(B * H * ns, dtype=torch.float32, device=dev)
     pl = torch.empty_like(pm)
     pa = torch.empty(B * H * ns * d, dtype=torch.float32, device=dev)
+    cnt = split_counters(dev, B * Hkv)
     scale = d ** -0.5
     q4 = q[:, :, None, :]
     kl = k[:, :length].transpose(1, 2)
     vl = v[:, :length].transpose(1, 2)
+    ms = time_ms(lambda: launch_decode_attention(q, k, v, length, out, scale,
+                                                 cap, ns, chunk, pm, pl, pa,
+                                                 cnt), 50)
     return dict(
         max_abs_err=err, tolerance=2e-5, max_abs_err_bf16=err_bf16,
         tolerance_bf16=f"{BF16_OUT_RTOL} relative plus {BF16_OUT_ATOL}",
-        splits=ns,
-        ms=time_ms(lambda: launch_decode_attention(q, k, v, length, out,
-                                                   scale, cap, ns, pm, pl, pa),
-                   50),
+        splits=ns, chunk=chunk, resident_blocks=resident,
+        waves=ns * B * Hkv / resident,
+        registers=decode_registers().get("bf16 cache, bf16 q"),
+        ms=ms, achieved_GBps=decode_cost(shape)[0] / ms / 1e6,
         wrapper_ms=time_ms(lambda: decode_attention(q, k, v, length,
                                                     softcap=cap), 20),
         plain_ms=time_ms(lambda: decode_attention_ref(q, k, v, length, scale,
@@ -2133,6 +2255,7 @@ KERNELS = {
     "selective_scan": (ssm_cost, measure_ssm),
 }
 DECODE_32K = (4, 32768, 16, 8, 256, 32768)    # gemma2's heads at decode_32k
+DECODE_32K_D112 = (4, 32768, 64, 8, 112, 32768)   # kimi-k2's heads
 
 
 def with_bound(m: dict, shape, cost, launches: int) -> dict:
@@ -2185,9 +2308,11 @@ def phase_kernels(shapes: dict) -> dict:
                 if count != most[0]}
             cases += len(by_count) - 1
         if name == "decode_attn":
-            measured[name]["at_decode_32k"] = with_bound(
-                measure(gen, dev, DECODE_32K), DECODE_32K, cost, 0)
-            cases += 1
+            for key, shape in (("at_decode_32k", DECODE_32K),
+                               ("at_decode_32k_d112", DECODE_32K_D112)):
+                measured[name][key] = with_bound(measure(gen, dev, shape),
+                                                 shape, cost, 0)
+                cases += 1
     torch.cuda.synchronize()
     emit("kernels", cases=cases,
          tolerance="0 (integers); float32: decode_attn 2e-5 (bf16 output: "

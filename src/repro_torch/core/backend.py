@@ -61,9 +61,10 @@ from typing import Callable, Iterable, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.dsm import (EncodedColumn, MeshView, ShardedView,
-                                  make_sharded_view, replicate, shard_column,
-                                  shard_rows, stack_shard_columns)
+from repro_torch.core.dsm import (DictCache, EncodedColumn, MeshView,
+                                  ShardedView, make_sharded_view, replicate,
+                                  shard_column, shard_rows,
+                                  stack_shard_columns)
 from repro_torch.core.nsm import UPDATE_DTYPE
 from repro_torch.distributed import island_mesh
 from repro_torch.kernels.bitonic_sort import sort_1024, sort_rows
@@ -547,10 +548,11 @@ class TorchBackend(ExecutionBackend):
     def filter_agg_batch(self, fcol, acol, bounds):
         return [self.filter_agg(fcol, acol, lo, hi) for lo, hi in bounds]
 
-    def _join_match(self, lv, rv, lcount, rcount):
+    def _join_match(self, lv, rv, lcount, rcount, right=None):
         """Match pre-grouped dictionary counts (the join's build+probe):
         both dictionaries are sorted and distinct, so each left value has
-        at most one partner, found by binary search."""
+        at most one partner, found by binary search. `right` is the column
+        or view that owns `rv` (the hash unit caches its table there)."""
         if lv.shape[0] == 0 or rv.shape[0] == 0:
             return 0
         pos = torch.searchsorted(rv, lv).clamp_(max=rv.shape[0] - 1)
@@ -560,7 +562,7 @@ class TorchBackend(ExecutionBackend):
     def hash_join_count(self, left, right, left_mask=None):
         lv, lcount = _side_counts(left, left_mask)
         rv, rcount = _side_counts(right, None)
-        return self._join_match(lv, rv, lcount, rcount)
+        return self._join_match(lv, rv, lcount, rcount, right)
 
     def merge_update_logs(self, logs):
         return merge_update_logs_host(logs)
@@ -584,7 +586,7 @@ class TorchBackend(ExecutionBackend):
         # the caller regardless.
         return EncodedColumn(codes=col.codes, dictionary=col.dictionary,
                              valid=col.valid, version=col.version,
-                             _host_dict=col._host_dict)
+                             _dict_cache=col._dict_cache)
 
 
 class HopperBackend(TorchBackend):
@@ -603,7 +605,8 @@ class HopperBackend(TorchBackend):
     tests drive this class.
 
     Lone join queries (`hash_join_count`) go through the hash unit: a
-    bucket table built over the right dictionary and one probe launch per
+    bucket table over the right dictionary, built once per dictionary and
+    cached with it (`EncodedColumn.probe_table`), and one probe launch per
     query. Query groups never reach it - their join is the fused scan
     below. `make_encoder` / `encode_values_shards` probe the same kind of
     table; no path of the port reaches that probe (ship batches encode
@@ -705,20 +708,25 @@ class HopperBackend(TorchBackend):
             acol.dictionary, rcount.to(torch.int32), code_bounds, corr_a,
             corr_j, bounds)
 
-    def _join_match(self, lv, rv, lcount, rcount):
-        # hash unit: probe each left dictionary value against a table of
-        # the right dictionary; hits multiply pre-grouped occurrence
-        # counts. An empty side, or EMPTY_KEY in either dictionary (the
-        # table's free-slot key), keeps the binary search.
+    def _join_match(self, lv, rv, lcount, rcount, right=None):
+        # hash unit: probe each left dictionary value against the bucket
+        # table of the right dictionary - built once per dictionary and
+        # cached with it (`right.probe_table()`), a new table only without
+        # an owner - and weigh the hits by the pre-grouped occurrence
+        # counts. The sum stays on the device until the one exact int64
+        # read. An empty side, or EMPTY_KEY (the free-slot key) in the
+        # right dictionary, keeps the binary search; a left value equal to
+        # EMPTY_KEY would hit the free slots, and has no partner.
         if lv.shape[0] == 0 or rv.shape[0] == 0:
             return super()._join_match(lv, rv, lcount, rcount)
-        right = rv.cpu().numpy()
-        if (right == EMPTY_KEY).any() or bool((lv == EMPTY_KEY).any()):
+        table = (right.probe_table() if right is not None
+                 else DictCache(rv.cpu().numpy()).probe_table(rv))
+        if table is None:
             return super()._join_match(lv, rv, lcount, rcount)
-        table = build_table(right, np.arange(len(right), dtype=np.int32))
         ri = probe(table, lv.to(torch.int32), default=-1)
-        hit = ri >= 0
-        return int((lcount[hit] * rcount[ri[hit].long()]).sum())
+        hit = (ri >= 0) & (lv != EMPTY_KEY)
+        matched = torch.where(hit, rcount[ri.clamp(min=0).long()], 0)
+        return int((lcount * matched).sum())
 
     def make_encoder(self, dictionary):
         """value -> code through a bucket table of `dictionary` (one probe
@@ -956,7 +964,7 @@ class HopperBackend(TorchBackend):
         # which is safe because installed columns are never written in place
         return EncodedColumn(codes=codes, dictionary=col.dictionary,
                              valid=col.valid, version=col.version,
-                             _host_dict=col._host_dict)
+                             _dict_cache=col._dict_cache)
 
 
 # ---------------------------------------------------------------------------
@@ -1116,12 +1124,13 @@ class ShardedBackend(ExecutionBackend):
         lv = lview.dictionary
         lcount = self._view_side_counts(lview, left_mask)
         if right is left:  # the engine's self-join fast path
+            right = lview
             rv, rcount = lv, lview.dict_counts()
         elif isinstance(right, (ShardedView, MeshView)):
             rv, rcount = right.dictionary, right.dict_counts()
         else:
             rv, rcount = _side_counts(right, None)
-        return self.inner._join_match(lv, rv, lcount, rcount)
+        return self.inner._join_match(lv, rv, lcount, rcount, right)
 
     @staticmethod
     def _view_side_counts(view: ShardedView, mask) -> torch.Tensor:

@@ -40,6 +40,37 @@ import torch
 from repro_torch.core.schema import VALUE_BYTES
 from repro_torch.distributed.sharding import place_shard_arrays
 from repro_torch.kernels.common import resolve_device
+from repro_torch.kernels.hash_probe import EMPTY_KEY, HashTable, build_table
+
+
+class DictCache:
+    """Host-side state derived from one dictionary, each made at first use
+    and shared by every column, shard and view that carries the dictionary
+    (``_dict_cache=col._dict_cache``): its host copy, which the control
+    steps binary-search, and the hash unit's bucket table over it (value ->
+    code), which lone joins probe. A dictionary tensor is never written in
+    place (update application builds a new one), so neither goes stale."""
+
+    __slots__ = ("host", "_table")
+
+    def __init__(self, host: np.ndarray | None = None):
+        self.host = host
+        self._table: HashTable | bool | None = None   # False: cannot hold
+
+    def host_dictionary(self, dictionary: torch.Tensor) -> np.ndarray:
+        if self.host is None:
+            self.host = dictionary.cpu().numpy()
+        return self.host
+
+    def probe_table(self, dictionary: torch.Tensor) -> HashTable | None:
+        """The bucket table, built once; None where the table cannot hold
+        the dictionary (empty, or holding EMPTY_KEY, the free-slot key)."""
+        if self._table is None:
+            d = self.host_dictionary(dictionary)
+            self._table = (False if len(d) == 0 or bool((d == EMPTY_KEY).any())
+                           else build_table(d, np.arange(len(d),
+                                                         dtype=np.int32)))
+        return self._table or None
 
 
 @dataclasses.dataclass
@@ -56,9 +87,9 @@ class EncodedColumn:
     dictionary: torch.Tensor
     valid: torch.Tensor
     version: int = 0
-    # host copy of `dictionary` for searchsorted control steps (lazy)
-    _host_dict: np.ndarray | None = dataclasses.field(
-        default=None, repr=False, compare=False)
+    # host copy and bucket table of `dictionary` (lazy, shared by copies)
+    _dict_cache: DictCache = dataclasses.field(
+        default_factory=DictCache, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -67,9 +98,12 @@ class EncodedColumn:
     def host_dictionary(self) -> np.ndarray:
         """The dictionary as host numpy (one device-to-host copy, cached;
         callers must treat it as read-only)."""
-        if self._host_dict is None:
-            self._host_dict = self.dictionary.cpu().numpy()
-        return self._host_dict
+        return self._dict_cache.host_dictionary(self.dictionary)
+
+    def probe_table(self) -> HashTable | None:
+        """The dictionary's bucket table for the hash unit (cached; None
+        where it cannot hold the dictionary)."""
+        return self._dict_cache.probe_table(self.dictionary)
 
     # -- properties priced by the cost model ------------------------------
     @property
@@ -106,7 +140,7 @@ def column_from_numpy(codes, dictionary, valid, version: int = 0,
         dictionary=torch.from_numpy(host_dict).to(dev),
         valid=torch.from_numpy(np.ascontiguousarray(
             np.asarray(valid), dtype=bool)).to(dev),
-        version=int(version), _host_dict=host_dict)
+        version=int(version), _dict_cache=DictCache(host_dict))
 
 
 def column_to_numpy(col: EncodedColumn):
@@ -272,7 +306,7 @@ def shard_column(col: EncodedColumn, n_shards: int) -> list[EncodedColumn]:
     bounds = shard_bounds(col.n_rows, n_shards)
     return [EncodedColumn(codes=col.codes[lo:hi], dictionary=col.dictionary,
                           valid=col.valid[lo:hi], version=col.version,
-                          _host_dict=col._host_dict)
+                          _dict_cache=col._dict_cache)
             for lo, hi in zip(bounds, bounds[1:])]
 
 
@@ -323,11 +357,11 @@ def concat_columns(shards: list[EncodedColumn], device=None) -> EncodedColumn:
         return EncodedColumn(codes=head.codes.to(dev),
                              dictionary=head.dictionary.to(dev),
                              valid=head.valid.to(dev), version=head.version,
-                             _host_dict=head._host_dict)
+                             _dict_cache=head._dict_cache)
     return EncodedColumn(codes=torch.cat([s.codes.to(dev) for s in shards]),
                          dictionary=head.dictionary.to(dev),
                          valid=torch.cat([s.valid.to(dev) for s in shards]),
-                         version=head.version, _host_dict=head._host_dict)
+                         version=head.version, _dict_cache=head._dict_cache)
 
 
 class StaleShardedViewError(RuntimeError):
@@ -372,9 +406,12 @@ class _IslandView:
 
     def host_dictionary(self) -> np.ndarray:
         """The dictionary as host numpy (cached; read-only)."""
-        if self._host_dict is None:
-            self._host_dict = self.dictionary.cpu().numpy()
-        return self._host_dict
+        return self._dict_cache.host_dictionary(self.dictionary)
+
+    def probe_table(self) -> HashTable | None:
+        """The dictionary's bucket table for the hash unit (cached; None
+        where it cannot hold the dictionary)."""
+        return self._dict_cache.probe_table(self.dictionary)
 
     @property
     def stale(self) -> bool:
@@ -416,8 +453,8 @@ class ShardedView(_IslandView):
     # join build side, made by `dict_counts` and dying with the view
     _dict_counts: torch.Tensor | None = dataclasses.field(
         default=None, repr=False, compare=False)
-    _host_dict: np.ndarray | None = dataclasses.field(
-        default=None, repr=False, compare=False)
+    _dict_cache: DictCache = dataclasses.field(
+        default_factory=DictCache, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -449,7 +486,8 @@ class ShardedView(_IslandView):
         return EncodedColumn(codes=self.codes[s, :size],
                              dictionary=self.dictionary,
                              valid=self.valid[s, :size],
-                             version=self.version, _host_dict=self._host_dict)
+                             version=self.version,
+                             _dict_cache=self._dict_cache)
 
     def to_column(self) -> EncodedColumn:
         """Reassemble the full column (row-order inverse of the shard)."""
@@ -485,8 +523,8 @@ class MeshView(_IslandView):
     stale_reason: str | None = None
     _dict_counts: torch.Tensor | None = dataclasses.field(
         default=None, repr=False, compare=False)
-    _host_dict: np.ndarray | None = dataclasses.field(
-        default=None, repr=False, compare=False)
+    _dict_cache: DictCache = dataclasses.field(
+        default_factory=DictCache, repr=False, compare=False)
     _island_dicts: tuple | None = dataclasses.field(
         default=None, repr=False, compare=False)
     _island_rcounts: tuple | None = dataclasses.field(
@@ -539,7 +577,7 @@ class MeshView(_IslandView):
         self.require_fresh()
         return EncodedColumn(codes=self.codes[s], dictionary=self.dictionary,
                              valid=self.valid[s], version=self.version,
-                             _host_dict=self._host_dict)
+                             _dict_cache=self._dict_cache)
 
     def to_column(self) -> EncodedColumn:
         """Reassemble the full column on island 0's device."""
@@ -584,7 +622,7 @@ def make_sharded_view(col: EncodedColumn, n_shards: int,
                        valid=shard_rows(col.valid, bounds),
                        dictionary=col.dictionary, bounds=tuple(bounds),
                        version=col.version, snapshot_id=snapshot_id,
-                       _host_dict=col._host_dict)
+                       _dict_cache=col._dict_cache)
 
 
 def stack_shard_columns(shard_cols: list[EncodedColumn],
@@ -606,11 +644,11 @@ def stack_shard_columns(shard_cols: list[EncodedColumn],
                                           [c.valid for c in shard_cols])
         return MeshView(codes=codes, valid=valid, dictionary=head.dictionary,
                         bounds=tuple(bounds), version=head.version,
-                        snapshot_id=snapshot_id, _host_dict=head._host_dict)
+                        snapshot_id=snapshot_id, _dict_cache=head._dict_cache)
     width = max(c.n_rows for c in shard_cols)
     return ShardedView(codes=stack_rows([c.codes for c in shard_cols], width),
                        valid=stack_rows([c.valid for c in shard_cols], width),
                        dictionary=head.dictionary, bounds=tuple(bounds),
                        version=head.version, snapshot_id=snapshot_id,
-                       _host_dict=head._host_dict)
+                       _dict_cache=head._dict_cache)
 

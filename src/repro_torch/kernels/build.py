@@ -8,6 +8,10 @@ unchanged one is loaded as it is. The entries have a plain C interface:
 raw pointers, sizes and the CUDA stream; each returns ``cudaGetLastError()``
 after its launches, and ``check`` raises on anything but 0.
 
+`launch` is the lean bare launch: the C entry looked up once, the raw
+handle of the current stream, and the device made current only where it
+is not already.
+
 Nothing here runs at import: the first kernel launch calls ``load_library``.
 """
 
@@ -20,6 +24,8 @@ import pathlib
 import shutil
 import subprocess
 import time
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -49,10 +55,12 @@ _SIGNATURES = {
     "bitonic_apply": (_P, _I, _P, _I, _P, _P, _I, _I, _P),
     # src prev dirty out n block stream
     "snapshot_copy": (_P, _P, _P, _P, _L, _I, _P),
-    # q q_bf16 k v kv_bf16 out part_m part_l part_acc B S H Hkv d length
-    # n_split scale softcap stream
-    "decode_attn": (_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                    _I, _I, _F, _F, _P),
+    # q q_bf16 k v kv_bf16 out part_m part_l part_acc counters B S H Hkv d
+    # length n_split chunk scale softcap stream
+    "decode_attn": (_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                    _I, _I, _I, _I, _F, _F, _P),
+    # q_bf16 kv_bf16 d G blocks_per_sm (int*)
+    "decode_attn_plan": (_I, _I, _I, _I, _P),
     # x dt a b c d y B T D N stream
     "selective_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # fcodes acodes valid dict n lo hi psum pcnt n_parts out_sum out_cnt stream
@@ -60,6 +68,8 @@ _SIGNATURES = {
 }
 
 _lib: ctypes.CDLL | None = None
+_entries: dict = {}                # C entry name -> bound function
+_one_device: bool | None = None    # one CUDA device in the process
 _build_seconds: float | None = None
 _build_log: str = ""
 
@@ -156,6 +166,36 @@ def load_library() -> ctypes.CDLL:
         lib.cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def entry(name: str):
+    """The bound C entry `name` (looked up once)."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries[name] = getattr(load_library(), name)
+    return fn
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call C entry `name` with `args` and the raw handle of `device`'s
+    current stream, then raise on a CUDA error. The handle is an int from
+    ``torch._C._cuda_getCurrentRawStream`` (no ``torch.cuda.Stream`` object
+    is made); ``torch.cuda.device`` guards the call only when `device` is
+    not the current device, which is never the case with one device.
+    `device` is a CUDA device with its index, as ``tensor.device`` gives
+    it."""
+    global _one_device
+    fn = _entries.get(name) or entry(name)
+    idx = device.index
+    if _one_device is None:
+        _one_device = torch.cuda.device_count() == 1
+    if _one_device or idx == torch._C._cuda_getDevice():
+        code = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(idx):
+            code = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    if code:
+        check(code, name)
 
 
 def build_log() -> str:

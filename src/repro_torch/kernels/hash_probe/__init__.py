@@ -4,4 +4,4 @@ from repro_torch.kernels.hash_probe.ops import (  # noqa: F401
     scan_filter_agg_join_group, scan_filter_agg_join_group_ref,
     scan_filter_agg_join_mesh, scan_filter_agg_join_mesh_ref,
     scan_filter_agg_join_ref, scan_filter_agg_join_sharded,
-    scan_filter_agg_join_sharded_ref)
+    scan_filter_agg_join_sharded_ref, tables_built)

@@ -56,11 +56,13 @@ class HashTable:
 
     def on(self, device) -> tuple[torch.Tensor, torch.Tensor]:
         """(keys, values) as tensors on `device` (copied once)."""
-        dev = torch.device(device)
-        if dev not in self._on:
-            self._on[dev] = (torch.from_numpy(self.keys).to(dev),
-                             torch.from_numpy(self.values).to(dev))
-        return self._on[dev]
+        dev = device if isinstance(device, torch.device) \
+            else torch.device(device)
+        pair = self._on.get(dev)
+        if pair is None:
+            pair = self._on[dev] = (torch.from_numpy(self.keys).to(dev),
+                                    torch.from_numpy(self.values).to(dev))
+        return pair
 
 
 def _keys_unique(keys: np.ndarray) -> bool:
@@ -73,11 +75,21 @@ def _keys_unique(keys: np.ndarray) -> bool:
     return len(np.unique(keys)) == len(keys)
 
 
+_tables_built = 0
+
+
+def tables_built() -> int:
+    """Bucket tables `build_table` has built in this process."""
+    return _tables_built
+
+
 def build_table(keys: np.ndarray, values: np.ndarray,
                 load_factor: float = 0.5, min_slots: int = 4) -> HashTable:
     """Build the fixed-slot bucket table on the host: pow2 bucket count at
     `load_factor`, slots grown until the fullest bucket fits, padded to a
     multiple of 4 (the kernel's 16-byte loads)."""
+    global _tables_built
+    _tables_built += 1
     keys = np.asarray(keys, dtype=np.int32)
     values = np.asarray(values, dtype=np.int32)
     if not _keys_unique(keys):
@@ -122,23 +134,20 @@ def probe_ref(table_keys, table_vals, queries, default: int = -1
 def launch_hash_probe(queries, keys, vals, default: int, out) -> None:
     """The bare launch of ``hash_probe`` on checked GPU tensors: queries and
     out (n,) or (S, W) int32, keys and vals (n_buckets, slots) int32. No
-    allocation, no synchronisation."""
-    n_shards = queries.shape[0] if queries.dim() == 2 else 1
-    lib = build.load_library()
-    with torch.cuda.device(queries.device):
-        code = lib.hash_probe(queries.data_ptr(), n_shards,
-                              queries.shape[-1], keys.data_ptr(),
-                              vals.data_ptr(), keys.shape[0], keys.shape[1],
-                              int(default), out.data_ptr(),
-                              torch.cuda.current_stream().cuda_stream)
-    build.check(code, "hash_probe")
+    allocation, no synchronisation (`build.launch`)."""
+    shape = queries.shape
+    n_buckets, slots = keys.shape
+    build.launch("hash_probe", queries.device, queries.data_ptr(),
+                 shape[0] if len(shape) == 2 else 1, shape[-1],
+                 keys.data_ptr(), vals.data_ptr(), n_buckets, slots,
+                 int(default), out.data_ptr())
 
 
 def _probe(table: HashTable, queries: torch.Tensor, default: int
            ) -> torch.Tensor:
     """Probe (n,) or (S, W) int32 queries on their device."""
-    keys, vals = table.on(queries.device)
-    if not on_gpu(queries, keys, vals):
+    keys, vals = table.on(queries.device)     # on the queries' device
+    if not on_gpu(queries):
         return probe_ref(keys, vals, queries, default)
     check_tensor(queries, torch.int32, "queries", queries.dim())
     out = torch.empty_like(queries)

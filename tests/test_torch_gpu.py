@@ -234,6 +234,10 @@ def test_group_kernel_matches_its_plain_version(cuda, nr, sizes, join):
     (4, 4096, 16, 8, 256, 287, 50.0, torch.bfloat16),  # gemma2's decode
     (2, 9, 4, 2, 64, 5, 30.0, torch.float32),
     (1, 33000, 16, 8, 256, 32999, 50.0, torch.bfloat16),
+    (2, 1000, 64, 8, 112, 777, 50.0, torch.bfloat16),  # kimi-k2's heads
+    (1, 4096, 64, 8, 112, 4096, 0.0, torch.float32),
+    (3, 300, 4, 2, 16, 123, 30.0, torch.float32),      # the smoke configs'
+    (2, 70, 12, 4, 48, 1, 0.0, torch.bfloat16),
 ])
 def test_decode_attention_kernel_matches_its_plain_version(
         cuda, B, S, H, Hkv, d, length, cap, kv):
@@ -316,17 +320,15 @@ def test_float_scan_kernel_matches_its_plain_version(cuda, n):
 @pytest.mark.parametrize("name", ["gemma2-9b", "falcon-mamba-7b",
                                   "qwen2.5-14b"])
 def test_lm_decode_matches_prefill_on_the_card(cuda, name):
-    """A smoke-size model with head_dim 64 (the decode kernel takes 64, 128
-    and 256): token-by-token decode (the decode-attention kernel, or the
-    plain Mamba step) against the parallel prefill (plain attention, or
-    the scan kernel), 2e-3 as the reference's own test; float32."""
-    import dataclasses
-
+    """A smoke-size model as configured (head_dim 16, which the decode
+    kernel takes): token-by-token decode (the decode-attention kernel, or
+    the plain Mamba step) against the parallel prefill (plain attention,
+    or the scan kernel), 2e-3 as the reference's own test; float32."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.lm import (init_lm, init_lm_cache, lm_apply,
                                        lm_decode_step)
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(get_smoke_config(name), head_dim=64)
+    cfg = get_smoke_config(name)
     gen = torch.Generator(device=cuda).manual_seed(0)
     model = init_lm(cfg, generator=gen, device=cuda)
     toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen,

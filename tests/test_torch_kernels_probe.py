@@ -171,3 +171,128 @@ def test_hash_unit_operators_fall_back_like_the_reference(rng):
             for g, w in zip(got_sh, ref.encode_values_shards(
                     ref.make_encoder(d), [vals[:3], vals, vals[:0]])):
                 np.testing.assert_array_equal(g.numpy(), w)
+
+
+def _join_column(rng, n, k, extra=()):
+    """One column in both packages (reference, port); `extra` values are
+    written into its first rows, so they join its dictionary."""
+    from repro.core import dsm as ref_dsm
+    from repro_torch.core.dsm import column_from_numpy
+    vals = rng.integers(-k, k, size=n).astype(np.int32)
+    vals[:len(extra)] = extra
+    rcol = ref_dsm.encode_column(vals)
+    valid = rng.random(n) >= 0.1
+    rcol = ref_dsm.EncodedColumn(codes=rcol.codes, dictionary=rcol.dictionary,
+                                 valid=valid, version=rcol.version)
+    pcol = column_from_numpy(np.asarray(rcol.codes),
+                             np.asarray(rcol.dictionary), valid,
+                             rcol.version, device="cpu")
+    return rcol, pcol
+
+
+@pytest.fixture
+def tables(monkeypatch):
+    """The dictionaries the lone joins built a bucket table over."""
+    from repro_torch.core import dsm
+    built = []
+    real = dsm.build_table
+
+    def counting(keys, values, *a, **kw):
+        built.append(np.array(keys))
+        return real(keys, values, *a, **kw)
+
+    monkeypatch.setattr(dsm, "build_table", counting)
+    return built
+
+
+def _ref_backend():
+    from repro.core.backend import get_backend as ref_get_backend
+    return ref_get_backend("pallas", n_shards=1, placement="stacked")
+
+
+@pytest.mark.parametrize("spec", ["hopper", "hopper@4"])
+def test_lone_joins_build_one_table_per_dictionary(rng, tables, spec):
+    """Repeated lone joins probe the table cached with the right column's
+    dictionary: two dictionaries, two tables, whatever the number of
+    queries; a column carrying the same dictionary (a snapshot, a sharded
+    view) reuses it; the answers equal the reference's exactly."""
+    be, ref = get_backend(spec, device="cpu"), _ref_backend()
+    (ra, pa), (rb, pb) = _join_column(rng, 3000, 400), \
+        _join_column(rng, 2000, 700)
+    for _ in range(3):
+        mask = rng.random(3000) < 0.5
+        for (rl, pl), (rr, pr) in (((ra, pa), (ra, pa)),
+                                   ((ra, pa), (rb, pb)),
+                                   ((rb, pb), (ra, pa))):
+            lm = mask[:len(rl.codes)]
+            assert be.hash_join_count(pl, pr, left_mask=T(lm)) == \
+                ref.hash_join_count(rl, rr, left_mask=lm)
+    snap = be.snapshot_column(pa) if spec == "hopper" else be.shard_view(pa)
+    assert be.hash_join_count(snap, snap) == ref.hash_join_count(ra, ra)
+    assert [len(d) for d in tables] == [len(np.asarray(ra.dictionary)),
+                                        len(np.asarray(rb.dictionary))]
+
+
+def test_a_new_dictionary_gets_its_own_table(rng, tables):
+    """A column with another dictionary (same length, other values) never
+    probes a table cached for the first: the cache lives with the
+    dictionary."""
+    be, ref = get_backend("hopper", device="cpu"), _ref_backend()
+    ra, pa = _join_column(rng, 1000, 300)
+    rb, pb = _join_column(np.random.default_rng(99), 1000, 300)
+    assert be.hash_join_count(pa, pa) == ref.hash_join_count(ra, ra)
+    assert be.hash_join_count(pb, pb) == ref.hash_join_count(rb, rb)
+    assert be.hash_join_count(pa, pb) == ref.hash_join_count(ra, rb)
+    assert len(tables) == 2
+    np.testing.assert_array_equal(tables[1], np.asarray(rb.dictionary))
+    assert pa.probe_table() is not pb.probe_table()
+
+
+def test_a_dictionary_holding_empty_keeps_the_binary_search(rng, tables,
+                                                             monkeypatch):
+    """EMPTY_KEY (the free-slot key) in the right dictionary: no table, no
+    probe, the binary search - decided once for the dictionary. In the left
+    dictionary only: the table, with EMPTY_KEY matching nothing."""
+    from repro_torch.core import backend as backend_mod
+    probes = []
+    real = backend_mod.probe
+    monkeypatch.setattr(backend_mod, "probe",
+                        lambda *a, **kw: probes.append(1) or real(*a, **kw))
+    be, ref = get_backend("hopper", device="cpu"), _ref_backend()
+    re_, pe = _join_column(rng, 800, 50, extra=(EMPTY, EMPTY, 7))
+    rp, pp = _join_column(rng, 800, 50, extra=(7,))
+    for _ in range(2):
+        assert be.hash_join_count(pp, pe) == ref.hash_join_count(rp, re_)
+    assert probes == [] and tables == []
+    assert pe.probe_table() is None and tables == []
+    assert be.hash_join_count(pe, pp) == ref.hash_join_count(re_, rp)
+    assert len(probes) == 1 and len(tables) == 1
+
+
+@pytest.mark.parametrize("spec", ["hopper", "hopper@4"])
+def test_ana_only_builds_a_table_per_joined_dictionary(spec):
+    """`Ana-Only` answers each lone query over the initial table: its joins
+    build at most one table per distinct join column, not one a query, and
+    answer as the reference."""
+    from repro.core import engine as ref_engine, htap as ref_htap
+    from repro.core import schema as ref_schema
+    from repro_torch.core import engine, htap, schema
+    from repro_torch.kernels.hash_probe import tables_built
+
+    def workload(sch_mod, eng_mod):
+        rng = np.random.default_rng(5)
+        sch = sch_mod.make_schema("t", 4, 32)
+        table = sch_mod.gen_table(rng, sch, 3000)
+        return table, eng_mod.gen_queries(rng, 24, 4, join_fraction=0.75)
+
+    table, queries = workload(schema, engine)
+    before = tables_built()
+    got = htap.run("Ana-Only", table, queries=queries, backend=spec,
+                   device="cpu").results
+    joined = {q.join_col for q in queries if q.join_col is not None}
+    assert 0 < tables_built() - before <= len(joined) < \
+        sum(q.join_col is not None for q in queries)
+    ref_table, ref_queries = workload(ref_schema, ref_engine)
+    want = ref_htap.run("Ana-Only", ref_table, queries=ref_queries,
+                        backend="pallas").results
+    assert got == [int(a) for a in want]
