@@ -13,8 +13,10 @@ Drives `repro_torch` only. Phases, each printing one JSON line:
                  single write and query. Answers must equal the same run on
                  ``backend="torch"`` and an independent numpy evaluation
                  over the host row store; every kernel must have been
-                 launched during the run. The wrappers record the shapes
-                 they launched at.
+                 launched during the run, the merge unit exactly once for
+                 each call of its wrappers that merges two or more runs
+                 (ship batches' logs, dictionary merges: `MergeCalls`).
+                 The wrappers record the shapes they launched at.
 4. ``islands``   the same session on analytical islands stacked on the
                  card, once per count of ``--islands`` (4, then 3: four
                  split the 10M rows evenly, three leave padded slots, so
@@ -33,7 +35,9 @@ Drives `repro_torch` only. Phases, each printing one JSON line:
                  validity; the query groups must have gone through the
                  fused delta kernels with a non-empty correction stack (the
                  group scan and the join group scan on one island, the
-                 sharded group scan and the values delta on islands).
+                 sharded group scan and the values delta on islands), and
+                 the merge unit launched once a merge asked for (ship
+                 batches, dictionary merges and overlay merges).
 6. ``mesh``      the same session on the mesh placement: analytical island
                  s resident on its own device, each island applying its
                  own rows there, a query group one scan launch per island
@@ -105,7 +109,15 @@ Drives `repro_torch` only. Phases, each printing one JSON line:
                  cache length, S = 32768 at B = 4, with gemma2's heads under
                  ``at_decode_32k`` and kimi-k2's (H 64, Hkv 8, d 112) under
                  ``at_decode_32k_d112``, each with its splits, waves,
-                 achieved GB/s and ptxas' registers; for the bucket probe
+                 achieved GB/s and ptxas' registers; for the merge unit
+                 the k-way merge at a ship batch's shape, four runs of 256,
+                 under ``at_ship`` where the path launched another most,
+                 and bit for bit at k in {1, 2, 3, 4, 7, 8, 70} with empty
+                 and one-entry runs, ties across runs, int64.max and
+                 inputs too large for shared memory; for the selective
+                 scan ptxas' registers and spills of each instance, and
+                 ``bound_sfu_ms`` (the
+                 exponentials on the SFUs alone); for the bucket probe
                  the host's cost of one launch, item by item, under
                  ``host_us``);
                  times the kernel (``ms``: back-to-back bare launches;
@@ -334,6 +346,9 @@ def phase_build() -> None:
     for line in build.build_log().splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
+        elif "spill stores" in line and entry:
+            SPILLS[entry] = sum(int(w) for w in re.findall(
+                r"(\d+) bytes spill", line))
         elif "registers" in line and entry:
             registers[entry] = int(line.split("Used ")[1].split()[0])
     REGISTERS.update(registers)
@@ -344,6 +359,7 @@ def phase_build() -> None:
 
 
 REGISTERS: dict[str, int] = {}     # ptxas' count per kernel entry (build)
+SPILLS: dict[str, int] = {}        # ptxas' spill stores + loads, bytes
 
 
 def decode_registers() -> dict[str, int]:
@@ -455,6 +471,55 @@ def same_columns(got: dict, want: dict, what: str) -> None:
             raise AssertionError(f"final column {c} differs: {what}")
 
 
+class MergeCalls:
+    """Counts the calls of the merge unit's wrappers (K5) where
+    `core.backend` and `core.application` import them, each call that
+    merges entries of two or more runs: `merge_sorted_runs` (ship batches'
+    logs, dictionary merges, the delta plane's overlay merges) and
+    `merge_sorted_pairs` (a batch of dictionary merges). The unit launches
+    once for each."""
+
+    SITES = (("backend", "merge_sorted_runs"),
+             ("backend", "merge_sorted_pairs"),
+             ("application", "merge_sorted_runs"))
+
+    def __enter__(self):
+        from repro_torch.core import application, backend
+        modules = dict(backend=backend, application=application)
+        self.counts, self._saved = {}, []
+        for m, name in self.SITES:
+            module, fn = modules[m], getattr(modules[m], name)
+            self.counts[f"{m}.{name}"] = 0
+            self._saved.append((module, name, fn))
+            setattr(module, name, self._counted(f"{m}.{name}", fn))
+        return self
+
+    def _counted(self, key, fn):
+        # merge_sorted_runs(runs, ...) / merge_sorted_pairs(a_list, b_list)
+        n_lists = 2 if key.endswith("pairs") else 1
+
+        def inner(*args, **kwargs):
+            lists = args[:n_lists]
+            n_runs = sum(len(runs) for runs in lists)
+            n = sum(len(r) for runs in lists for r in runs)
+            self.counts[key] += n_runs >= 2 and n > 0
+            return fn(*args, **kwargs)
+        return inner
+
+    def __exit__(self, *exc):
+        for module, name, fn in self._saved:
+            setattr(module, name, fn)
+
+    def check(self, launches: dict, what: str) -> dict:
+        """K5's launches must be one a merge call."""
+        want = sum(self.counts.values())
+        if launches.get("merge_runs", 0) != want:
+            raise AssertionError(
+                f"{what}: {launches.get('merge_runs', 0)} merge-unit launches"
+                f", expected one a merge call: {self.counts}")
+        return dict(self.counts, merge_runs=want)
+
+
 def phase_main_path(args, wl) -> tuple[dict, dict, list, dict, list]:
     """Returns the launches per kernel and, per kernel, the launches each
     shape got, both of the `hopper` session alone, and that session's
@@ -465,11 +530,14 @@ def phase_main_path(args, wl) -> tuple[dict, dict, list, dict, list]:
                                             reset_kernel_launch_counts)
     torch.cuda.reset_peak_memory_stats()
     reset_kernel_launch_counts()
-    answers, seconds, session, result = drive_spec(
-        SystemSpec.polynesia(backend="hopper"), wl, args, check_host=True)
+    with MergeCalls() as merges:
+        answers, seconds, session, result = drive_spec(
+            SystemSpec.polynesia(backend="hopper"), wl, args,
+            check_host=True)
     launches = kernel_launch_counts()
     shapes = kernel_launch_shapes()
     peak = torch.cuda.max_memory_allocated()
+    merge_unit = merges.check(result.stats["kernel_launches"], "main_path")
 
     if len(answers) != args.queries + 1:
         raise AssertionError("wrong number of answers")
@@ -502,7 +570,8 @@ def phase_main_path(args, wl) -> tuple[dict, dict, list, dict, list]:
          setup_seconds=wl["setup_seconds"], round_seconds=seconds,
          txns_per_s=(args.txns + 1) / total, queries_per_s=len(answers) / total,
          torch_backend_round_seconds=ref_seconds,
-         ship_batches=session._ship_i, applications=session.applications,
+         ship_batches=session._ship_i, merge_unit=merge_unit,
+         applications=session.applications,
          snapshots=session.cons.snapshots_created, launches=launches,
          distinct_launch_shapes={k: len(v) for k, v in shapes.items()},
          max_dictionary=max(c.dict_size for c in cols.values()),
@@ -619,15 +688,18 @@ def phase_delta(args, wl, one_answers, one_cols, one_seconds
         before, shapes_before = kernel_launch_counts(), kernel_launch_shapes()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
-        answers, seconds, session, result = drive_spec(
-            SystemSpec.polynesia(backend="hopper", n_shards=n,
-                                 delta_store=True,
-                                 delta_capacity=args.delta_capacity),
-            wl, args, check_host=True)
+        with MergeCalls() as merges:
+            answers, seconds, session, result = drive_spec(
+                SystemSpec.polynesia(backend="hopper", n_shards=n,
+                                     delta_store=True,
+                                     delta_capacity=args.delta_capacity),
+                wl, args, check_host=True)
         after, shapes_after = kernel_launch_counts(), kernel_launch_shapes()
         launches = {k: v - before.get(k, 0) for k, v in after.items()
                     if v != before.get(k, 0)}
         peak = torch.cuda.max_memory_allocated()
+        merge_unit = merges.check(result.stats["kernel_launches"],
+                                  f"delta on {n} island(s)")
 
         if answers != one_answers:
             raise AssertionError(f"delta plane on {n} island(s): answers "
@@ -659,6 +731,7 @@ def phase_delta(args, wl, one_answers, one_cols, one_seconds
              compactions=stats["compactions"],
              delta_live_entries=stats["delta_live_entries"],
              applications=stats["applications"],
+             ship_batches=session._ship_i, merge_unit=merge_unit,
              peak_device_bytes=peak, held_device_bytes=held,
              launches=launches, stack_rows_scanned=stack_rows,
              modeled_txn_seconds=result.txn_seconds,
@@ -1218,6 +1291,14 @@ def probe_cost(shape):
 
 
 def merge_cost(shape):
+    """(rows, wa, wb): the row-wise pair merge, keys and index lanes read
+    and written; (k, n): the k-way merge of n keys in k runs of about n / k,
+    keys read, keys and source indices written, each entry a search of its
+    run's offset and k - 1 binary searches."""
+    if len(shape) == 2:
+        k, n = shape
+        return (20 * n + 4 * (k + 1),
+                n * (bits(k) + (k - 1) * bits(max(n // k, 1))))
     rows, wa, wb = shape
     return (2 * rows * (wa + wb) * 12,
             rows * (wa * bits(wb) + wb * bits(wa)))
@@ -1611,8 +1692,16 @@ def sorted_runs(gen, dev, rows, w, lo=-2**62, hi=2**62):
     return torch.sort(k, dim=1).values
 
 
+def kway_runs(gen, dev, lens, lo=-2**62, hi=2**62):
+    """Ascending int64 runs of `lens` entries on the card."""
+    return [torch.sort(torch.randint(lo, hi, (n,), generator=gen, device=dev,
+                                     dtype=torch.int64)).values
+            for n in lens]
+
+
 def edge_merge(gen, dev) -> int:
-    from repro_torch.kernels.merge_runs import (merge_pair_ref,
+    from repro_torch.kernels.merge_runs import (MAX_RUNS, merge_pair_ref,
+                                                merge_runs_ref,
                                                 merge_sorted_pair,
                                                 merge_sorted_pairs,
                                                 merge_sorted_runs)
@@ -1631,13 +1720,33 @@ def edge_merge(gen, dev) -> int:
         must_equal(f"merge {rows}x({wa}+{wb})", merge_sorted_pair(a, b, ai, bi),
                    merge_pair_ref(a, b, ai, bi))
         cases += 1
-    # the k-way tree over ragged runs with commit ids beyond 2^31
+    # the k-way merge, bit for bit against the stable sort of the
+    # concatenation: empty runs, one-entry runs, equal keys across runs
+    # (narrow key ranges), int64.max and int64.min, shared-memory inputs and
+    # ones too large for it (over 4,096 keys), more runs than one launch
+    for k, lens, lo, hi in (
+            (1, (300,), -5, 5), (2, (1, 0), 0, 1), (2, (700, 300), -20, 20),
+            (3, (0, 1, 500), -3, 3), (4, (256, 256, 255, 257), 0, 2**40),
+            (4, (3000, 2000, 1, 0), -100, 100), (7, (0, 9, 1, 64, 0, 33, 2),
+                                                 -9, 9),
+            (8, (1300,) * 8, 0, 500), (MAX_RUNS + 6, (17,) * (MAX_RUNS + 6),
+                                       -50, 50)):
+        runs = kway_runs(gen, dev, lens, lo, hi)
+        for i, r in enumerate(runs):
+            if r.numel() > 1:
+                r[-1] = 2**63 - 1
+                if i % 2:
+                    r[0] = -2**63
+        got = merge_sorted_runs(runs, device=dev)
+        must_equal(f"merge k={k} {lens[:8]}", got, merge_runs_ref(runs))
+        cases += 1
+    # host runs (commit ids beyond 2^31) copied to the card by the wrapper
     host = [np.sort(np.random.default_rng(i).integers(2**31, 2**40, size=s))
             for i, s in enumerate((257, 0, 300, 255, 1))]
     keys, src = merge_sorted_runs(host, device=dev)
     cat = np.concatenate(host)
     order = np.argsort(cat, kind="stable")
-    must_equal("merge tree", (keys, src),
+    must_equal("merge host runs", (keys, src),
                (torch.from_numpy(cat[order]).to(dev),
                 torch.from_numpy(order.astype(np.int32)).to(dev)))
     pairs = merge_sorted_pairs([host[0], host[2]], [host[3], host[4]],
@@ -1648,10 +1757,40 @@ def edge_merge(gen, dev) -> int:
     return cases + 2
 
 
+SHIP_MERGE = (4, 1024)     # a ship batch: four thread logs of about 256
+
+
 def measure_merge(gen, dev, shape) -> dict:
-    from repro_torch.kernels.merge_runs import (launch_merge_runs,
+    """(k, n): the k-way merge of k runs of about n / k commit-id-like
+    keys: `ms` the bare launch, `wrapper_ms` `merge_sorted_runs` on the
+    card's runs, `plain_ms` its plain version, `library_ms` one
+    `torch.sort(cat, stable=True)`. (rows, wa, wb): the row-wise pair
+    merge (no library call returns its index lane as one call)."""
+    from repro_torch.kernels.merge_runs import (launch_merge_kway,
+                                                launch_merge_runs,
                                                 merge_pair_ref,
-                                                merge_sorted_pair)
+                                                merge_runs_ref,
+                                                merge_sorted_pair,
+                                                merge_sorted_runs,
+                                                run_offsets)
+    if len(shape) == 2:
+        k, n = shape
+        lens = [n // k + (r < n % k) for r in range(k)]
+        runs = kway_runs(gen, dev, lens, 0, 2**40)
+        want = merge_runs_ref(runs)
+        err = must_equal(f"merge {shape}", merge_sorted_runs(runs), want)
+        cat = torch.cat(runs)
+        offs = run_offsets(lens)
+        ok, oi = torch.empty_like(cat), torch.empty(n, dtype=torch.int32,
+                                                    device=dev)
+        return dict(max_abs_err=err, runs=lens[:8],
+                    ms=time_ms(lambda: launch_merge_kway(cat, offs, ok, oi),
+                               200),
+                    wrapper_ms=time_ms(lambda: merge_sorted_runs(runs), 200),
+                    plain_ms=time_ms(lambda: merge_runs_ref(runs), 200),
+                    library_ms=time_ms(
+                        lambda: torch.sort(cat, stable=True), 200),
+                    library="torch.sort(cat, stable=True)")
     rows, wa, wb = shape
     a = sorted_runs(gen, dev, rows, wa, 0, 2**40)
     b = sorted_runs(gen, dev, rows, wb, 0, 2**40)
@@ -2175,6 +2314,25 @@ def ssm_cost(shape):
             B * T * D * (7 * N + 3))
 
 
+SFU_EXP_PER_CLOCK = 16     # exponentials an SM's SFUs take a clock (sm_90)
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock (`nvidia-smi clocks.max.sm`)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], check=True,
+                         capture_output=True, text=True).stdout
+    return float(out.split()[0]) * 1e6
+
+
+def ssm_sfu_bound_ms(shape) -> float:
+    """The B T D N exponentials alone on the SFUs: 16 a clock an SM, every
+    SM, at the card's highest clock."""
+    B, T, D, N = shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return B * T * D * N / (SFU_EXP_PER_CLOCK * sms * sm_clock_hz()) * 1e3
+
+
 def ssm_inputs(gen, dev, shape):
     B, T, D, N = shape
     x = torch.randn((B, T, D), generator=gen, device=dev)
@@ -2186,22 +2344,41 @@ def ssm_inputs(gen, dev, shape):
     return x, dt, a, b, c, d
 
 
+def ssm_registers() -> dict[str, dict]:
+    """ptxas' registers and spill bytes of each selective-scan instance, by
+    d_state and staging (16-byte or 4-byte copies)."""
+    out = {}
+    for entry, n in REGISTERS.items():
+        m = re.search(r"selective_scan_kernelILi(\d+)ELb([01])E", entry)
+        if m:
+            staging = "16B" if m.group(2) == "1" else "4B"
+            out[f"N{m.group(1)} {staging}"] = dict(
+                registers=n, spill_bytes=SPILLS.get(entry, 0))
+    return out
+
+
+SSM_EDGES = ((1, 1, 1, 4), (2, 257, 100, 8), (3, 1000, 130, 16),
+             (1, 33, 8192, 16), (4, 31, 4096, 4),
+             # falcon-mamba-7b's prefill; D not a multiple of a block's 32
+             # channels (16-byte staging), and D % 4 != 0 (4-byte staging)
+             (4, 2048, 8192, 16), (2, 300, 8200, 16), (2, 129, 4101, 8))
+
+
 def edge_ssm(gen, dev) -> int:
     """T and D not multiples of the tiles, one step, one channel, N 4, 8
-    and 16."""
+    and 16, the prefill's shape."""
     from repro_torch.kernels.selective_scan import (selective_scan,
                                                     selective_scan_ref)
-    cases = 0
-    for shape in ((1, 1, 1, 4), (2, 257, 100, 8), (3, 1000, 130, 16),
-                  (1, 33, 8192, 16), (4, 31, 4096, 4)):
+    for shape in SSM_EDGES:
         args = ssm_inputs(gen, dev, shape)
         must_be_close(f"selective scan {shape}", selective_scan(*args),
                       selective_scan_ref(*args), 3e-5)
-        cases += 1
-    return cases
+    return len(SSM_EDGES)
 
 
 def measure_ssm(gen, dev, shape) -> dict:
+    """Held to 3e-5; `bound_sfu_ms` beside the bytes and operations
+    bound."""
     from repro_torch.kernels.selective_scan import (launch_selective_scan,
                                                     selective_scan,
                                                     selective_scan_ref)
@@ -2217,7 +2394,8 @@ def measure_ssm(gen, dev, shape) -> dict:
         max_abs_err=err, tolerance=3e-5,
         ms=time_ms(lambda: launch_selective_scan(*args, y), 10),
         wrapper_ms=time_ms(lambda: selective_scan(*args), 10),
-        plain_ms=plain_ms, library_ms=None)
+        plain_ms=plain_ms, library_ms=None,
+        bound_sfu_ms=ssm_sfu_bound_ms(shape), registers=ssm_registers())
 
 
 # kernel name -> (cost of one launch at a shape, measurement at a shape)
@@ -2307,6 +2485,11 @@ def phase_kernels(shapes: dict) -> dict:
                 for count, shape in sorted(by_count.items())
                 if count != most[0]}
             cases += len(by_count) - 1
+        if name == "merge_runs" and most != SHIP_MERGE:
+            measured[name]["at_ship"] = with_bound(
+                measure(gen, dev, SHIP_MERGE), SHIP_MERGE, cost,
+                seen.get(SHIP_MERGE, 0))
+            cases += 1
         if name == "decode_attn":
             for key, shape in (("at_decode_32k", DECODE_32K),
                                ("at_decode_32k_d112", DECODE_32K_D112)):

@@ -47,6 +47,8 @@ _SIGNATURES = {
     "hash_probe": (_P, _I, _L, _P, _P, _I, _I, _I, _P, _P),
     # a ai b bi out_keys out_idx rows wa wb stream
     "merge_runs": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # keys offsets(host) k out_keys out_idx stream
+    "merge_runs_kway": (_P, _P, _I, _P, _P, _P),
     # in out rows width tile width_pad key_type stream
     "bitonic_sort_tiles": (_P, _P, _I, _I, _I, _I, _I, _P),
     # a a_stride wa b b_stride wb out out_stride w_out rows key_type stream

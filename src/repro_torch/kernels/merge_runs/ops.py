@@ -2,12 +2,16 @@
 
 Keys are full-width int64 commit ids (or dictionary values) compared
 natively; every entry carries an int32 source index through the merge, with
-which callers gather payloads. The kernel is stable (equal keys keep run A
-first) and needs no padding of its own, so no key value is special - a key
-equal to int64.max merges like any other.
+which callers gather payloads. `merge_sorted_runs` merges k runs in one
+launch (`merge_runs_kway`); `merge_sorted_pair(s)` merge rows of
+independent pairs in one launch (`merge_runs`). Both are stable (equal keys
+keep run order) and need no padding of their own, so no key value is
+special - a key equal to int64.max merges like any other.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -44,17 +48,32 @@ def merge_runs_ref(runs):
     return skeys, order.to(torch.int32)
 
 
+MAX_RUNS = 64    # runs one k-way launch takes (csrc/merge_runs.cu)
+
+
 def launch_merge_runs(a, ai, b, bi, out_keys, out_idx) -> None:
-    """The bare launch on checked GPU tensors with preallocated outputs.
-    No allocation, no synchronisation."""
-    lib = build.load_library()
-    with torch.cuda.device(a.device):
-        code = lib.merge_runs(a.data_ptr(), ai.data_ptr(), b.data_ptr(),
-                              bi.data_ptr(), out_keys.data_ptr(),
-                              out_idx.data_ptr(), a.shape[0], a.shape[1],
-                              b.shape[1],
-                              torch.cuda.current_stream().cuda_stream)
-    build.check(code, "merge_runs")
+    """The bare row-wise pair merge on checked GPU tensors with
+    preallocated outputs. No allocation, no synchronisation."""
+    build.launch("merge_runs", a.device, a.data_ptr(), ai.data_ptr(),
+                 b.data_ptr(), bi.data_ptr(), out_keys.data_ptr(),
+                 out_idx.data_ptr(), a.shape[0], a.shape[1], b.shape[1])
+
+
+def run_offsets(lens) -> ctypes.Array:
+    """The k + 1 run offsets of runs of `lens` entries, as the k-way
+    launch takes them (host memory, passed in the launch's parameters)."""
+    offs = [0]
+    for n in lens:
+        offs.append(offs[-1] + int(n))
+    return (ctypes.c_int * len(offs))(*offs)
+
+
+def launch_merge_kway(keys, offsets, out_keys, out_idx) -> None:
+    """The bare k-way merge of the runs of `keys` (int64, 1-D, checked GPU
+    tensor) that `offsets` (`run_offsets`, at most MAX_RUNS runs) marks,
+    into preallocated outputs. No allocation, no synchronisation."""
+    build.launch("merge_runs_kway", keys.device, keys.data_ptr(), offsets,
+                 len(offsets) - 1, out_keys.data_ptr(), out_idx.data_ptr())
 
 
 def merge_sorted_pair(a, b, ai, bi):
@@ -78,39 +97,51 @@ def merge_sorted_pair(a, b, ai, bi):
     return out_keys, out_idx
 
 
+def _merge_kway(cat, lens):
+    """One launch for up to MAX_RUNS runs; more runs are merged in groups
+    of MAX_RUNS, then the groups' results (a launch each, and one more)."""
+    n = cat.shape[0]
+    if n >= 2**31:
+        raise ValueError(f"merge_sorted_runs: {n} entries exceed int32 "
+                         "source indices")
+    if n == 0 or len(lens) == 1:
+        return cat, torch.arange(n, dtype=torch.int32, device=cat.device)
+    if len(lens) > MAX_RUNS:
+        starts = np.cumsum([0] + list(lens))
+        keys, srcs = [], []
+        for g in range(0, len(lens), MAX_RUNS):
+            lo, hi = int(starts[g]), int(starts[min(g + MAX_RUNS, len(lens))])
+            k, s = _merge_kway(cat[lo:hi], lens[g:g + MAX_RUNS])
+            keys.append(k)
+            srcs.append(s + lo)
+        merged, top = _merge_kway(torch.cat(keys), [k.shape[0] for k in keys])
+        return merged, torch.cat(srcs)[top.long()]
+    out_keys = torch.empty_like(cat)
+    out_idx = torch.empty(n, dtype=torch.int32, device=cat.device)
+    launch_merge_kway(cat, run_offsets(lens), out_keys, out_idx)
+    count_launch("merge_runs", (len(lens), n))
+    return out_keys, out_idx
+
+
 def merge_sorted_runs(runs, device=None):
-    """K-way merge (the comparator tree): pairwise tournament.
+    """K-way merge (the comparator tree) in one launch.
 
     runs: list of 1-D ascending integer key arrays (numpy or tensors;
     per-thread update logs - int64 commit ids are first-class). `device`
     says where to merge (default: where the runs lie). Returns
     (merged_keys int64, merged_source_index int32) on that device, where
     source index is the position in the concatenated input - callers
-    gather payloads with it.
+    gather payloads with it. Equal keys keep run order.
     """
     keys = [_as_keys(r) for r in runs]
     if not keys:
         return merge_runs_ref(keys)
     if device is None:
         device = keys[0].device
-    device = torch.device(device)
-    lens = [int(k.shape[0]) for k in keys]
     cat = torch.cat(keys).to(device)        # one host-to-device copy
-    if device.type != "cuda":
+    if not on_gpu(cat):
         return merge_runs_ref([cat])
-    idx = torch.arange(cat.shape[0], dtype=torch.int32, device=device)
-    offs = np.cumsum([0] + lens)
-    keyed = [(cat[lo:hi][None, :], idx[lo:hi][None, :])
-             for lo, hi in zip(offs[:-1], offs[1:])]
-    while len(keyed) > 1:
-        nxt = []
-        for p in range(0, len(keyed) - 1, 2):
-            (ak, ai), (bk, bi) = keyed[p], keyed[p + 1]
-            nxt.append(merge_sorted_pair(ak, bk, ai, bi))
-        if len(keyed) % 2:
-            nxt.append(keyed[-1])
-        keyed = nxt
-    return keyed[0][0][0], keyed[0][1][0]
+    return _merge_kway(cat, [int(k.shape[0]) for k in keys])
 
 
 def merge_sorted_pairs(a_list, b_list, device=None):

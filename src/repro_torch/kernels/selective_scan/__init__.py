@@ -1,3 +1,3 @@
 from repro_torch.kernels.selective_scan.ops import (  # noqa: F401
-    launch_selective_scan, selective_scan, selective_scan_ref,
+    STATE_SIZES, launch_selective_scan, selective_scan, selective_scan_ref,
     selective_scan_step_ref)

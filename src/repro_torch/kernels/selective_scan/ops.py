@@ -3,7 +3,8 @@
 Mamba-1's recurrence over a prompt: x, dt (B, T, D), a (D, N), b, c
 (B, T, N), d (D,), all float32, -> y (B, T, D). The reference's wrapper
 falls back to its jnp oracle when D or T is not a multiple of its blocks;
-the kernel here takes any T and D. One decode step
+the kernel here takes any T and D. It splits each channel's N states
+across two lanes of a warp (``csrc/selective_scan.cu``). One decode step
 (``selective_scan_step_ref``) stays plain PyTorch on every device, as in
 the reference.
 """
@@ -43,13 +44,10 @@ def launch_selective_scan(x, dt, a, b, c, d, y) -> None:
     """The bare launch on checked GPU tensors into ``y``. No allocation, no
     synchronisation."""
     B, T, D = x.shape
-    lib = build.load_library()
-    with torch.cuda.device(x.device):
-        code = lib.selective_scan(
-            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
-            c.data_ptr(), d.data_ptr(), y.data_ptr(), B, T, D, a.shape[1],
-            torch.cuda.current_stream().cuda_stream)
-    build.check(code, "selective_scan")
+    N = a.shape[1]
+    build.launch("selective_scan", x.device, x.data_ptr(), dt.data_ptr(),
+                 a.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(),
+                 y.data_ptr(), B, T, D, N)
 
 
 def selective_scan(x, dt, a, b, c, d):

@@ -34,7 +34,10 @@ from repro_torch.kernels.dict_ops.ops import (float_scan_error_bound,
                                               float_scan_parts)
 from repro_torch.kernels.hash_probe import (EMPTY, build_table, probe,
                                             probe_ref, probe_sharded)
-from repro_torch.kernels.selective_scan import (selective_scan,
+from repro_torch.kernels.merge_runs import (MAX_RUNS, merge_runs_ref,
+                                            merge_sorted_runs)
+from repro_torch.kernels.selective_scan import (launch_selective_scan,
+                                                selective_scan,
                                                 selective_scan_ref)
 
 pytestmark = pytest.mark.gpu
@@ -290,6 +293,49 @@ def test_selective_scan_kernel_matches_its_plain_version(cuda, B, T, D, N):
     assert kernel_launch_counts() == {"selective_scan": 1}
     torch.testing.assert_close(got, selective_scan_ref(x, dt, a, b, c, d),
                                rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.parametrize("B,T,D,N", [(2, 300, 8200, 16), (2, 129, 4101, 8),
+                                     (1, 40, 70, 4)])
+def test_selective_scan_ragged_channels(cuda, B, T, D, N):
+    """The bare launch with D not a multiple of a block's 32 channels, and
+    D % 4 != 0 (4-byte staging); every output written."""
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    x = torch.randn((B, T, D), generator=gen, device=cuda)
+    dt = torch.randn((B, T, D), generator=gen, device=cuda).abs() * 0.1
+    a = -torch.randn((D, N), generator=gen, device=cuda).abs()
+    b = torch.randn((B, T, N), generator=gen, device=cuda)
+    c = torch.randn((B, T, N), generator=gen, device=cuda)
+    d = torch.randn((D,), generator=gen, device=cuda)
+    y = torch.full_like(x, float("nan"))
+    launch_selective_scan(x, dt, a, b, c, d, y)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, selective_scan_ref(x, dt, a, b, c, d),
+                               rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.parametrize("lens", [(1000,), (0, 1), (256, 256, 255, 257),
+                                  (0, 9, 1, 64, 0, 33, 2), (1300,) * 8,
+                                  (3000, 2000, 1, 0), (5,) * 70])
+def test_kway_merge_kernel_matches_its_plain_version(cuda, lens):
+    """Bit for bit, ties across runs in run order, int64.max and int64.min,
+    inputs past shared memory, more runs than one launch takes; one launch
+    for up to MAX_RUNS runs."""
+    gen = torch.Generator(device=cuda).manual_seed(len(lens))
+    runs = [torch.sort(torch.randint(-30, 30, (n,), generator=gen,
+                                     device=cuda)).values for n in lens]
+    for r in runs:
+        if r.numel() > 1:
+            r[0], r[-1] = -2**63, 2**63 - 1
+    reset_kernel_launch_counts()
+    keys, src = merge_sorted_runs(runs)
+    torch.cuda.synchronize()
+    want_keys, want_src = merge_runs_ref(runs)
+    assert torch.equal(keys, want_keys) and torch.equal(src, want_src)
+    launches = kernel_launch_counts().get("merge_runs", 0)
+    n_runs = len(lens)
+    assert launches == (0 if n_runs == 1 else 1 if n_runs <= MAX_RUNS
+                        else -(-n_runs // MAX_RUNS) + 1)
 
 
 @pytest.mark.parametrize("n", [1, 255, 257, 1_000_003])

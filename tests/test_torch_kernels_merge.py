@@ -8,6 +8,10 @@ from repro.kernels import common as ref_common
 from repro.kernels.merge_runs import (merge_sorted_pair as ref_pair,
                                       merge_sorted_pairs as ref_pairs,
                                       merge_sorted_runs as ref_runs)
+from repro_torch.kernels.common import (kernel_launch_counts,
+                                        kernel_launch_shapes,
+                                        reset_kernel_launch_counts)
+from repro_torch.kernels.merge_runs import ops as merge_ops
 from repro_torch.kernels.merge_runs import (merge_pair_ref, merge_runs_ref,
                                             merge_sorted_pair,
                                             merge_sorted_pairs,
@@ -126,3 +130,100 @@ def test_merge_vs_pallas_interpret_kernel(interpret_mode):
     got_k, got_i = merge_sorted_runs(runs)
     np.testing.assert_array_equal(got_k.numpy(), np.asarray(rk))
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(ri))
+
+
+# ---------------------------------------------------------------------------
+# The GPU branch of `merge_sorted_runs` rehearsed on the CPU: the device rule
+# patched to take it, and the bare k-way launch replaced by a plain-torch
+# evaluation of the kernel's slot formula.
+# ---------------------------------------------------------------------------
+
+def slot_formula_launch(keys, offsets, out_keys, out_idx):
+    """Entry i of run r goes to slot i + sum over s < r of
+    upper_bound(run_s, key) + sum over s > r of lower_bound(run_s, key),
+    carrying its position in `keys` (what csrc/merge_runs.cu computes)."""
+    offs = list(offsets)
+    k = len(offs) - 1
+    slots = []
+    for r in range(k):
+        run = keys[offs[r]:offs[r + 1]]
+        pos = torch.arange(run.shape[0], dtype=torch.int64)
+        for s in range(k):
+            if s != r:
+                pos += torch.searchsorted(keys[offs[s]:offs[s + 1]], run,
+                                          right=s < r)
+        out_keys[pos] = run
+        out_idx[pos] = torch.arange(offs[r], offs[r + 1], dtype=torch.int32)
+        slots.append(pos)
+    # every slot written exactly once
+    assert torch.equal(torch.sort(torch.cat(slots)).values,
+                       torch.arange(offs[-1]))
+
+
+@pytest.fixture
+def gpu_branch(monkeypatch):
+    monkeypatch.setattr(merge_ops, "on_gpu", lambda *tensors: True)
+    monkeypatch.setattr(merge_ops, "launch_merge_kway", slot_formula_launch)
+    reset_kernel_launch_counts()
+    yield
+    reset_kernel_launch_counts()
+
+
+def _tie_runs(rng, k):
+    """k ascending int64 runs: empty ones, one-entry ones, keys drawn from
+    a narrow range (ties within and across runs), int64.max and int64.min."""
+    runs = []
+    for r in range(k):
+        size = (0, 1, int(rng.integers(2, 300)))[r % 3]
+        run = rng.integers(-40, 40, size=size).astype(np.int64)
+        if size > 1:
+            run[-1] = I64_MAX
+            run[0] = np.iinfo(np.int64).min if r % 2 else run[0]
+        runs.append(np.sort(run))
+    return runs
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 7, 8])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_merge_runs_gpu_branch_is_one_launch_and_the_reference(gpu_branch, k,
+                                                               seed):
+    runs = _tie_runs(np.random.default_rng(seed), k)
+    keys, idx = merge_sorted_runs([T(r) for r in runs])
+    rk, ri = ref_runs(runs)
+    np.testing.assert_array_equal(keys.numpy(), np.asarray(rk))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ri))
+    assert keys.dtype == torch.int64 and idx.dtype == torch.int32
+    n = sum(len(r) for r in runs)
+    want = {"merge_runs": 1} if k > 1 and n else {}
+    assert kernel_launch_counts() == want
+    if want:
+        assert kernel_launch_shapes() == {"merge_runs": {(k, n): 1}}
+
+
+def test_merge_runs_gpu_branch_ship_batch_of_commit_ids(gpu_branch, rng):
+    """A ship batch: four thread logs of about 256 distinct commit ids beyond
+    2^31 - one launch, as the reference's merge."""
+    ids = rng.permutation(np.arange(2**33, 2**33 + 1024, dtype=np.int64))
+    runs = [np.sort(ids[t::4]) for t in range(4)]
+    keys, idx = merge_sorted_runs(runs)
+    rk, ri = ref_runs(runs)
+    np.testing.assert_array_equal(keys.numpy(), np.asarray(rk))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ri))
+    assert kernel_launch_counts() == {"merge_runs": 1}
+
+
+def test_merge_runs_gpu_branch_beyond_one_launch(gpu_branch):
+    """More runs than one launch takes: groups of MAX_RUNS, a launch each,
+    then one over the groups' results."""
+    k = merge_ops.MAX_RUNS + 6
+    runs = _tie_runs(np.random.default_rng(5), k)
+    keys, idx = merge_sorted_runs(runs)
+    rk, ri = ref_runs(runs)
+    np.testing.assert_array_equal(keys.numpy(), np.asarray(rk))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ri))
+    assert kernel_launch_counts() == {"merge_runs": 3}
+
+
+def test_run_offsets():
+    assert list(merge_ops.run_offsets([3, 0, 5])) == [0, 3, 3, 8]
+    assert list(merge_ops.run_offsets([])) == [0]

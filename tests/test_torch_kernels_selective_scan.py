@@ -15,8 +15,10 @@ from repro.kernels.selective_scan.ref import (selective_scan_ref as ref_plain,
                                               ref_step)
 from repro.kernels.selective_scan.selective_scan import selective_scan_kernel
 from repro_torch.kernels.common import (kernel_launch_counts,
+                                        kernel_launch_shapes,
                                         reset_kernel_launch_counts)
-from repro_torch.kernels.selective_scan import (selective_scan,
+from repro_torch.kernels.selective_scan import ops as scan_ops
+from repro_torch.kernels.selective_scan import (STATE_SIZES, selective_scan,
                                                 selective_scan_ref,
                                                 selective_scan_step_ref)
 
@@ -69,3 +71,97 @@ def test_selective_scan_step(rng, B, D, N):
     got_h, got_y = selective_scan_step_ref(*map(T, args))
     np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h), **TOL)
     np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# The kernel's arithmetic (csrc/selective_scan.cu) modelled in numpy: each
+# channel's N states split across LANES lanes, h rounded as the plain
+# version rounds it, only y_t's sum over N in the kernel's order.
+# ---------------------------------------------------------------------------
+
+LANES = 2    # the kernel's `L`: lanes a channel's states are split across
+
+
+def lane_split_scan_np(x, dt, a, b, c, d):
+    """float32 model of the lane-split kernel. h: exp, then separate
+    float32 multiplies and an add, as the plain version. y_t: lane l sums
+    h * C_t over its states l*S .. l*S + S - 1 (a multiply, then fused
+    multiply-adds, modelled as one rounding of the float64 value), the
+    lane partials meet in the xor butterfly, then D * x_t is added."""
+    f32, f64 = np.float32, np.float64
+    B, Tn, D = x.shape
+    N = a.shape[1]
+    S = N // LANES
+    h = np.zeros((B, D, N), f32)
+    y = np.empty_like(x)
+    for t in range(Tn):
+        xt, dtt = x[:, t], dt[:, t]
+        da = np.exp(dtt[..., None] * a[None])
+        h = da * h + (dtt * xt)[..., None] * b[:, t][:, None, :]
+        hc = (h.reshape(B, D, LANES, S), np.broadcast_to(
+            c[:, t][:, None, :], (B, D, N)).reshape(B, D, LANES, S))
+        part = hc[0][..., 0] * hc[1][..., 0]
+        for i in range(1, S):
+            part = (hc[0][..., i].astype(f64) * hc[1][..., i].astype(f64)
+                    + part.astype(f64)).astype(f32)
+        o = 1
+        while o < LANES:
+            part = part + part[..., np.arange(LANES) ^ o]
+            o <<= 1
+        y[:, t] = part[..., 0] + d[None] * xt
+    return y
+
+
+@pytest.mark.parametrize("N", STATE_SIZES)
+def test_lane_split_order_holds_the_tolerance_at_prefill_length(rng, N):
+    """The kernel's y_t order against the JAX package's oracle at T = 2048
+    (falcon-mamba-7b's prefill length), for every d_state it takes."""
+    args = _inputs(rng, 2, 2048, 6, N)
+    want = np.asarray(ref_plain(*map(jnp.asarray, args)))
+    got = lane_split_scan_np(*args)
+    assert got.dtype == np.float32 and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.fixture
+def gpu_branch(monkeypatch):
+    """The wrapper's GPU branch on CPU tensors: the device rule patched to
+    take it, the bare launch replaced by the numpy model of the kernel."""
+    seen = []
+
+    def launch(x, dt, a, b, c, d, y):
+        seen.append(tuple(x.shape) + (a.shape[1],))
+        y.copy_(T(lane_split_scan_np(*(t.numpy() for t in (x, dt, a, b, c,
+                                                            d)))))
+    monkeypatch.setattr(scan_ops, "on_gpu", lambda *tensors: True)
+    monkeypatch.setattr(scan_ops, "launch_selective_scan", launch)
+    reset_kernel_launch_counts()
+    yield seen
+    reset_kernel_launch_counts()
+
+
+@pytest.mark.parametrize("B,Tn,D,N", [(1, 1, 1, 4), (2, 37, 100, 8),
+                                      (3, 70, 130, 16)])
+def test_selective_scan_gpu_branch(gpu_branch, rng, B, Tn, D, N):
+    args = _inputs(rng, B, Tn, D, N)
+    got = selective_scan(*map(T, args))
+    assert gpu_branch == [(B, Tn, D, N)]
+    assert kernel_launch_counts() == {"selective_scan": 1}
+    assert kernel_launch_shapes() == {"selective_scan": {(B, Tn, D, N): 1}}
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(ref_plain(*map(jnp.asarray, args))),
+                               **TOL)
+
+
+def test_selective_scan_gpu_branch_refuses(gpu_branch, rng):
+    x, dt, a, b, c, d = map(T, _inputs(rng, 1, 5, 8, 16))
+    with pytest.raises(ValueError):
+        selective_scan(x, dt, a[:, :12].contiguous(), b[..., :12], c, d)
+    with pytest.raises(ValueError):                       # d_state 12
+        selective_scan(x, dt, a[:, :12].contiguous(),
+                       b[..., :12].contiguous(), c[..., :12].contiguous(), d)
+    with pytest.raises(TypeError):
+        selective_scan(x.double(), dt, a, b, c, d)
+    with pytest.raises(ValueError):                       # not contiguous
+        selective_scan(x.transpose(0, 1), dt.transpose(0, 1), a, b, c, d)
+    assert gpu_branch == [] and kernel_launch_counts() == {}
