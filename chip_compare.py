@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Times the selective scan (K17), the merge unit (K5), flash-decode (K16)
-and the bucket probe (K8) of two checkouts in turns on one card, so that a
-change is compared with its parent under the same clocks and host.
+"""Times the fused ship-batch apply (K7), the mesh scans (K15) and the
+scans and copies whose wrappers launch through `build.launch` (K1, K10,
+K18) of two checkouts in turns on one card, so that a change is compared
+with its parent under the same clocks and host.
 
     git archive <parent> | tar -x -C build/parent
     python3 chip_compare.py build/parent .      # needs one Hopper card
@@ -10,71 +11,78 @@ Runs each tree in its own process, in the order A, B, B, A, each through
 that tree's own `chip_smoke.py` measurement functions (its wrappers, its
 kernels, built from its sources into its own `build/`), with one timing
 rule for both: 10 warm-up calls, then CUDA events around the timed calls.
-Prints the card's name and power limit, then one JSON line per run:
-K17 at falcon-mamba-7b's prefill (B 4, T 2048, D 8192, N 16), with its
-source compiled alone: ptxas' registers and spill bytes of each instance
-and the SASS opcode counts of the d_state 16 ones (`cuobjdump`); K5 as a
-ship batch calls it, `merge_sorted_runs` over four runs of 256 int64 keys
-on the card, with its launches a call and `torch.sort(cat, stable=True)`
-beside it; K16 at
-the serving path's shape (B 4, S 4096, H 16, Hkv 8, d 256, length 287)
-and at `decode_32k` (length 32768), kimi-k2's d 112 where the tree takes
-it, and K8 at 32 queries in a 64 x 4 table; `ms` (bare launches),
-`wrapper_ms` and `library_ms` of each.
+Prints the card's name and power limit, then one JSON line per run: K7 at
+the main path's ship batch (8 rows, 32,768 + 256), K15 and its join form
+at four islands of 2,500,000 rows on the one card (k 25,000, Q 1), K1 at
+10,000,000 rows, K10 at 10,000,000 rows in chunks of 8,192 and K18 at
+10,000,000 rows: `ms` (bare launches) and `wrapper_ms` of each, and for
+K7 and K15 also `device_ms` and `wrapper_device_ms`, the device's own time
+of 20 bare launches and of 20 wrapper calls under `torch.profiler`, a
+call, measured here the same way for both trees.
 """
 
 from __future__ import annotations
 
+import inspect
 import json
-import re
 import subprocess
 import sys
 
 
-def _scan_report(root: str) -> dict:
-    """The tree's `selective_scan.cu` compiled alone to a cubin: ptxas'
-    registers and spill bytes of each instance, and for the d_state 16
-    instances with 16-byte staging the SASS opcode counts (`cuobjdump`):
-    all instructions, MUFU (one an exponential) and the FP32 multiplies,
-    fused multiply-adds and adds."""
-    import os
-    import pathlib
-    import tempfile
-    from repro_torch.kernels import build
-    nvcc = build._nvcc()
-    src = pathlib.Path(root) / "src/repro_torch/kernels/csrc/selective_scan.cu"
-    out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        cubin = os.path.join(tmp, "scan.cubin")
-        log = subprocess.run(
-            [nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", "-cubin", "-o", cubin,
-             str(src)], check=True, capture_output=True, text=True)
-        entry = None
-        for line in (log.stdout + log.stderr).splitlines():
-            m = re.search(r"Compiling entry function '.*?selective_scan_"
-                          r"kernelI(\w+?)EEv", line)
-            if m:
-                entry = m.group(1)
-            elif entry and "spill stores" in line:
-                out.setdefault(entry, {})["spill_bytes"] = sum(
-                    int(w) for w in re.findall(r"(\d+) bytes spill", line))
-            elif entry and "Used" in line:
-                out.setdefault(entry, {})["registers"] = int(
-                    line.split("Used ")[1].split()[0])
-        sass = subprocess.run(
-            [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
-             cubin], check=True, capture_output=True, text=True).stdout
-    for body in sass.split("Function : ")[1:]:
-        m = re.match(r"\S*selective_scan_kernelI(\w+?)EEv", body)
-        if not m or not m.group(1).startswith("Li16E") or \
-                m.group(1).endswith("Lb0"):
-            continue
-        ops = re.findall(
-            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", body)
-        out.setdefault(m.group(1), {}).update(
-            sass=len(ops), mufu=ops.count("MUFU"),
-            fp32=sum(ops.count(o) for o in ("FMUL", "FFMA", "FADD")))
-    return out
+def _device_ms(fn, reps: int = 20) -> float | None:
+    """The CUDA kernels' (and copies') own time a call of `fn` under
+    `torch.profiler`; None where it records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if str(e.device_type).endswith("CUDA"))
+    return us / 1e3 / reps if us else None
+
+
+def _mesh_bare(dev, n_isl, width, k, join, gen, cs):
+    """The tree's bare mesh-scan launches and wrapper call at four islands
+    of `width` rows on `dev`: the island-table API (islands, groups,
+    bounds per device, partials per device) or the parent's per-island one
+    (islands, bounds per island, partials per island)."""
+    import torch
+    from repro_torch.kernels import dict_ops
+    f, a, j, fv, jv, ad, rc = cs.scan_inputs(gen, n_isl * width, k, k, k,
+                                             dev, invalid=0.0)
+    fi, ai, ji, fvi, jvi = cs.mesh_islands((f, a, j, fv, jv),
+                                           [width] * n_isl)
+    span = 3 * k // 10
+    bounds = [(k // 2, k // 2 + span)]
+    islands = [(fi[s], ai[s], fvi[s].view(torch.uint8), ad) + (
+        (ji[s], jvi[s].view(torch.uint8), rc) if join else ())
+        for s in range(n_isl)]
+    barr = torch.tensor(bounds, dtype=torch.int32, device=dev)
+    lanes = 3 if join else 2
+    launch = dict_ops.launch_scan_exact_mesh
+    if len(inspect.signature(launch).parameters) == 4:
+        groups = dict_ops.mesh_launch_groups([dev] * n_isl, [width] * n_isl)
+        outs = {dev: torch.zeros((lanes, 1), dtype=torch.int64, device=dev)}
+
+        def bare():
+            launch(islands, groups, {dev: barr}, outs)
+    else:
+        outs = [torch.zeros((lanes, 1), dtype=torch.int64, device=dev)
+                for _ in range(n_isl)]
+
+        def bare():
+            launch(islands, [barr] * n_isl, outs)
+    extra = (ji, jvi, [rc] * n_isl) if join else ()
+    args = (fi, ai, fvi, [ad] * n_isl, bounds) + extra
+
+    def wrapper():
+        dict_ops.scan_exact_mesh(*args)
+    return bare, wrapper
 
 
 def _one(root: str) -> dict:
@@ -97,39 +105,41 @@ def _one(root: str) -> dict:
         return a.elapsed_time(b) / reps
 
     cs.time_ms = time_ms
+    if hasattr(cs, "device_time"):      # not timed twice: this script's own
+        cs.device_time = lambda fn, reps=20: {}
     cs.phase_build()
-    from repro_torch.kernels.common import (kernel_launch_counts,
-                                            reset_kernel_launch_counts)
-    from repro_torch.kernels.merge_runs import merge_sorted_runs
+    from repro_torch.kernels.bitonic_sort import (apply_pipeline_batch,
+                                                  launch_bitonic_apply)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    keys = ("ms", "wrapper_ms", "library_ms")
+    keys = ("ms", "wrapper_ms")
     out = {"tree": root}
-    m = cs.measure_ssm(gen, dev, (4, 2048, 8192, 16))
-    out["selective_scan"] = dict(
-        {k: m.get(k) for k in ("ms", "wrapper_ms", "max_abs_err")},
-        instances=_scan_report(root))
-    runs = [torch.sort(torch.randint(0, 2**40, (256,), generator=gen,
-                                     device=dev)).values for _ in range(4)]
-    cat = torch.cat(runs)
-    reset_kernel_launch_counts()
-    merge_sorted_runs(runs)
-    launches = kernel_launch_counts().get("merge_runs", 0)
-    out["merge_ship"] = dict(
-        launches_a_call=launches,
-        wrapper_ms=time_ms(lambda: merge_sorted_runs(runs), 200),
-        library_ms=time_ms(lambda: torch.sort(cat, stable=True), 200))
-    for name, shape in (("path", (4, 4096, 16, 8, 256, 287)),
-                        ("decode_32k", (4, 32768, 16, 8, 256, 32768)),
-                        ("decode_32k_d112", (4, 32768, 64, 8, 112, 32768))):
-        try:
-            m = cs.measure_decode(gen, dev, shape)
-        except ValueError as err:             # a head_dim the tree refuses
-            out[name] = {"refused": str(err)}
-            continue
-        out[name] = {k: m[k] for k in keys}
-    m = cs.measure_probe(gen, dev, (1, 32, 64, 4))
-    out["probe"] = {k: m[k] for k in keys}
+
+    shape = (8, 32768, 256)
+    m = cs.measure_apply(gen, dev, shape)
+    old, val = cs.apply_stacks(gen, dev, 8, 24576, 32768, 192, 256)
+    svals, merged = apply_pipeline_batch(old, val)
+    out["apply"] = dict(
+        {k: m[k] for k in keys}, shape=list(shape),
+        device_ms=_device_ms(lambda: launch_bitonic_apply(old, val, svals,
+                                                          merged)),
+        wrapper_device_ms=_device_ms(lambda: apply_pipeline_batch(old, val)))
+
+    for join in (False, True):
+        name = "mesh_join" if join else "mesh"
+        shape = (4, 2_500_000, 25_000) + ((25_000,) if join else ()) + (1,)
+        m = cs.measure_scan_mesh(gen, dev, shape, join)
+        bare, wrapper = _mesh_bare(dev, 4, 2_500_000, 25_000, join, gen, cs)
+        out[name] = dict({k: m[k] for k in keys}, shape=list(shape),
+                         device_ms=_device_ms(bare),
+                         wrapper_device_ms=_device_ms(wrapper))
+
+    m = cs.measure_scan(gen, dev, (10_000_000, 25_000, 1), False)
+    out["scan"] = {k: m[k] for k in keys}
+    m = cs.measure_snapshot(gen, dev, (10_000_000, 8192))
+    out["snapshot_copy"] = {k: m[k] for k in keys}
+    m = cs.measure_float_scan(gen, dev, (10_000_000, 25_000))
+    out["scan_float"] = {k: m[k] for k in keys}
     return out
 
 

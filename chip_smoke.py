@@ -40,16 +40,19 @@ Drives `repro_torch` only. Phases, each printing one JSON line:
                  batches, dictionary merges and overlay merges).
 6. ``mesh``      the same session on the mesh placement: analytical island
                  s resident on its own device, each island applying its
-                 own rows there, a query group one scan launch per island
-                 with the int64 partials added on island 0's device. With
+                 own rows there, a query group one scan launch per device
+                 over a table of its islands (up to 16 a launch), the
+                 devices' int64 partials added on island 0's device. With
                  one card the islands share it (``devices=[cuda:0] * 4``,
                  then ``hopper@1/mesh``; ``--mesh-islands 4,1``), one line
                  per run: answers and final columns must equal the
                  one-island session's (and the host evaluation every
                  round), every view must be adopted from the Phase-2
                  install (``views_resident`` > 0, ``sharded_views`` 0), no
-                 stacked scan may launch, and the flat scans must launch
-                 exactly N times as often as on one island. Then the same
+                 stacked or flat scan may launch, and the mesh scans must
+                 launch (the sum over devices of ceil(islands there / 16))
+                 times as often as one island launches the flat scans (once
+                 a query group on one card). Then the same
                  four islands on the delta store (answers equal the eager
                  session's; the values-delta launches are reported). With
                  two or more cards, ``hopper@min(4, cards)/mesh`` over
@@ -121,19 +124,27 @@ Drives `repro_torch` only. Phases, each printing one JSON line:
                  the host's cost of one launch, item by item, under
                  ``host_us``);
                  times the kernel (``ms``: back-to-back bare launches;
+                 ``device_ms``: the device's own time of 20 bare launches
+                 under `torch.profiler`, a launch, for small kernels well
+                 below ``ms``, which is then the host's launch rate;
                  ``wrapper_ms``: through the public wrapper with its checks
                  and allocations), the plain version and, where one PyTorch
                  call computes the same function, that call; for the delta
                  groups also the same launch without the correction lane
-                 (``base_ms``).
+                 (``base_ms``). The tile merge (K6, ``bitonic_merge_rows``)
+                 runs only where a sort row is wider than 32,768 keys: it is
+                 reported with its launches on every path
+                 (``launches_by_path``, 0 where none) and measured at the
+                 shape a path gave it, else at (2, 32768, 32768), with
+                 ``torch.sort`` of the concatenated runs beside it.
 
 Each kernel is checked against the path that runs it (counts set to 0 just
 before the path, read just after): the one-island kernels against
 ``main_path``, the sharded scans against ``islands``, the delta kernels
-against ``delta``, the mesh scans against ``mesh`` (their launches are
-counted per island under the flat scans' names; the kernels line reports
-them as ``scan_exact_mesh`` and ``scan_exact_join_mesh``, measured at
-(islands, island width, ...) with the islands on one card), the bucket
+against ``delta``, the mesh scans against ``mesh`` (counted under
+``scan_exact_mesh`` and ``scan_exact_join_mesh`` a launch, at (islands in
+the launch, widest island, ...), measured with the islands on one card),
+the bucket
 probe against ``ana_only``, the float32 scan
 against ``float_scan``, flash-decode attention and the selective scan
 against ``lm_serve`` (each model's serve run). The raw-value
@@ -178,6 +189,7 @@ REPLACES = {
                   "(sharded form: hash_probe.py:68)",
     "merge_runs": "src/repro/kernels/merge_runs/merge_runs.py:94",
     "bitonic_sort": "src/repro/kernels/bitonic_sort/bitonic_sort.py:103",
+    "bitonic_merge_rows": "src/repro/kernels/bitonic_sort/bitonic_sort.py:123",
     "bitonic_apply": "src/repro/kernels/dict_ops/ops.py:310 "
                      "(bitonic_sort.py:103 + bitonic_sort.py:123)",
     "snapshot_copy": "src/repro/kernels/snapshot_copy/snapshot_copy.py:54",
@@ -207,6 +219,7 @@ SOURCES = {
     "hash_probe": "src/repro_torch/kernels/csrc/hash_probe.cu",
     "merge_runs": "src/repro_torch/kernels/csrc/merge_runs.cu",
     "bitonic_sort": "src/repro_torch/kernels/csrc/bitonic.cu",
+    "bitonic_merge_rows": "src/repro_torch/kernels/csrc/bitonic.cu",
     "bitonic_apply": "src/repro_torch/kernels/csrc/bitonic.cu",
     "snapshot_copy": "src/repro_torch/kernels/csrc/snapshot_copy.cu",
     "scan_exact_group": "src/repro_torch/kernels/csrc/scan_exact.cu",
@@ -227,6 +240,12 @@ PATH_OF = {"scan_exact_sharded": "islands",
            "scan_exact_mesh": "mesh", "scan_exact_join_mesh": "mesh",
            "scan_float": "float_scan", "decode_attn": "lm_serve",
            "selective_scan": "lm_serve"}
+# kernels a path launches only for some data: the tile merge (K6) sorts a
+# row wider than one tile's 32,768 keys, which the paths may not have. Each
+# is reported with its launches on every path, measured at the shape a path
+# launched most or, where none did, at NO_CALLER_SHAPE, and is not required
+# to have launched.
+NO_CALLER_SHAPE = {"bitonic_merge_rows": (2, 32768, 32768)}
 I32_MIN, I32_MAX = -2**31, 2**31 - 1
 
 
@@ -256,6 +275,40 @@ def time_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+DEVICE_REPS = 20
+
+
+def device_time(fn, reps: int = DEVICE_REPS) -> dict:
+    """`fn`'s device time under `torch.profiler`, a call (``device_ms``):
+    for each CUDA kernel (or copy) its `reps` calls ran, its mean own time
+    times the launches of it a call (its count over `reps`, rounded: the
+    profiler has been seen to drop an event of 20), summed; and the
+    kernels a call (``device_kernels``). Where the profiler records no
+    device time, the CUDA-event time of the same calls stands in, and
+    ``device_ms_source`` says so."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")
+               and e.self_device_time_total > 0]
+    if not kernels:
+        return dict(device_ms=time_ms(fn, reps), device_kernels=None,
+                    device_ms_source="cuda events (the profiler recorded "
+                                     "no device time)")
+    a_call = [max(1, round(e.count / reps)) for e in kernels]
+    return dict(device_ms=sum(e.self_device_time_total / e.count * n
+                              for e, n in zip(kernels, a_call)) / 1e3,
+                device_kernels=sum(a_call),
+                device_events=sum(e.count for e in kernels),
+                device_ms_source="torch.profiler")
 
 
 def max_abs_err(got, want) -> int:
@@ -546,8 +599,8 @@ def phase_main_path(args, wl) -> tuple[dict, dict, list, dict, list]:
         for t in (col.codes, col.valid, col.dictionary):
             if t.device.type != "cuda":
                 raise AssertionError(f"column {c} has a tensor on {t.device}")
-    missing = [k for k in REPLACES
-               if k not in PATH_OF and launches.get(k, 0) < 1]
+    missing = [k for k in REPLACES if k not in PATH_OF
+               and k not in NO_CALLER_SHAPE and launches.get(k, 0) < 1]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing} (counts {launches})")
@@ -741,32 +794,37 @@ def phase_delta(args, wl, one_answers, one_cols, one_seconds
     return kernel_launch_counts(), kernel_launch_shapes()
 
 
-# the mesh scans' entries in the kernels line, and the flat scans whose
-# names their per-island launches are counted under
+# the mesh scans, one launch per device and group of up to 16 islands, and
+# the flat scans whose launches one island makes for the same query groups
 MESH_SCANS = {"scan_exact_mesh": "scan_exact",
               "scan_exact_join_mesh": "scan_exact_join"}
 
 
+def mesh_launches_a_group(devices) -> int:
+    """The mesh scans' launches for one query group: one per device and
+    group of up to MAX_ISLANDS of its islands (every island of these runs
+    holds rows)."""
+    from repro_torch.kernels.dict_ops import MAX_ISLANDS
+    per_device = {}
+    for d in devices:
+        per_device[d] = per_device.get(d, 0) + 1
+    return sum(-(-n // MAX_ISLANDS) for n in per_device.values())
+
+
 def mesh_run(args, wl, spec, devices, one_launches, one_answers, one_cols,
-             what: str) -> dict:
+             what: str) -> None:
     """One eager session on the mesh placement, checked against the
-    one-island session; returns the mesh scans' launch shapes, per mesh
-    call."""
-    from repro_torch.kernels.common import (kernel_launch_counts,
-                                            kernel_launch_shapes)
-    before, shapes_before = kernel_launch_counts(), kernel_launch_shapes()
+    one-island session."""
+    from repro_torch.kernels.common import kernel_launch_counts
+    before = kernel_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     answers, seconds, session, result = drive_spec(spec, wl, args,
                                                    check_host=True,
                                                    devices=devices)
-    after, shapes_after = kernel_launch_counts(), kernel_launch_shapes()
-    launches = {k: v - before.get(k, 0) for k, v in after.items()
+    launches = {k: v - before.get(k, 0)
+                for k, v in kernel_launch_counts().items()
                 if v != before.get(k, 0)}
-    shapes = {k: {sh: c - shapes_before.get(k, {}).get(sh, 0)
-                  for sh, c in seen.items()
-                  if c != shapes_before.get(k, {}).get(sh, 0)}
-              for k, seen in shapes_after.items()}
     peak = torch.cuda.max_memory_allocated()
     n = session.islands
     if answers != one_answers:
@@ -781,33 +839,30 @@ def mesh_run(args, wl, spec, devices, one_launches, one_answers, one_cols,
     sharded = [k for k in launches if k.endswith("_sharded")]
     if sharded:
         raise AssertionError(f"{what}: stacked scans launched: {sharded}")
-    for k in SCANS:
-        if launches.get(k, 0) != n * one_launches.get(k, 0):
+    per_group = mesh_launches_a_group(session.be.devices)
+    for mesh, flat in MESH_SCANS.items():
+        if launches.get(flat, 0):
+            raise AssertionError(f"{what}: {launches[flat]} flat {flat} "
+                                 "launches on the mesh path")
+        if launches.get(mesh, 0) != per_group * one_launches.get(flat, 0):
             raise AssertionError(
-                f"{what}: {launches.get(k, 0)} {k} launches, {n} x the "
-                f"one-island {one_launches.get(k, 0)} expected")
+                f"{what}: {launches.get(mesh, 0)} {mesh} launches, "
+                f"{per_group} a group x the one-island "
+                f"{one_launches.get(flat, 0)} expected")
     total = sum(seconds)
     emit("mesh", run=what, islands=n,
          devices=[str(d) for d in session.be.devices],
          round_seconds=seconds, txns_per_s=(args.txns + 1) / total,
          queries_per_s=len(answers) / total, peak_device_bytes=peak,
          held_device_bytes=held, launches=launches,
-         scan_launches={k: launches.get(k, 0) for k in SCANS},
+         scan_launches={k: launches.get(k, 0) for k in MESH_SCANS},
+         launches_a_group=per_group,
          one_island_scan_launches={k: one_launches.get(k, 0) for k in SCANS},
          views_resident=stats["views_resident"],
          views_shared=stats["views_shared"],
          modeled_ana_seconds=result.ana_seconds,
          answers_checksum=sum(answers), ok=True)
     del session
-    # the mesh scans' shapes: (islands, island width, ...) - each call
-    # launched once on every island, which the even splits run here share
-    mesh_shapes = {}
-    for name, flat in MESH_SCANS.items():
-        for sh, c in shapes.get(flat, {}).items():
-            key = (n,) + sh
-            mesh_shapes.setdefault(name, {})
-            mesh_shapes[name][key] = mesh_shapes[name].get(key, 0) + c // n
-    return mesh_shapes
 
 
 def phase_mesh(args, wl, one_launches, one_answers, one_cols, dev=None
@@ -815,18 +870,18 @@ def phase_mesh(args, wl, one_launches, one_answers, one_cols, dev=None
     """The main path on the mesh placement: each island count of
     `args.mesh_islands` with the islands on the one card (`dev`, default
     cuda:0), the first on the delta store, and over distinct cards when
-    there are two or more. Returns the mesh scans' launches and shapes."""
+    there are two or more. Returns the phase's launches and launch
+    shapes."""
     from repro_torch.core.session import SystemSpec
     from repro_torch.kernels.common import (kernel_launch_counts,
                                             kernel_launch_shapes,
                                             reset_kernel_launch_counts)
     card0 = torch.device("cuda", 0) if dev is None else dev
     reset_kernel_launch_counts()
-    runs = []                     # each run's mesh_shapes
     for n in args.mesh_islands:
-        runs.append(mesh_run(args, wl, SystemSpec.polynesia(
-            backend=f"hopper@{n}/mesh"), [card0] * n, one_launches,
-            one_answers, one_cols, f"hopper@{n}/mesh on one card"))
+        mesh_run(args, wl, SystemSpec.polynesia(backend=f"hopper@{n}/mesh"),
+                 [card0] * n, one_launches, one_answers, one_cols,
+                 f"hopper@{n}/mesh on one card")
 
     # the delta store on the first island count, islands on the one card
     n = args.mesh_islands[0]
@@ -850,7 +905,7 @@ def phase_mesh(args, wl, one_launches, one_answers, one_cols, dev=None
                                  f"column {c} with its overlay folded "
                                  "differs from the eager column")
     if result.stats["placement"] != "mesh" or any(
-            k.endswith("_sharded") for k in launches):
+            k.endswith("_sharded") or k in SCANS for k in launches):
         raise AssertionError(f"delta plane on hopper@{n}/mesh did not stay "
                              f"on the mesh: {launches}")
     total = sum(seconds)
@@ -867,22 +922,12 @@ def phase_mesh(args, wl, one_launches, one_answers, one_cols, dev=None
     cards = torch.cuda.device_count()
     if cards >= 2:
         n = min(4, cards)
-        runs.append(mesh_run(args, wl, SystemSpec.polynesia(
-            backend=f"hopper@{n}/mesh"), None, one_launches, one_answers,
-            one_cols, f"hopper@{n}/mesh on {n} cards"))
+        mesh_run(args, wl, SystemSpec.polynesia(backend=f"hopper@{n}/mesh"),
+                 None, one_launches, one_answers, one_cols,
+                 f"hopper@{n}/mesh on {n} cards")
     else:
         emit("mesh_cards", skipped="1 card visible")
-
-    launches = kernel_launch_counts()
-    shapes = {}
-    for r in runs:
-        for name, seen in r.items():
-            for sh, c in seen.items():
-                shapes.setdefault(name, {})
-                shapes[name][sh] = shapes[name].get(sh, 0) + c
-    mesh_launches = {name: launches[flat] for name, flat in MESH_SCANS.items()
-                     if launches.get(flat, 0)}
-    return mesh_launches, shapes
+    return kernel_launch_counts(), kernel_launch_shapes()
 
 
 def phase_ana_only(args, wl) -> tuple[dict, dict]:
@@ -1310,11 +1355,13 @@ def sort_cost(shape):
 
 
 def apply_cost(shape):
+    """(rows, w_old, w_val): old and the values read, the sorted values and
+    the merged row written; the values' sort network once and a compare,
+    a select and a move a merged slot."""
     rows, w_old, w_val = shape
     w_merge = next_pow2(w_old + w_val)
     return (rows * 4 * (w_old + w_val + w_val + w_merge),
-            rows * (sort_ops(w_val) + w_old * bits(w_val)
-                    + w_val * bits(w_old)))
+            rows * (sort_ops(w_val) + 3 * w_merge))
 
 
 def snapshot_cost(shape):
@@ -1380,6 +1427,7 @@ def measure_scan(gen, dev, shape, join: bool) -> dict:
         (j, jv.view(torch.uint8), rc) if join else ())
     return dict(max_abs_err=err,
                 ms=time_ms(lambda: launch_scan_exact(*bare), 50),
+                **device_time(lambda: launch_scan_exact(*bare)),
                 wrapper_ms=time_ms(lambda: scan_exact(*args), 20),
                 plain_ms=time_ms(lambda: scan_exact_ref(*args), 3),
                 library_ms=None)
@@ -1446,20 +1494,21 @@ def measure_scan_sharded(gen, dev, shape, join: bool) -> dict:
         (j, jv.view(torch.uint8), rc) if join else ())
     return dict(max_abs_err=err,
                 ms=time_ms(lambda: launch_scan_exact(*bare), 50),
+                **device_time(lambda: launch_scan_exact(*bare)),
                 wrapper_ms=time_ms(lambda: scan_exact(*args), 20),
                 plain_ms=time_ms(lambda: scan_exact_ref(*args), 3),
                 library_ms=None)
 
 
 def scan_mesh_cost(shape, join):
-    """(N, W, k[, kj], Q): every island's scan over its W rows (its own
-    dictionary copy and partials), then the N - 1 partials read for the
-    reduction on island 0."""
-    n_isl = shape[0]
-    nbytes, ops = scan_cost(tuple(shape[1:]), join)
+    """(N, W, k[, kj], Q), N islands of W rows in one launch: every
+    island's rows read once, its dictionary (and histogram) once each, the
+    bounds in, one (2|3, Q) partial out."""
+    n_isl, width, k, q = shape[0], shape[1], shape[2], shape[-1]
     lanes = 3 if join else 2
-    return (n_isl * nbytes + (n_isl - 1) * lanes * shape[-1] * 8,
-            n_isl * ops + (n_isl - 1) * lanes * shape[-1])
+    nbytes = n_isl * (width * (9 + (5 if join else 0)) + k * 4
+                      + (shape[3] * 4 if join else 0)) + q * 8 + lanes * q * 8
+    return nbytes, n_isl * width * (2 * q + 2) * (2 if join else 1)
 
 
 def mesh_islands(flat_tensors, sizes):
@@ -1471,15 +1520,19 @@ def mesh_islands(flat_tensors, sizes):
 
 def edge_scan_mesh(gen, dev) -> int:
     """The mesh scans' edges, islands on the one card: an empty island,
-    more islands than rows, uneven splits, many islands, Q = 1, 3 and 33,
-    a dictionary holding int32's extremes (and negatives)."""
+    more islands than rows, uneven splits (so unaligned island bases), 17,
+    33 and 100 islands (two, three and seven launches of up to 16), Q = 1,
+    3 and 33, a dictionary holding int32's extremes (and negatives), each
+    island's dictionary its own tensor."""
     from repro_torch.kernels.dict_ops import (scan_exact_mesh,
                                               scan_exact_mesh_ref)
     cases = 0
     for sizes, k, nq in (((0, 40, 41), 30, 3), ((1, 1, 0, 0, 0), 3, 1),
                          ((250_001, 250_000, 250_000, 250_000), 25_000, 33),
                          ((1001, 1000), 64, 3), ((7,) * 100, 5, 1),
-                         ((2_500_000,) * 4, 100_000, 33)):
+                         ((2_500_000,) * 4, 100_000, 33),
+                         ((1001,) * 17, 300, 9),
+                         (tuple(5000 + 3 * i for i in range(33)), 1000, 3)):
         n = sum(sizes)
         f, a, j, fv, jv, ad, rc = scan_inputs(gen, max(n, 1), k, k, k, dev)
         ad[0], ad[-1] = I32_MIN, I32_MAX
@@ -1488,7 +1541,9 @@ def edge_scan_mesh(gen, dev) -> int:
             [t[:n] for t in (f, a, j, fv, jv)], sizes)
         bounds = [(0, k)] + [(i % k, i % k + 1 + i % 7)
                              for i in range(nq - 1)]
-        args = (fi, ai, fvi, [ad] * len(sizes), bounds)
+        dicts = [ad.clone() for _ in sizes] if len(sizes) in (17, 33) \
+            else [ad] * len(sizes)
+        args = (fi, ai, fvi, dicts, bounds)
         must_equal(f"mesh scan {sizes[:4]} Q={nq}", scan_exact_mesh(*args),
                    scan_exact_mesh_ref(*args))
         jargs = args + (ji, jvi, [rc] * len(sizes))
@@ -1499,9 +1554,11 @@ def edge_scan_mesh(gen, dev) -> int:
 
 
 def measure_scan_mesh(gen, dev, shape, join: bool) -> dict:
-    """At (N, W, k[, kj], Q), the N islands on the one card: `ms` is the
-    bare launches plus the reduction, `wrapper_ms` through the wrapper."""
+    """At (N, W, k[, kj], Q), the N islands on the one card: `ms` the bare
+    launches (one a group of up to 16 islands, with the adds of other
+    devices' partials: none here), `wrapper_ms` through the wrapper."""
     from repro_torch.kernels.dict_ops import (launch_scan_exact_mesh,
+                                              mesh_launch_groups,
                                               scan_exact_mesh,
                                               scan_exact_mesh_ref)
     n_isl, width, k, nq = shape[0], shape[1], shape[2], shape[-1]
@@ -1516,15 +1573,18 @@ def measure_scan_mesh(gen, dev, shape, join: bool) -> dict:
     args = (fi, ai, fvi, [ad] * n_isl, bounds) + extra
     err = must_equal(f"mesh scan {shape}", scan_exact_mesh(*args),
                      scan_exact_mesh_ref(*args))
-    barr = torch.tensor(bounds, dtype=torch.int32, device=dev)
     islands = [(fi[s], ai[s], fvi[s].view(torch.uint8), ad) + (
         (ji[s], jvi[s].view(torch.uint8), rc) if join else ())
         for s in range(n_isl)]
-    outs = [torch.zeros((3 if join else 2, nq), dtype=torch.int64,
-                        device=dev) for _ in range(n_isl)]
-    return dict(max_abs_err=err,
-                ms=time_ms(lambda: launch_scan_exact_mesh(
-                    islands, [barr] * n_isl, outs), 50),
+    groups = mesh_launch_groups([dev] * n_isl, [width] * n_isl)
+    barrs = {dev: torch.tensor(bounds, dtype=torch.int32, device=dev)}
+    outs = {dev: torch.zeros((3 if join else 2, nq), dtype=torch.int64,
+                             device=dev)}
+
+    def bare():
+        return launch_scan_exact_mesh(islands, groups, barrs, outs)
+    return dict(max_abs_err=err, launches_a_call=len(groups),
+                ms=time_ms(bare, 50), **device_time(bare),
                 wrapper_ms=time_ms(lambda: scan_exact_mesh(*args), 20),
                 plain_ms=time_ms(lambda: scan_exact_mesh_ref(*args), 3),
                 library_ms=None)
@@ -1607,6 +1667,8 @@ def measure_probe(gen, dev, shape) -> dict:
                                          out.reshape(-1), skeys),
                 ms=time_ms(lambda: launch_hash_probe(flat, kt, vt, -1, out),
                            200),
+                **device_time(lambda: launch_hash_probe(flat, kt, vt, -1,
+                                                        out)),
                 wrapper_ms=time_ms(lambda: probe(table, flat.reshape(-1)),
                                    200),
                 plain_ms=time_ms(lambda: probe_ref(kt, vt, flat, -1), 50),
@@ -1786,6 +1848,8 @@ def measure_merge(gen, dev, shape) -> dict:
         return dict(max_abs_err=err, runs=lens[:8],
                     ms=time_ms(lambda: launch_merge_kway(cat, offs, ok, oi),
                                200),
+                    **device_time(lambda: launch_merge_kway(cat, offs, ok,
+                                                            oi)),
                     wrapper_ms=time_ms(lambda: merge_sorted_runs(runs), 200),
                     plain_ms=time_ms(lambda: merge_runs_ref(runs), 200),
                     library_ms=time_ms(
@@ -1802,6 +1866,7 @@ def measure_merge(gen, dev, shape) -> dict:
     ok, oi = merge_sorted_pair(*args)
     return dict(max_abs_err=err,
                 ms=time_ms(lambda: launch_merge_runs(a, ai, b, bi, ok, oi), 200),
+                **device_time(lambda: launch_merge_runs(a, ai, b, bi, ok, oi)),
                 wrapper_ms=time_ms(lambda: merge_sorted_pair(*args), 200),
                 plain_ms=time_ms(lambda: merge_pair_ref(*args), 50),
                 library_ms=None)
@@ -1841,32 +1906,76 @@ def edge_bitonic(gen, dev) -> int:
         torch.testing.assert_close(sort_rows(x), sort_rows_ref(x), rtol=0,
                                    atol=0, equal_nan=True)
         cases += 1
-    for rows, n_old, w_old, n_val, w_val in (
-            (1, 1, 8, 1, 8), (8, 32, 32, 100, 128), (2, 5000, 8192, 1024, 1024),
-            (3, 40_000, 65536, 700, 1024),       # merge row wider than 32768
-            (2, 100, 128, 40_000, 65536)):       # more values than one tile
+    # the tile merge: values sorted in every merge block up to 2,048 (w_val
+    # 1, 2,048), the separate sort above (4,096; 65,536 with pairwise
+    # merges), old widths that are not a multiple of a tile (4,096 slots) or
+    # of 4, a row of sentinels only, values all equal to an old key,
+    # int32.min, 1 and 65 rows, the path's (8, 32,768, 256)
+    for rows, n_old, w_old, n_val, w_val, case in (
+            (1, 1, 8, 1, 8, None), (8, 32, 32, 100, 128, None),
+            (2, 5000, 8192, 1024, 1024, None),
+            (3, 40_000, 65536, 700, 1024, None),
+            (2, 100, 128, 40_000, 65536, None),
+            (3, 40, 64, 1, 1, None), (2, 5000, 8192, 2000, 2048, None),
+            (2, 6000, 8192, 3000, 4096, None),
+            (3, 4500, 5003, 200, 256, None), (2, 4000, 4097, 20, 32, None),
+            (3, 300, 512, 50, 64, "old_sentinels_only"),
+            (4, 300, 512, 60, 64, "values_equal_an_old_key"),
+            (2, 300, 512, 70, 128, "int32_min"),
+            (1, 9000, 16384, 100, 128, None), (65, 90, 128, 20, 32, None),
+            (8, 24_000, 32768, 200, 256, None)):
         old, val = apply_stacks(gen, dev, rows, n_old, w_old, n_val, w_val)
-        must_equal(f"apply {rows}x({w_old}+{w_val})",
+        if case == "old_sentinels_only":
+            old[0] = I32_MAX
+        elif case == "values_equal_an_old_key":
+            val[:, :n_val] = old[:, n_old // 2:n_old // 2 + 1]
+        elif case == "int32_min":
+            val[:, 1] = I32_MIN
+            old[:, 0] = I32_MIN
+        must_equal(f"apply {rows}x({w_old}+{w_val}) {case or ''}",
                    apply_pipeline_batch(old, val),
                    apply_pipeline_batch_ref(old, val))
+        cases += 1
+    # the tile merge alone (K6): runs of any lengths, float32 keys with NaN
+    from repro_torch.kernels.bitonic_sort import (launch_merge_rows,
+                                                  merge_rows_ref)
+    for rows, wa, wb, w_out, dtype in ((1, 1, 1, 2, torch.int32),
+                                       (3, 5000, 7, 8192, torch.int32),
+                                       (2, 0, 33, 40, torch.int32),
+                                       (2, 32768, 32768, 65536, torch.int32),
+                                       (3, 4099, 3001, 9000, torch.float32)):
+        if dtype == torch.int32:
+            a = torch.sort(rand_i32(gen, dev, rows, wa), dim=1).values
+            b = torch.sort(rand_i32(gen, dev, rows, wb), dim=1).values
+        else:
+            a = torch.randn((rows, wa), generator=gen, device=dev)
+            b = torch.randn((rows, wb), generator=gen, device=dev)
+            a[:, :3] = float("nan")
+            b[:, 1] = a[:, 7]
+            a, b = torch.sort(a, dim=1).values, torch.sort(b, dim=1).values
+        out = torch.empty((rows, w_out), dtype=dtype, device=dev)
+        launch_merge_rows(a.data_ptr(), wa, wa, b.data_ptr(), wb, wb, out,
+                          w_out, w_out, rows)
+        torch.testing.assert_close(out, merge_rows_ref(a, b, w_out), rtol=0,
+                                   atol=0, equal_nan=True)
         cases += 1
     return cases
 
 
 def measure_sort(gen, dev, shape) -> dict:
-    from repro_torch.kernels.bitonic_sort import (MAX_TILE, launch_sort_tiles,
+    from repro_torch.kernels.bitonic_sort import (MAX_TILE, launch_sort_rows,
                                                   sort_rows, sort_rows_ref)
     rows, width = shape
     x = rand_i32(gen, dev, rows, width)
     err = must_equal(f"sort {shape}", sort_rows(x), sort_rows_ref(x))
-    wrapper_ms = time_ms(lambda: sort_rows(x), 200)
-    pad = next_pow2(width)
-    if pad <= MAX_TILE:      # one tile: the wrapper makes exactly this launch
-        buf = torch.empty((rows, pad), dtype=torch.int32, device=dev)
-        ms = time_ms(lambda: launch_sort_tiles(x, buf, pad), 200)
-    else:                    # tile sorts + merges: only the wrapper does all
-        ms = wrapper_ms
-    return dict(max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms,
+    out = torch.empty((rows, next_pow2(width)), dtype=torch.int32,
+                      device=dev)
+    scratch = torch.empty_like(out) if out.shape[1] > MAX_TILE else None
+
+    def bare():          # the wrapper's one call of the C entry
+        launch_sort_rows(x, out, scratch)
+    return dict(max_abs_err=err, ms=time_ms(bare, 200), **device_time(bare),
+                wrapper_ms=time_ms(lambda: sort_rows(x), 200),
                 plain_ms=time_ms(lambda: sort_rows_ref(x), 50),
                 library_ms=time_ms(lambda: torch.sort(x, dim=1), 50))
 
@@ -1882,17 +1991,49 @@ def measure_apply(gen, dev, shape) -> dict:
                             max(1, 3 * w_val // 4), w_val)
     err = must_equal(f"apply {shape}", apply_pipeline_batch(old, val),
                      apply_pipeline_batch_ref(old, val))
-    wrapper_ms = time_ms(lambda: apply_pipeline_batch(old, val), 100)
-    if w_val <= MAX_TILE:    # the wrapper makes exactly this launch
-        svals, merged = apply_pipeline_batch(old, val)
-        ms = time_ms(lambda: launch_bitonic_apply(old, val, svals, merged),
-                     100)
-    else:
-        ms = wrapper_ms
-    return dict(max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms,
+    svals, merged = apply_pipeline_batch(old, val)
+    scratch = torch.empty_like(val) if w_val > MAX_TILE else None
+
+    def bare():          # the wrapper's one call of the C entry
+        launch_bitonic_apply(old, val, svals, merged, scratch)
+    return dict(max_abs_err=err, ms=time_ms(bare, 100), **device_time(bare),
+                wrapper_ms=time_ms(lambda: apply_pipeline_batch(old, val),
+                                   100),
                 plain_ms=time_ms(lambda: apply_pipeline_batch_ref(old, val),
                                  20),
                 library_ms=None)
+
+
+def merge_rows_cost(shape):
+    """(rows, wa, wb): both runs read, the merged row written (int32); a
+    compare, a select and a move a slot (a merge's least work)."""
+    rows, wa, wb = shape
+    return rows * (wa + wb) * 8, rows * (wa + wb) * 3
+
+
+def measure_merge_rows(gen, dev, shape) -> dict:
+    """K6, the tile merge alone, at (rows, wa, wb) int32 runs: `ms` the
+    bare launch, `library_ms` one `torch.sort` of the concatenated runs,
+    `plain_ms` the plain version (the same sort with the output width's
+    padding). No public wrapper: the sort's pairwise merges call it."""
+    from repro_torch.kernels.bitonic_sort import (launch_merge_rows,
+                                                  merge_rows_ref)
+    rows, wa, wb = shape
+    a = torch.sort(rand_i32(gen, dev, rows, wa), dim=1).values
+    b = torch.sort(rand_i32(gen, dev, rows, wb), dim=1).values
+    out = torch.empty((rows, wa + wb), dtype=torch.int32, device=dev)
+
+    def bare():
+        launch_merge_rows(a.data_ptr(), wa, wa, b.data_ptr(), wb, wb, out,
+                          wa + wb, wa + wb, rows)
+    bare()
+    err = must_equal(f"merge rows {shape}", out, merge_rows_ref(a, b, wa + wb))
+    cat = torch.cat([a, b], dim=1)
+    return dict(max_abs_err=err, ms=time_ms(bare, 100), **device_time(bare),
+                wrapper_ms=None,
+                plain_ms=time_ms(lambda: merge_rows_ref(a, b, wa + wb), 20),
+                library_ms=time_ms(lambda: torch.sort(cat, dim=1), 20),
+                library="torch.sort(cat(a, b), dim=1)")
 
 
 def edge_snapshot(gen, dev) -> int:
@@ -1944,6 +2085,8 @@ def measure_snapshot(gen, dev, shape) -> dict:
         max_abs_err=err,
         ms=time_ms(lambda: launch_snapshot_copy(src, prev, flags, res, block),
                    50),
+        **device_time(lambda: launch_snapshot_copy(src, prev, flags, res,
+                                                   block)),
         wrapper_ms=time_ms(lambda: snapshot_copy(*args), 20),
         plain_ms=time_ms(lambda: snapshot_copy_ref(*args), 5),
         library_ms=time_ms(lambda: torch.where(mask, src, prev), 20))
@@ -2088,11 +2231,12 @@ def measure_group(gen, dev, shape, kind) -> dict:
     vbarr = torch.tensor(vb, dtype=torch.int32, device=dev)
     cols = (f, a, fv.view(torch.uint8), ad, barr)
     jl = (j, jv.view(torch.uint8), rc) if join else ()
+    def bare():
+        launch_scan_exact(*cols, res, *jl, corr_a=ca,
+                          corr_j=extra[3] if join else None,
+                          vbounds_dev=vbarr)
     return dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: launch_scan_exact(
-            *cols, res, *jl, corr_a=ca, corr_j=extra[3] if join else None,
-            vbounds_dev=vbarr), 50),
+        max_abs_err=err, ms=time_ms(bare, 50), **device_time(bare),
         base_ms=time_ms(lambda: launch_scan_exact(*cols, base_res, *jl), 50),
         wrapper_ms=time_ms(lambda: scan_exact_group(*args), 20),
         plain_ms=time_ms(lambda: scan_exact_group_ref(*args), 3),
@@ -2110,10 +2254,10 @@ def measure_values(gen, dev, shape, rows) -> dict:
                      scan_values_exact_ref(st, vb))
     res = torch.zeros((1, 2, nq), dtype=torch.int64, device=dev)
     vbarr = torch.tensor(vb, dtype=torch.int32, device=dev)
-    return dict(max_abs_err=err,
-                ms=time_ms(lambda: launch_scan_exact(
-                    None, None, None, None, None, res, corr_a=st,
-                    vbounds_dev=vbarr), 200),
+    def bare():
+        launch_scan_exact(None, None, None, None, None, res, corr_a=st,
+                          vbounds_dev=vbarr)
+    return dict(max_abs_err=err, ms=time_ms(bare, 200), **device_time(bare),
                 wrapper_ms=time_ms(lambda: scan_values_exact(st, vb), 200),
                 plain_ms=time_ms(lambda: scan_values_exact_ref(st, vb), 20),
                 library_ms=None)
@@ -2183,6 +2327,8 @@ def measure_float_scan(gen, dev, shape) -> dict:
         tolerance=FLOAT_SCAN_TOL,
         ms=time_ms(lambda: launch_scan_float(f, a, fvu, ad, lo, hi, psum,
                                              pcnt, out_s, out_c), 50),
+        **device_time(lambda: launch_scan_float(f, a, fvu, ad, lo, hi, psum,
+                                                pcnt, out_s, out_c)),
         wrapper_ms=time_ms(lambda: scan_filter_agg(f, a, fv, ad, lo, hi,
                                                    exact=False), 20),
         plain_ms=time_ms(lambda: scan_filter_agg_float_ref(f, a, fv, ad, lo,
@@ -2285,16 +2431,18 @@ def measure_decode(gen, dev, shape) -> dict:
     q4 = q[:, :, None, :]
     kl = k[:, :length].transpose(1, 2)
     vl = v[:, :length].transpose(1, 2)
-    ms = time_ms(lambda: launch_decode_attention(q, k, v, length, out, scale,
-                                                 cap, ns, chunk, pm, pl, pa,
-                                                 cnt), 50)
+    def bare():
+        launch_decode_attention(q, k, v, length, out, scale, cap, ns, chunk,
+                                pm, pl, pa, cnt)
+    ms = time_ms(bare, 50)
     return dict(
         max_abs_err=err, tolerance=2e-5, max_abs_err_bf16=err_bf16,
         tolerance_bf16=f"{BF16_OUT_RTOL} relative plus {BF16_OUT_ATOL}",
         splits=ns, chunk=chunk, resident_blocks=resident,
         waves=ns * B * Hkv / resident,
         registers=decode_registers().get("bf16 cache, bf16 q"),
-        ms=ms, achieved_GBps=decode_cost(shape)[0] / ms / 1e6,
+        ms=ms, **device_time(bare),
+        achieved_GBps=decode_cost(shape)[0] / ms / 1e6,
         wrapper_ms=time_ms(lambda: decode_attention(q, k, v, length,
                                                     softcap=cap), 20),
         plain_ms=time_ms(lambda: decode_attention_ref(q, k, v, length, scale,
@@ -2393,6 +2541,7 @@ def measure_ssm(gen, dev, shape) -> dict:
     return dict(
         max_abs_err=err, tolerance=3e-5,
         ms=time_ms(lambda: launch_selective_scan(*args, y), 10),
+        **device_time(lambda: launch_selective_scan(*args, y)),
         wrapper_ms=time_ms(lambda: selective_scan(*args), 10),
         plain_ms=plain_ms, library_ms=None,
         bound_sfu_ms=ssm_sfu_bound_ms(shape), registers=ssm_registers())
@@ -2413,6 +2562,7 @@ KERNELS = {
     "hash_probe": (probe_cost, measure_probe),
     "merge_runs": (merge_cost, measure_merge),
     "bitonic_sort": (sort_cost, measure_sort),
+    "bitonic_merge_rows": (merge_rows_cost, measure_merge_rows),
     "bitonic_apply": (apply_cost, measure_apply),
     "snapshot_copy": (snapshot_cost, measure_snapshot),
     "scan_exact_group": (lambda s: group_cost(s, "flat"),
@@ -2572,18 +2722,30 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     runs["lm_serve"] = phase_lm_serve(args)
     # every kernel's launches and shapes from the path that runs it
-    missing = [k for k in REPLACES
-               if k not in runs[PATH_OF.get(k, "main_path")][0]]
+    missing = [k for k in REPLACES if k not in NO_CALLER_SHAPE
+               and k not in runs[PATH_OF.get(k, "main_path")][0]]
     if missing:
         raise AssertionError(f"kernels never launched on their paths: "
                              f"{missing}")
-    launches = {k: runs[PATH_OF.get(k, "main_path")][0][k] for k in REPLACES}
-    measured = phase_kernels({k: runs[PATH_OF.get(k, "main_path")][1][k]
-                              for k in REPLACES})
+    launches = {k: runs[PATH_OF.get(k, "main_path")][0].get(k, 0)
+                for k in REPLACES}
+    shapes = {k: runs[PATH_OF.get(k, "main_path")][1][k] for k in REPLACES
+              if k not in NO_CALLER_SHAPE}
+    by_path = {}
+    for k, shape in NO_CALLER_SHAPE.items():
+        # the shapes any path launched it at, else the made-up one
+        by_path[k] = {p: r[0].get(k, 0) for p, r in runs.items()}
+        seen = {}
+        for r in runs.values():
+            for sh, c in r[1].get(k, {}).items():
+                seen[sh] = seen.get(sh, 0) + c
+        shapes[k] = seen or {shape: 0}
+    measured = phase_kernels(shapes)
 
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=SOURCES[k], replaces=REPLACES[k],
-             launches=launches[k], **m)
+             launches=launches[k], **m,
+             **({"launches_by_path": by_path[k]} if k in by_path else {}))
         for k, m in measured.items()]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

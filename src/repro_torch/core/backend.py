@@ -17,8 +17,8 @@ below, so the same code runs either on
 * ``MeshBackend`` (``"hopper@N/mesh"``, ``placement="mesh"``) - the same N
   islands, island *s* resident on its own device ``devices[s]``
   (``get_backend(..., devices=[...])``, default ``cuda:0 .. cuda:N-1``;
-  a list may repeat a device): a scan group is one launch per island on
-  its device, the exact int64 partials added on island 0's:
+  a list may repeat a device): a scan group is one launch per device over
+  its islands, the exact int64 partials added on island 0's:
 
     ==========================  =================================
     operator                    kernel
@@ -26,7 +26,7 @@ below, so the same code runs either on
     filter + aggregate          kernels/dict_ops.scan_filter_agg
                                 (+ _batch for fused multi-query,
                                 _sharded for all islands at once,
-                                _mesh for one launch per island device)
+                                _mesh for one launch per device)
     filter + aggregate + join   kernels/hash_probe.scan_filter_agg_join
                                 (+ _sharded, _mesh)
     delta-store corrections     kernels/dict_ops.scan_values_agg,
@@ -1195,8 +1195,8 @@ class MeshBackend(ShardedBackend):
     adopted straight from the per-island apply's shard columns
     (`place_shards`; `application.apply_updates_shards`,
     `ConsistencyManager.on_update_shards`). A scan group is one launch of
-    the scan kernel per island on its device, and the exact int64
-    partials add on island 0's device (`kernels.dict_ops.
+    the scan kernel per device over a table of its islands, and the exact
+    int64 partials add on island 0's device (`kernels.dict_ops.
     scan_filter_agg_mesh`, `kernels.hash_probe.scan_filter_agg_join_mesh`).
 
     Everything off the scan plane - log merge, the dictionary stages,
@@ -1254,7 +1254,7 @@ class MeshBackend(ShardedBackend):
             return col
         return self.shard_view(col)
 
-    # -- analytical engine: one launch per island, int64 reduction ---------
+    # -- analytical engine: one launch per device, int64 reduction ---------
     def filter_mask(self, col, lo, hi):
         view = self._as_view(col)
         code_lo, code_hi = self.code_range(view, lo, hi)

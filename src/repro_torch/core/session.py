@@ -32,8 +32,8 @@ scans all islands in one launch. On the mesh placement
 ``devices=``, default ``cuda:0 .. cuda:N-1``) island *s* lives on its own
 device: each island applies its own rows there, the swap installs the
 complete shard set as the next round's resident view, and a query group
-is one scan launch per island with the partials added on island 0's
-device, which also holds the replica. Answers depend only on the
+is one scan launch per device over its islands with the partials added on
+island 0's device, which also holds the replica. Answers depend only on the
 *visibility points* (which updates executed before each query), so any
 sub-chunking of the txn stream between two query batches, the island
 count and the placement are answer-neutral.

@@ -1,8 +1,10 @@
 """Public wrappers for the sort unit and the fused ship-batch pipeline
 (``csrc/bitonic.cu``): `sort_rows` / `sort_1024` (int32 or float32 keys;
-float32 NaN orders last, as torch.sort and jnp.sort put it), and
+float32 NaN orders last, as torch.sort and jnp.sort put it; rows wider
+than one tile merge their sorted tiles pairwise with the tile merge), and
 `apply_pipeline_batch` (sort the update values, merge them with the old
-dictionary), with their plain PyTorch versions.
+dictionary: one call of one C entry a ship batch), with their plain PyTorch
+versions. Every bare launch goes through `build.launch`.
 """
 
 from __future__ import annotations
@@ -24,62 +26,69 @@ def sort_rows_ref(x: torch.Tensor) -> torch.Tensor:
     return torch.sort(x, dim=1).values
 
 
-def _merge_rows_launch(lib, a_ptr, a_stride, wa, b_ptr, b_stride, wb, out,
-                       out_stride, w_out, rows, stream) -> None:
-    code = lib.bitonic_merge_rows(a_ptr, a_stride, wa, b_ptr, b_stride, wb,
-                                  out.data_ptr(), out_stride, w_out, rows,
-                                  KEY_TYPES[out.dtype], stream)
-    build.check(code, "bitonic_merge_rows")
+def launch_merge_rows(a_ptr, a_stride, wa, b_ptr, b_stride, wb, out,
+                      out_stride, w_out, rows) -> None:
+    """The bare launch of the tile merge (K6) on checked GPU memory: row r
+    of `rows` merges the ascending runs at ``a_ptr + r * a_stride`` (wa
+    keys) and ``b_ptr + r * b_stride`` (wb) into ``out`` (`out_stride`,
+    `w_out` slots, the padding key beyond wa + wb). Pointers are raw
+    addresses of `out`'s key type, strides in keys. No allocation, no
+    synchronisation."""
+    build.launch("bitonic_merge_rows", out.device, a_ptr, a_stride, wa, b_ptr,
+                 b_stride, wb, out.data_ptr(), out_stride, w_out, rows,
+                 KEY_TYPES[out.dtype])
 
 
-def launch_sort_tiles(x, buf, tile: int) -> None:
-    """The bare launch of the tile sort on checked GPU tensors: every
-    `tile`-wide slice of each row of x (rows, width) sorted into buf (rows,
-    width_pad). No allocation, no synchronisation."""
-    lib = build.load_library()
-    with torch.cuda.device(x.device):
-        code = lib.bitonic_sort_tiles(x.data_ptr(), buf.data_ptr(),
-                                      x.shape[0], x.shape[1], tile,
-                                      buf.shape[1], KEY_TYPES[x.dtype],
-                                      torch.cuda.current_stream().cuda_stream)
-    build.check(code, "bitonic_sort_tiles")
+def launch_sort_rows(x, out, scratch=None) -> None:
+    """The bare launch of the row sort on checked GPU tensors: each row of
+    x (rows, width) sorted into out (rows, width_pad), width_pad a power of
+    two; `scratch` (like out) for the pairwise merges when width_pad >
+    MAX_TILE, None otherwise. No allocation, no synchronisation."""
+    build.launch("bitonic_sort_rows", x.device, x.data_ptr(), out.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(),
+                 x.shape[0], x.shape[1], out.shape[1], KEY_TYPES[x.dtype])
 
 
-def launch_bitonic_apply(old_rows, val_rows, svals, merged) -> None:
+def launch_bitonic_apply(old_rows, val_rows, svals, merged,
+                         scratch=None) -> None:
     """The bare launch of the fused sort + merge on checked GPU tensors
-    with preallocated outputs. No allocation, no synchronisation."""
-    lib = build.load_library()
-    with torch.cuda.device(old_rows.device):
-        code = lib.bitonic_apply(old_rows.data_ptr(), old_rows.shape[1],
-                                 val_rows.data_ptr(), val_rows.shape[1],
-                                 svals.data_ptr(), merged.data_ptr(),
-                                 merged.shape[1], old_rows.shape[0],
-                                 torch.cuda.current_stream().cuda_stream)
-    build.check(code, "bitonic_apply")
+    with preallocated outputs; `scratch` as for `launch_sort_rows` (rows,
+    w_val) when w_val > MAX_TILE, None otherwise.
+    No allocation, no synchronisation."""
+    build.launch("bitonic_apply", old_rows.device, old_rows.data_ptr(),
+                 old_rows.shape[1], val_rows.data_ptr(), val_rows.shape[1],
+                 svals.data_ptr(), merged.data_ptr(), merged.shape[1],
+                 old_rows.shape[0],
+                 None if scratch is None else scratch.data_ptr())
+
+
+def merge_rows_ref(a, b, w_out: int) -> torch.Tensor:
+    """Plain PyTorch version of the tile merge: each row of a (rows, wa)
+    and b (rows, wb), both ascending, merged into (rows, w_out) with the
+    padding key beyond wa + wb (a sort of the concatenation)."""
+    pad = torch.full((a.shape[0], w_out - a.shape[1] - b.shape[1]),
+                     I32_MAX if a.dtype == torch.int32 else float("nan"),
+                     dtype=a.dtype, device=a.device)
+    return torch.sort(torch.cat([a, b, pad], dim=1), dim=1).values
 
 
 def _sort_rows_gpu(x: torch.Tensor) -> torch.Tensor:
-    """Tile sort in shared memory, then pairwise merges of the sorted tiles
-    for rows wider than one tile. Returns (rows, next_pow2(width)) with the
-    padding key (int32.max, or NaN for float32) in the padded tail."""
+    """One call of the row sort: tiles sorted in shared memory, then, for
+    rows wider than one tile, the sorted tiles merged pairwise by the tile
+    merge (each pass counted under ``bitonic_merge_rows`` with its shape
+    (rows, wa, wb)). Returns (rows, next_pow2(width)) with the padding key
+    (int32.max, or NaN for float32) in the padded tail."""
     rows, width = x.shape
     width_pad = next_pow2(max(width, 1))
-    tile = min(width_pad, MAX_TILE)
-    buf = torch.empty((rows, width_pad), dtype=x.dtype, device=x.device)
-    launch_sort_tiles(x, buf, tile)
-    lib = build.load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        run = tile
-        while run < width_pad:
-            # every adjacent pair of sorted runs of `run` values -> 2 * run
-            nxt = torch.empty_like(buf)
-            pairs = width_pad // (2 * run)
-            _merge_rows_launch(lib, buf.data_ptr(), 2 * run, run,
-                               buf.data_ptr() + 4 * run, 2 * run, run, nxt,
-                               2 * run, 2 * run, rows * pairs, stream)
-            buf, run = nxt, 2 * run
-    return buf
+    out = torch.empty((rows, width_pad), dtype=x.dtype, device=x.device)
+    launch_sort_rows(x, out, torch.empty_like(out) if width_pad > MAX_TILE
+                     else None)
+    run = min(width_pad, MAX_TILE)
+    while run < width_pad:
+        count_launch("bitonic_merge_rows",
+                     (rows * (width_pad // (2 * run)), run, run))
+        run *= 2
+    return out
 
 
 def sort_rows(x: torch.Tensor) -> torch.Tensor:
@@ -147,18 +156,9 @@ def apply_pipeline_batch(old_rows, val_rows):
                          device=old_rows.device)
     if rows == 0:
         return val_rows.clone(), merged
-    if w_val <= MAX_TILE:
-        svals = torch.empty_like(val_rows)
-        launch_bitonic_apply(old_rows, val_rows, svals, merged)
-    else:
-        # more update values than one block's shared memory sorts: the
-        # tiled sort, then the same merge against global memory
-        svals = _sort_rows_gpu(val_rows)
-        lib = build.load_library()
-        with torch.cuda.device(old_rows.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            _merge_rows_launch(lib, old_rows.data_ptr(), w_old, w_old,
-                               svals.data_ptr(), w_val, w_val, merged,
-                               w_merge, w_merge, rows, stream)
+    svals = torch.empty_like(val_rows)
+    launch_bitonic_apply(old_rows, val_rows, svals, merged,
+                         torch.empty_like(val_rows) if w_val > MAX_TILE
+                         else None)
     count_launch("bitonic_apply", (rows, w_old, w_val))
     return svals, merged

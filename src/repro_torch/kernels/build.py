@@ -43,18 +43,20 @@ _SIGNATURES = {
     # width corr_a nr_a corr_base corr_j nr_j vbounds out stream
     "scan_exact": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _L, _P, _L, _I,
                    _P, _L, _P, _P, _P),
+    # table(host) n_islands bounds nq join out stream
+    "scan_exact_islands": (_P, _I, _P, _I, _I, _P, _P),
     # queries n_shards width keys vals n_buckets slots default out stream
     "hash_probe": (_P, _I, _L, _P, _P, _I, _I, _I, _P, _P),
     # a ai b bi out_keys out_idx rows wa wb stream
     "merge_runs": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # keys offsets(host) k out_keys out_idx stream
     "merge_runs_kway": (_P, _P, _I, _P, _P, _P),
-    # in out rows width tile width_pad key_type stream
-    "bitonic_sort_tiles": (_P, _P, _I, _I, _I, _I, _I, _P),
+    # in out scratch rows width width_pad key_type stream
+    "bitonic_sort_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
     # a a_stride wa b b_stride wb out out_stride w_out rows key_type stream
     "bitonic_merge_rows": (_P, _L, _I, _P, _L, _I, _P, _L, _I, _I, _I, _P),
-    # old w_old vals w_val svals merged w_merge rows stream
-    "bitonic_apply": (_P, _I, _P, _I, _P, _P, _I, _I, _P),
+    # old w_old vals w_val svals merged w_merge rows scratch stream
+    "bitonic_apply": (_P, _I, _P, _I, _P, _P, _I, _I, _P, _P),
     # src prev dirty out n block stream
     "snapshot_copy": (_P, _P, _P, _P, _L, _I, _P),
     # q q_bf16 k v kv_bf16 out part_m part_l part_acc counters B S H Hkv d

@@ -39,6 +39,21 @@
 // answered per pass over the rows; a larger group takes one grid slice
 // (blockIdx.y) per QT predicates.
 //
+// The mesh scans (`scan_exact_islands`). They replace `_mesh_scan_call` /
+// `scan_filter_agg_mesh` (kernels/dict_ops/ops.py) and `_mesh_join_call` /
+// `scan_filter_agg_join_mesh` (kernels/hash_probe/ops.py), which run the
+// sharded scan on every island of a device mesh in one `shard_map` and
+// psum the partials. Here an island is a flat column of its own on its own
+// device; the islands that share a device (up to MAX_ISLANDS) are one
+// launch of the same row walk with the island as the grid's z index. Their
+// column pointers, lengths, dictionaries and histograms travel by value in
+// the launch's parameters (a table of about 1 KB), so nothing is copied to
+// the device for the launch, islands of any widths and offsets share it
+// (each island finds its own first 16-byte boundary; blocks past an
+// island's rows leave at once), and every island's blocks add into ONE
+// (lanes, Q) output per device with the same 64-bit atomics: islands that
+// share a card cost one launch and no reduction on the host.
+//
 // The correction lane (the delta store). It replaces the raw-value scan
 // `_scan_values_kernel` / `scan_values_agg_exact_kernel`
 // (kernels/dict_ops/dict_ops.py) and the fused composites built on it:
@@ -165,6 +180,103 @@ __device__ __forceinline__ void corr_pass(const int* __restrict__ stack,
     }
 }
 
+// This block's share of one column's rows (a shard, or an island): n rows
+// at fcodes/acodes/fvalid (and jcodes/jvalid with the join lane), the
+// thread's rows strided over the grid's x dimension. With VEC the first
+// `head` rows are read one a thread, up to the 16-byte boundary, then 16
+// bytes (4 rows) a thread-step, the ragged tail one a thread.
+template <bool JOIN, bool VEC>
+__device__ __forceinline__ void scan_rows(Acc<JOIN>& acc,
+                                          const int* __restrict__ fcodes,
+                                          const int* __restrict__ acodes,
+                                          const uint8_t* __restrict__ fvalid,
+                                          const int* __restrict__ jcodes,
+                                          const uint8_t* __restrict__ jvalid,
+                                          long long n, long long head,
+                                          const int* __restrict__ ad,
+                                          const int* __restrict__ rc) {
+    const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const long long nthreads = (long long)gridDim.x * blockDim.x;
+    if (VEC) {
+        if (tid < head)
+            acc.row(fcodes[tid], acodes[tid], fvalid[tid],
+                    JOIN ? jcodes[tid] : 0, JOIN ? jvalid[tid] : 0u, ad, rc);
+        const long long n4 = (n - head) >> 2;
+        const int4* f4 = reinterpret_cast<const int4*>(fcodes + head);
+        const int4* a4 = reinterpret_cast<const int4*>(acodes + head);
+        const uchar4* v4 = reinterpret_cast<const uchar4*>(fvalid + head);
+        const int4* j4 =
+            JOIN ? reinterpret_cast<const int4*>(jcodes + head) : nullptr;
+        const uchar4* w4 =
+            JOIN ? reinterpret_cast<const uchar4*>(jvalid + head) : nullptr;
+        for (long long g = tid; g < n4; g += nthreads) {
+            const int4 f = f4[g];
+            const int4 a = a4[g];
+            const uchar4 v = v4[g];
+            int4 j = make_int4(0, 0, 0, 0);
+            uchar4 w = make_uchar4(0, 0, 0, 0);
+            if (JOIN) {
+                j = j4[g];
+                w = w4[g];
+            }
+            acc.row(f.x, a.x, v.x, j.x, w.x, ad, rc);
+            acc.row(f.y, a.y, v.y, j.y, w.y, ad, rc);
+            acc.row(f.z, a.z, v.z, j.z, w.z, ad, rc);
+            acc.row(f.w, a.w, v.w, j.w, w.w, ad, rc);
+        }
+        // ragged tail (fewer than 4 rows), masked here rather than padded
+        const long long i = head + (n4 << 2) + tid;
+        if (i < n)
+            acc.row(fcodes[i], acodes[i], fvalid[i], JOIN ? jcodes[i] : 0,
+                    JOIN ? jvalid[i] : 0u, ad, rc);
+    } else {
+        for (long long i = tid; i < n; i += nthreads)
+            acc.row(fcodes[i], acodes[i], fvalid[i], JOIN ? jcodes[i] : 0,
+                    JOIN ? jvalid[i] : 0u, ad, rc);
+    }
+}
+
+// The predicates of this block's grid slice (blockIdx.y) into acc.
+template <bool JOIN>
+__device__ __forceinline__ void init_acc(Acc<JOIN>& acc,
+                                         const int* __restrict__ bounds,
+                                         int nq, int q0) {
+#pragma unroll
+    for (int t = 0; t < QT; ++t) {
+        const bool live = q0 + t < nq;
+        acc.lo[t] = live ? bounds[2 * (q0 + t)] : 0;
+        acc.hi[t] = live ? bounds[2 * (q0 + t) + 1] : 0;   // empty range
+        acc.sum[t] = 0;
+        acc.jsum[t] = 0;
+        acc.cnt[t] = 0;
+    }
+}
+
+template <bool JOIN>
+__device__ __forceinline__ void reduce_acc(const Acc<JOIN>& acc,
+                                           unsigned long long* red) {
+#pragma unroll
+    for (int t = 0; t < QT; ++t) {
+        add_warp(&red[t], acc.sum[t]);
+        add_warp(&red[QT + t], (long long)acc.cnt[t]);
+        if (JOIN) add_warp(&red[2 * QT + t], acc.jsum[t]);
+    }
+}
+
+// The block's partials (red, after a __syncthreads) added into a (lanes, nq)
+// output: one 64-bit atomicAdd per (lane, predicate).
+template <int LANES>
+__device__ __forceinline__ void add_block(const unsigned long long* red,
+                                          unsigned long long* out, int nq,
+                                          int q0) {
+    if (threadIdx.x < LANES * QT) {
+        const int which = threadIdx.x / QT;
+        const int t = threadIdx.x % QT;
+        const unsigned long long v = red[which * QT + t];
+        if (q0 + t < nq && v) atomicAdd(&out[which * nq + q0 + t], v);
+    }
+}
+
 // Two blocks per SM for the scan alone (at most 64 registers a thread, as
 // the flat kernel used before the shard axis); the join lane needs more
 // registers than that and keeps one. With CORR the grid has one more z
@@ -206,88 +318,79 @@ scan_exact_kernel(const int* __restrict__ fcodes,
         // pointers themselves are aligned when VEC)
         long long head = VEC ? (4 - (base & 3)) & 3 : 0;
         if (head > n) head = n;
-        fcodes += base;
-        acodes += base;
-        fvalid += base;
-        if (JOIN) {
-            jcodes += base;
-            jvalid += base;
-        }
-        const int* ad = adict;
-        const int* rc = rcount;
-
         Acc<JOIN> acc;
-#pragma unroll
-        for (int t = 0; t < QT; ++t) {
-            const bool live = q0 + t < nq;
-            acc.lo[t] = live ? bounds[2 * (q0 + t)] : 0;
-            acc.hi[t] = live ? bounds[2 * (q0 + t) + 1] : 0;   // empty range
-            acc.sum[t] = 0;
-            acc.jsum[t] = 0;
-            acc.cnt[t] = 0;
-        }
-
-        const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-        const long long nthreads = (long long)gridDim.x * blockDim.x;
-        if (VEC) {
-            if (tid < head)
-                acc.row(fcodes[tid], acodes[tid], fvalid[tid],
-                        JOIN ? jcodes[tid] : 0, JOIN ? jvalid[tid] : 0u, ad,
-                        rc);
-            const long long n4 = (n - head) >> 2;
-            const int4* f4 = reinterpret_cast<const int4*>(fcodes + head);
-            const int4* a4 = reinterpret_cast<const int4*>(acodes + head);
-            const uchar4* v4 = reinterpret_cast<const uchar4*>(fvalid + head);
-            const int4* j4 =
-                JOIN ? reinterpret_cast<const int4*>(jcodes + head) : nullptr;
-            const uchar4* w4 =
-                JOIN ? reinterpret_cast<const uchar4*>(jvalid + head) : nullptr;
-            for (long long g = tid; g < n4; g += nthreads) {
-                const int4 f = f4[g];
-                const int4 a = a4[g];
-                const uchar4 v = v4[g];
-                int4 j = make_int4(0, 0, 0, 0);
-                uchar4 w = make_uchar4(0, 0, 0, 0);
-                if (JOIN) {
-                    j = j4[g];
-                    w = w4[g];
-                }
-                acc.row(f.x, a.x, v.x, j.x, w.x, ad, rc);
-                acc.row(f.y, a.y, v.y, j.y, w.y, ad, rc);
-                acc.row(f.z, a.z, v.z, j.z, w.z, ad, rc);
-                acc.row(f.w, a.w, v.w, j.w, w.w, ad, rc);
-            }
-            // ragged tail (fewer than 4 rows), masked here rather than padded
-            const long long i = head + (n4 << 2) + tid;
-            if (i < n)
-                acc.row(fcodes[i], acodes[i], fvalid[i], JOIN ? jcodes[i] : 0,
-                        JOIN ? jvalid[i] : 0u, ad, rc);
-        } else {
-            for (long long i = tid; i < n; i += nthreads)
-                acc.row(fcodes[i], acodes[i], fvalid[i], JOIN ? jcodes[i] : 0,
-                        JOIN ? jvalid[i] : 0u, ad, rc);
-        }
-
-#pragma unroll
-        for (int t = 0; t < QT; ++t) {
-            add_warp(&red[t], acc.sum[t]);
-            add_warp(&red[QT + t], (long long)acc.cnt[t]);
-            if (JOIN) add_warp(&red[2 * QT + t], acc.jsum[t]);
-        }
+        init_acc(acc, bounds, nq, q0);
+        scan_rows<JOIN, VEC>(acc, fcodes + base, acodes + base, fvalid + base,
+                             JOIN ? jcodes + base : nullptr,
+                             JOIN ? jvalid + base : nullptr, n, head, adict,
+                             rcount);
+        reduce_acc(acc, red);
     }
     __syncthreads();
-    if (threadIdx.x < lanes * QT) {
-        const int which = threadIdx.x / QT;
-        const int t = threadIdx.x % QT;
-        const unsigned long long v = red[which * QT + t];
-        if (q0 + t < nq && v)   // slice z's partials start at z * lanes * nq
-            atomicAdd(&out[((long long)blockIdx.z * lanes + which) * nq + q0
-                           + t], v);
-    }
+    // slice z's partials start at z * lanes * nq
+    add_block<lanes>(red, out + (long long)blockIdx.z * lanes * nq, nq, q0);
+}
+
+// The mesh scans: up to MAX_ISLANDS islands of one device in one launch,
+// each its own flat column (own pointers, own length, own dictionary and
+// build-side histogram), the island the grid's z index. `head` is the
+// island's rows before its first 16-byte boundary, -1 where its columns are
+// not aligned alike (then it is read one row a thread).
+constexpr int MAX_ISLANDS = 16;
+
+struct Island {
+    const int* fcodes;
+    const int* acodes;
+    const uint8_t* fvalid;
+    const int* adict;
+    const int* jcodes;
+    const uint8_t* jvalid;
+    const int* rcount;
+    long long n;
+    int head;
+};
+
+struct IslandTable {              // travels in the launch's parameters
+    Island at[MAX_ISLANDS];
+};
+
+template <bool JOIN>
+__global__ void __launch_bounds__(THREADS, JOIN ? 1 : 2)
+scan_islands_kernel(const __grid_constant__ IslandTable tab,
+                    const int* __restrict__ bounds, int nq,
+                    unsigned long long* __restrict__ out) {
+    __shared__ unsigned long long red[3 * QT];
+    const Island& isl = tab.at[blockIdx.z];
+    // an island narrower than the widest has blocks with no rows of its
+    // own (the whole block leaves together)
+    if ((long long)blockIdx.x * blockDim.x >= isl.n) return;
+    if (threadIdx.x < 3 * QT) red[threadIdx.x] = 0ull;
+    __syncthreads();
+    const int q0 = blockIdx.y * QT;
+    Acc<JOIN> acc;
+    init_acc(acc, bounds, nq, q0);
+    const long long head = isl.head < isl.n ? isl.head : isl.n;
+    if (isl.head >= 0)
+        scan_rows<JOIN, true>(acc, isl.fcodes, isl.acodes, isl.fvalid,
+                              isl.jcodes, isl.jvalid, isl.n, head, isl.adict,
+                              isl.rcount);
+    else
+        scan_rows<JOIN, false>(acc, isl.fcodes, isl.acodes, isl.fvalid,
+                               isl.jcodes, isl.jvalid, isl.n, 0, isl.adict,
+                               isl.rcount);
+    reduce_acc(acc, red);
+    __syncthreads();
+    // every island of the launch adds into the one output
+    add_block<JOIN ? 3 : 2>(red, out, nq, q0);
 }
 
 inline bool aligned(const void* p, uintptr_t a) {
     return (reinterpret_cast<uintptr_t>(p) & (a - 1)) == 0;
+}
+
+// an int32 column's row position modulo 4 (its 16-byte phase)
+inline uintptr_t row_mod4(const int* p) {
+    return (reinterpret_cast<uintptr_t>(p) >> 2) & 3;
 }
 
 template <bool JOIN, bool VEC, bool CORR>
@@ -329,6 +432,34 @@ cudaError_t launch(const int* fcodes, const int* acodes, const uint8_t* fvalid,
                                        nq, jcodes, jvalid, rcount, width,
                                        corr_a, nr_a, corr_base, corr_j, nr_j,
                                        vbounds, out);
+    return cudaGetLastError();
+}
+
+// The island kernel's grid: as many blocks as the card holds at once,
+// shared among the islands, each island's share sized for the widest.
+template <bool JOIN>
+cudaError_t launch_islands(const IslandTable& tab, int n_islands,
+                           long long widest, const int* bounds, int nq,
+                           unsigned long long* out, cudaStream_t stream) {
+    auto kern = scan_islands_kernel<JOIN>;
+    cudaError_t err;
+    int dev = 0, sms = 0, occ = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess)
+        return err;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &occ, kern, THREADS, 0)) != cudaSuccess)
+        return err;
+    if (occ < 1) return cudaErrorLaunchOutOfResources;
+    long long want = (widest + THREADS * 4LL - 1) / (THREADS * 4LL);
+    long long cap = (long long)sms * occ / n_islands;
+    if (cap < 1) cap = 1;
+    if (want > cap) want = cap;
+    if (want < 1) want = 1;
+    dim3 grid((unsigned)want, (unsigned)((nq + QT - 1) / QT),
+              (unsigned)n_islands);
+    kern<<<grid, THREADS, 0, stream>>>(tab, bounds, nq, out);
     return cudaGetLastError();
 }
 
@@ -381,6 +512,59 @@ extern "C" int scan_exact(const int* fcodes, const int* acodes,
     }
 #undef GO
     return (int)err;
+}
+
+// The mesh scans' launch: `table` is HOST memory, ISLAND_FIELDS int64s per
+// island - fcodes, acodes, fvalid, adict, jcodes, jvalid, rcount (device
+// pointers; the last three 0 without the join lane) and the island's rows
+// n - for 1 <= n_islands <= MAX_ISLANDS non-empty flat islands on the
+// current device. Every island's (sums, counts[, join sums]) for the
+// (nq, 2) code ranges `bounds` are added into the one zeroed (2|3, nq)
+// int64 `out`.
+constexpr int ISLAND_FIELDS = 8;
+
+extern "C" int scan_exact_islands(const long long* table, int n_islands,
+                                  const int* bounds, int nq, int join,
+                                  unsigned long long* out, void* stream) {
+    if (nq <= 0 || n_islands == 0) return (int)cudaSuccess;
+    if (n_islands < 0 || n_islands > MAX_ISLANDS ||
+        (nq + QT - 1) / QT > 65535)
+        return (int)cudaErrorInvalidValue;
+    IslandTable tab = {};
+    long long widest = 0;
+    for (int s = 0; s < n_islands; ++s) {
+        const long long* f = table + s * ISLAND_FIELDS;
+        Island& isl = tab.at[s];
+        isl.fcodes = reinterpret_cast<const int*>(f[0]);
+        isl.acodes = reinterpret_cast<const int*>(f[1]);
+        isl.fvalid = reinterpret_cast<const uint8_t*>(f[2]);
+        isl.adict = reinterpret_cast<const int*>(f[3]);
+        isl.jcodes = join ? reinterpret_cast<const int*>(f[4]) : nullptr;
+        isl.jvalid = join ? reinterpret_cast<const uint8_t*>(f[5]) : nullptr;
+        isl.rcount = join ? reinterpret_cast<const int*>(f[6]) : nullptr;
+        isl.n = f[7];
+        if (isl.n <= 0 || (join && (!isl.jcodes || !isl.jvalid)))
+            return (int)cudaErrorInvalidValue;
+        if (isl.n > widest) widest = isl.n;
+        // 16-byte loads from the first row at which every column is
+        // aligned, where that is one row for all of them: an island is a
+        // slice of a column at any offset, so only its rows' position
+        // modulo 4 tells (int32 columns: address / 4, bytes: address)
+        const uintptr_t m = row_mod4(isl.fcodes);
+        bool same = aligned(isl.fcodes, 4) && aligned(isl.acodes, 4) &&
+                    row_mod4(isl.acodes) == m &&
+                    (reinterpret_cast<uintptr_t>(isl.fvalid) & 3) == m;
+        if (join)
+            same = same && aligned(isl.jcodes, 4) &&
+                   row_mod4(isl.jcodes) == m &&
+                   (reinterpret_cast<uintptr_t>(isl.jvalid) & 3) == m;
+        isl.head = same ? (int)((4 - m) & 3) : -1;
+    }
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    return (int)(join ? launch_islands<true>(tab, n_islands, widest, bounds,
+                                             nq, out, st)
+                      : launch_islands<false>(tab, n_islands, widest, bounds,
+                                              nq, out, st));
 }
 
 // The text of a CUDA error code, for the Python side's exceptions.

@@ -26,8 +26,13 @@ not padded.
 
 On the mesh placement (`scan_filter_agg_mesh`, and the join group's
 `scan_filter_agg_join_mesh` in ``kernels/hash_probe``) each island's shard
-is a flat column on its own device: one launch of the same kernel per
-island there, and the int64 partials added on island 0's device.
+is a flat column on its own device: one launch of the scan's island-table
+entry per device (up to MAX_ISLANDS islands a launch, `mesh_launch_groups`)
+adding every island there into one int64 partial, and the partials of
+other devices added on island 0's device.
+
+Every bare launch goes through `build.launch` (the raw stream handle, a
+device guard only off the current device).
 
 The reference's original float32 single-predicate scan
 (``scan_filter_agg(exact=False)``) is a kernel of its own,
@@ -36,6 +41,8 @@ device as 0-d tensors.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -106,7 +113,6 @@ def launch_scan_exact(fcodes, acodes, fvalid_u8, adict, bounds_dev, out,
     join lane, `corr_j` ((6, nr) int32), into one more row of `out`:
     (S + 1, 2|3, Q), a flat column counting as S = 1. `fcodes` None runs
     the lane alone into a (1, 2, Q) `out`."""
-    join = jcodes is not None
     if fcodes is None:
         n_shards, width = 0, 0
     else:
@@ -115,16 +121,13 @@ def launch_scan_exact(fcodes, acodes, fvalid_u8, adict, bounds_dev, out,
     nq = (bounds_dev if bounds_dev is not None else vbounds_dev).shape[0]
     nr_a = 0 if corr_a is None else corr_a.shape[1]
     nr_j = 0 if corr_j is None else corr_j.shape[1]
-    lib = build.load_library()
-    with torch.cuda.device(out.device):
-        code = lib.scan_exact(
-            _ptr(fcodes), _ptr(acodes), _ptr(fvalid_u8), _ptr(adict),
-            _ptr(bounds_dev), nq, _ptr(jcodes), _ptr(jvalid_u8),
-            _ptr(rcount), n_shards, width,
-            _ptr(corr_a), nr_a, int(corr_a is None or corr_a.shape[0] == 6),
-            _ptr(corr_j), nr_j, _ptr(vbounds_dev),
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    build.check(code, "scan_exact")
+    corr_base = int(corr_a is None or corr_a.shape[0] == 6)
+    build.launch("scan_exact", out.device,
+                 _ptr(fcodes), _ptr(acodes), _ptr(fvalid_u8), _ptr(adict),
+                 _ptr(bounds_dev), nq, _ptr(jcodes), _ptr(jvalid_u8),
+                 _ptr(rcount), n_shards, width, _ptr(corr_a), nr_a,
+                 corr_base, _ptr(corr_j), nr_j, _ptr(vbounds_dev),
+                 out.data_ptr())
 
 
 def scan_exact(fcodes, acodes, fvalid, adict, bounds, jcodes=None,
@@ -237,15 +240,11 @@ def launch_scan_float(fcodes, acodes, valid_u8, dictionary, code_lo: int,
     """The bare launch on checked GPU tensors: ``psum``/``pcnt`` scratch
     of the first pass's blocks, ``out_sum`` (1,) float32, ``out_cnt`` (1,)
     int32. No allocation, no synchronisation."""
-    lib = build.load_library()
-    with torch.cuda.device(fcodes.device):
-        code = lib.scan_float(
-            fcodes.data_ptr(), acodes.data_ptr(), valid_u8.data_ptr(),
-            dictionary.data_ptr(), fcodes.shape[0], int(code_lo),
-            int(code_hi), psum.data_ptr(), pcnt.data_ptr(), psum.shape[0],
-            out_sum.data_ptr(), out_cnt.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    build.check(code, "scan_float")
+    build.launch("scan_float", fcodes.device, fcodes.data_ptr(),
+                 acodes.data_ptr(), valid_u8.data_ptr(), dictionary.data_ptr(),
+                 fcodes.shape[0], int(code_lo), int(code_hi), psum.data_ptr(),
+                 pcnt.data_ptr(), psum.shape[0], out_sum.data_ptr(),
+                 out_cnt.data_ptr())
 
 
 def scan_filter_agg_float(fcodes, acodes, valid, dictionary, code_lo,
@@ -565,20 +564,28 @@ def scan_filter_agg_group_sharded(fcodes, acodes, valid, dictionary,
 
 
 # ---------------------------------------------------------------------------
-# The mesh placement: one launch per island device, int64 reduction
+# The mesh placement: one launch per device, over a table of its islands
 # ---------------------------------------------------------------------------
 #
 # The JAX package runs every island's scan in one `shard_map` call and
 # psums the partials over the island axis as 16-bit lanes (its kernels had
-# no int64). Here island s's flat shard lies on its own device, so the scan
-# is one `scan_exact.cu` launch per island on that device, and the (2|3, Q)
-# int64 partials are added exactly on island 0's device, in island order:
-# no lanes, and no NCCL (its collectives refuse a device listed twice, and
-# the partials are 3 * Q int64s an island). A copy of a partial to island
-# 0's device is ordered after its launch on the source device's current
-# stream. Arguments are sequences with one tensor per island (codes,
-# validity, and the replicated dictionary and build-side histogram, each
-# on its island's device); `bounds` is the host sequence of code ranges.
+# no int64). Here island s's flat shard lies on its own device. The islands
+# of one device are one `scan_exact_islands` launch there (up to
+# MAX_ISLANDS; more make more launches into the same output), their column
+# pointers, lengths, dictionaries and histograms in a table passed by value
+# with the launch, and every island's blocks add into one zeroed (2|3, Q)
+# int64 partial per device. On one card that partial is the answer: no copy,
+# no add. Across cards each other device's partial is copied to island 0's
+# device and added there, in device order: no lanes, and no NCCL (its
+# collectives refuse a device listed twice, and the partials are 3 * Q
+# int64s a device). A copy is ordered after the launch on the source
+# device's current stream. Arguments are sequences with one tensor per
+# island (codes, validity, and the replicated dictionary and build-side
+# histogram, each on its island's device, not assumed to be one tensor);
+# `bounds` is the host sequence of code ranges.
+
+MAX_ISLANDS = 16    # islands one launch takes (csrc/scan_exact.cu)
+
 
 def _islands(*per_island) -> list[tuple]:
     """Regroup per-argument sequences into per-island tuples."""
@@ -587,6 +594,48 @@ def _islands(*per_island) -> list[tuple]:
         raise ValueError("every mesh argument needs one tensor per island "
                          f"(got {[len(p) for p in per_island]})")
     return list(zip(*per_island))
+
+
+def mesh_launch_groups(devices, sizes) -> list[tuple[torch.device,
+                                                     list[int]]]:
+    """The launches of a mesh scan: ``(device, island indices)`` per launch.
+    Empty islands (``sizes[s] == 0``) launch nothing; the others are
+    grouped by device, in island order, at most MAX_ISLANDS a launch. Devices
+    come in the order of their first non-empty island, each device's
+    launches together."""
+    per_device: dict = {}
+    for s, (dev, n) in enumerate(zip(devices, sizes)):
+        if not n:
+            continue
+        groups = per_device.setdefault(dev, [])
+        if not groups or len(groups[-1]) == MAX_ISLANDS:
+            groups.append([])
+        groups[-1].append(s)
+    return [(dev, g) for dev, groups in per_device.items() for g in groups]
+
+
+def _island_table(islands) -> ctypes.Array:
+    """The launch's island table: 8 int64s an island (the 7 column
+    pointers, 0 for the join lane's when there is none, and n)."""
+    vals = []
+    for isl in islands:
+        f, a, fv, ad = isl[:4]
+        j, jv, rc = isl[4:] if len(isl) == 7 else (None, None, None)
+        vals += [f.data_ptr(), a.data_ptr(), fv.data_ptr(), ad.data_ptr(),
+                 _ptr(j) or 0, _ptr(jv) or 0, _ptr(rc) or 0, f.shape[0]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def launch_scan_exact_islands(islands, bounds_dev, out) -> None:
+    """The bare launch of ``scan_exact_islands`` on checked GPU tensors:
+    1 - MAX_ISLANDS non-empty islands, each a tuple (fcodes, acodes,
+    fvalid_u8, adict[, jcodes, jvalid_u8, rcount]) of flat tensors on
+    `out`'s device, `bounds_dev` their (Q, 2) int32 bounds there, `out` a
+    zeroed (2|3, Q) int64 partial every island adds into. No allocation, no
+    synchronisation."""
+    build.launch("scan_exact_islands", out.device, _island_table(islands),
+                 len(islands), bounds_dev.data_ptr(), bounds_dev.shape[0],
+                 int(len(islands[0]) == 7), out.data_ptr())
 
 
 def scan_exact_mesh_ref(fcodes, acodes, fvalid, adict, bounds, jcodes=None,
@@ -602,19 +651,23 @@ def scan_exact_mesh_ref(fcodes, acodes, fvalid, adict, bounds, jcodes=None,
     return total
 
 
-def launch_scan_exact_mesh(islands, bounds_devs, outs) -> torch.Tensor:
+def launch_scan_exact_mesh(islands, groups, bounds_devs, outs
+                           ) -> torch.Tensor:
     """The bare launches of a mesh scan on checked GPU tensors: island s's
     ``islands[s]`` = (fcodes, acodes, fvalid_u8, adict[, jcodes, jvalid_u8,
-    rcount]) flat on its device, ``bounds_devs[s]`` its (Q, 2) int32 bounds
-    there, ``outs[s]`` its zeroed (2|3, Q) int64 partials there. Empty
-    islands launch nothing. Adds the partials into ``outs[0]`` in island
-    order and returns it. No allocation beyond the copies of the partials,
-    no synchronisation."""
-    for isl, barr, out in zip(islands, bounds_devs, outs):
-        if isl[0].shape[0]:
-            launch_scan_exact(*isl[:4], barr, out, *isl[4:])
-    total = outs[0]
-    for out in outs[1:]:
+    rcount]) flat on its device, `groups` its launches
+    (`mesh_launch_groups`), ``bounds_devs[device]`` the (Q, 2) int32 bounds
+    and ``outs[device]`` the zeroed (2|3, Q) int64 partial of every device
+    that launches, island 0's device first in `outs` (its partial is the
+    total). One launch per group; then every other device's partial is
+    copied to the first and added there. Returns the first. No allocation
+    beyond those copies, no synchronisation."""
+    for dev, members in groups:
+        launch_scan_exact_islands([islands[s] for s in members],
+                                  bounds_devs[dev], outs[dev])
+    parts = iter(outs.values())
+    total = next(parts)
+    for out in parts:
         total.add_(out.to(total.device))
     return total
 
@@ -623,10 +676,12 @@ def scan_exact_mesh(fcodes, acodes, fvalid, adict, bounds, jcodes=None,
                     jvalid=None, rcount=None) -> torch.Tensor:
     """Every island's scan on its own device, reduced exactly: a (2, Q)
     int64 tensor (sums, counts), or (3, Q) with the join lane, on island
-    0's device. On GPU islands one `scan_exact.cu` launch per non-empty
-    island (counted under ``scan_exact`` / ``scan_exact_join`` with that
-    island's shape); on CPU islands the plain version. Islands must all be
-    on GPUs or all on the CPU."""
+    0's device. On GPU islands one `scan_exact_islands` launch per
+    (device, group of up to MAX_ISLANDS non-empty islands), counted under
+    ``scan_exact_mesh`` / ``scan_exact_join_mesh`` with the shape
+    (islands in the launch, widest island, k[, kj], Q), k and kj the
+    largest dictionary and histogram among them; on CPU islands the plain
+    version. Islands must all be on GPUs or all on the CPU."""
     join = jcodes is not None
     extra = (jcodes, jvalid, rcount) if join else ()
     islands = _islands(fcodes, acodes, fvalid, adict, *extra)
@@ -638,10 +693,9 @@ def scan_exact_mesh(fcodes, acodes, fvalid, adict, bounds, jcodes=None,
                                    jcodes, jvalid, rcount)
     bounds = list(bounds)
     nq, lanes = len(bounds), 3 if join else 2
-    checked, bounds_devs, outs, per_device = [], [], [], {}
+    checked = []
     for isl in islands:
         f, a, fv, ad = isl[:4]
-        dev = f.device
         fv = as_u8(fv)
         check_tensor(f, torch.int32, "fcodes", 1)
         check_tensor(a, torch.int32, "acodes", 1)
@@ -661,18 +715,20 @@ def scan_exact_mesh(fcodes, acodes, fvalid, adict, bounds, jcodes=None,
                                  "its fcodes")
             rest = (j, jv, rc)
         checked.append((f, a, fv, ad) + rest)
-        if dev not in per_device:                   # one upload per device
-            per_device[dev] = _bounds_tensor(bounds, dev)
-        bounds_devs.append(per_device[dev])
-        outs.append(torch.zeros((lanes, nq), dtype=torch.int64, device=dev))
-    if nq == 0:
-        return outs[0]
-    total = launch_scan_exact_mesh(checked, bounds_devs, outs)
-    name = "scan_exact_join" if join else "scan_exact"
-    for isl in checked:
-        if isl[0].shape[0]:
-            count_launch(name, (isl[0].shape[0], isl[3].shape[0]) + (
-                (isl[6].shape[0],) if join else ()) + (nq,))
+    groups = mesh_launch_groups([isl[0].device for isl in checked],
+                                [isl[0].shape[0] for isl in checked])
+    first = checked[0][0].device
+    outs = {dev: torch.zeros((lanes, nq), dtype=torch.int64, device=dev)
+            for dev in dict.fromkeys([first] + [dev for dev, _ in groups])}
+    if nq == 0 or not groups:
+        return outs[first]
+    bounds_devs = {dev: _bounds_tensor(bounds, dev) for dev, _ in groups}
+    total = launch_scan_exact_mesh(checked, groups, bounds_devs, outs)
+    name = "scan_exact_join_mesh" if join else "scan_exact_mesh"
+    for _, members in groups:
+        widest = [max(checked[s][c].shape[0] for s in members)
+                  for c in ((0, 3, 6) if join else (0, 3))]
+        count_launch(name, (len(members), *widest, nq))
     return total
 
 

@@ -18,8 +18,8 @@
   same scan with the EFFECTIVE histogram plus the correction lane over the
   aggregate stack and the join-weight stack, in one launch.
 * `scan_filter_agg_join_mesh`: the join group on the mesh placement - one
-  launch of the same scan per island, on the island's own device, and the
-  exact int64 partials added on island 0's device.
+  launch of the same scan per device over a table of its islands, and the
+  devices' exact int64 partials added on island 0's device.
 """
 
 from __future__ import annotations
@@ -299,8 +299,9 @@ def scan_filter_agg_join_mesh(fcodes, acodes, jcodes, fvalid, jvalid, adict,
     and `rcount` are the replicated dictionary and the GLOBAL build-side
     histogram (int32, e.g. ``MeshView.island_rcounts``), so each island's
     partial join count probes the full build side. One launch of the scan
-    with its join lane per island, the partials added exactly on island
-    0's device. Returns ``[(sum, count, join_count)] * Q`` as exact Python
+    with its join lane per device for up to 16 of its islands (the island
+    table), the devices' partials added exactly on island 0's device.
+    Returns ``[(sum, count, join_count)] * Q`` as exact Python
     ints."""
     bounds = list(bounds)
     if not bounds:

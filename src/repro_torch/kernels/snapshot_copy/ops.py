@@ -19,13 +19,8 @@ def snapshot_copy_ref(src, prev, dirty, block: int = 8192) -> torch.Tensor:
 def launch_snapshot_copy(src, prev, flags_u8, out, block: int = 8192) -> None:
     """The bare launch on checked GPU tensors: `flags_u8` one byte per
     chunk, `out` preallocated. No allocation, no synchronisation."""
-    lib = build.load_library()
-    with torch.cuda.device(src.device):
-        code = lib.snapshot_copy(src.data_ptr(), prev.data_ptr(),
-                                 flags_u8.data_ptr(), out.data_ptr(),
-                                 src.shape[0], int(block),
-                                 torch.cuda.current_stream().cuda_stream)
-    build.check(code, "snapshot_copy")
+    build.launch("snapshot_copy", src.device, src.data_ptr(), prev.data_ptr(),
+                 flags_u8.data_ptr(), out.data_ptr(), src.shape[0], int(block))
 
 
 def snapshot_copy(src, prev, dirty, block: int = 8192) -> torch.Tensor:

@@ -17,10 +17,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.bitonic_sort import sort_rows, sort_rows_ref
+from repro_torch.kernels.bitonic_sort import (apply_pipeline_batch,
+                                              apply_pipeline_batch_ref,
+                                              sort_rows, sort_rows_ref)
 from repro_torch.kernels.common import (kernel_launch_counts,
                                         reset_kernel_launch_counts)
-from repro_torch.kernels.dict_ops import (scan_exact, scan_exact_group,
+from repro_torch.kernels.dict_ops import (MAX_ISLANDS, scan_exact,
+                                          scan_exact_group,
                                           scan_exact_group_ref,
                                           scan_exact_mesh,
                                           scan_exact_mesh_ref,
@@ -55,15 +58,66 @@ def cuda():
 def test_sort_rows_float32_kernel_matches_its_plain_version(cuda, rows,
                                                             width):
     """The CUDA sort takes float32 keys (NaN last, +-inf, -0.0), in one tile
-    and across tiles merged by the rank merge."""
+    and across tiles merged pairwise by the tile merge (one K6 pass per
+    doubling past 32,768, in the same call)."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn((rows, width), generator=gen, device=cuda) * 1e6
     x[:, 0], x[:, 1], x[:, 2] = float("nan"), float("inf"), -0.0
     x[:, -1] = float("-inf")
+    reset_kernel_launch_counts()
     got = sort_rows(x)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, sort_rows_ref(x), rtol=0, atol=0,
                                equal_nan=True)
+    passes = max(0, (width - 1).bit_length() - 15)
+    assert kernel_launch_counts() == dict(
+        bitonic_sort=1, **({"bitonic_merge_rows": passes} if passes else {}))
+
+
+# (rows, n_old, w_old, n_val, w_val, case): the fused entry's in-block sort
+# up to 2,048 values (w_val 1, 2,048, the path's 256), the separate sort
+# above it (4,096; 65,536 with pairwise merges), a dictionary width that is
+# not a multiple of a merge tile, a row of sentinels only, values all equal
+# to an old key, int32.min, 1 and 65 rows
+APPLY_SHAPES = [(8, 24_000, 32768, 200, 256, None),
+                (3, 40, 64, 1, 1, None), (2, 5000, 8192, 2000, 2048, None),
+                (2, 6000, 8192, 3000, 4096, None),
+                (2, 1000, 1024, 40_000, 65536, None),
+                (3, 4500, 5003, 200, 256, None),
+                (3, 300, 512, 50, 64, "old_sentinels_only"),
+                (4, 300, 512, 60, 64, "values_equal_an_old_key"),
+                (2, 300, 512, 70, 128, "int32_min"),
+                (1, 9000, 16384, 100, 128, None),
+                (65, 90, 128, 20, 32, None)]
+
+
+@pytest.mark.parametrize("rows,n_old,w_old,n_val,w_val,case", APPLY_SHAPES)
+def test_apply_kernel_matches_its_plain_version(cuda, rows, n_old, w_old,
+                                                n_val, w_val, case):
+    """The fused sort + tile merge, bit for bit; one launch a call."""
+    gen = torch.Generator(device=cuda).manual_seed(rows * 7 + w_val)
+
+    def rand(shape):
+        return torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                             device=cuda, dtype=torch.int64).to(torch.int32)
+
+    old = torch.full((rows, w_old), I32_MAX, dtype=torch.int32, device=cuda)
+    old[:, :n_old] = torch.sort(rand((rows, n_old)), dim=1).values
+    val = torch.full((rows, w_val), I32_MAX, dtype=torch.int32, device=cuda)
+    val[:, :n_val] = rand((rows, n_val))
+    if case == "old_sentinels_only":
+        old[0] = I32_MAX
+    elif case == "values_equal_an_old_key":
+        val[:, :n_val] = old[:, n_old // 2:n_old // 2 + 1]
+    elif case == "int32_min":
+        val[:, 1] = I32_MIN
+        old[:, 0] = I32_MIN
+    reset_kernel_launch_counts()
+    svals, merged = apply_pipeline_batch(old, val)
+    torch.cuda.synchronize()
+    want_s, want_m = apply_pipeline_batch_ref(old, val)
+    assert torch.equal(svals, want_s) and torch.equal(merged, want_m)
+    assert kernel_launch_counts() == {"bitonic_apply": 1}
 
 
 @pytest.mark.parametrize("sizes", [(0, 40, 41), (1, 1, 0, 0, 0),
@@ -98,12 +152,15 @@ def test_sharded_scan_kernel_matches_its_plain_version(cuda, sizes, join):
 
 
 @pytest.mark.parametrize("sizes", [(0, 40, 41), (1, 1, 0, 0),
-                                   (5000, 4999, 5000, 5000), (777,)])
+                                   (5000, 4999, 5000, 5000), (777,),
+                                   (7,) * 17, tuple(range(1, 34)),
+                                   tuple((i * 37) % 101 for i in range(100))])
 @pytest.mark.parametrize("join", [False, True])
 def test_mesh_scan_kernel_matches_its_plain_version(cuda, sizes, join):
-    """Four (or fewer) islands on the one card, as chip_smoke's mesh phase
-    runs them: one launch per non-empty island, partials added on island
-    0's device; equal to the plain version and to the flat scan."""
+    """Islands on the one card, as chip_smoke's mesh phase runs them (uneven
+    slices of one column at any offset, empty islands among them): one
+    island-table launch per 16 non-empty islands into one partial; equal
+    to the plain version and to the flat scan."""
     gen = torch.Generator(device=cuda).manual_seed(2)
     n, k = sum(sizes), 300
     f = torch.randint(0, k, (n,), generator=gen, device=cuda,
@@ -132,8 +189,9 @@ def test_mesh_scan_kernel_matches_its_plain_version(cuda, sizes, join):
     reset_kernel_launch_counts()
     got = scan_exact_mesh(*args, *extra)
     torch.cuda.synchronize()
-    name = "scan_exact_join" if join else "scan_exact"
-    assert kernel_launch_counts() == {name: sum(1 for s in sizes if s)}
+    name = "scan_exact_join_mesh" if join else "scan_exact_mesh"
+    assert kernel_launch_counts() == {name: -(-sum(1 for s in sizes if s)
+                                              // MAX_ISLANDS)}
     assert torch.equal(got, scan_exact_mesh_ref(*args, *extra))
     flat = (j, jv, rc) if join else ()
     assert torch.equal(got, scan_exact_ref(f, a, fv, d, bounds, *flat))

@@ -8,8 +8,9 @@ reference's stacked scan of the same shards reduced with its
 `reduce_partials` - the totals its psum'd mesh scan returns. Islands are
 CPU tensors (``devices=["cpu"] * N``), so the wrappers run their plain
 versions; a rehearsal with the wrappers' GPU branch patched onto the CPU
-shows the launch accounting (one launch per island, under the flat scan's
-names). Integers: tolerance 0.
+shows the launch accounting (one island-table launch per device and group
+of up to 16 non-empty islands, under ``scan_exact_mesh`` /
+``scan_exact_join_mesh``). Integers: tolerance 0.
 """
 
 import numpy as np
@@ -38,7 +39,8 @@ from repro_torch.core.dsm import (DSMReplica, EncodedColumn, MeshView,
 from repro_torch.core.nsm import make_entries
 from repro_torch.kernels import common
 from repro_torch.kernels.dict_ops import ops as dict_ops
-from repro_torch.kernels.dict_ops import (scan_exact_mesh, scan_exact_mesh_ref,
+from repro_torch.kernels.dict_ops import (MAX_ISLANDS, mesh_launch_groups,
+                                          scan_exact_mesh, scan_exact_mesh_ref,
                                           scan_exact_ref, scan_filter_agg_mesh,
                                           scan_filter_agg_mesh_ref)
 from repro_torch.kernels.hash_probe import (scan_filter_agg_join_mesh,
@@ -170,31 +172,77 @@ def test_mesh_scan_layout_and_argument_checks(rng):
 
 
 # ---------------------------------------------------------------------------
-# the wrappers' GPU branch, rehearsed on the CPU: one launch per island
+# the launches' grouping, and the wrappers' GPU branch rehearsed on the CPU
 # ---------------------------------------------------------------------------
+
+C0, C1 = torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+@pytest.mark.parametrize("devices,sizes,want", [
+    # interleaved devices: each device's islands in island order
+    ([C0, C1, C0, C1], [5, 6, 7, 8], [(C0, [0, 2]), (C1, [1, 3])]),
+    # empty islands launch nothing, a device with only empty ones neither
+    ([C0, C1, C0, C1], [0, 0, 7, 0], [(C0, [2])]),
+    ([C1, C0, C1], [3, 0, 4], [(C1, [0, 2])]),
+    ([C0] * 3, [0, 0, 0], []),
+    # 16 islands on one device are one launch, 17 two, 33 three
+    ([C0] * 16, [1] * 16, [(C0, list(range(16)))]),
+    ([C0] * 17, [1] * 17, [(C0, list(range(16))), (C0, [16])]),
+    ([C0] * 33, [2] * 33, [(C0, list(range(16))),
+                           (C0, list(range(16, 32))), (C0, [32])]),
+    # 17 on cuda:0 between cuda:1's: cuda:0's two launches stay together
+    ([C1] + [C0] * 17 + [C1], [1] * 19,
+     [(C1, [0, 18]), (C0, list(range(1, 17))), (C0, [17])]),
+    # empty islands do not take a place in a launch of 16
+    ([C0] * 18, [0, 1] * 9, [(C0, list(range(1, 18, 2)))]),
+])
+def test_mesh_launch_groups(devices, sizes, want):
+    torch.set_num_threads(1)
+    got = mesh_launch_groups(devices, sizes)
+    assert got == want
+    assert MAX_ISLANDS == 16
+    assert all(len(g) <= MAX_ISLANDS for _, g in got)
+
 
 def _fake_launch(fcodes, acodes, fvalid_u8, adict, bounds_dev, out,
                  jcodes=None, jvalid_u8=None, rcount=None, corr_a=None,
                  corr_j=None, vbounds_dev=None):
-    """Stands in for the CUDA launch: adds the plain version's partials
-    into `out` (the kernel adds into a zeroed `out` the same way)."""
+    """Stands in for the flat scan's CUDA launch (the one-island session):
+    adds the plain version's partials into `out`, as the kernel adds into a
+    zeroed `out`."""
     assert corr_a is None and corr_j is None and fcodes is not None
     out += scan_exact_ref(fcodes, acodes, fvalid_u8, adict,
                           bounds_dev.tolist(), jcodes, jvalid_u8, rcount)
 
 
+def _fake_island_launch(islands, bounds_dev, out):
+    """Stands in for the island-table launch: every island of the launch
+    (1 - 16, non-empty, on `out`'s device) adds its plain partials into the
+    one `out`."""
+    assert 1 <= len(islands) <= MAX_ISLANDS
+    for isl in islands:
+        assert isl[0].shape[0] > 0 and isl[0].device == out.device
+        out += scan_exact_ref(*isl[:4], bounds_dev.tolist(), *isl[4:])
+
+
 @pytest.fixture
 def gpu_branch(monkeypatch):
     """The scan wrappers' GPU branch (checks, per-device bounds, zeroed
-    partials, the reduction, the launch counters) on CPU tensors."""
+    partials, the grouping, the reduction, the launch counters) on CPU
+    tensors."""
     monkeypatch.setattr(dict_ops, "on_gpu", lambda *t: True)
     monkeypatch.setattr(dict_ops, "launch_scan_exact", _fake_launch)
+    monkeypatch.setattr(dict_ops, "launch_scan_exact_islands",
+                        _fake_island_launch)
     common.reset_kernel_launch_counts()
     yield
     common.reset_kernel_launch_counts()
 
 
 def test_mesh_wrapper_counts_one_launch_per_nonempty_island(rng, gpu_branch):
+    """The islands of one device are one launch: the empty island takes no
+    place in it, and the launch counts under the mesh scans' names with
+    (islands, widest island, k[, kj], Q)."""
     f, a, j, fv, jv, d, rc = _columns(rng, 81, 9, 11)
     sizes = (40, 0, 41)
     fi, ai, ji, fvi, jvi = _islands((f, a, j, fv, jv), sizes)
@@ -206,19 +254,44 @@ def test_mesh_wrapper_counts_one_launch_per_nonempty_island(rng, gpu_branch):
                                                 bounds)
     assert scan_filter_agg_mesh(fi, ai, fvi, [T(d)] * 3, bounds) == \
         scan_filter_agg_mesh_ref(fi, ai, fvi, [T(d)] * 3, bounds)
-    # the empty island launches nothing; the others count under the flat
-    # scan's names with their own shapes, and nothing counts as sharded
-    assert common.kernel_launch_counts() == {"scan_exact_join": 2,
-                                             "scan_exact": 2}
+    # nothing counts under the flat or the stacked scans' names
+    assert common.kernel_launch_counts() == {"scan_exact_join_mesh": 1,
+                                             "scan_exact_mesh": 1}
     assert common.kernel_launch_shapes() == {
-        "scan_exact_join": {(40, 9, 11, 3): 1, (41, 9, 11, 3): 1},
-        "scan_exact": {(40, 9, 3): 1, (41, 9, 3): 1}}
+        "scan_exact_join_mesh": {(2, 41, 9, 11, 3): 1},
+        "scan_exact_mesh": {(2, 41, 9, 3): 1}}
+
+
+@pytest.mark.parametrize("join", [False, True])
+def test_mesh_wrapper_launches_in_groups_of_16(rng, gpu_branch, join):
+    """40 islands on one device (uneven, unaligned slices of one column,
+    two empty, dictionaries of their own) make 3 launches (16 + 16 + 6
+    non-empty islands) into one partial, equal to the plain version."""
+    torch.set_num_threads(1)
+    sizes = [0 if s in (5, 23) else 37 + (s * 13) % 29 for s in range(40)]
+    f, a, j, fv, jv, d, rc = _columns(rng, sum(sizes), 21, 13)
+    fi, ai, ji, fvi, jvi = _islands((f, a, j, fv, jv), sizes)
+    dicts = [T(d.copy()) for _ in sizes]      # not one shared tensor
+    rcs = [T(rc.copy()) for _ in sizes]
+    bounds = [(0, 21), (3, 9), (20, 21), (7, 7)]
+    extra = (ji, jvi, rcs) if join else ()
+    got = scan_exact_mesh(fi, ai, fvi, dicts, bounds, *extra)
+    assert torch.equal(got, scan_exact_mesh_ref(fi, ai, fvi, dicts, bounds,
+                                                *extra))
+    flat = (T(j), T(jv), T(rc)) if join else ()
+    assert torch.equal(got, scan_exact_ref(T(f), T(a), T(fv), T(d), bounds,
+                                           *flat))
+    name = "scan_exact_join_mesh" if join else "scan_exact_mesh"
+    assert common.kernel_launch_counts() == {name: 3}
+    assert sorted(sh[0] for sh in common.kernel_launch_shapes()[name]) == \
+        [6, 16, 16]
 
 
 def test_mesh_session_launches_n_times_the_one_island_scans(gpu_branch):
-    """End to end on the rehearsed GPU branch: hopper@4/mesh launches the
-    flat scan exactly four times as often as one island does, and the
-    stacked scans never."""
+    """End to end on the rehearsed GPU branch: hopper@4/mesh with its four
+    islands on one device launches each mesh scan exactly as often as one
+    island launches the flat scan (ceil(4 / 16) = 1 launch a query group),
+    and neither the flat scans nor the stacked ones."""
     rng = np.random.default_rng(3)
     sch = schema.make_schema("t", 3, 32)
     table = schema.gen_table(rng, sch, 800)
@@ -235,9 +308,10 @@ def test_mesh_session_launches_n_times_the_one_island_scans(gpu_branch):
         assert res.stats["kernel_launches"] == {
             k: v for k, v in counts[spec].items() if v}
     one, mesh = counts["hopper"], counts["hopper@4/mesh"]
-    for name in ("scan_exact", "scan_exact_join"):
-        assert one.get(name, 0) > 0
-        assert mesh.get(name, 0) == 4 * one[name]
+    for flat in ("scan_exact", "scan_exact_join"):
+        assert one.get(flat, 0) > 0
+        assert mesh.get(flat + "_mesh", 0) == one[flat]
+        assert mesh.get(flat, 0) == 0
     assert not any("sharded" in k for k in mesh)
 
 
