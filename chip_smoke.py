@@ -6,7 +6,10 @@
 Drives `repro_torch` only. Phases, each printing one JSON line:
 
 1. ``env``       versions, nvcc, the card's name and power limit.
-2. ``build``     builds the CUDA sources with nvcc (seconds = set-up time).
+2. ``build``     builds the CUDA sources with nvcc (seconds = set-up time),
+                 with each scan kernel instance's registers, spills and
+                 blocks an SM (``scan_instances``; the join lane's
+                 one-predicate pass must hold 2 blocks of 512 an SM).
 3. ``main_path`` one HTAP session of the full system (`Polynesia` preset,
                  ``backend="hopper"``) at 10,000,000 rows x 8 columns,
                  400,000 transactions, 32 queries, 4 rounds, plus one late
@@ -71,7 +74,7 @@ Drives `repro_torch` only. Phases, each printing one JSON line:
                  columns: one launch per query; counts must equal the exact
                  scan's and the plain version's, sums lie within
                  `float_scan_error_bound` of the exact int64 sums (the worst
-                 case of the kernel's summation order, about 6e-6 of
+                 case of the kernel's summation order, about 2e-6 of
                  sum(|v|) at 10M rows) and within 1e-5 * sum(|v|) of the
                  plain version's.
 9. ``lm_serve``  the LM serving path at full width, one line per model of
@@ -122,7 +125,13 @@ Drives `repro_torch` only. Phases, each printing one JSON line:
                  ``bound_sfu_ms`` (the
                  exponentials on the SFUs alone); for the bucket probe
                  the host's cost of one launch, item by item, under
-                 ``host_us``);
+                 ``host_us``; for the join scans and the float32 scan the
+                 instances they ran, under ``instances``; the join lane
+                 bit for bit at Q = 1, 2, 8, 9 and 17 over views 0 - 3
+                 rows into their columns, columns at different offsets,
+                 shards off 16-byte boundaries and correction stacks of 0
+                 and 1 rows; the float32 scan at views 0 - 3 rows in and
+                 twice a case, the two sums bit for bit one);
                  times the kernel (``ms``: back-to-back bare launches;
                  ``device_ms``: the device's own time of 20 bare launches
                  under `torch.profiler`, a launch, for small kernels well
@@ -285,20 +294,25 @@ def device_time(fn, reps: int = DEVICE_REPS) -> dict:
     for each CUDA kernel (or copy) its `reps` calls ran, its mean own time
     times the launches of it a call (its count over `reps`, rounded: the
     profiler has been seen to drop an event of 20), summed; and the
-    kernels a call (``device_kernels``). Where the profiler records no
-    device time, the CUDA-event time of the same calls stands in, and
+    kernels a call (``device_kernels``). The profiler has been seen to
+    record no device time at all in one window of many (K17, K18), so an
+    empty window is profiled once more; where the second records nothing
+    either, the CUDA-event time of the same calls stands in, and
     ``device_ms_source`` says so."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")
-               and e.self_device_time_total > 0]
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")
+                   and e.self_device_time_total > 0]
+        if kernels:
+            break
     if not kernels:
         return dict(device_ms=time_ms(fn, reps), device_kernels=None,
                     device_ms_source="cuda events (the profiler recorded "
@@ -405,14 +419,93 @@ def phase_build() -> None:
         elif "registers" in line and entry:
             registers[entry] = int(line.split("Used ")[1].split()[0])
     REGISTERS.update(registers)
+    instances = scan_instances()
+    narrow = join_instances(1)
+    if any(v["blocks_per_sm"] < 2 for v in narrow.values()):
+        raise AssertionError(f"the join lane's one-predicate pass holds "
+                             f"fewer than 2 blocks of 512 an SM: {narrow}")
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          nvcc_seconds=nvcc_seconds,
          sources=sorted(p.name for p in build.CSRC.glob("*.cu")),
-         library=str(build.build_library().name), registers=registers)
+         library=str(build.build_library().name), registers=registers,
+         scan_instances=instances)
 
 
 REGISTERS: dict[str, int] = {}     # ptxas' count per kernel entry (build)
 SPILLS: dict[str, int] = {}        # ptxas' spill stores + loads, bytes
+
+
+def scan_key(join, vec, corr, qn) -> str:
+    return (f"scan_exact<{'join' if join else 'scan'},"
+            f"{'vec' if vec else 'rows'},{'corr' if corr else 'base'},"
+            f"qn={qn}>")
+
+
+def island_key(join, qn) -> str:
+    return f"scan_islands<{'join' if join else 'scan'},qn={qn}>"
+
+
+def float_key(vec) -> str:
+    return f"scan_float<{'vec' if vec else 'rows'}>"
+
+
+def instance_key(entry: str) -> str | None:
+    """The scan kernel instance a ptxas entry name is, if it is one."""
+    for pat, key in (
+            (r"scan_exact_kernelILb([01])ELb([01])ELb([01])ELi(\d+)EE",
+             scan_key),
+            (r"scan_islands_kernelILb([01])ELi(\d+)EE", island_key),
+            (r"scan_float_kernelILb([01])EE", float_key)):
+        m = re.search(pat, entry)
+        if m:
+            return key(*(int(x) for x in m.groups()))
+    return None
+
+
+def scan_instances() -> dict[str, dict]:
+    """Per instance of the exact scan's kernel (join lane or not, 16-byte
+    loads or rows, correction slice or base, predicates a pass), of the
+    island kernel and of the float scan: the occupancy API's blocks an SM
+    (512 threads a block for the scans, 256 for the float scan; not asked
+    for the island kernel) and, when this process built the library,
+    ptxas' registers and spill bytes."""
+    import ctypes
+    from repro_torch.kernels import build
+    ptxas = {instance_key(e): dict(registers=n, spill_bytes=SPILLS.get(e, 0))
+             for e, n in REGISTERS.items()}
+
+    def occupancy(name, *args):
+        blocks = ctypes.c_int(0)
+        build.check(build.entry(name)(*args, ctypes.byref(blocks)), name)
+        return blocks.value
+    out = {}
+    for j, q in ((0, 8), (1, 1), (1, 8)):
+        for v in (0, 1):
+            for c in (0, 1):
+                key = scan_key(j, v, c, q)
+                out[key] = dict(ptxas.get(key, {}), blocks_per_sm=occupancy(
+                    "scan_exact_occupancy", j, v, c, q))
+        out[island_key(j, q)] = dict(ptxas.get(island_key(j, q), {}),
+                                     blocks_per_sm=None)
+    for v in (0, 1):
+        out[float_key(v)] = dict(ptxas.get(float_key(v), {}),
+                                 blocks_per_sm=occupancy(
+                                     "scan_float_occupancy", v))
+    return out
+
+
+def join_qn(nq: int) -> int:
+    """Predicates a pass of the join lane for a Q-predicate group (the
+    host's choice in scan_exact.cu)."""
+    return 1 if nq == 1 else 8
+
+
+def join_instances(nq: int) -> dict[str, dict]:
+    """The join lane's instances a Q-predicate group runs (by 16-byte
+    loads and correction slice)."""
+    every = scan_instances()
+    keys = [scan_key(1, v, c, join_qn(nq)) for v in (0, 1) for c in (0, 1)]
+    return {k: every[k] for k in keys}
 
 
 def decode_registers() -> dict[str, int]:
@@ -983,7 +1076,7 @@ FLOAT_SCAN_TOL = ("count exact; sum within float_scan_error_bound of the "
 def float_scan_check(name, got, plain, exact, abs_sum, n, dev) -> float:
     """The kernel's (sum, count) `got` against the exact scan's `exact`:
     count equal, sum within `float_scan_error_bound` (the worst case of the
-    kernel's own summation order, about 6e-6 * sum(|v|) at 10M rows); and
+    kernel's own summation order, about 2e-6 * sum(|v|) at 10M rows); and
     against the plain version's `plain`: count equal, sums within
     FLOAT_SCAN_PLAIN_RTOL * sum(|v|). Returns the error against the exact
     sum relative to sum(|v|)."""
@@ -1426,6 +1519,7 @@ def measure_scan(gen, dev, shape, join: bool) -> dict:
     bare = (f, a, fv.view(torch.uint8), ad, barr, res) + (
         (j, jv.view(torch.uint8), rc) if join else ())
     return dict(max_abs_err=err,
+                **({"instances": join_instances(nq)} if join else {}),
                 ms=time_ms(lambda: launch_scan_exact(*bare), 50),
                 **device_time(lambda: launch_scan_exact(*bare)),
                 wrapper_ms=time_ms(lambda: scan_exact(*args), 20),
@@ -1493,6 +1587,7 @@ def measure_scan_sharded(gen, dev, shape, join: bool) -> dict:
     bare = (f, a, fv.view(torch.uint8), ad, barr, res) + (
         (j, jv.view(torch.uint8), rc) if join else ())
     return dict(max_abs_err=err,
+                **({"instances": join_instances(nq)} if join else {}),
                 ms=time_ms(lambda: launch_scan_exact(*bare), 50),
                 **device_time(lambda: launch_scan_exact(*bare)),
                 wrapper_ms=time_ms(lambda: scan_exact(*args), 20),
@@ -1584,6 +1679,9 @@ def measure_scan_mesh(gen, dev, shape, join: bool) -> dict:
     def bare():
         return launch_scan_exact_mesh(islands, groups, barrs, outs)
     return dict(max_abs_err=err, launches_a_call=len(groups),
+                **({"instances": {island_key(1, join_qn(nq)): (
+                    scan_instances()[island_key(1, join_qn(nq))])}}
+                   if join else {}),
                 ms=time_ms(bare, 50), **device_time(bare),
                 wrapper_ms=time_ms(lambda: scan_exact_mesh(*args), 20),
                 plain_ms=time_ms(lambda: scan_exact_mesh_ref(*args), 3),
@@ -2183,6 +2281,67 @@ def edge_delta(gen, dev) -> int:
     return cases
 
 
+JOIN_LANE_QS = (1, 2, 8, 9, 17)
+
+
+def edge_join_lane(gen, dev) -> int:
+    """The join lane's passes bit for bit: Q = 1 (its one-predicate pass),
+    2 and 8 (the wide pass), 9 and 17 (a second and a third grid slice of
+    8); flat views at row offsets 0 - 3 (16-byte loads after 0 - 3 head
+    rows) of 1, 3, 4,101 and 1,000,003 rows, columns at different offsets
+    (read a row at a time), shards 1,001 wide (each after the first starts
+    off a 16-byte boundary), and the join group with empty and one-row
+    correction stacks; about 10 % of the rows are fvalid but not
+    jvalid."""
+    from repro_torch.kernels.dict_ops import (scan_exact, scan_exact_group,
+                                              scan_exact_group_ref,
+                                              scan_exact_ref)
+    cases = 0
+    k = 5000
+    f, a, j, fv, jv, ad, rc = scan_inputs(gen, 1_000_003 + 4, k, k, k, dev)
+    ad[0], ad[-1] = I32_MIN, I32_MAX
+    ad = torch.sort(ad).values
+    cols = (f, a, fv, j, jv)
+    for nq in JOIN_LANE_QS:
+        lows = torch.randint(0, k, (nq,), generator=gen, device=dev).tolist()
+        bounds = ([(0, k), (7, 7)] + [(lo, lo + 1 + (i * 37) % k)
+                                      for i, lo in enumerate(lows)])[:nq]
+        vb = (EDGE_VBOUNDS * 2)[:nq]
+
+        def check(what, view, corr=None):
+            f_, a_, fv_, j_, jv_ = view
+            args = (f_, a_, fv_, ad, bounds, j_, jv_, rc)
+            if corr is None:
+                must_equal(f"join lane {what} Q={nq}", scan_exact(*args),
+                           scan_exact_ref(*args))
+            else:
+                gargs = (f_, a_, fv_, ad, bounds, corr[0], vb, j_, jv_, rc,
+                         corr[1])
+                must_equal(f"join group {what} Q={nq}",
+                           scan_exact_group(*gargs),
+                           scan_exact_group_ref(*gargs))
+        for n in (1, 3, 4101, 1_000_003):
+            for off in range(4):
+                check(f"n={n} off={off}",
+                      [t[off:off + n] for t in cols])
+                cases += 1
+        n = 65_537                       # every column at its own offset
+        check("columns at offsets 1, 2, 3, 0, 1",
+              [t[o:o + n] for t, o in zip(cols, (1, 2, 3, 0, 1))])
+        sizes = (1001, 1000, 999)
+        check(f"shards {sizes}",
+              [stacked(t[:sum(sizes)], sizes) for t in cols])
+        cases += 2
+        for nr in (0, 1):
+            corr = (corr_stack(gen, dev, 6, nr),
+                    corr_stack(gen, dev, 6, nr, 0, 5000))
+            for off in (0, 3):
+                check(f"stacks of {nr} n=4101 off={off}",
+                      [t[off:off + 4101] for t in cols], corr)
+                cases += 1
+    return cases
+
+
 def delta_vbounds(nq):
     """Q inclusive ranges over the workload's value domain, ~30 % each."""
     dom = 1 << 24
@@ -2236,7 +2395,9 @@ def measure_group(gen, dev, shape, kind) -> dict:
                           corr_j=extra[3] if join else None,
                           vbounds_dev=vbarr)
     return dict(
-        max_abs_err=err, ms=time_ms(bare, 50), **device_time(bare),
+        max_abs_err=err,
+        **({"instances": join_instances(nq)} if join else {}),
+        ms=time_ms(bare, 50), **device_time(bare),
         base_ms=time_ms(lambda: launch_scan_exact(*cols, base_res, *jl), 50),
         wrapper_ms=time_ms(lambda: scan_exact_group(*args), 20),
         plain_ms=time_ms(lambda: scan_exact_group_ref(*args), 3),
@@ -2284,20 +2445,30 @@ def float_scan_cost(shape):
 
 
 def edge_float_scan(gen, dev) -> int:
-    """Ragged tails, one row, unaligned views, an empty range."""
+    """Ragged tails, one row, views at row offsets 0 - 3 (16-byte loads
+    after 0 - 3 head rows), columns at different offsets (a row at a time),
+    an empty range; every call twice, the two sums bit for bit one."""
     from repro_torch.kernels.dict_ops import (scan_filter_agg,
                                               scan_filter_agg_float_ref)
     cases = 0
-    for n, k in ((1, 3), (255, 40), (257, 1000), (1_000_003, 50_000)):
-        f, a, _, fv, _, ad, _ = scan_inputs(gen, n + 1, k, k, 1, dev)
-        for off in (0, 1):
-            fc, ac, vv = f[off:off + n], a[off:off + n], fv[off:off + n]
+    for n, k in ((1, 3), (3, 7), (255, 40), (257, 1000),
+                 (1_000_003, 50_000)):
+        f, a, _, fv, _, ad, _ = scan_inputs(gen, n + 3, k, k, 1, dev)
+        views = [(o, o, o) for o in range(4)] + [(1, 2, 0)]
+        for fo, ao, vo in views:
+            fc, ac, vv = f[fo:fo + n], a[ao:ao + n], fv[vo:vo + n]
             for lo, hi in ((0, k), (k // 3, k // 2 + 1), (1, 1)):
                 cols_pred = (fc, ac, vv, ad, lo, hi)
+                name = f"float scan n={n} offsets {fo},{ao},{vo}"
+                got = scan_filter_agg(*cols_pred, exact=False)
+                again = scan_filter_agg(*cols_pred, exact=False)
+                if not (torch.equal(got[0].view(torch.int32),
+                                    again[0].view(torch.int32))
+                        and torch.equal(got[1], again[1])):
+                    raise AssertionError(f"{name}: two calls differ: "
+                                         f"{got} and {again}")
                 float_scan_check(
-                    f"float scan n={n} off={off}",
-                    scan_filter_agg(*cols_pred, exact=False),
-                    scan_filter_agg_float_ref(*cols_pred),
+                    name, got, scan_filter_agg_float_ref(*cols_pred),
                     scan_filter_agg(*cols_pred), abs_sum(*cols_pred), n, dev)
                 cases += 1
     return cases
@@ -2307,7 +2478,8 @@ def measure_float_scan(gen, dev, shape) -> dict:
     from repro_torch.kernels.dict_ops import (launch_scan_float,
                                               scan_filter_agg,
                                               scan_filter_agg_float_ref)
-    from repro_torch.kernels.dict_ops.ops import float_scan_parts
+    from repro_torch.kernels.dict_ops.ops import (float_scan_counter,
+                                                  float_scan_parts)
     n, k = shape
     f, a, _, fv, _, ad, _ = scan_inputs(gen, n, k, k, 1, dev, invalid=0.0)
     lo, hi = k // 4, k // 4 + max(1, 3 * k // 10)   # about 30 % of rows
@@ -2321,14 +2493,18 @@ def measure_float_scan(gen, dev, shape) -> dict:
     pcnt = torch.empty(parts, dtype=torch.int32, device=dev)
     out_s = torch.empty(1, dtype=torch.float32, device=dev)
     out_c = torch.empty(1, dtype=torch.int32, device=dev)
+    counter = float_scan_counter(dev)
     fvu = fv.view(torch.uint8)
+
+    def bare():
+        launch_scan_float(f, a, fvu, ad, lo, hi, psum, pcnt, counter, out_s,
+                          out_c)
     return dict(
         max_abs_err=abs(float(s) - es), rel_err=rel,
-        tolerance=FLOAT_SCAN_TOL,
-        ms=time_ms(lambda: launch_scan_float(f, a, fvu, ad, lo, hi, psum,
-                                             pcnt, out_s, out_c), 50),
-        **device_time(lambda: launch_scan_float(f, a, fvu, ad, lo, hi, psum,
-                                                pcnt, out_s, out_c)),
+        tolerance=FLOAT_SCAN_TOL, parts=parts,
+        instances={float_key(v): scan_instances()[float_key(v)]
+                   for v in (0, 1)},
+        ms=time_ms(bare, 50), **device_time(bare),
         wrapper_ms=time_ms(lambda: scan_filter_agg(f, a, fv, ad, lo, hi,
                                                    exact=False), 20),
         plain_ms=time_ms(lambda: scan_filter_agg_float_ref(f, a, fv, ad, lo,
@@ -2604,6 +2780,7 @@ def phase_kernels(shapes: dict) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     cases = (edge_scan(gen, dev) + edge_scan_sharded(gen, dev)
+             + edge_join_lane(gen, dev)
              + edge_scan_mesh(gen, dev) + edge_probe(gen, dev) + edge_merge(gen, dev)
              + edge_bitonic(gen, dev) + edge_snapshot(gen, dev)
              + edge_delta(gen, dev) + edge_float_scan(gen, dev)

@@ -45,6 +45,8 @@ _SIGNATURES = {
                    _P, _L, _P, _P, _P),
     # table(host) n_islands bounds nq join out stream
     "scan_exact_islands": (_P, _I, _P, _I, _I, _P, _P),
+    # join vec corr qn blocks_per_sm (int*)
+    "scan_exact_occupancy": (_I, _I, _I, _I, _P),
     # queries n_shards width keys vals n_buckets slots default out stream
     "hash_probe": (_P, _I, _L, _P, _P, _I, _I, _I, _P, _P),
     # a ai b bi out_keys out_idx rows wa wb stream
@@ -67,8 +69,11 @@ _SIGNATURES = {
     "decode_attn_plan": (_I, _I, _I, _I, _P),
     # x dt a b c d y B T D N stream
     "selective_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # fcodes acodes valid dict n lo hi psum pcnt n_parts out_sum out_cnt stream
-    "scan_float": (_P, _P, _P, _P, _L, _I, _I, _P, _P, _I, _P, _P, _P),
+    # fcodes acodes valid dict n lo hi psum pcnt n_parts counter out_sum
+    # out_cnt stream
+    "scan_float": (_P, _P, _P, _P, _L, _I, _I, _P, _P, _I, _P, _P, _P, _P),
+    # vec blocks_per_sm (int*)
+    "scan_float_occupancy": (_I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

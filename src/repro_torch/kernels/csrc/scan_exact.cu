@@ -18,26 +18,50 @@
 // few integer compares and adds per row, far below the card's integer
 // rate. So the design reads every column exactly once (the join lane rides
 // the same pass, so fcodes/fvalid are not read twice as in the two-call
-// composite), with 16-byte loads where the pointers allow it (a shard
-// whose first row is not on a 16-byte boundary - any shard after the first
-// when the width is not a multiple of 4 - reads its first rows one at a
-// time up to the boundary, then 16 bytes at a time), and keeps
-// everything else out of device memory: the per-predicate sums live in
-// registers as native 64-bit integers, and the dictionary (a few hundred KB
-// at most, shared by every block) is gathered through L2, only for rows
-// that pass the mask (a padded slot's code 0 is never looked up, so an
-// empty dictionary is legal). The TPU kernel holds the dictionary in VMEM;
-// staging it in shared memory was measured on an H100 and dropped: every
-// block has to stage the whole dictionary for itself, which buys nothing
-// for a small dictionary and costs occupancy for a large one (PERF.md has
-// the times). The TPU grid walks the shards in order; here the shard is
-// the grid's z index, so every island's blocks run at once. Blocks run in
-// any order: each reduces with warp shuffles and shared-memory atomics and
-// adds its partial to its shard's output with one 64-bit atomicAdd per
-// (block, predicate, lane) - integer addition is associative, so the
-// result is exact and the same from run to run. Up to QT predicates are
-// answered per pass over the rows; a larger group takes one grid slice
-// (blockIdx.y) per QT predicates.
+// composite), with 16-byte loads (4 rows a thread-step) wherever every
+// column has its rows at one position modulo 4 (a shard or a view whose
+// first row is not on a 16-byte boundary reads its first rows one at a
+// time up to the boundary; columns at different positions are read a row
+// at a time), and keeps everything else out of device memory: the
+// per-predicate sums live in registers as native 64-bit integers, and the
+// dictionary (a few hundred KB at most, shared by every block) is gathered
+// through L1 and L2, only for rows that pass the mask (a padded slot's code
+// 0 is never looked up, so an empty dictionary is legal). The TPU kernel
+// holds the dictionary in VMEM; staging it in shared memory was measured on
+// an H100 and dropped: every block has to stage the whole dictionary for
+// itself, which buys nothing for a small dictionary and costs occupancy for
+// a large one (PERF.md has the times). The TPU grid walks the shards in
+// order; here the shard is the grid's z index, so every island's blocks run
+// at once. Blocks run in any order: each reduces with warp shuffles and
+// shared-memory atomics and adds its partial to its shard's output with one
+// 64-bit atomicAdd per (block, predicate, lane) - integer addition is
+// associative, so the result is exact and the same from run to run. Up to
+// QT predicates are answered per pass over the rows; a larger group takes
+// one grid slice (blockIdx.y) per QT predicates.
+//
+// The join lane reads 14 bytes a row and gathers twice, one gather
+// depending on the other's mask. Reading the card's rate needs enough bytes
+// in flight per SM to cover a device-memory latency (Little's law: about
+// 3.35 TB/s x 0.6 us over 132 SMs, some 15 - 20 KB an SM), and the scan
+// alone gets there with two blocks of 512 threads an SM and one 16-byte
+// group a thread. The join lane did not: eight predicates' accumulators
+// (56 registers, 7/8 of them dead at the paths' one predicate) held it to
+// one block an SM, and each group waited out its streaming loads and then
+// its gathers, so about 28 KB was spent over two latencies or more. So the
+// join lane (`JoinAcc`, `join_rows`):
+//   - holds QN predicates a pass, QN a template parameter the host picks
+//     from the group's size: 1 for one predicate (about 7 registers of
+//     accumulators), QT for more (grid y slices of QT as before); the
+//     one-predicate instance fits 64 registers, so two blocks of 512 an SM;
+//   - issues group g + 1's five streaming loads (three 16-byte, two
+//     4-byte, evict-first) before group g's work, the next group held in
+//     registers;
+//   - computes a group's four row masks first, then issues its up to eight
+//     gathers back to back, each predicated on its row's mask (and the
+//     join's validity), and only then adds: no branch stands between a
+//     group's loads and its gathers.
+// The scan without the join lane keeps its own row loop (`Acc`,
+// `scan_rows`): it reaches half the card's rate as it is.
 //
 // The mesh scans (`scan_exact_islands`). They replace `_mesh_scan_call` /
 // `scan_filter_agg_mesh` (kernels/dict_ops/ops.py) and `_mesh_join_call` /
@@ -45,14 +69,15 @@
 // sharded scan on every island of a device mesh in one `shard_map` and
 // psum the partials. Here an island is a flat column of its own on its own
 // device; the islands that share a device (up to MAX_ISLANDS) are one
-// launch of the same row walk with the island as the grid's z index. Their
-// column pointers, lengths, dictionaries and histograms travel by value in
-// the launch's parameters (a table of about 1 KB), so nothing is copied to
-// the device for the launch, islands of any widths and offsets share it
-// (each island finds its own first 16-byte boundary; blocks past an
-// island's rows leave at once), and every island's blocks add into ONE
-// (lanes, Q) output per device with the same 64-bit atomics: islands that
-// share a card cost one launch and no reduction on the host.
+// launch of the same row walk (the join lane's for the join scan) with the
+// island as the grid's z index. Their column pointers, lengths,
+// dictionaries and histograms travel by value in the launch's parameters (a
+// table of about 1 KB), so nothing is copied to the device for the launch,
+// islands of any widths and offsets share it (each island finds its own
+// first 16-byte boundary; blocks past an island's rows leave at once), and
+// every island's blocks add into ONE (lanes, Q) output per device with the
+// same 64-bit atomics: islands that share a card cost one launch and no
+// reduction on the host.
 //
 // The correction lane (the delta store). It replaces the raw-value scan
 // `_scan_values_kernel` / `scan_values_agg_exact_kernel`
@@ -74,32 +99,39 @@
 // query group on the delta plane is one launch: the base scan (flat or
 // sharded) plus the lane over the aggregate stack into the (sum, count)
 // lanes and, with the join lane, the lane over the join-weight stack into
-// the join sum. With no shard slices the lane runs alone (the values
-// delta), and a 3-row stack holding only the effective triple is the plain
-// raw-value scan. Stacks are read one int32 a thread per row, coalesced,
-// with no padding: a stack is a few thousand rows (bounded by the
-// compaction capacity) against the base column's millions, so its bytes
-// (24 a row) add a fraction of a percent to the scan's.
+// the join sum (with the join lane's QN predicates a pass). With no shard
+// slices the lane runs alone (the values delta), and a 3-row stack holding
+// only the effective triple is the plain raw-value scan. Stacks are read
+// one int32 a thread per row, coalesced, with no padding: a stack is a few
+// thousand rows (bounded by the compaction capacity) against the base
+// column's millions, so its bytes (24 a row) add a fraction of a percent to
+// the scan's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int QT = 8;         // predicates held in registers per pass
+constexpr int QT = 8;         // predicates a wide pass holds in registers
 constexpr int THREADS = 512;
 
-template <bool JOIN>
+// an int32 column's row position modulo 4 (its 16-byte phase)
+__host__ __device__ __forceinline__ uintptr_t row_mod4(const int* p) {
+    return (reinterpret_cast<uintptr_t>(p) >> 2) & 3;
+}
+
+// ---------------------------------------------------------------------------
+// The scan without the join lane
+// ---------------------------------------------------------------------------
+
 struct Acc {
     long long sum[QT];
-    long long jsum[QT];
     int cnt[QT];              // one thread sees fewer than 2^31 rows
     int lo[QT];
     int hi[QT];
 
-    __device__ __forceinline__ void row(int fc, int ac, unsigned fv, int jc,
-                                        unsigned jv, const int* ad,
-                                        const int* rc) {
+    __device__ __forceinline__ void row(int fc, int ac, unsigned fv,
+                                        const int* ad) {
         if (!fv) return;
         unsigned hit = 0;
 #pragma unroll
@@ -107,16 +139,11 @@ struct Acc {
             hit |= (unsigned)(fc >= lo[t] && fc < hi[t]) << t;
         if (!hit) return;
         const long long v = ad[ac];
-        long long w = 0;
-        if (JOIN) {
-            if (jv) w = rc[jc];
-        }
 #pragma unroll
         for (int t = 0; t < QT; ++t) {
             if ((hit >> t) & 1u) {
                 sum[t] += v;
                 cnt[t] += 1;
-                if (JOIN) jsum[t] += w;
             }
         }
     }
@@ -136,19 +163,20 @@ __device__ __forceinline__ void add_warp(unsigned long long* red,
 }
 
 // One correction pass of this block over a (3 or 6, nr) stack: per
-// predicate, the effective row's contribution minus the base row's, into
-// red[sum_lane] and (cnt_lane >= 0) red[cnt_lane]. A 3-row stack has no
-// base triple.
+// predicate (QN of them from q0), the effective row's contribution minus
+// the base row's, into red[sum_lane] and (cnt_lane >= 0) red[cnt_lane]. A
+// 3-row stack has no base triple.
+template <int QN>
 __device__ __forceinline__ void corr_pass(const int* __restrict__ stack,
                                           long long nr, bool has_base,
                                           const int* __restrict__ vbounds,
                                           int nq, int q0,
                                           unsigned long long* red,
                                           int sum_lane, int cnt_lane) {
-    long long sum[QT];
-    int cnt[QT], lo[QT], hi[QT];
+    long long sum[QN];
+    int cnt[QN], lo[QN], hi[QN];
 #pragma unroll
-    for (int t = 0; t < QT; ++t) {
+    for (int t = 0; t < QN; ++t) {
         const bool live = q0 + t < nq;
         lo[t] = live ? vbounds[2 * (q0 + t)] : 1;        // 1 > 0: empty
         hi[t] = live ? vbounds[2 * (q0 + t) + 1] : 0;
@@ -166,7 +194,7 @@ __device__ __forceinline__ void corr_pass(const int* __restrict__ stack,
             vb = stack[5 * nr + i];
         }
 #pragma unroll
-        for (int t = 0; t < QT; ++t) {
+        for (int t = 0; t < QN; ++t) {
             const bool e = ve != 0 && fe >= lo[t] && fe <= hi[t];
             const bool b = vb != 0 && fb >= lo[t] && fb <= hi[t];
             sum[t] += (e ? (long long)ae : 0ll) - (b ? (long long)ab : 0ll);
@@ -174,19 +202,195 @@ __device__ __forceinline__ void corr_pass(const int* __restrict__ stack,
         }
     }
 #pragma unroll
-    for (int t = 0; t < QT; ++t) {
-        add_warp(&red[sum_lane * QT + t], sum[t]);
-        if (cnt_lane >= 0) add_warp(&red[cnt_lane * QT + t], (long long)cnt[t]);
+    for (int t = 0; t < QN; ++t) {
+        add_warp(&red[sum_lane * QN + t], sum[t]);
+        if (cnt_lane >= 0) add_warp(&red[cnt_lane * QN + t], (long long)cnt[t]);
     }
 }
 
 // This block's share of one column's rows (a shard, or an island): n rows
-// at fcodes/acodes/fvalid (and jcodes/jvalid with the join lane), the
-// thread's rows strided over the grid's x dimension. With VEC the first
-// `head` rows are read one a thread, up to the 16-byte boundary, then 16
-// bytes (4 rows) a thread-step, the ragged tail one a thread.
-template <bool JOIN, bool VEC>
-__device__ __forceinline__ void scan_rows(Acc<JOIN>& acc,
+// at fcodes/acodes/fvalid, the thread's rows strided over the grid's x
+// dimension. With VEC the first `head` rows are read one a thread, up to
+// the 16-byte boundary, then 16 bytes (4 rows) a thread-step, the ragged
+// tail one a thread.
+template <bool VEC>
+__device__ __forceinline__ void scan_rows(Acc& acc,
+                                          const int* __restrict__ fcodes,
+                                          const int* __restrict__ acodes,
+                                          const uint8_t* __restrict__ fvalid,
+                                          long long n, long long head,
+                                          const int* __restrict__ ad) {
+    const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const long long nthreads = (long long)gridDim.x * blockDim.x;
+    if (VEC) {
+        if (tid < head) acc.row(fcodes[tid], acodes[tid], fvalid[tid], ad);
+        const long long n4 = (n - head) >> 2;
+        const int4* f4 = reinterpret_cast<const int4*>(fcodes + head);
+        const int4* a4 = reinterpret_cast<const int4*>(acodes + head);
+        const uchar4* v4 = reinterpret_cast<const uchar4*>(fvalid + head);
+        for (long long g = tid; g < n4; g += nthreads) {
+            const int4 f = f4[g];
+            const int4 a = a4[g];
+            const uchar4 v = v4[g];
+            acc.row(f.x, a.x, v.x, ad);
+            acc.row(f.y, a.y, v.y, ad);
+            acc.row(f.z, a.z, v.z, ad);
+            acc.row(f.w, a.w, v.w, ad);
+        }
+        // ragged tail (fewer than 4 rows), masked here rather than padded
+        const long long i = head + (n4 << 2) + tid;
+        if (i < n) acc.row(fcodes[i], acodes[i], fvalid[i], ad);
+    } else {
+        for (long long i = tid; i < n; i += nthreads)
+            acc.row(fcodes[i], acodes[i], fvalid[i], ad);
+    }
+}
+
+// The predicates of this block's grid slice (blockIdx.y) into acc.
+__device__ __forceinline__ void init_acc(Acc& acc,
+                                         const int* __restrict__ bounds,
+                                         int nq, int q0) {
+#pragma unroll
+    for (int t = 0; t < QT; ++t) {
+        const bool live = q0 + t < nq;
+        acc.lo[t] = live ? bounds[2 * (q0 + t)] : 0;
+        acc.hi[t] = live ? bounds[2 * (q0 + t) + 1] : 0;   // empty range
+        acc.sum[t] = 0;
+        acc.cnt[t] = 0;
+    }
+}
+
+__device__ __forceinline__ void reduce_acc(const Acc& acc,
+                                           unsigned long long* red) {
+#pragma unroll
+    for (int t = 0; t < QT; ++t) {
+        add_warp(&red[t], acc.sum[t]);
+        add_warp(&red[QT + t], (long long)acc.cnt[t]);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// The join lane
+// ---------------------------------------------------------------------------
+
+// Four consecutive rows of the join lane's five columns.
+struct JoinGroup {
+    int4 f, a, j;
+    uchar4 v, w;
+};
+
+template <int QN>
+struct JoinAcc {
+    long long sum[QN];
+    long long jsum[QN];
+    int cnt[QN];              // one thread sees fewer than 2^31 rows
+    int lo[QN];
+    int hi[QN];
+
+    // The predicates of this block's grid slice (blockIdx.y).
+    __device__ __forceinline__ void init(const int* __restrict__ bounds,
+                                         int nq, int q0) {
+#pragma unroll
+        for (int t = 0; t < QN; ++t) {
+            const bool live = q0 + t < nq;
+            lo[t] = live ? bounds[2 * (q0 + t)] : 0;
+            hi[t] = live ? bounds[2 * (q0 + t) + 1] : 0;   // empty range
+            sum[t] = 0;
+            jsum[t] = 0;
+            cnt[t] = 0;
+        }
+    }
+
+    // bit t: the row passes predicate t (0 for a row that is not fvalid)
+    __device__ __forceinline__ unsigned hits(int fc, unsigned fv) const {
+        unsigned m = 0;
+#pragma unroll
+        for (int t = 0; t < QN; ++t)
+            m |= (unsigned)(fc >= lo[t] && fc < hi[t]) << t;
+        return fv ? m : 0u;
+    }
+
+    // a row's gathered value v and join weight w (both 0 where m is 0)
+    __device__ __forceinline__ void add(unsigned m, int v, int w) {
+        if constexpr (QN == 1) {
+            sum[0] += v;
+            cnt[0] += (int)m;
+            jsum[0] += w;
+        } else {
+#pragma unroll
+            for (int t = 0; t < QN; ++t) {
+                if ((m >> t) & 1u) {
+                    sum[t] += v;
+                    cnt[t] += 1;
+                    jsum[t] += w;
+                }
+            }
+        }
+    }
+
+    // One row read on its own (a shard's head and tail, unaligned columns).
+    __device__ __forceinline__ void row(int fc, int ac, unsigned fv, int jc,
+                                        unsigned jv,
+                                        const int* __restrict__ ad,
+                                        const int* __restrict__ rc) {
+        const unsigned m = hits(fc, fv);
+        int v = 0, w = 0;
+        if (m) v = __ldg(ad + ac);
+        if (m && jv) w = __ldg(rc + jc);
+        add(m, v, w);
+    }
+
+    // Four rows: the masks first, then every gather the masks call for,
+    // back to back and predicated, then the adds.
+    __device__ __forceinline__ void group(const JoinGroup& g,
+                                          const int* __restrict__ ad,
+                                          const int* __restrict__ rc) {
+        const unsigned m0 = hits(g.f.x, g.v.x), m1 = hits(g.f.y, g.v.y),
+                       m2 = hits(g.f.z, g.v.z), m3 = hits(g.f.w, g.v.w);
+        int v0 = 0, v1 = 0, v2 = 0, v3 = 0, w0 = 0, w1 = 0, w2 = 0, w3 = 0;
+        if (m0) v0 = __ldg(ad + g.a.x);
+        if (m1) v1 = __ldg(ad + g.a.y);
+        if (m2) v2 = __ldg(ad + g.a.z);
+        if (m3) v3 = __ldg(ad + g.a.w);
+        if (m0 && g.w.x) w0 = __ldg(rc + g.j.x);
+        if (m1 && g.w.y) w1 = __ldg(rc + g.j.y);
+        if (m2 && g.w.z) w2 = __ldg(rc + g.j.z);
+        if (m3 && g.w.w) w3 = __ldg(rc + g.j.w);
+        add(m0, v0, w0);
+        add(m1, v1, w1);
+        add(m2, v2, w2);
+        add(m3, v3, w3);
+    }
+
+    __device__ __forceinline__ void reduce(unsigned long long* red) const {
+#pragma unroll
+        for (int t = 0; t < QN; ++t) {
+            add_warp(&red[t], sum[t]);
+            add_warp(&red[QN + t], (long long)cnt[t]);
+            add_warp(&red[2 * QN + t], jsum[t]);
+        }
+    }
+};
+
+// group g of the 16-byte-aligned columns, read once (evict-first)
+__device__ __forceinline__ JoinGroup load_group(
+        const int4* __restrict__ f4, const int4* __restrict__ a4,
+        const int4* __restrict__ j4, const uchar4* __restrict__ v4,
+        const uchar4* __restrict__ w4, long long g) {
+    JoinGroup r;
+    r.f = __ldcs(f4 + g);
+    r.a = __ldcs(a4 + g);
+    r.j = __ldcs(j4 + g);
+    r.v = __ldcs(v4 + g);
+    r.w = __ldcs(w4 + g);
+    return r;
+}
+
+// The join lane's share of this block of one column's rows, as `scan_rows`
+// (head, 16-byte groups, ragged tail; or a row at a time without VEC), with
+// the next group's loads in flight while the current group gathers.
+template <int QN, bool VEC>
+__device__ __forceinline__ void join_rows(JoinAcc<QN>& acc,
                                           const int* __restrict__ fcodes,
                                           const int* __restrict__ acodes,
                                           const uint8_t* __restrict__ fvalid,
@@ -199,90 +403,61 @@ __device__ __forceinline__ void scan_rows(Acc<JOIN>& acc,
     const long long nthreads = (long long)gridDim.x * blockDim.x;
     if (VEC) {
         if (tid < head)
-            acc.row(fcodes[tid], acodes[tid], fvalid[tid],
-                    JOIN ? jcodes[tid] : 0, JOIN ? jvalid[tid] : 0u, ad, rc);
+            acc.row(fcodes[tid], acodes[tid], fvalid[tid], jcodes[tid],
+                    jvalid[tid], ad, rc);
         const long long n4 = (n - head) >> 2;
         const int4* f4 = reinterpret_cast<const int4*>(fcodes + head);
         const int4* a4 = reinterpret_cast<const int4*>(acodes + head);
+        const int4* j4 = reinterpret_cast<const int4*>(jcodes + head);
         const uchar4* v4 = reinterpret_cast<const uchar4*>(fvalid + head);
-        const int4* j4 =
-            JOIN ? reinterpret_cast<const int4*>(jcodes + head) : nullptr;
-        const uchar4* w4 =
-            JOIN ? reinterpret_cast<const uchar4*>(jvalid + head) : nullptr;
-        for (long long g = tid; g < n4; g += nthreads) {
-            const int4 f = f4[g];
-            const int4 a = a4[g];
-            const uchar4 v = v4[g];
-            int4 j = make_int4(0, 0, 0, 0);
-            uchar4 w = make_uchar4(0, 0, 0, 0);
-            if (JOIN) {
-                j = j4[g];
-                w = w4[g];
-            }
-            acc.row(f.x, a.x, v.x, j.x, w.x, ad, rc);
-            acc.row(f.y, a.y, v.y, j.y, w.y, ad, rc);
-            acc.row(f.z, a.z, v.z, j.z, w.z, ad, rc);
-            acc.row(f.w, a.w, v.w, j.w, w.w, ad, rc);
+        const uchar4* w4 = reinterpret_cast<const uchar4*>(jvalid + head);
+        long long g = tid;
+        JoinGroup cur{}, nxt{};
+        if (g < n4) cur = load_group(f4, a4, j4, v4, w4, g);
+        while (g < n4) {
+            const long long gn = g + nthreads;
+            if (gn < n4) nxt = load_group(f4, a4, j4, v4, w4, gn);
+            acc.group(cur, ad, rc);
+            cur = nxt;
+            g = gn;
         }
         // ragged tail (fewer than 4 rows), masked here rather than padded
         const long long i = head + (n4 << 2) + tid;
         if (i < n)
-            acc.row(fcodes[i], acodes[i], fvalid[i], JOIN ? jcodes[i] : 0,
-                    JOIN ? jvalid[i] : 0u, ad, rc);
+            acc.row(fcodes[i], acodes[i], fvalid[i], jcodes[i], jvalid[i],
+                    ad, rc);
     } else {
         for (long long i = tid; i < n; i += nthreads)
-            acc.row(fcodes[i], acodes[i], fvalid[i], JOIN ? jcodes[i] : 0,
-                    JOIN ? jvalid[i] : 0u, ad, rc);
+            acc.row(fcodes[i], acodes[i], fvalid[i], jcodes[i], jvalid[i],
+                    ad, rc);
     }
 }
 
-// The predicates of this block's grid slice (blockIdx.y) into acc.
-template <bool JOIN>
-__device__ __forceinline__ void init_acc(Acc<JOIN>& acc,
-                                         const int* __restrict__ bounds,
-                                         int nq, int q0) {
-#pragma unroll
-    for (int t = 0; t < QT; ++t) {
-        const bool live = q0 + t < nq;
-        acc.lo[t] = live ? bounds[2 * (q0 + t)] : 0;
-        acc.hi[t] = live ? bounds[2 * (q0 + t) + 1] : 0;   // empty range
-        acc.sum[t] = 0;
-        acc.jsum[t] = 0;
-        acc.cnt[t] = 0;
-    }
-}
-
-template <bool JOIN>
-__device__ __forceinline__ void reduce_acc(const Acc<JOIN>& acc,
-                                           unsigned long long* red) {
-#pragma unroll
-    for (int t = 0; t < QT; ++t) {
-        add_warp(&red[t], acc.sum[t]);
-        add_warp(&red[QT + t], (long long)acc.cnt[t]);
-        if (JOIN) add_warp(&red[2 * QT + t], acc.jsum[t]);
-    }
-}
+// ---------------------------------------------------------------------------
+// The kernels
+// ---------------------------------------------------------------------------
 
 // The block's partials (red, after a __syncthreads) added into a (lanes, nq)
 // output: one 64-bit atomicAdd per (lane, predicate).
-template <int LANES>
+template <int LANES, int QN>
 __device__ __forceinline__ void add_block(const unsigned long long* red,
                                           unsigned long long* out, int nq,
                                           int q0) {
-    if (threadIdx.x < LANES * QT) {
-        const int which = threadIdx.x / QT;
-        const int t = threadIdx.x % QT;
-        const unsigned long long v = red[which * QT + t];
+    if (threadIdx.x < LANES * QN) {
+        const int which = threadIdx.x / QN;
+        const int t = threadIdx.x % QN;
+        const unsigned long long v = red[which * QN + t];
         if (q0 + t < nq && v) atomicAdd(&out[which * nq + q0 + t], v);
     }
 }
 
-// Two blocks per SM for the scan alone (at most 64 registers a thread, as
-// the flat kernel used before the shard axis); the join lane needs more
-// registers than that and keeps one. With CORR the grid has one more z
-// slice than shards: the correction lane's (see the header).
-template <bool JOIN, bool VEC, bool CORR>
-__global__ void __launch_bounds__(THREADS, JOIN ? 1 : 2)
+// Blocks a multiprocessor must hold (__launch_bounds__): two (at most 64
+// registers a thread) for the scan alone and for the join lane's
+// one-predicate pass; the join lane's wide pass (QT predicates) needs more
+// registers and keeps one. With CORR the grid has one more z slice than shards: the correction
+// lane's (see the header). QN is QT without the join lane.
+template <bool JOIN, bool VEC, bool CORR, int QN>
+__global__ void __launch_bounds__(THREADS, (JOIN && QN > 1) ? 1 : 2)
 scan_exact_kernel(const int* __restrict__ fcodes,
                   const int* __restrict__ acodes,
                   const uint8_t* __restrict__ fvalid,
@@ -295,7 +470,7 @@ scan_exact_kernel(const int* __restrict__ fcodes,
                   int corr_base, const int* __restrict__ corr_j,
                   long long nr_j, const int* __restrict__ vbounds,
                   unsigned long long* __restrict__ out) {
-    __shared__ unsigned long long red[3 * QT];
+    __shared__ unsigned long long red[3 * QN];
     constexpr int lanes = JOIN ? 3 : 2;
     const bool corr_slice = CORR && blockIdx.z == gridDim.z - 1;
     // blocks of the correction slice beyond the stacks' rows have nothing
@@ -303,32 +478,43 @@ scan_exact_kernel(const int* __restrict__ fcodes,
     if (corr_slice && (long long)blockIdx.x * blockDim.x >= nr_a &&
         (long long)blockIdx.x * blockDim.x >= nr_j)
         return;
-    if (threadIdx.x < 3 * QT) red[threadIdx.x] = 0ull;
+    if (threadIdx.x < 3 * QN) red[threadIdx.x] = 0ull;
     __syncthreads();
-    const int q0 = blockIdx.y * QT;
+    const int q0 = blockIdx.y * QN;
 
     if (corr_slice) {
-        corr_pass(corr_a, nr_a, corr_base != 0, vbounds, nq, q0, red, 0, 1);
+        corr_pass<QN>(corr_a, nr_a, corr_base != 0, vbounds, nq, q0, red, 0,
+                      1);
         if (JOIN)   // join weights: only the sum delta, into the join sum
-            corr_pass(corr_j, nr_j, true, vbounds, nq, q0, red, 2, -1);
+            corr_pass<QN>(corr_j, nr_j, true, vbounds, nq, q0, red, 2, -1);
     } else {
         // this block's shard: n rows at a stride of n
         const long long base = (long long)blockIdx.z * n;
-        // rows of this shard before its first 16-byte boundary (the column
-        // pointers themselves are aligned when VEC)
-        long long head = VEC ? (4 - (base & 3)) & 3 : 0;
+        // rows of this shard before its first 16-byte boundary (the host
+        // chose VEC only where every column has its rows at one position
+        // modulo 4)
+        long long head = VEC ? (long long)((4 - row_mod4(fcodes + base)) & 3)
+                             : 0;
         if (head > n) head = n;
-        Acc<JOIN> acc;
-        init_acc(acc, bounds, nq, q0);
-        scan_rows<JOIN, VEC>(acc, fcodes + base, acodes + base, fvalid + base,
-                             JOIN ? jcodes + base : nullptr,
-                             JOIN ? jvalid + base : nullptr, n, head, adict,
-                             rcount);
-        reduce_acc(acc, red);
+        if constexpr (JOIN) {
+            JoinAcc<QN> acc;
+            acc.init(bounds, nq, q0);
+            join_rows<QN, VEC>(acc, fcodes + base, acodes + base,
+                               fvalid + base, jcodes + base, jvalid + base,
+                               n, head, adict, rcount);
+            acc.reduce(red);
+        } else {
+            Acc acc;
+            init_acc(acc, bounds, nq, q0);
+            scan_rows<VEC>(acc, fcodes + base, acodes + base, fvalid + base,
+                           n, head, adict);
+            reduce_acc(acc, red);
+        }
     }
     __syncthreads();
     // slice z's partials start at z * lanes * nq
-    add_block<lanes>(red, out + (long long)blockIdx.z * lanes * nq, nq, q0);
+    add_block<lanes, QN>(red, out + (long long)blockIdx.z * lanes * nq, nq,
+                         q0);
 }
 
 // The mesh scans: up to MAX_ISLANDS islands of one device in one launch,
@@ -354,46 +540,73 @@ struct IslandTable {              // travels in the launch's parameters
     Island at[MAX_ISLANDS];
 };
 
-template <bool JOIN>
-__global__ void __launch_bounds__(THREADS, JOIN ? 1 : 2)
+template <bool JOIN, int QN>
+__global__ void __launch_bounds__(THREADS, (JOIN && QN > 1) ? 1 : 2)
 scan_islands_kernel(const __grid_constant__ IslandTable tab,
                     const int* __restrict__ bounds, int nq,
                     unsigned long long* __restrict__ out) {
-    __shared__ unsigned long long red[3 * QT];
+    __shared__ unsigned long long red[3 * QN];
     const Island& isl = tab.at[blockIdx.z];
     // an island narrower than the widest has blocks with no rows of its
     // own (the whole block leaves together)
     if ((long long)blockIdx.x * blockDim.x >= isl.n) return;
-    if (threadIdx.x < 3 * QT) red[threadIdx.x] = 0ull;
+    if (threadIdx.x < 3 * QN) red[threadIdx.x] = 0ull;
     __syncthreads();
-    const int q0 = blockIdx.y * QT;
-    Acc<JOIN> acc;
-    init_acc(acc, bounds, nq, q0);
-    const long long head = isl.head < isl.n ? isl.head : isl.n;
-    if (isl.head >= 0)
-        scan_rows<JOIN, true>(acc, isl.fcodes, isl.acodes, isl.fvalid,
-                              isl.jcodes, isl.jvalid, isl.n, head, isl.adict,
-                              isl.rcount);
-    else
-        scan_rows<JOIN, false>(acc, isl.fcodes, isl.acodes, isl.fvalid,
-                               isl.jcodes, isl.jvalid, isl.n, 0, isl.adict,
-                               isl.rcount);
-    reduce_acc(acc, red);
+    const int q0 = blockIdx.y * QN;
+    if constexpr (JOIN) {
+        JoinAcc<QN> acc;
+        acc.init(bounds, nq, q0);
+        const long long head = isl.head < isl.n ? isl.head : isl.n;
+        if (isl.head >= 0)
+            join_rows<QN, true>(acc, isl.fcodes, isl.acodes, isl.fvalid,
+                                isl.jcodes, isl.jvalid, isl.n, head,
+                                isl.adict, isl.rcount);
+        else
+            join_rows<QN, false>(acc, isl.fcodes, isl.acodes, isl.fvalid,
+                                 isl.jcodes, isl.jvalid, isl.n, 0, isl.adict,
+                                 isl.rcount);
+        acc.reduce(red);
+    } else {
+        Acc acc;
+        init_acc(acc, bounds, nq, q0);
+        const long long head = isl.head < isl.n ? isl.head : isl.n;
+        if (isl.head >= 0)
+            scan_rows<true>(acc, isl.fcodes, isl.acodes, isl.fvalid, isl.n,
+                            head, isl.adict);
+        else
+            scan_rows<false>(acc, isl.fcodes, isl.acodes, isl.fvalid, isl.n,
+                             0, isl.adict);
+        reduce_acc(acc, red);
+    }
     __syncthreads();
     // every island of the launch adds into the one output
-    add_block<JOIN ? 3 : 2>(red, out, nq, q0);
+    add_block<JOIN ? 3 : 2, QN>(red, out, nq, q0);
 }
 
 inline bool aligned(const void* p, uintptr_t a) {
     return (reinterpret_cast<uintptr_t>(p) & (a - 1)) == 0;
 }
 
-// an int32 column's row position modulo 4 (its 16-byte phase)
-inline uintptr_t row_mod4(const int* p) {
-    return (reinterpret_cast<uintptr_t>(p) >> 2) & 3;
+// Whether a column set can be read 16 bytes at a time from some row on:
+// every int32 column at one row position modulo 4 and each validity byte
+// column at the same position (an island, a shard or a view of a column at
+// any offset qualifies; columns at different offsets do not).
+inline bool same_phase(const int* f, const int* a, const uint8_t* v,
+                       const int* j, const uint8_t* w) {
+    const uintptr_t m = row_mod4(f);
+    bool same = aligned(f, 4) && aligned(a, 4) && row_mod4(a) == m &&
+                (reinterpret_cast<uintptr_t>(v) & 3) == m;
+    if (j)
+        same = same && aligned(j, 4) && row_mod4(j) == m &&
+               (reinterpret_cast<uintptr_t>(w) & 3) == m;
+    return same;
 }
 
-template <bool JOIN, bool VEC, bool CORR>
+// Predicates a pass of the join lane: one for a one-predicate group, else
+// the wide pass.
+inline int join_qn(int nq) { return nq == 1 ? 1 : QT; }
+
+template <bool JOIN, bool VEC, bool CORR, int QN>
 cudaError_t launch(const int* fcodes, const int* acodes, const uint8_t* fvalid,
                    const int* adict, const int* bounds, int nq,
                    const int* jcodes, const uint8_t* jvalid, const int* rcount,
@@ -401,7 +614,7 @@ cudaError_t launch(const int* fcodes, const int* acodes, const uint8_t* fvalid,
                    long long nr_a, int corr_base, const int* corr_j,
                    long long nr_j, const int* vbounds,
                    unsigned long long* out, cudaStream_t stream) {
-    auto kern = scan_exact_kernel<JOIN, VEC, CORR>;
+    auto kern = scan_exact_kernel<JOIN, VEC, CORR, QN>;
     cudaError_t err;
     int dev = 0, sms = 0, occ = 0;
     if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
@@ -426,7 +639,7 @@ cudaError_t launch(const int* fcodes, const int* acodes, const uint8_t* fvalid,
     if (cap < 1) cap = 1;
     if (want > cap) want = cap;
     if (want < 1) want = 1;
-    dim3 grid((unsigned)want, (unsigned)((nq + QT - 1) / QT),
+    dim3 grid((unsigned)want, (unsigned)((nq + QN - 1) / QN),
               (unsigned)(n_shards + (CORR ? 1 : 0)));
     kern<<<grid, THREADS, 0, stream>>>(fcodes, acodes, fvalid, adict, bounds,
                                        nq, jcodes, jvalid, rcount, width,
@@ -437,11 +650,11 @@ cudaError_t launch(const int* fcodes, const int* acodes, const uint8_t* fvalid,
 
 // The island kernel's grid: as many blocks as the card holds at once,
 // shared among the islands, each island's share sized for the widest.
-template <bool JOIN>
+template <bool JOIN, int QN>
 cudaError_t launch_islands(const IslandTable& tab, int n_islands,
                            long long widest, const int* bounds, int nq,
                            unsigned long long* out, cudaStream_t stream) {
-    auto kern = scan_islands_kernel<JOIN>;
+    auto kern = scan_islands_kernel<JOIN, QN>;
     cudaError_t err;
     int dev = 0, sms = 0, occ = 0;
     if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
@@ -457,7 +670,7 @@ cudaError_t launch_islands(const IslandTable& tab, int n_islands,
     if (cap < 1) cap = 1;
     if (want > cap) want = cap;
     if (want < 1) want = 1;
-    dim3 grid((unsigned)want, (unsigned)((nq + QT - 1) / QT),
+    dim3 grid((unsigned)want, (unsigned)((nq + QN - 1) / QN),
               (unsigned)n_islands);
     kern<<<grid, THREADS, 0, stream>>>(tab, bounds, nq, out);
     return cudaGetLastError();
@@ -489,27 +702,27 @@ extern "C" int scan_exact(const int* fcodes, const int* acodes,
     if (n_shards + (corr ? 1 : 0) > 65535 || (nq + QT - 1) / QT > 65535)
         return (int)cudaErrorInvalidValue;
     const bool join = jcodes != nullptr;
-    // 16-byte loads from aligned columns; each shard steps up to its own
-    // first aligned row in the kernel
-    bool vec = aligned(fcodes, 16) && aligned(acodes, 16) && aligned(fvalid, 4);
-    if (join) vec = vec && aligned(jcodes, 16) && aligned(jvalid, 4);
+    // 16-byte loads where every column has its rows at one position modulo
+    // 4; each shard steps up to its own first aligned row in the kernel
+    // (the correction lane alone reads no column)
+    const bool vec = n_shards == 0 ||
+                     same_phase(fcodes, acodes, fvalid, jcodes, jvalid);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define GO(J, V, C, Q)                                                      \
+    launch<J, V, C, Q>(fcodes, acodes, fvalid, adict, bounds, nq, jcodes,   \
+                       jvalid, rcount, n_shards, width, corr_a, nr_a,       \
+                       corr_base, corr_j, nr_j, vbounds, out, s)
+#define BY_VEC_CORR(J, Q)                                                   \
+    (corr ? (vec ? GO(J, true, true, Q) : GO(J, false, true, Q))            \
+          : (vec ? GO(J, true, false, Q) : GO(J, false, false, Q)))
     cudaError_t err;
-#define GO(J, V, C)                                                         \
-    launch<J, V, C>(fcodes, acodes, fvalid, adict, bounds, nq, jcodes,      \
-                    jvalid, rcount, n_shards, width, corr_a, nr_a,          \
-                    corr_base, corr_j, nr_j, vbounds, out, s)
-    if (corr) {
-        if (join)
-            err = vec ? GO(true, true, true) : GO(true, false, true);
-        else
-            err = vec ? GO(false, true, true) : GO(false, false, true);
-    } else {
-        if (join)
-            err = vec ? GO(true, true, false) : GO(true, false, false);
-        else
-            err = vec ? GO(false, true, false) : GO(false, false, false);
-    }
+    if (!join)
+        err = BY_VEC_CORR(false, QT);
+    else if (join_qn(nq) == 1)
+        err = BY_VEC_CORR(true, 1);
+    else
+        err = BY_VEC_CORR(true, QT);
+#undef BY_VEC_CORR
 #undef GO
     return (int)err;
 }
@@ -549,22 +762,49 @@ extern "C" int scan_exact_islands(const long long* table, int n_islands,
         // 16-byte loads from the first row at which every column is
         // aligned, where that is one row for all of them: an island is a
         // slice of a column at any offset, so only its rows' position
-        // modulo 4 tells (int32 columns: address / 4, bytes: address)
-        const uintptr_t m = row_mod4(isl.fcodes);
-        bool same = aligned(isl.fcodes, 4) && aligned(isl.acodes, 4) &&
-                    row_mod4(isl.acodes) == m &&
-                    (reinterpret_cast<uintptr_t>(isl.fvalid) & 3) == m;
-        if (join)
-            same = same && aligned(isl.jcodes, 4) &&
-                   row_mod4(isl.jcodes) == m &&
-                   (reinterpret_cast<uintptr_t>(isl.jvalid) & 3) == m;
-        isl.head = same ? (int)((4 - m) & 3) : -1;
+        // modulo 4 tells
+        isl.head = same_phase(isl.fcodes, isl.acodes, isl.fvalid, isl.jcodes,
+                              isl.jvalid)
+                       ? (int)((4 - row_mod4(isl.fcodes)) & 3)
+                       : -1;
     }
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    return (int)(join ? launch_islands<true>(tab, n_islands, widest, bounds,
-                                             nq, out, st)
-                      : launch_islands<false>(tab, n_islands, widest, bounds,
-                                              nq, out, st));
+    cudaError_t err;
+    if (!join)
+        err = launch_islands<false, QT>(tab, n_islands, widest, bounds, nq,
+                                        out, st);
+    else if (join_qn(nq) == 1)
+        err = launch_islands<true, 1>(tab, n_islands, widest, bounds, nq,
+                                      out, st);
+    else
+        err = launch_islands<true, QT>(tab, n_islands, widest, bounds, nq,
+                                       out, st);
+    return (int)err;
+}
+
+// Blocks of THREADS threads one multiprocessor holds at once, by the
+// occupancy API, of the scan kernel instance (join, vec, corr, qn) - qn 1
+// or QT (8) with the join lane, QT without - into *blocks.
+extern "C" int scan_exact_occupancy(int join, int vec, int corr, int qn,
+                                    int* blocks) {
+    if (qn != 1 && qn != QT) return (int)cudaErrorInvalidValue;
+    if (!join && qn != QT) return (int)cudaErrorInvalidValue;
+#define OCC(J, V, C, Q)                                                     \
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(                          \
+        blocks, scan_exact_kernel<J, V, C, Q>, THREADS, 0)
+#define BY(J, Q)                                                            \
+    (corr ? (vec ? OCC(J, true, true, Q) : OCC(J, false, true, Q))          \
+          : (vec ? OCC(J, true, false, Q) : OCC(J, false, false, Q)))
+    cudaError_t err;
+    if (!join)
+        err = BY(false, QT);
+    else if (qn == 1)
+        err = BY(true, 1);
+    else
+        err = BY(true, QT);
+#undef BY
+#undef OCC
+    return (int)err;
 }
 
 // The text of a CUDA error code, for the Python side's exceptions.

@@ -36,8 +36,8 @@ device guard only off the current device).
 
 The reference's original float32 single-predicate scan
 (``scan_filter_agg(exact=False)``) is a kernel of its own,
-``csrc/scan_float.cu``: a float32 sum and an int32 count, left on the
-device as 0-d tensors.
+``csrc/scan_float.cu``: a float32 sum and an int32 count in one launch,
+left on the device as 0-d tensors.
 """
 
 from __future__ import annotations
@@ -212,46 +212,91 @@ def scan_filter_agg_float_ref(fcodes, acodes, valid, dictionary, code_lo,
 
 
 FLOAT_SCAN_THREADS = 256     # the block size of csrc/scan_float.cu
+FLOAT_SCAN_GROUP = 4         # rows a thread reads at once (16 B a column)
+FLOAT_SCAN_TREE = 5 + 3      # a block's sum: rounding levels of its trees
+
+_float_blocks: dict[int, int] = {}          # device index -> blocks an SM
+_float_counters: dict[tuple, torch.Tensor] = {}   # (device, stream) -> ticket
+
+
+def float_scan_blocks_per_sm(device) -> int:
+    """Blocks of the float scan that one SM holds at once (the CUDA
+    occupancy API over the kernel's registers; asked once per device)."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    n = _float_blocks.get(idx)
+    if n is None:
+        per_sm = ctypes.c_int(0)
+        with torch.cuda.device(idx):
+            build.check(build.entry("scan_float_occupancy")(
+                1, ctypes.byref(per_sm)), "scan_float_occupancy")
+        n = _float_blocks[idx] = max(1, per_sm.value)
+    return n
 
 
 def float_scan_parts(device, n: int) -> int:
-    """Blocks of the float scan's first pass (its scratch length): one per
-    256 rows, at most four per SM (the blocks stride over the rows)."""
-    return max(1, min(-(-n // FLOAT_SCAN_THREADS), 4 * sm_count(device)))
+    """Blocks of the float scan's one launch (its scratch length): one per
+    1,024 rows (256 threads, 4 rows each), at most as many as the card
+    holds at once (the blocks stride over the rows)."""
+    rows = FLOAT_SCAN_THREADS * FLOAT_SCAN_GROUP
+    return max(1, min(-(-n // rows),
+                      float_scan_blocks_per_sm(device) * sm_count(device)))
 
 
 def float_scan_error_bound(n: int, parts: int, abs_sum) -> float:
-    """Most the float scan's sum over ``n`` rows with ``parts`` first-pass
-    blocks can differ from the exact sum, given sum(|v|) over the rows it
-    selects: gamma_h * sum(|v|), gamma_h = h u / (1 - h u), u = 2**-24, for
-    a summation tree of height h (Higham, Accuracy and Stability, 4.2).
-    Here h counts the roundings on a value's way to the result: its
-    conversion to float32 (1), a thread's sequential sum in each pass
-    (ceil(n / (parts * 256)) and ceil(parts / 256)), and each block's
-    reduction (5 warp-shuffle levels, 3 over the 8 warps' sums) in both."""
-    per_thread = -(-n // (parts * FLOAT_SCAN_THREADS))
-    height = 1 + per_thread + -(-parts // FLOAT_SCAN_THREADS) + 2 * (5 + 3)
+    """Most the float scan's sum over ``n`` rows with ``parts`` blocks can
+    differ from the exact sum, given sum(|v|) over the rows it selects:
+    gamma_h * sum(|v|), gamma_h = h u / (1 - h u), u = 2**-24, for a
+    summation tree of height h (Higham, Accuracy and Stability, 4.2). Here
+    h counts the roundings on a value's way to the result (the order of
+    csrc/scan_float.cu): its conversion to float32 (1); its group's
+    (r0 + r1) + (r2 + r3) (2); the adds into its thread's sum, at most one
+    a group (ceil((n // 4) / (parts * 256)) groups) plus a head and a tail
+    row (2); its block's trees (5 warp-shuffle levels, 3 over the 8 warps'
+    sums); the last block's thread's adds of the partials (ceil(parts /
+    256)) and that block's trees (8 again)."""
+    groups = -(-(n // FLOAT_SCAN_GROUP) // (parts * FLOAT_SCAN_THREADS))
+    height = (1 + 2 + groups + 2 + FLOAT_SCAN_TREE
+              + -(-parts // FLOAT_SCAN_THREADS) + FLOAT_SCAN_TREE)
     hu = height * 2.0**-24
     return hu / (1.0 - hu) * float(abs_sum)
 
 
+def float_scan_counter(device) -> torch.Tensor:
+    """The float scan's ticket counter for `device`'s current stream: one
+    int32 zero, made once per (device, stream) and left zero by every
+    launch, so launches in one stream's order share it and two streams
+    never do."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    key = (idx, torch._C._cuda_getCurrentRawStream(idx))
+    t = _float_counters.get(key)
+    if t is None:
+        t = _float_counters[key] = torch.zeros((1,), dtype=torch.int32,
+                                               device=torch.device("cuda",
+                                                                   idx))
+    return t
+
+
 def launch_scan_float(fcodes, acodes, valid_u8, dictionary, code_lo: int,
-                      code_hi: int, psum, pcnt, out_sum, out_cnt) -> None:
-    """The bare launch on checked GPU tensors: ``psum``/``pcnt`` scratch
-    of the first pass's blocks, ``out_sum`` (1,) float32, ``out_cnt`` (1,)
+                      code_hi: int, psum, pcnt, counter, out_sum,
+                      out_cnt) -> None:
+    """The bare launch (one kernel) on checked GPU tensors: ``psum`` /
+    ``pcnt`` scratch of the grid's blocks, ``counter`` the current stream's
+    `float_scan_counter`, ``out_sum`` (1,) float32, ``out_cnt`` (1,)
     int32. No allocation, no synchronisation."""
     build.launch("scan_float", fcodes.device, fcodes.data_ptr(),
                  acodes.data_ptr(), valid_u8.data_ptr(), dictionary.data_ptr(),
                  fcodes.shape[0], int(code_lo), int(code_hi), psum.data_ptr(),
-                 pcnt.data_ptr(), psum.shape[0], out_sum.data_ptr(),
-                 out_cnt.data_ptr())
+                 pcnt.data_ptr(), psum.shape[0], counter.data_ptr(),
+                 out_sum.data_ptr(), out_cnt.data_ptr())
 
 
 def scan_filter_agg_float(fcodes, acodes, valid, dictionary, code_lo,
                           code_hi):
     """The float32 single-predicate scan: (0-d float32 sum of
     dict[acodes], 0-d int32 count) over rows with code_lo <= fcodes <
-    code_hi and valid, both left on the device."""
+    code_hi and valid, both left on the device (one launch)."""
     if not on_gpu(fcodes, acodes, valid, dictionary):
         return scan_filter_agg_float_ref(fcodes, acodes, valid, dictionary,
                                          code_lo, code_hi)
@@ -273,7 +318,7 @@ def scan_filter_agg_float(fcodes, acodes, valid, dictionary, code_lo,
     psum = torch.empty((parts,), dtype=torch.float32, device=dev)
     pcnt = torch.empty((parts,), dtype=torch.int32, device=dev)
     launch_scan_float(fcodes, acodes, fv, dictionary, code_lo, code_hi, psum,
-                      pcnt, out_sum, out_cnt)
+                      pcnt, float_scan_counter(dev), out_sum, out_cnt)
     count_launch("scan_float", (n, dictionary.shape[0]))
     return out_sum[0], out_cnt[0]
 

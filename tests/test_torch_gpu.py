@@ -421,6 +421,93 @@ def test_float_scan_kernel_matches_its_plain_version(cuda, n):
         assert abs(float(s) - float(ws)) <= 1e-5 * abs_sum
 
 
+@pytest.mark.parametrize("n", [1, 3, 255, 257, 1_000_003])
+@pytest.mark.parametrize("offsets", [(0, 0, 0), (1, 1, 1), (2, 2, 2),
+                                     (3, 3, 3), (1, 2, 0)])
+def test_float_scan_kernel_at_view_offsets_is_right_and_repeatable(
+        cuda, n, offsets):
+    """Views 1 - 3 rows into their columns read 3 - 1 head rows before
+    their 16-byte groups; columns at different offsets are read a row at a
+    time. Two calls give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(n + sum(offsets))
+    k = 5000
+    cols = [torch.randint(0, k, (n + 3,), generator=gen, device=cuda,
+                          dtype=torch.int32) for _ in range(2)]
+    cols.append(torch.rand(n + 3, generator=gen, device=cuda) < 0.9)
+    f, a, fv = (c[o:o + n] for c, o in zip(cols, offsets))
+    dic = torch.randint(-2**31, 2**31 - 1, (k,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    for lo, hi in ((0, k), (k // 4, k // 2), (7, 7)):
+        s, c = scan_filter_agg(f, a, fv, dic, lo, hi, exact=False)
+        s2, c2 = scan_filter_agg(f, a, fv, dic, lo, hi, exact=False)
+        assert torch.equal(s.view(torch.int32), s2.view(torch.int32))
+        assert int(c) == int(c2)
+        ws, wc = scan_filter_agg_float_ref(f, a, fv, dic, lo, hi)
+        mask = (f >= lo) & (f < hi) & fv
+        vals = dic[a.long()].long()
+        exact = int(torch.where(mask, vals, 0).sum())
+        abs_sum = int(torch.where(mask, vals, 0).abs().sum())
+        assert int(c) == int(wc) == int(mask.sum())
+        bound = float_scan_error_bound(n, float_scan_parts(cuda, n), abs_sum)
+        assert abs(float(s) - exact) <= bound
+        assert abs(float(s) - float(ws)) <= 1e-5 * abs_sum
+
+
+def _join_columns(gen, cuda, n, k):
+    f, a, j = (torch.randint(0, k, (n,), generator=gen, device=cuda,
+                             dtype=torch.int32) for _ in range(3))
+    fv = torch.rand(n, generator=gen, device=cuda) < 0.9
+    jv = torch.rand(n, generator=gen, device=cuda) < 0.8   # some fv, not jv
+    d = torch.randint(I32_MIN, I32_MAX, (k,), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    rc = torch.randint(0, 10_000, (k,), generator=gen, device=cuda,
+                       dtype=torch.int32)
+    return f, a, fv, j, jv, d, rc
+
+
+@pytest.mark.parametrize("nq", [1, 2, 8, 9, 17])
+@pytest.mark.parametrize("offsets", [(0,) * 5, (1,) * 5, (2,) * 5, (3,) * 5,
+                                     (1, 2, 3, 0, 1)])
+def test_join_lane_kernel_at_every_predicate_pass(cuda, nq, offsets):
+    """Q = 1 (the one-predicate pass), 2 and 8 (the wide pass), 9 and 17
+    (more grid slices), bit for bit, over views 0 - 3 rows into their
+    columns (head rows, then 16-byte groups) and columns at different
+    offsets (a row at a time); the join group with empty and one-row
+    stacks."""
+    gen = torch.Generator(device=cuda).manual_seed(nq + 10 * sum(offsets))
+    n, k = 100_003, 700
+    cols = _join_columns(gen, cuda, n + 3, k)
+    f, a, fv, j, jv = (c[o:o + n] for c, o in zip(cols[:5], offsets))
+    d, rc = cols[5:]
+    lows = torch.randint(0, k, (nq,), generator=gen, device=cuda).tolist()
+    bounds = ([(0, k), (7, 7)] + [(lo, lo + 1 + 37 * i % k)
+                                  for i, lo in enumerate(lows)])[:nq]
+    got = scan_exact(f, a, fv, d, bounds, j, jv, rc)
+    torch.cuda.synchronize()
+    assert torch.equal(got, scan_exact_ref(f, a, fv, d, bounds, j, jv, rc))
+    for nr in (0, 1):
+        args = (f, a, fv, d, bounds, _stack(gen, cuda, 6, nr),
+                (VBOUNDS * 2)[:nq], j, jv, rc, _stack(gen, cuda, 6, nr).abs())
+        got = scan_exact_group(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, scan_exact_group_ref(*args))
+
+
+@pytest.mark.parametrize("nq", [1, 9])
+def test_join_lane_kernel_over_shards_off_16_byte_boundaries(cuda, nq):
+    """Shards 1,001 wide: each after the first starts off a 16-byte
+    boundary and reads its head rows one at a time."""
+    gen = torch.Generator(device=cuda).manual_seed(nq)
+    s, w, k = 3, 1001, 300
+    f, a, fv, j, jv, d, rc = _join_columns(gen, cuda, s * w, k)
+    f, a, fv, j, jv = (t.reshape(s, w) for t in (f, a, fv, j, jv))
+    fv[2, 999:] = False                  # a padded tail
+    bounds = [(0, k)] + [(i, i + 9) for i in range(nq - 1)]
+    got = scan_exact(f, a, fv, d, bounds, j, jv, rc)
+    torch.cuda.synchronize()
+    assert torch.equal(got, scan_exact_ref(f, a, fv, d, bounds, j, jv, rc))
+
+
 @pytest.mark.parametrize("name", ["gemma2-9b", "falcon-mamba-7b",
                                   "qwen2.5-14b"])
 def test_lm_decode_matches_prefill_on_the_card(cuda, name):

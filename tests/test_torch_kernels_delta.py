@@ -298,3 +298,22 @@ def test_join_group_vs_pallas_interpret(interpret_mode, rng, nr):
     assert scan_filter_agg_join_group(T(f), T(a), T(j), T(fv), T(jv), T(d),
                                       T(rc), cb, T(ca), T(cj), vb) == \
         _tuples(ref_join_group(f, a, j, fv, jv, d, rc, cb, ca, cj, vb))
+
+
+@pytest.mark.parametrize("nq", [1, 2, 3, 8, 9, 17])
+@pytest.mark.parametrize("nr_a,nr_j", [(0, 0), (1, 1), (3, 2)])
+def test_join_group_at_every_predicate_pass_matches_reference(rng, nr_a,
+                                                              nr_j, nq):
+    """The join group at one predicate (its own pass on the card), two to
+    eight (the wide pass) and past eight (more grid slices), over 4,099
+    rows (not a multiple of 4), with empty and one-row stacks."""
+    f, a, j, fv, jv, d, rc = _columns(rng, 4099, 61, 29)
+    ca, cj = _stack(rng, nr_a), _stack(rng, nr_j)
+    cj[1] = np.abs(cj[1]) % 5000
+    cj[4] = np.abs(cj[4]) % 5000
+    cb, vb = _code_bounds(rng, 61, nq), _vbounds(rng, nq)
+    want = _tuples(ref_join_group(f, a, j, fv, jv, d, rc, cb, ca, cj, vb))
+    args = (T(f), T(a), T(j), T(fv), T(jv), T(d), T(rc), cb, T(ca), T(cj),
+            vb)
+    assert scan_filter_agg_join_group(*args) == want
+    assert scan_filter_agg_join_group_ref(*args) == want

@@ -241,3 +241,43 @@ def test_sharded_scan_layout_is_per_shard_blocks(rng):
     assert torch.equal(got[1], scan_exact(T(f[1]), T(a[1]), T(fv[1]), T(d),
                                           [(0, 12), (5, 6)], T(j[1]),
                                           T(jv[1]), T(rc)))
+
+
+# ---------------------------------------------------------------------------
+# the join lane at every predicate pass: one predicate (its own pass on the
+# card), two to eight (the wide pass), and past eight (more grid slices)
+# ---------------------------------------------------------------------------
+
+JOIN_QS = [1, 2, 3, 8, 9, 17]
+
+
+def _join_bounds(rng, k, nq):
+    """nq code ranges: everything, an empty one, then random ones."""
+    lows = rng.integers(0, k, size=nq)
+    out = [(int(lo), int(lo) + 1 + int(rng.integers(0, k)))
+           for lo in lows]
+    out[0] = (0, k)
+    if nq > 1:
+        out[1] = (5, 5)
+    return out
+
+
+@pytest.mark.parametrize("nq", JOIN_QS)
+@pytest.mark.parametrize("sizes", [(1001, 1000, 999), (7, 5, 6, 0), (4099,)])
+def test_sharded_join_scan_at_every_predicate_pass_matches_reference(
+        rng, sizes, nq):
+    """Shards whose width (1001, 7, 4099) is not a multiple of 4, so on the
+    card every shard after the first starts off a 16-byte boundary; rows
+    that are fvalid but not jvalid add to the sum and count, not to the
+    join sum."""
+    k = 41
+    f, a, j, fv, jv, d, rc = _stacked(rng, sizes, k, kj=k + 2)
+    bounds = _join_bounds(rng, k, nq)
+    got = scan_filter_agg_join_sharded(T(f), T(a), T(j), T(fv), T(jv), T(d),
+                                       T(rc), bounds)
+    assert got == ref_join_sharded(f, a, j, fv, jv, d, rc, bounds)
+    assert got == scan_filter_agg_join_sharded_ref(
+        T(f), T(a), T(j), T(fv), T(jv), T(d), T(rc), bounds)
+    for s, size in enumerate(sizes):
+        cols = [x[s, :size].copy() for x in (f, a, j, fv, jv)]
+        assert got[s] == ref_join(*cols, d, rc, bounds)
