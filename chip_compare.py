@@ -24,6 +24,17 @@ K7 and K15 also `wrapper_device_ms`, the device time of 20 wrapper calls,
 a call, measured here the same way for both trees; where the run built the
 tree's library, ptxas' registers and spill bytes of its scan kernels
 (`ptxas`).
+
+The delta plane's folds, each against what it folds in a tree without it
+(the sum of the parts, under `parts`): the correction lane alone, K13, at a
+stack of 4,031 rows, Q 1 (`values_lane`); the stacked join group at 4 x
+2,500,000 rows with stacks of 4,163 and 4,064 rows
+(`sharded_join_group`: one launch, or K11 and two K13s); K15 and its join
+form with the correction slice over the same stacks (`mesh_group`, also
+at Q 3, `mesh_group_q3`, and `mesh_join_group`: one launch a device, or
+K15 and one or two K13s), with
+`base_device_ms`, the same launch without the slice, where the tree folds;
+and for each `wrapper_device_ms` through the tree's public wrappers.
 """
 
 from __future__ import annotations
@@ -69,6 +80,99 @@ def _mesh_wrapper(dev, n_isl, width, k, join, gen, cs):
     return wrapper
 
 
+K, KJ, W, STACKS = 25_000, 25_000, 2_500_000, (4163, 4064)
+
+
+def _folds(cs, dev, gen) -> dict:
+    """The delta plane's folds in this tree, or the parts they fold."""
+    import torch
+    from repro_torch.kernels import dict_ops, hash_probe
+    folds = "scan_exact_join_group_sharded" in cs.KERNELS
+    keys = ("ms", "device_ms", "wrapper_ms")
+
+    def pick(m):
+        return {k: m.get(k) for k in keys + ("base_device_ms",)
+                if m.get(k) is not None}
+
+    def summed(parts):
+        return dict({k: sum(p[k] for p in parts.values()) for k in keys},
+                    parts=parts)
+    out = {}
+    lane = cs.measure_values(gen, dev, (4031, 1), 6)
+    out["values_lane"] = dict(pick(lane), shape=[4031, 1])
+    lanes = {nr: cs.measure_values(gen, dev, (nr, 1), 6) for nr in STACKS}
+
+    f, a, j, fv, jv, ad, rc = cs.scan_inputs(gen, 4 * W, K, K, KJ, dev,
+                                             invalid=0.0)
+    ca = cs.corr_stack(gen, dev, 6, STACKS[0], 0, 1 << 24, extremes=False)
+    cj = cs.corr_stack(gen, dev, 6, STACKS[1], 0, 1 << 24, extremes=False)
+    bounds, vb = [(K // 2, K // 2 + 3 * K // 10)], cs.delta_vbounds(1)
+
+    # the stacked join group
+    shape = (4, W, K, KJ, 1) + STACKS
+    stacked = [t.reshape(4, W) for t in (f, a, j, fv, jv)]
+    if folds:
+        m = pick(cs.measure_group(gen, dev, shape, "join_sharded"))
+
+        def wrapper():
+            hash_probe.scan_filter_agg_join_group_sharded(
+                stacked[0], stacked[1], stacked[2], stacked[3], stacked[4],
+                ad, rc, bounds, ca, cj, vb)
+    else:
+        m = summed({"K11": pick(cs.measure_scan_sharded(gen, dev, shape[:5],
+                                                        True)),
+                    "K13_a": pick(lanes[STACKS[0]]),
+                    "K13_j": pick(lanes[STACKS[1]])})
+
+        def wrapper():
+            hash_probe.scan_filter_agg_join_sharded(
+                stacked[0], stacked[1], stacked[2], stacked[3], stacked[4],
+                ad, rc, bounds)
+            dict_ops.scan_values_delta(ca, vb)
+            dict_ops.scan_values_delta(cj, vb)
+    out["sharded_join_group"] = dict(m, shape=list(shape),
+                                     wrapper_device_ms=_device_ms(wrapper))
+
+    # the mesh scans with the correction (a group of three predicates as
+    # well: eight a pass)
+    fi, ai, ji, fvi, jvi = cs.mesh_islands((f, a, j, fv, jv), [W] * 4)
+    for join, nq in ((False, 1), (False, 3), (True, 1)):
+        name = ("mesh_join_group" if join else "mesh_group") + (
+            f"_q{nq}" if nq > 1 else "")
+        stacks = STACKS if join else STACKS[:1]
+        shape = (4, W, K) + ((KJ,) if join else ()) + (nq,)
+        extra = (ji, jvi, [rc] * 4) if join else ()
+        qb = [((q * K) // (nq + 1), (q * K) // (nq + 1) + 3 * K // 10)
+              for q in range(nq)]
+        qvb = cs.delta_vbounds(nq)
+        args = (fi, ai, fvi, [ad] * 4, qb) + extra
+        if folds:
+            m = pick(cs.measure_scan_mesh(gen, dev, shape + stacks, join))
+
+            def wrapper():
+                dict_ops.scan_exact_mesh(*args, corr_a=ca,
+                                         corr_j=cj if join else None,
+                                         vbounds=qvb)
+        else:
+            parts = {"K15": pick(cs.measure_scan_mesh(gen, dev, shape, join))}
+            for nr in stacks:
+                parts[f"K13_{nr}"] = pick(
+                    lanes[nr] if nq == 1
+                    else cs.measure_values(gen, dev, (nr, nq), 6))
+            m = summed(parts)
+
+            def wrapper():
+                dict_ops.scan_exact_mesh(*args)
+                dict_ops.scan_values_delta(ca, qvb)
+                if join:
+                    dict_ops.scan_values_delta(cj, qvb)
+        out[name] = dict(m, shape=list(shape + stacks),
+                         wrapper_device_ms=_device_ms(wrapper))
+    del f, a, j, fv, jv, stacked, fi, ai, ji, fvi, jvi
+    torch.cuda.empty_cache()
+    return out
+
+
 def _one(root: str) -> dict:
     sys.argv = ["chip_compare"]
     sys.path[:0] = [root, root + "/src"]
@@ -103,9 +207,13 @@ def _one(root: str) -> dict:
         {k: m[k] for k in keys}, shape=list(shape),
         wrapper_device_ms=_device_ms(lambda: apply_pipeline_batch(old, val)))
 
+    out.update(_folds(cs, dev, gen))
     for join in (False, True):
         name = "mesh_join" if join else "mesh"
         shape = (4, 2_500_000, 25_000) + ((25_000,) if join else ()) + (1,)
+        if "scan_exact_join_group_sharded" in cs.KERNELS:
+            # a mesh launch's shape records its stacks' rows (0: none)
+            shape += (0, 0) if join else (0,)
         m = cs.measure_scan_mesh(gen, dev, shape, join)
         wrapper = _mesh_wrapper(dev, 4, 2_500_000, 25_000, join, gen, cs)
         out[name] = dict({k: m[k] for k in keys}, shape=list(shape),

@@ -9,7 +9,10 @@ Drives `repro_torch` only. Phases, each printing one JSON line:
 2. ``build``     builds the CUDA sources with nvcc (seconds = set-up time),
                  with each scan kernel instance's registers, spills and
                  blocks an SM (``scan_instances``; the join lane's
-                 one-predicate pass must hold 2 blocks of 512 an SM).
+                 one-predicate pass, in the scan and in the island kernel,
+                 must hold 2 blocks of 512 an SM, and ptxas must read at
+                 most 64 registers and no spills for it and for the island
+                 kernel without the correction slice).
 3. ``main_path`` one HTAP session of the full system (`Polynesia` preset,
                  ``backend="hopper"``) at 10,000,000 rows x 8 columns,
                  400,000 transactions, 32 queries, 4 rounds, plus one late
@@ -27,7 +30,9 @@ Drives `repro_torch` only. Phases, each printing one JSON line:
                  and final columns must equal the one-island session's bit
                  for bit (and the host evaluation every round); the sharded
                  scan and sharded join scan must carry every query group,
-                 one launch per group as on one island.
+                 one launch per group as on one island. No path may launch
+                 the sort unit (every one-column dictionary stage rides the
+                 fused apply) or the correction lane alone.
 5. ``delta``     the same session on the delta-store update plane
                  (``delta_store=True``, compaction every
                  ``--delta-capacity`` appended entries), once per count of
@@ -37,10 +42,11 @@ Drives `repro_torch` only. Phases, each printing one JSON line:
                  decoded with its live overlay folded in, its values and
                  validity; the query groups must have gone through the
                  fused delta kernels with a non-empty correction stack (the
-                 group scan and the join group scan on one island, the
-                 sharded group scan and the values delta on islands), and
-                 the merge unit launched once a merge asked for (ship
-                 batches, dictionary merges and overlay merges).
+                 group scan and the join group scan on one island, their
+                 sharded forms on islands, each as often as its flat form
+                 on one island), and the merge unit launched once a merge
+                 asked for (ship batches, dictionary merges and overlay
+                 merges).
 6. ``mesh``      the same session on the mesh placement: analytical island
                  s resident on its own device, each island applying its
                  own rows there, a query group one scan launch per device
@@ -57,7 +63,10 @@ Drives `repro_torch` only. Phases, each printing one JSON line:
                  times as often as one island launches the flat scans (once
                  a query group on one card). Then the same
                  four islands on the delta store (answers equal the eager
-                 session's; the values-delta launches are reported). With
+                 session's; the mesh scans alone launch, as often, the
+                 correction a slice of them: their shapes must record
+                 non-empty stacks, and the values delta must not launch).
+                 With
                  two or more cards, ``hopper@min(4, cards)/mesh`` over
                  distinct cards with the same checks (``mesh_cards``);
                  with one, a line saying it was skipped.
@@ -140,7 +149,10 @@ Drives `repro_torch` only. Phases, each printing one JSON line:
                  and allocations), the plain version and, where one PyTorch
                  call computes the same function, that call; for the delta
                  groups also the same launch without the correction lane
-                 (``base_ms``). The tile merge (K6, ``bitonic_merge_rows``)
+                 (``base_ms``, ``base_device_ms``), and for the mesh scans
+                 the delta plane's launches with the correction slice
+                 (``with_correction``, beside the same launches without
+                 it). The tile merge (K6, ``bitonic_merge_rows``)
                  runs only where a sort row is wider than 32,768 keys: it is
                  reported with its launches on every path
                  (``launches_by_path``, 0 where none) and measured at the
@@ -156,10 +168,13 @@ the launch, widest island, ...), measured with the islands on one card),
 the bucket
 probe against ``ana_only``, the float32 scan
 against ``float_scan``, flash-decode attention and the selective scan
-against ``lm_serve`` (each model's serve run). The raw-value
-scan has no caller on these paths (nor in the reference's kernel backend):
-it is the values delta's kernel over a 3-row stack and is held and timed
-beside it, under ``raw_value_scan``. Then the ``{"kernels": [...]}``
+against ``lm_serve`` (each model's serve run). The correction lane alone
+(the values delta, and the raw-value scan, its kernel over a 3-row stack,
+held and timed beside it under ``raw_value_scan``) and the sort unit have
+no caller on these paths: the lane rides the scan launches and the sort
+unit the fused apply. They are held to their plain versions at edge shapes
+and measured at NO_CALLER_SHAPE, with their launches on every path
+(``launches_by_path``). Then the ``{"kernels": [...]}``
 summary, the card's name and power limit, and as the last line ``{"ok":
 true, "device": {...}}``. Any failed phase raises: the script exits
 non-zero and prints no result. Without CUDA it exits with code 2 before
@@ -208,14 +223,20 @@ REPLACES = {
                                 "(dict_ops.py:121 + 2 x dict_ops.py:176)",
     "scan_exact_join_group": "src/repro/kernels/hash_probe/ops.py:383 "
                              "(2 x dict_ops.py:63 + 4 x dict_ops.py:176)",
+    "scan_exact_join_group_sharded": "src/repro/kernels/hash_probe/ops.py:244"
+                                     " + 2 x src/repro/kernels/dict_ops/"
+                                     "ops.py:453 (composed at src/repro/core/"
+                                     "backend.py:253)",
     "scan_values_delta": "src/repro/kernels/dict_ops/ops.py:453 "
                          "(2 x dict_ops.py:176; the raw-value scan "
                          "dict_ops.py:176 alone is raw_value_scan)",
     "scan_exact_mesh": "src/repro/kernels/dict_ops/ops.py:539 "
-                       "(_mesh_scan_call; dict_ops.py:121 per island)",
+                       "(_mesh_scan_call; dict_ops.py:121 per island; on "
+                       "the delta plane + dict_ops/ops.py:453)",
     "scan_exact_join_mesh": "src/repro/kernels/hash_probe/ops.py:431 "
                             "(_mesh_join_call; 2 x dict_ops.py:121 per "
-                            "island)",
+                            "island; on the delta plane + 2 x dict_ops/"
+                            "ops.py:453)",
     "scan_float": "src/repro/kernels/dict_ops/dict_ops.py:218",
     "decode_attn": "src/repro/kernels/decode_attn/decode_attn.py:74",
     "selective_scan": "src/repro/kernels/selective_scan/selective_scan.py:59",
@@ -234,6 +255,8 @@ SOURCES = {
     "scan_exact_group": "src/repro_torch/kernels/csrc/scan_exact.cu",
     "scan_exact_group_sharded": "src/repro_torch/kernels/csrc/scan_exact.cu",
     "scan_exact_join_group": "src/repro_torch/kernels/csrc/scan_exact.cu",
+    "scan_exact_join_group_sharded":
+        "src/repro_torch/kernels/csrc/scan_exact.cu",
     "scan_values_delta": "src/repro_torch/kernels/csrc/scan_exact.cu",
     "scan_exact_mesh": "src/repro_torch/kernels/csrc/scan_exact.cu",
     "scan_exact_join_mesh": "src/repro_torch/kernels/csrc/scan_exact.cu",
@@ -245,16 +268,26 @@ SOURCES = {
 PATH_OF = {"scan_exact_sharded": "islands",
            "scan_exact_join_sharded": "islands", "hash_probe": "ana_only",
            "scan_exact_group": "delta", "scan_exact_group_sharded": "delta",
-           "scan_exact_join_group": "delta", "scan_values_delta": "delta",
+           "scan_exact_join_group": "delta",
+           "scan_exact_join_group_sharded": "delta",
+           "scan_values_delta": "delta",
            "scan_exact_mesh": "mesh", "scan_exact_join_mesh": "mesh",
            "scan_float": "float_scan", "decode_attn": "lm_serve",
            "selective_scan": "lm_serve"}
-# kernels a path launches only for some data: the tile merge (K6) sorts a
-# row wider than one tile's 32,768 keys, which the paths may not have. Each
-# is reported with its launches on every path, measured at the shape a path
+# kernels a path launches only for some data, or none: the tile merge (K6)
+# sorts a row wider than one tile's 32,768 keys, which the paths may not
+# have; the sort unit (K4) sorts only a dictionary stage the fused apply
+# cannot take (values at the int32.max pad or beyond int32); the correction
+# lane alone (K13) has no caller (it rides the scans' launches). Each is
+# reported with its launches on every path, measured at the shape a path
 # launched most or, where none did, at NO_CALLER_SHAPE, and is not required
 # to have launched.
-NO_CALLER_SHAPE = {"bitonic_merge_rows": (2, 32768, 32768)}
+NO_CALLER_SHAPE = {"bitonic_merge_rows": (2, 32768, 32768),
+                   "bitonic_sort": (1, 1024),
+                   "scan_values_delta": (4031, 1)}
+# ... and of those, the kernels no path of this workload may launch: its
+# values never reach int32.max, and every correction rides a scan
+NEVER_ON_PATH = ("bitonic_sort", "scan_values_delta")
 I32_MIN, I32_MAX = -2**31, 2**31 - 1
 
 
@@ -420,10 +453,22 @@ def phase_build() -> None:
             registers[entry] = int(line.split("Used ")[1].split()[0])
     REGISTERS.update(registers)
     instances = scan_instances()
-    narrow = join_instances(1)
+    narrow = dict(join_instances(1), **{
+        island_key(1, c, 1): instances[island_key(1, c, 1)] for c in (0, 1)})
     if any(v["blocks_per_sm"] < 2 for v in narrow.values()):
         raise AssertionError(f"the join lane's one-predicate pass holds "
                              f"fewer than 2 blocks of 512 an SM: {narrow}")
+    # ptxas (where this process built the library): the one-predicate join
+    # instances and the island kernel without the correction slice at most
+    # 64 registers, no spills
+    tight = dict(narrow, **{island_key(j, 0, q): instances[island_key(j, 0, q)]
+                            for j, q in ((0, 8), (1, 1))})
+    bad = {k: v for k, v in tight.items() if "registers" in v and (
+        v["registers"] > 64 or v["spill_bytes"]) and (
+        "islands" not in k or ",base," in k)}
+    if bad:
+        raise AssertionError(f"ptxas: more than 64 registers or spills: "
+                             f"{bad}")
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          nvcc_seconds=nvcc_seconds,
          sources=sorted(p.name for p in build.CSRC.glob("*.cu")),
@@ -441,8 +486,13 @@ def scan_key(join, vec, corr, qn) -> str:
             f"qn={qn}>")
 
 
-def island_key(join, qn) -> str:
-    return f"scan_islands<{'join' if join else 'scan'},qn={qn}>"
+def island_key(join, corr, qn) -> str:
+    return (f"scan_islands<{'join' if join else 'scan'},"
+            f"{'corr' if corr else 'base'},qn={qn}>")
+
+
+def values_key(qn) -> str:
+    return f"values<qn={qn}>"
 
 
 def float_key(vec) -> str:
@@ -454,7 +504,9 @@ def instance_key(entry: str) -> str | None:
     for pat, key in (
             (r"scan_exact_kernelILb([01])ELb([01])ELb([01])ELi(\d+)EE",
              scan_key),
-            (r"scan_islands_kernelILb([01])ELi(\d+)EE", island_key),
+            (r"scan_islands_kernelILb([01])ELb([01])ELi(\d+)EE",
+             island_key),
+            (r"values_kernelILi(\d+)EE", values_key),
             (r"scan_float_kernelILb([01])EE", float_key)):
         m = re.search(pat, entry)
         if m:
@@ -465,10 +517,12 @@ def instance_key(entry: str) -> str | None:
 def scan_instances() -> dict[str, dict]:
     """Per instance of the exact scan's kernel (join lane or not, 16-byte
     loads or rows, correction slice or base, predicates a pass), of the
-    island kernel and of the float scan: the occupancy API's blocks an SM
-    (512 threads a block for the scans, 256 for the float scan; not asked
-    for the island kernel) and, when this process built the library,
-    ptxas' registers and spill bytes."""
+    island kernel (join lane or not, correction slice or base, predicates a
+    pass), of the correction lane alone (predicates a pass) and of the
+    float scan: the occupancy API's blocks an SM (512 threads a block for
+    the scans, 256 for the float scan; not asked for the lane alone) and,
+    when this process built the library, ptxas' registers and spill
+    bytes."""
     import ctypes
     from repro_torch.kernels import build
     ptxas = {instance_key(e): dict(registers=n, spill_bytes=SPILLS.get(e, 0))
@@ -485,8 +539,16 @@ def scan_instances() -> dict[str, dict]:
                 key = scan_key(j, v, c, q)
                 out[key] = dict(ptxas.get(key, {}), blocks_per_sm=occupancy(
                     "scan_exact_occupancy", j, v, c, q))
-        out[island_key(j, q)] = dict(ptxas.get(island_key(j, q), {}),
-                                     blocks_per_sm=None)
+    # the island kernel: the scan with the correction slice also takes one
+    # predicate a pass
+    for j, c, q in ((0, 0, 8), (0, 1, 1), (0, 1, 8), (1, 0, 1), (1, 1, 1),
+                    (1, 0, 8), (1, 1, 8)):
+        key = island_key(j, c, q)
+        out[key] = dict(ptxas.get(key, {}), blocks_per_sm=occupancy(
+            "scan_islands_occupancy", j, c, q))
+    for q in (1, 8):
+        out[values_key(q)] = dict(ptxas.get(values_key(q), {}),
+                                  blocks_per_sm=None)
     for v in (0, 1):
         out[float_key(v)] = dict(ptxas.get(float_key(v), {}),
                                  blocks_per_sm=occupancy(
@@ -495,8 +557,9 @@ def scan_instances() -> dict[str, dict]:
 
 
 def join_qn(nq: int) -> int:
-    """Predicates a pass of the join lane for a Q-predicate group (the
-    host's choice in scan_exact.cu)."""
+    """Predicates a pass of the join lane (and of the island kernel with
+    the correction slice) for a Q-predicate group (the host's choice in
+    scan_exact.cu)."""
     return 1 if nq == 1 else 8
 
 
@@ -795,11 +858,17 @@ def phase_islands(args, wl, one_launches, one_answers, one_cols
 STACK_ROWS = {"scan_exact_group": lambda s: s[-1],
               "scan_exact_group_sharded": lambda s: s[-1],
               "scan_exact_join_group": lambda s: s[-2] + s[-1],
+              "scan_exact_join_group_sharded": lambda s: s[-2] + s[-1],
               "scan_values_delta": lambda s: s[0]}
 # the delta kernels that must carry query groups with a non-empty stack:
 # on one island, and on several
 DELTA_ONE = ("scan_exact_group", "scan_exact_join_group")
-DELTA_ISLANDS = ("scan_exact_group_sharded", "scan_values_delta")
+DELTA_ISLANDS = ("scan_exact_group_sharded", "scan_exact_join_group_sharded")
+# on several islands each scan launches as often as its flat form on one
+SHARDED_FORM = {"scan_exact": "scan_exact_sharded",
+                "scan_exact_join": "scan_exact_join_sharded",
+                "scan_exact_group": "scan_exact_group_sharded",
+                "scan_exact_join_group": "scan_exact_join_group_sharded"}
 
 
 def folded_columns(session) -> dict:
@@ -830,6 +899,7 @@ def phase_delta(args, wl, one_answers, one_cols, one_seconds
     want = {c: (col.dictionary[col.codes.long()], col.valid)
             for c, col in one_cols.items()}
     reset_kernel_launch_counts()
+    one = None                  # the one-island delta run's launches
     for n in args.delta_islands:
         before, shapes_before = kernel_launch_counts(), kernel_launch_shapes()
         torch.cuda.reset_peak_memory_stats()
@@ -867,6 +937,18 @@ def phase_delta(args, wl, one_answers, one_cols, one_seconds
             raise AssertionError(f"delta plane on {n} island(s): no query "
                                  f"group went through {missing} with a "
                                  f"non-empty stack (launches {launches})")
+        if n == 1:
+            one = launches
+        elif one is not None:
+            # the same groups fold alike: each sharded form as often as
+            # its flat form on one island, and nothing else scans
+            for flat, sharded in SHARDED_FORM.items():
+                if launches.get(sharded, 0) != one.get(flat, 0) or \
+                        launches.get(flat, 0):
+                    raise AssertionError(
+                        f"delta plane on {n} islands: {sharded} launched "
+                        f"{launches.get(sharded, 0)} times, {flat} "
+                        f"{one.get(flat, 0)} on one island ({launches})")
         stats = result.stats
         total = sum(seconds)
         emit("delta", islands=n, capacity=session.delta_capacity,
@@ -891,6 +973,11 @@ def phase_delta(args, wl, one_answers, one_cols, one_seconds
 # the flat scans whose launches one island makes for the same query groups
 MESH_SCANS = {"scan_exact_mesh": "scan_exact",
               "scan_exact_join_mesh": "scan_exact_join"}
+
+
+def mesh_stack_rows(name, shape) -> int:
+    """The correction stacks' rows a mesh launch of `shape` carried."""
+    return sum(mesh_shape(shape, name == "scan_exact_join_mesh")[5:])
 
 
 def mesh_launches_a_group(devices) -> int:
@@ -980,7 +1067,7 @@ def phase_mesh(args, wl, one_launches, one_answers, one_cols, dev=None
     n = args.mesh_islands[0]
     want = {c: (col.dictionary[col.codes.long()], col.valid)
             for c, col in one_cols.items()}
-    before = kernel_launch_counts()
+    before, shapes_before = kernel_launch_counts(), kernel_launch_shapes()
     answers, seconds, session, result = drive_spec(
         SystemSpec.polynesia(backend=f"hopper@{n}/mesh", delta_store=True,
                              delta_capacity=args.delta_capacity),
@@ -988,6 +1075,7 @@ def phase_mesh(args, wl, one_launches, one_answers, one_cols, dev=None
     launches = {k: v - before.get(k, 0)
                 for k, v in kernel_launch_counts().items()
                 if v != before.get(k, 0)}
+    shapes_after = kernel_launch_shapes()
     if answers != one_answers:
         raise AssertionError(f"delta plane on hopper@{n}/mesh: answers "
                              f"{answers} != eager answers {one_answers}")
@@ -1001,6 +1089,25 @@ def phase_mesh(args, wl, one_launches, one_answers, one_cols, dev=None
             k.endswith("_sharded") or k in SCANS for k in launches):
         raise AssertionError(f"delta plane on hopper@{n}/mesh did not stay "
                              f"on the mesh: {launches}")
+    # only the island scans scan, one launch a device and group; the
+    # correction rides them (their shapes record its stacks' rows)
+    per_group = mesh_launches_a_group(session.be.devices)
+    stack_rows = {}
+    for mesh, flat in MESH_SCANS.items():
+        if launches.get(mesh, 0) != per_group * one_launches.get(flat, 0):
+            raise AssertionError(
+                f"delta plane on hopper@{n}/mesh: {launches.get(mesh, 0)} "
+                f"{mesh} launches, {per_group} a group x the one-island "
+                f"{one_launches.get(flat, 0)} expected")
+        stack_rows[mesh] = sum(
+            mesh_stack_rows(mesh, sh) * (c - shapes_before.get(mesh, {})
+                                         .get(sh, 0))
+            for sh, c in shapes_after.get(mesh, {}).items())
+    others = [k for k in launches if "scan" in k and k not in MESH_SCANS]
+    if others or not all(stack_rows.values()):
+        raise AssertionError(f"delta plane on hopper@{n}/mesh: the "
+                             f"corrections did not ride the mesh scans: "
+                             f"stack rows {stack_rows}, launches {launches}")
     total = sum(seconds)
     emit("mesh", run=f"hopper@{n}/mesh delta store on one card", islands=n,
          capacity=session.delta_capacity, round_seconds=seconds,
@@ -1009,6 +1116,7 @@ def phase_mesh(args, wl, one_launches, one_answers, one_cols, dev=None
          delta_appends=result.stats["delta_appends"],
          compactions=result.stats["compactions"],
          values_delta_launches=launches.get("scan_values_delta", 0),
+         stack_rows_scanned=stack_rows, launches_a_group=per_group,
          launches=launches, answers_checksum=sum(answers), ok=True)
     del session
 
@@ -1595,15 +1703,29 @@ def measure_scan_sharded(gen, dev, shape, join: bool) -> dict:
                 library_ms=None)
 
 
+def mesh_shape(shape, join):
+    """(N, W, k, kj, Q, nr_a, nr_j) of a mesh launch's recorded shape ((N,
+    W, k, Q, nr_a) without the join lane: kj and nr_j 0)."""
+    if join:
+        return tuple(shape)
+    n_isl, width, k, q, nr_a = shape
+    return n_isl, width, k, 0, q, nr_a, 0
+
+
 def scan_mesh_cost(shape, join):
-    """(N, W, k[, kj], Q), N islands of W rows in one launch: every
+    """(N, W, k[, kj], Q, nr_a[, nr_j]), N islands of W rows in one launch
+    and the correction slice over stacks of nr_a (and nr_j) rows: every
     island's rows read once, its dictionary (and histogram) once each, the
-    bounds in, one (2|3, Q) partial out."""
-    n_isl, width, k, q = shape[0], shape[1], shape[2], shape[-1]
+    bounds in, each stack read once, one (2|3, Q) partial out."""
+    n_isl, width, k, kj, q, nr_a, nr_j = mesh_shape(shape, join)
     lanes = 3 if join else 2
     nbytes = n_isl * (width * (9 + (5 if join else 0)) + k * 4
-                      + (shape[3] * 4 if join else 0)) + q * 8 + lanes * q * 8
-    return nbytes, n_isl * width * (2 * q + 2) * (2 if join else 1)
+                      + kj * 4) + q * 8 + lanes * q * 8
+    ops = n_isl * width * (2 * q + 2) * (2 if join else 1)
+    for nr in (nr_a, nr_j):
+        b, o = values_cost((nr, q))
+        nbytes, ops = nbytes + b - 2 * q * 8, ops + o
+    return nbytes, ops
 
 
 def mesh_islands(flat_tensors, sizes):
@@ -1618,7 +1740,11 @@ def edge_scan_mesh(gen, dev) -> int:
     more islands than rows, uneven splits (so unaligned island bases), 17,
     33 and 100 islands (two, three and seven launches of up to 16), Q = 1,
     3 and 33, a dictionary holding int32's extremes (and negatives), each
-    island's dictionary its own tensor."""
+    island's dictionary its own tensor; then the correction slice (the
+    delta plane's groups) with stacks of 0, 1, 3 and 4,097 rows, Q = 1, 3,
+    9 and 65 (two launches of at most 64 predicates), islands that are all
+    empty (a launch of the slice alone) and 17 islands (the slice on the
+    first of two launches)."""
     from repro_torch.kernels.dict_ops import (scan_exact_mesh,
                                               scan_exact_mesh_ref)
     cases = 0
@@ -1645,29 +1771,61 @@ def edge_scan_mesh(gen, dev) -> int:
         must_equal(f"mesh join scan {sizes[:4]} Q={nq}",
                    scan_exact_mesh(*jargs), scan_exact_mesh_ref(*jargs))
         cases += 2
+    for sizes, k in (((0, 40, 41), 30), ((3001, 3000, 2999, 3000), 500),
+                     ((0, 0, 0), 3), ((1001,) * 17, 300)):
+        n = sum(sizes)
+        f, a, j, fv, jv, ad, rc = scan_inputs(gen, max(n, 1), k, k, k, dev)
+        fi, ai, ji, fvi, jvi = mesh_islands(
+            [t[:n] for t in (f, a, j, fv, jv)], sizes)
+        for nr in (0, 1, 3, 4097):
+            for nq in (1, 3, 9, 65):
+                bounds = [(0, k)] + [(i % k, i % k + 1 + i % 7)
+                                     for i in range(nq - 1)]
+                vb = (EDGE_VBOUNDS * 8)[:nq]
+                ca = corr_stack(gen, dev, 6, nr)
+                cj = corr_stack(gen, dev, 6, nr + 2 if nr else 0, 0, 5000)
+                args = (fi, ai, fvi, [ad] * len(sizes), bounds)
+                must_equal(f"mesh group {sizes[:4]} nr={nr} Q={nq}",
+                           scan_exact_mesh(*args, corr_a=ca, vbounds=vb),
+                           scan_exact_mesh_ref(*args, corr_a=ca, vbounds=vb))
+                jargs = args + (ji, jvi, [rc] * len(sizes), ca, cj, vb)
+                must_equal(f"mesh join group {sizes[:4]} nr={nr} Q={nq}",
+                           scan_exact_mesh(*jargs),
+                           scan_exact_mesh_ref(*jargs))
+                cases += 2
     return cases
 
 
 def measure_scan_mesh(gen, dev, shape, join: bool) -> dict:
-    """At (N, W, k[, kj], Q), the N islands on the one card: `ms` the bare
-    launches (one a group of up to 16 islands, with the adds of other
-    devices' partials: none here), `wrapper_ms` through the wrapper."""
+    """At (N, W, k[, kj], Q, nr_a[, nr_j]), the N islands on the one card:
+    `ms` the bare launches (one a group of up to 16 islands, with the adds
+    of other devices' partials: none here), with the correction slice over
+    stacks of nr_a (and nr_j) rows where they are not 0, and then
+    `base_ms` / `base_device_ms` the same launches without it;
+    `wrapper_ms` through the wrapper."""
     from repro_torch.kernels.dict_ops import (launch_scan_exact_mesh,
                                               mesh_launch_groups,
                                               scan_exact_mesh,
                                               scan_exact_mesh_ref)
-    n_isl, width, k, nq = shape[0], shape[1], shape[2], shape[-1]
-    kj = shape[3] if join else 1
-    f, a, j, fv, jv, ad, rc = scan_inputs(gen, n_isl * width, k, k, kj, dev,
-                                          invalid=0.0)
+    n_isl, width, k, kj, nq, nr_a, nr_j = mesh_shape(shape, join)
+    f, a, j, fv, jv, ad, rc = scan_inputs(gen, n_isl * width, k, k,
+                                          max(kj, 1), dev, invalid=0.0)
     fi, ai, ji, fvi, jvi = mesh_islands((f, a, j, fv, jv), [width] * n_isl)
     span = max(1, 3 * k // 10)
     bounds = [((q * k) // (nq + 1), (q * k) // (nq + 1) + span)
               for q in range(nq)]
     extra = (ji, jvi, [rc] * n_isl) if join else ()
+    corr = None
+    if nr_a or nr_j:
+        cj = corr_stack(gen, dev, 6, nr_j, 0, 1 << 24, extremes=False) \
+            if join else None
+        corr = dict(corr_a=corr_stack(gen, dev, 6, nr_a, 0, 1 << 24,
+                                      extremes=False),
+                    corr_j=cj, vbounds=delta_vbounds(nq))
+    ckw = corr or {}
     args = (fi, ai, fvi, [ad] * n_isl, bounds) + extra
-    err = must_equal(f"mesh scan {shape}", scan_exact_mesh(*args),
-                     scan_exact_mesh_ref(*args))
+    err = must_equal(f"mesh scan {shape}", scan_exact_mesh(*args, **ckw),
+                     scan_exact_mesh_ref(*args, **ckw))
     islands = [(fi[s], ai[s], fvi[s].view(torch.uint8), ad) + (
         (ji[s], jvi[s].view(torch.uint8), rc) if join else ())
         for s in range(n_isl)]
@@ -1676,16 +1834,23 @@ def measure_scan_mesh(gen, dev, shape, join: bool) -> dict:
     outs = {dev: torch.zeros((3 if join else 2, nq), dtype=torch.int64,
                              device=dev)}
 
-    def bare():
-        return launch_scan_exact_mesh(islands, groups, barrs, outs)
-    return dict(max_abs_err=err, launches_a_call=len(groups),
-                **({"instances": {island_key(1, join_qn(nq)): (
-                    scan_instances()[island_key(1, join_qn(nq))])}}
-                   if join else {}),
-                ms=time_ms(bare, 50), **device_time(bare),
-                wrapper_ms=time_ms(lambda: scan_exact_mesh(*args), 20),
-                plain_ms=time_ms(lambda: scan_exact_mesh_ref(*args), 3),
-                library_ms=None)
+    def bare(with_corr=corr):
+        return launch_scan_exact_mesh(islands, groups, barrs, outs, with_corr)
+    every = scan_instances()
+    keys = [island_key(int(join), 0, join_qn(nq) if join else 8)]
+    if corr:
+        keys.append(island_key(int(join), 1, join_qn(nq)))
+    out = dict(max_abs_err=err, launches_a_call=len(groups),
+               instances={key: every[key] for key in keys},
+               ms=time_ms(bare, 50), **device_time(bare),
+               wrapper_ms=time_ms(lambda: scan_exact_mesh(*args, **ckw), 20),
+               plain_ms=time_ms(lambda: scan_exact_mesh_ref(*args, **ckw), 3),
+               library_ms=None)
+    if corr:
+        base = device_time(lambda: bare(None))
+        out.update(base_ms=time_ms(lambda: bare(None), 50),
+                   base_device_ms=base["device_ms"])
+    return out
 
 
 def probe_table(gen, dev, n_keys, lo=-(1 << 24), hi=1 << 24):
@@ -2208,15 +2373,19 @@ def group_cost(shape, kind):
         *base, nr = shape
         nbytes, ops = scan_sharded_cost(tuple(base), False)
         stacks = (nr,)
-    else:
+    elif kind == "join":
         *base, nr_a, nr_j = shape
         nbytes, ops = scan_cost(tuple(base), True)
+        stacks = (nr_a, nr_j)
+    else:
+        *base, nr_a, nr_j = shape
+        nbytes, ops = scan_sharded_cost(tuple(base), True)
         stacks = (nr_a, nr_j)
     nq = base[-1]
     for nr in stacks:
         b, o = values_cost((nr, nq))
         nbytes, ops = nbytes + b - 2 * nq * 8, ops + o
-    return nbytes + (3 if kind == "join" else 2) * nq * 8, ops
+    return nbytes + (3 if kind.startswith("join") else 2) * nq * 8, ops
 
 
 EDGE_VBOUNDS = [(I32_MIN, I32_MAX), (5, -5), (0, I32_MAX), (-1000, 1000),
@@ -2239,7 +2408,8 @@ def corr_stack(gen, dev, rows, nr, lo=-1000, hi=1000, extremes=True):
 
 def edge_delta(gen, dev) -> int:
     """The correction lane alone (3- and 6-row stacks) and fused with the
-    flat, the sharded (3 and 4 islands, padded slots) and the join scans:
+    flat, the sharded (3 and 4 islands, padded slots), the join and the
+    sharded join scans:
     stacks of 0, 1, 3 and 4097 rows, negative and int32-extreme values,
     empty ranges, hi = int32.max, Q of 1, 3 and 9 (two predicate
     slices)."""
@@ -2272,12 +2442,22 @@ def edge_delta(gen, dev) -> int:
                        scan_exact_group(*jargs), scan_exact_group_ref(*jargs))
             for sizes in ((21_846, 21_846, 21_845), (16_385,) * 4):
                 m = sum(sizes)
-                lay = [stacked(t[:m], sizes) for t in (f, a, fv)]
+                lay = [stacked(t[:m], sizes) for t in (f, a, fv, j, jv)]
                 sargs = (lay[0], lay[1], lay[2], ad, bounds, ca, vb)
                 must_equal(f"sharded group {len(sizes)} nr={nr} Q={nq}",
                            scan_exact_group(*sargs),
                            scan_exact_group_ref(*sargs))
-            cases += 4
+                jsargs = sargs + (lay[3], lay[4], rc, cj)
+                must_equal(f"sharded join group {len(sizes)} nr={nr} "
+                           f"Q={nq}", scan_exact_group(*jsargs),
+                           scan_exact_group_ref(*jsargs))
+            cases += 6
+    for nq in (1, 9, 17):           # more rows than one pass of the grid
+        st = corr_stack(gen, dev, 6, 300_001)
+        vb = (EDGE_VBOUNDS * 2)[:nq]
+        must_equal(f"values lane 6x300001 Q={nq}", scan_values_exact(st, vb),
+                   scan_values_exact_ref(st, vb))
+        cases += 1
     return cases
 
 
@@ -2357,9 +2537,12 @@ def measure_group(gen, dev, shape, kind) -> dict:
     from repro_torch.kernels.dict_ops import (launch_scan_exact,
                                               scan_exact_group,
                                               scan_exact_group_ref)
-    join = kind == "join"
+    join = kind.startswith("join")
     if kind == "sharded":
         n_shards, width, k, nq, nr = shape
+        n = n_shards * width
+    elif kind == "join_sharded":
+        n_shards, width, k, kj, nq, nr, nr_j = shape
         n = n_shards * width
     elif join:
         n, k, kj, nq, nr, nr_j = shape
@@ -2367,8 +2550,9 @@ def measure_group(gen, dev, shape, kind) -> dict:
         n, k, nq, nr = shape
     f, a, j, fv, jv, ad, rc = scan_inputs(gen, n, k, k, kj if join else 1,
                                           dev, invalid=0.0)
-    if kind == "sharded":
-        f, a, fv = (t.reshape(n_shards, width) for t in (f, a, fv))
+    if kind.endswith("sharded"):
+        f, a, fv, j, jv = (t.reshape(n_shards, width)
+                           for t in (f, a, fv, j, jv))
     span = max(1, 3 * k // 10)
     bounds = [((q * k) // (nq + 1), (q * k) // (nq + 1) + span)
               for q in range(nq)]
@@ -2399,13 +2583,15 @@ def measure_group(gen, dev, shape, kind) -> dict:
         **({"instances": join_instances(nq)} if join else {}),
         ms=time_ms(bare, 50), **device_time(bare),
         base_ms=time_ms(lambda: launch_scan_exact(*cols, base_res, *jl), 50),
+        base_device_ms=device_time(
+            lambda: launch_scan_exact(*cols, base_res, *jl))["device_ms"],
         wrapper_ms=time_ms(lambda: scan_exact_group(*args), 20),
         plain_ms=time_ms(lambda: scan_exact_group_ref(*args), 3),
         library_ms=None)
 
 
 def measure_values(gen, dev, shape, rows) -> dict:
-    from repro_torch.kernels.dict_ops import (launch_scan_exact,
+    from repro_torch.kernels.dict_ops import (launch_scan_values,
                                               scan_values_exact,
                                               scan_values_exact_ref)
     nr, nq = shape
@@ -2413,12 +2599,14 @@ def measure_values(gen, dev, shape, rows) -> dict:
     vb = delta_vbounds(nq)
     err = must_equal(f"values lane {rows}x{shape}", scan_values_exact(st, vb),
                      scan_values_exact_ref(st, vb))
-    res = torch.zeros((1, 2, nq), dtype=torch.int64, device=dev)
+    res = torch.zeros((2, nq), dtype=torch.int64, device=dev)
     vbarr = torch.tensor(vb, dtype=torch.int32, device=dev)
     def bare():
-        launch_scan_exact(None, None, None, None, None, res, corr_a=st,
-                          vbounds_dev=vbarr)
-    return dict(max_abs_err=err, ms=time_ms(bare, 200), **device_time(bare),
+        launch_scan_values(st, vbarr, res)
+    return dict(max_abs_err=err,
+                instances={values_key(v): scan_instances()[values_key(v)]
+                           for v in (1, 8)},
+                ms=time_ms(bare, 200), **device_time(bare),
                 wrapper_ms=time_ms(lambda: scan_values_exact(st, vb), 200),
                 plain_ms=time_ms(lambda: scan_values_exact_ref(st, vb), 20),
                 library_ms=None)
@@ -2748,6 +2936,9 @@ KERNELS = {
         lambda g, d, s: measure_group(g, d, s, "sharded")),
     "scan_exact_join_group": (lambda s: group_cost(s, "join"),
                               lambda g, d, s: measure_group(g, d, s, "join")),
+    "scan_exact_join_group_sharded": (
+        lambda s: group_cost(s, "join_sharded"),
+        lambda g, d, s: measure_group(g, d, s, "join_sharded")),
     "scan_values_delta": (values_cost, measure_values_delta),
     "scan_exact_mesh": (lambda s: scan_mesh_cost(s, False),
                         lambda g, d, s: measure_scan_mesh(g, d, s, False)),
@@ -2812,6 +3003,15 @@ def phase_kernels(shapes: dict) -> dict:
                 for count, shape in sorted(by_count.items())
                 if count != most[0]}
             cases += len(by_count) - 1
+        if name in MESH_SCANS and not mesh_stack_rows(name, most):
+            # the delta plane's launches, the correction slice riding them
+            carried = {sh: c for sh, c in seen.items()
+                       if mesh_stack_rows(name, sh)}
+            if carried:
+                at = max(carried, key=lambda sh: (carried[sh], cost(sh)))
+                measured[name]["with_correction"] = with_bound(
+                    measure(gen, dev, at), at, cost, carried[at])
+                cases += 1
         if name == "merge_runs" and most != SHIP_MERGE:
             measured[name]["at_ship"] = with_bound(
                 measure(gen, dev, SHIP_MERGE), SHIP_MERGE, cost,
@@ -2904,6 +3104,11 @@ def main(argv=None) -> int:
     if missing:
         raise AssertionError(f"kernels never launched on their paths: "
                              f"{missing}")
+    folded = {(k, p): r[0][k] for k in NEVER_ON_PATH for p, r in runs.items()
+              if r[0].get(k, 0)}
+    if folded:
+        raise AssertionError(f"kernels folded into other launches launched "
+                             f"on their own: {folded}")
     launches = {k: runs[PATH_OF.get(k, "main_path")][0].get(k, 0)
                 for k in REPLACES}
     shapes = {k: runs[PATH_OF.get(k, "main_path")][1][k] for k in REPLACES

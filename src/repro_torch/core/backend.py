@@ -29,10 +29,12 @@ below, so the same code runs either on
                                 _mesh for one launch per device)
     filter + aggregate + join   kernels/hash_probe.scan_filter_agg_join
                                 (+ _sharded, _mesh)
-    delta-store corrections     kernels/dict_ops.scan_values_agg,
-                                scan_values_delta, scan_filter_agg_group
-                                (+ _sharded); kernels/hash_probe.
-                                scan_filter_agg_join_group
+    delta-store corrections     folded into the scans' launches:
+                                kernels/dict_ops.scan_filter_agg_group
+                                (+ _sharded, _mesh); kernels/hash_probe.
+                                scan_filter_agg_join_group (+ _sharded,
+                                _mesh); alone: kernels/dict_ops.
+                                scan_values_agg, scan_values_delta
     hash join / value encode    kernels/hash_probe.build_table/probe
                                 (+ probe_sharded)
     update-log / dict merge     kernels/merge_runs
@@ -74,6 +76,7 @@ from repro_torch.kernels.dict_ops import (apply_pipeline_batch,
                                           scan_filter_agg,
                                           scan_filter_agg_batch,
                                           scan_filter_agg_group,
+                                          scan_filter_agg_group_mesh,
                                           scan_filter_agg_group_sharded,
                                           scan_filter_agg_mesh,
                                           scan_filter_agg_sharded,
@@ -83,6 +86,8 @@ from repro_torch.kernels.hash_probe import (EMPTY_KEY, build_table, probe,
                                             probe_sharded,
                                             scan_filter_agg_join,
                                             scan_filter_agg_join_group,
+                                            scan_filter_agg_join_group_mesh,
+                                            scan_filter_agg_join_group_sharded,
                                             scan_filter_agg_join_mesh,
                                             scan_filter_agg_join_sharded)
 from repro_torch.kernels.merge_runs import merge_sorted_pairs, merge_sorted_runs
@@ -97,9 +102,12 @@ SNAPSHOT_BLOCK = 8192  # copy-unit chunk size (kernels/snapshot_copy default)
 KERNEL_ENTRY_POINTS = ("scan_filter_agg", "scan_filter_agg_batch",
                        "scan_filter_agg_group",
                        "scan_filter_agg_group_sharded",
+                       "scan_filter_agg_group_mesh",
                        "scan_filter_agg_sharded", "scan_filter_agg_mesh",
                        "scan_filter_agg_join",
                        "scan_filter_agg_join_group",
+                       "scan_filter_agg_join_group_sharded",
+                       "scan_filter_agg_join_group_mesh",
                        "scan_filter_agg_join_sharded",
                        "scan_filter_agg_join_mesh", "probe",
                        "probe_sharded", "build_table", "merge_sorted_runs",
@@ -595,10 +603,10 @@ class HopperBackend(TorchBackend):
     Inherits the plain glue (bincounts, grouping, masks) - the paper's
     fixed-function units do the data-plane work while small control-plane
     steps stay plain. Where a fused kernel's precondition can't hold (a
-    value colliding with the int32.max sentinel pad, an empty side, fewer
-    than two fusable columns) the batch takes the unfused kernels (sort
-    unit, then the 64-bit merge unit), and an empty side needs no kernel at
-    all; every such path keeps results identical. Values beyond int32
+    value colliding with the int32.max sentinel pad, an empty side) the
+    column takes the unfused kernels (sort unit, then the 64-bit merge
+    unit), and an empty side needs no kernel at all; every such path keeps
+    results identical. Values beyond int32
     (which no session produces: update values and dictionaries are int32)
     are refused on the GPU rather than handed to a library sort. On CPU
     tensors each kernel wrapper runs its plain version, which is how the
@@ -868,16 +876,16 @@ class HopperBackend(TorchBackend):
         (kernels/dict_ops.apply_pipeline_batch): every column's update
         values ride one row of a single sort and merge with its old
         dictionary in the same kernel - replacing the separate sorter and
-        merge dispatches of the batched composition. The old-dictionary and
-        value sides get independent `common.width_bucket` widths, so the
-        sort runs at the (usually small) value width instead of the
-        dictionary width.
+        merge dispatches of the batched composition, also for a batch of
+        one column (the reference takes the composition there: one launch
+        where it has two). The old-dictionary and value sides get
+        independent `common.width_bucket` widths, so the sort runs at the
+        (usually small) value width instead of the dictionary width.
 
         Columns the fused pipeline can't take - an empty side (nothing to
         sort or merge), values beyond int32, or values colliding with the
-        int32.max sentinel pad - fall back to the compositional default,
-        as does a batch with fewer than two fusable columns. Results are
-        elementwise identical either way."""
+        int32.max sentinel pad - fall back to the compositional default.
+        Results are elementwise identical either way."""
         cols = [(self.to_device(o), wv) for o, wv in per_column]
         # old dictionaries are sorted, so o[-1] is the max: every column's
         # in one device-to-host copy (a per-column int() is a sync each)
@@ -892,7 +900,7 @@ class HopperBackend(TorchBackend):
                     and int(wv.max()) < I32_MAX)
 
         fused = [i for i in range(len(cols)) if fusable(i)]
-        if len(fused) < 2:
+        if not fused:
             return super().apply_stages_batch(per_column)
         w_old = width_bucket(max(len(cols[i][0]) for i in fused))
         w_val = width_bucket(max(len(cols[i][1]) for i in fused))
@@ -1099,9 +1107,7 @@ class ShardedBackend(ExecutionBackend):
     def filter_agg_delta_batch(self, fcol, acol, bounds, corr):
         # on the kernel inner every island's base scan over its resident
         # shard AND the flat overlay correction ride ONE launch; other
-        # inners keep the composition (sharded base + inner correction).
-        # Join groups keep the composition on every inner: the sharded join
-        # scan with the effective histogram plus two values deltas.
+        # inners keep the composition (sharded base + inner correction)
         if corr is None:
             return self.filter_agg_batch(fcol, acol, bounds)
         if not isinstance(self.inner, HopperBackend):
@@ -1111,6 +1117,26 @@ class ShardedBackend(ExecutionBackend):
         return scan_filter_agg_group_sharded(fv.codes, av.codes, fv.valid,
                                              av.dictionary, code_bounds,
                                              corr, bounds)
+
+    def filter_agg_join_delta_batch(self, fcol, acol, jcol, bounds, rcount,
+                                    corr_a, corr_j):
+        # on the kernel inner every island's aggregate and join scans with
+        # the GLOBAL effective histogram AND both flat overlay corrections
+        # ride ONE launch, where the reference composes the sharded join
+        # scan and two values deltas (equal answers); other inners keep
+        # that composition
+        if (not isinstance(self.inner, HopperBackend)
+                or (corr_a is None and corr_j is None)):
+            return super().filter_agg_join_delta_batch(
+                fcol, acol, jcol, bounds, rcount, corr_a, corr_j)
+        fv, av, jv = (self._as_view(fcol), self._as_view(acol),
+                      self._as_view(jcol))
+        code_bounds = [self.code_range(fv, lo, hi) for lo, hi in bounds]
+        rc = (jv.dict_counts() if rcount is None else rcount
+              ).to(torch.int32)
+        return scan_filter_agg_join_group_sharded(
+            fv.codes, av.codes, jv.codes, fv.valid, jv.valid, av.dictionary,
+            rc, code_bounds, corr_a, corr_j, bounds)
 
     def hash_join_count(self, left, right, left_mask=None):
         # Each island histograms only its own resident probe-side shard;
@@ -1199,13 +1225,15 @@ class MeshBackend(ShardedBackend):
     int64 partials add on island 0's device (`kernels.dict_ops.
     scan_filter_agg_mesh`, `kernels.hash_probe.scan_filter_agg_join_mesh`).
 
-    Everything off the scan plane - log merge, the dictionary stages,
-    snapshots, the delta store's corrections, the lone join's match - runs
-    once on the inner backend, on island 0's device, where the replica
-    lives. The device list may repeat a device: islands sharing a card
-    keep their own shard tensors and launches. Only the kernel inner
-    (HopperBackend) drives the mesh, as only the reference's Pallas
-    backend does.
+    On the delta plane the overlay corrections, whose stacks are built on
+    island 0's device, ride the first scan launch there
+    (`scan_filter_agg_group_mesh`, `scan_filter_agg_join_group_mesh`).
+    Everything else off the scan plane - log merge, the dictionary stages,
+    snapshots, the lone join's match - runs once on the inner backend, on
+    island 0's device, where the replica lives. The device list may repeat
+    a device: islands sharing a card keep their own shard tensors and
+    launches. Only the kernel inner (HopperBackend) drives the mesh, as
+    only the reference's Pallas backend does.
     """
 
     placement = "mesh"
@@ -1288,15 +1316,34 @@ class MeshBackend(ShardedBackend):
                                          av.island_dicts(), rc, code_bounds)
 
     def filter_agg_delta_batch(self, fcol, acol, bounds, corr):
-        # the base scan stays on the islands' devices; the flat overlay
-        # correction folds in from the inner backend's one launch (the
-        # stacked fused group kernel would need every shard on one device)
-        fused = self.filter_agg_batch(fcol, acol, bounds)
+        # the base scan stays on the islands' devices and the flat overlay
+        # correction rides the first launch on island 0's device, where the
+        # reference adds the inner backend's values delta (equal answers)
         if corr is None:
-            return fused
-        deltas = self.inner.filter_agg_values_delta(corr, bounds)
-        return [(s + ds, c + dc)
-                for (s, c), (ds, dc) in zip(fused, deltas)]
+            return self.filter_agg_batch(fcol, acol, bounds)
+        fv, av = self._as_view(fcol), self._as_view(acol)
+        code_bounds = [self.code_range(fv, lo, hi) for lo, hi in bounds]
+        return scan_filter_agg_group_mesh(fv.codes, av.codes, fv.valid,
+                                          av.island_dicts(), code_bounds,
+                                          corr, bounds)
+
+    def filter_agg_join_delta_batch(self, fcol, acol, jcol, bounds, rcount,
+                                    corr_a, corr_j):
+        # the join scan with the effective histogram (replicated to every
+        # island per call) on the islands' devices, both corrections a
+        # slice of the first launch on island 0's device, where the
+        # reference adds two values deltas (equal answers)
+        if corr_a is None and corr_j is None:
+            return self.filter_agg_join_batch(fcol, acol, jcol, bounds,
+                                              rcount=rcount)
+        fv, av, jv = (self._as_view(fcol), self._as_view(acol),
+                      self._as_view(jcol))
+        code_bounds = [self.code_range(fv, lo, hi) for lo, hi in bounds]
+        rc = (jv.island_rcounts() if rcount is None
+              else replicate(rcount.to(torch.int32), jv.devices))
+        return scan_filter_agg_join_group_mesh(
+            fv.codes, av.codes, jv.codes, fv.valid, jv.valid,
+            av.island_dicts(), rc, code_bounds, corr_a, corr_j, bounds)
 
     @staticmethod
     def _view_side_counts(view: MeshView, mask) -> torch.Tensor:

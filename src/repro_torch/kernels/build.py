@@ -43,10 +43,16 @@ _SIGNATURES = {
     # width corr_a nr_a corr_base corr_j nr_j vbounds out stream
     "scan_exact": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _L, _P, _L, _I,
                    _P, _L, _P, _P, _P),
-    # table(host) n_islands bounds nq join out stream
-    "scan_exact_islands": (_P, _I, _P, _I, _I, _P, _P),
+    # table(host) n_islands bounds nq join corr_a nr_a corr_base corr_j nr_j
+    # vbounds(host) out stream
+    "scan_exact_islands": (_P, _I, _P, _I, _I, _P, _L, _I, _P, _L, _P, _P,
+                           _P),
+    # stack nr corr_base vbounds nq out stream
+    "scan_values": (_P, _L, _I, _P, _I, _P, _P),
     # join vec corr qn blocks_per_sm (int*)
     "scan_exact_occupancy": (_I, _I, _I, _I, _P),
+    # join corr qn blocks_per_sm (int*)
+    "scan_islands_occupancy": (_I, _I, _I, _P),
     # queries n_shards width keys vals n_buckets slots default out stream
     "hash_probe": (_P, _I, _L, _P, _P, _I, _I, _I, _P, _P),
     # a ai b bi out_keys out_idx rows wa wb stream

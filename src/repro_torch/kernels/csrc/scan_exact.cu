@@ -61,7 +61,11 @@
 //     join's validity), and only then adds: no branch stands between a
 //     group's loads and its gathers.
 // The scan without the join lane keeps its own row loop (`Acc`,
-// `scan_rows`): it reaches half the card's rate as it is.
+// `scan_rows`): it reaches half the card's rate as it is. Its instance in
+// the island kernel with the correction slice takes one predicate a pass
+// for a one-predicate group (the join lane's rule): with eight, that
+// instance spilled an accumulator at the 64-register cap; with one it
+// reads 84 % of the card's rate (PERF.md has the times).
 //
 // The mesh scans (`scan_exact_islands`). They replace `_mesh_scan_call` /
 // `scan_filter_agg_mesh` (kernels/dict_ops/ops.py) and `_mesh_join_call` /
@@ -93,19 +97,31 @@
 // base triple to a sum, and the difference of the two indicators to a
 // count. Integer subtraction is exact, so one signed delta accumulator
 // stands where the TPU composites ran an effective and a base scan and
-// subtracted their partials on the host. The lane is one more z slice of
-// the same grid, after the S shard slices: its blocks walk the stack(s)
-// and add their partial to output row S, beside the shards' rows. So a
-// query group on the delta plane is one launch: the base scan (flat or
-// sharded) plus the lane over the aggregate stack into the (sum, count)
-// lanes and, with the join lane, the lane over the join-weight stack into
-// the join sum (with the join lane's QN predicates a pass). With no shard
-// slices the lane runs alone (the values delta), and a 3-row stack holding
-// only the effective triple is the plain raw-value scan. Stacks are read
-// one int32 a thread per row, coalesced, with no padding: a stack is a few
-// thousand rows (bounded by the compaction capacity) against the base
-// column's millions, so its bytes (24 a row) add a fraction of a percent to
-// the scan's.
+// subtracted their partials on the host. A stack is a few thousand rows
+// (bounded by the compaction capacity) against the base column's
+// millions: a launch of its own costs more than its bytes (24 a row), so
+// the lane rides the scan launch beside it as one more z slice of that
+// grid:
+//   - `scan_exact_kernel` (flat or stacked columns, with or without the
+//     join lane): after the shards' slices, its blocks walk the stack(s)
+//     and add their partial to output row S, beside the shards' rows - the aggregate stack into the
+//     (sum, count) lanes and, with the join lane, the join-weight stack
+//     into the join sum (with the join lane's QN predicates a pass). So a
+//     query group on the delta plane is one launch, on one island and on
+//     stacked islands alike.
+//   - `scan_islands_kernel` (the mesh): the same blocks, as the first
+//     slice, on the launch of island 0's device, where the stacks live,
+//     adding into the one (lanes, Q) output every island adds into. The stacks' pointers, rows
+//     and the value bounds travel by value with the island table.
+// Stacks are read one int32 a thread per row, coalesced, with no padding.
+//
+// The lane alone (`values_kernel`: no path of the port launches it, the
+// reference's `scan_values_delta` / `scan_values_agg` as entries) is a
+// kernel of its own, sized for a few thousand rows: a grid of one block
+// per 256 rows, QN = 1 predicate a pass for one predicate (else QT), and
+// only the live predicates' partials reduced - the launch itself is most
+// of its time. A 3-row stack holding only the effective triple is the
+// plain raw-value scan.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -124,23 +140,26 @@ __host__ __device__ __forceinline__ uintptr_t row_mod4(const int* p) {
 // The scan without the join lane
 // ---------------------------------------------------------------------------
 
+// QN predicates a pass: QT everywhere but in the island kernel's instance
+// with the correction slice, which takes one for a one-predicate group.
+template <int QN = QT>
 struct Acc {
-    long long sum[QT];
-    int cnt[QT];              // one thread sees fewer than 2^31 rows
-    int lo[QT];
-    int hi[QT];
+    long long sum[QN];
+    int cnt[QN];              // one thread sees fewer than 2^31 rows
+    int lo[QN];
+    int hi[QN];
 
     __device__ __forceinline__ void row(int fc, int ac, unsigned fv,
                                         const int* ad) {
         if (!fv) return;
         unsigned hit = 0;
 #pragma unroll
-        for (int t = 0; t < QT; ++t)
+        for (int t = 0; t < QN; ++t)
             hit |= (unsigned)(fc >= lo[t] && fc < hi[t]) << t;
         if (!hit) return;
         const long long v = ad[ac];
 #pragma unroll
-        for (int t = 0; t < QT; ++t) {
+        for (int t = 0; t < QN; ++t) {
             if ((hit >> t) & 1u) {
                 sum[t] += v;
                 cnt[t] += 1;
@@ -213,8 +232,8 @@ __device__ __forceinline__ void corr_pass(const int* __restrict__ stack,
 // dimension. With VEC the first `head` rows are read one a thread, up to
 // the 16-byte boundary, then 16 bytes (4 rows) a thread-step, the ragged
 // tail one a thread.
-template <bool VEC>
-__device__ __forceinline__ void scan_rows(Acc& acc,
+template <bool VEC, int QN>
+__device__ __forceinline__ void scan_rows(Acc<QN>& acc,
                                           const int* __restrict__ fcodes,
                                           const int* __restrict__ acodes,
                                           const uint8_t* __restrict__ fvalid,
@@ -247,11 +266,12 @@ __device__ __forceinline__ void scan_rows(Acc& acc,
 }
 
 // The predicates of this block's grid slice (blockIdx.y) into acc.
-__device__ __forceinline__ void init_acc(Acc& acc,
+template <int QN>
+__device__ __forceinline__ void init_acc(Acc<QN>& acc,
                                          const int* __restrict__ bounds,
                                          int nq, int q0) {
 #pragma unroll
-    for (int t = 0; t < QT; ++t) {
+    for (int t = 0; t < QN; ++t) {
         const bool live = q0 + t < nq;
         acc.lo[t] = live ? bounds[2 * (q0 + t)] : 0;
         acc.hi[t] = live ? bounds[2 * (q0 + t) + 1] : 0;   // empty range
@@ -260,12 +280,13 @@ __device__ __forceinline__ void init_acc(Acc& acc,
     }
 }
 
-__device__ __forceinline__ void reduce_acc(const Acc& acc,
+template <int QN>
+__device__ __forceinline__ void reduce_acc(const Acc<QN>& acc,
                                            unsigned long long* red) {
 #pragma unroll
-    for (int t = 0; t < QT; ++t) {
+    for (int t = 0; t < QN; ++t) {
         add_warp(&red[t], acc.sum[t]);
-        add_warp(&red[QT + t], (long long)acc.cnt[t]);
+        add_warp(&red[QN + t], (long long)acc.cnt[t]);
     }
 }
 
@@ -504,7 +525,7 @@ scan_exact_kernel(const int* __restrict__ fcodes,
                                n, head, adict, rcount);
             acc.reduce(red);
         } else {
-            Acc acc;
+            Acc<> acc;
             init_acc(acc, bounds, nq, q0);
             scan_rows<VEC>(acc, fcodes + base, acodes + base, fvalid + base,
                            n, head, adict);
@@ -540,13 +561,69 @@ struct IslandTable {              // travels in the launch's parameters
     Island at[MAX_ISLANDS];
 };
 
+// The correction slice of a mesh launch (one z slice after the islands'):
+// the stacks as `scan_exact_kernel` takes them and their Q inclusive value
+// bounds, up to MAX_CORR_Q predicates (a larger group's launches take them
+// MAX_CORR_Q at a time), all by value.
+constexpr int MAX_CORR_Q = 64;
+
+struct CorrSlice {
+    const int* a;                 // aggregate stack, (6 or 3, nr_a)
+    const int* j;                 // join-weight stack, (6, nr_j)
+    long long nr_a;
+    long long nr_j;
+    int base;                     // 0: `a` holds only the effective triple
+    int vb[2 * MAX_CORR_Q];       // (lo, hi) per predicate, inclusive
+};
+
+struct IslandCorrTable {          // the island table and the slice
+    Island at[MAX_ISLANDS];
+    CorrSlice corr;
+};
+
+template <bool CORR>
+struct TableOf {
+    using type = IslandTable;
+};
+template <>
+struct TableOf<true> {
+    using type = IslandCorrTable;
+};
+
+// A block of the correction slice: both stacks' deltas, QN predicates from
+// the block's grid slice, into the launch's one (lanes, nq) output.
 template <bool JOIN, int QN>
+__device__ __forceinline__ void corr_block(const CorrSlice& c, int nq,
+                                           unsigned long long* red,
+                                           unsigned long long* out) {
+    const long long first = (long long)blockIdx.x * blockDim.x;
+    if (first >= c.nr_a && first >= c.nr_j) return;
+    if (threadIdx.x < 3 * QN) red[threadIdx.x] = 0ull;
+    __syncthreads();
+    const int q0 = blockIdx.y * QN;
+    corr_pass<QN>(c.a, c.nr_a, c.base != 0, c.vb, nq, q0, red, 0, 1);
+    if (JOIN)   // join weights: only the sum delta, into the join sum
+        corr_pass<QN>(c.j, c.nr_j, true, c.vb, nq, q0, red, 2, -1);
+    __syncthreads();
+    add_block<JOIN ? 3 : 2, QN>(red, out, nq, q0);
+}
+
+// With CORR the grid has one more z slice than islands, the correction's,
+// as its FIRST slice: its few blocks start with the islands' instead of
+// after them; without it the kernel is the plain island scan.
+template <bool JOIN, bool CORR, int QN>
 __global__ void __launch_bounds__(THREADS, (JOIN && QN > 1) ? 1 : 2)
-scan_islands_kernel(const __grid_constant__ IslandTable tab,
+scan_islands_kernel(const __grid_constant__ typename TableOf<CORR>::type tab,
                     const int* __restrict__ bounds, int nq,
                     unsigned long long* __restrict__ out) {
     __shared__ unsigned long long red[3 * QN];
-    const Island& isl = tab.at[blockIdx.z];
+    if constexpr (CORR) {
+        if (blockIdx.z == 0) {
+            corr_block<JOIN, QN>(tab.corr, nq, red, out);
+            return;
+        }
+    }
+    const Island& isl = tab.at[CORR ? blockIdx.z - 1 : blockIdx.z];
     // an island narrower than the widest has blocks with no rows of its
     // own (the whole block leaves together)
     if ((long long)blockIdx.x * blockDim.x >= isl.n) return;
@@ -567,7 +644,7 @@ scan_islands_kernel(const __grid_constant__ IslandTable tab,
                                  isl.rcount);
         acc.reduce(red);
     } else {
-        Acc acc;
+        Acc<QN> acc;
         init_acc(acc, bounds, nq, q0);
         const long long head = isl.head < isl.n ? isl.head : isl.n;
         if (isl.head >= 0)
@@ -581,6 +658,87 @@ scan_islands_kernel(const __grid_constant__ IslandTable tab,
     __syncthreads();
     // every island of the launch adds into the one output
     add_block<JOIN ? 3 : 2, QN>(red, out, nq, q0);
+}
+
+// ---------------------------------------------------------------------------
+// The correction lane alone
+// ---------------------------------------------------------------------------
+
+constexpr int VTHREADS = 256;     // a block: 256 stack rows a pass
+constexpr int VMAX_BLOCKS = 1024; // more rows take more passes a thread
+
+__device__ __forceinline__ int warp_sum_int(int v) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    return v;
+}
+
+// Per predicate (QN of them from this block's grid slice), the effective
+// rows' sum and count minus the base rows' over a (3 or 6, nr) stack, added
+// into out (2, nq): sums, then counts. Only the predicates the group has
+// are reduced.
+template <int QN>
+__global__ void __launch_bounds__(VTHREADS)
+values_kernel(const int* __restrict__ stack, long long nr, int has_base,
+              const int* __restrict__ vbounds, int nq,
+              unsigned long long* __restrict__ out) {
+    __shared__ unsigned long long red_sum[QN];
+    __shared__ int red_cnt[QN];
+    const int q0 = blockIdx.y * QN;
+    const int live = nq - q0 < QN ? nq - q0 : QN;
+    if (threadIdx.x < QN) {
+        red_sum[threadIdx.x] = 0ull;
+        red_cnt[threadIdx.x] = 0;
+    }
+    long long sum[QN];
+    int cnt[QN], lo[QN], hi[QN];
+#pragma unroll
+    for (int t = 0; t < QN; ++t) {
+        lo[t] = t < live ? vbounds[2 * (q0 + t)] : 1;       // 1 > 0: empty
+        hi[t] = t < live ? vbounds[2 * (q0 + t) + 1] : 0;
+        sum[t] = 0;
+        cnt[t] = 0;
+    }
+    const long long step = (long long)gridDim.x * VTHREADS;
+    for (long long i = (long long)blockIdx.x * VTHREADS + threadIdx.x;
+         i < nr; i += step) {
+        const int fe = __ldg(stack + i), ae = __ldg(stack + nr + i),
+                  ve = __ldg(stack + 2 * nr + i);
+        int fb = 0, ab = 0, vb = 0;
+        if (has_base) {
+            fb = __ldg(stack + 3 * nr + i);
+            ab = __ldg(stack + 4 * nr + i);
+            vb = __ldg(stack + 5 * nr + i);
+        }
+#pragma unroll
+        for (int t = 0; t < QN; ++t) {
+            const bool e = ve != 0 && fe >= lo[t] && fe <= hi[t];
+            const bool b = vb != 0 && fb >= lo[t] && fb <= hi[t];
+            sum[t] += (e ? (long long)ae : 0ll) - (b ? (long long)ab : 0ll);
+            cnt[t] += (int)e - (int)b;
+        }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int t = 0; t < QN; ++t) {
+        if (t < live) {               // the same for every thread
+            const long long s = warp_sum(sum[t]);
+            const int c = warp_sum_int(cnt[t]);
+            if ((threadIdx.x & 31) == 0) {
+                if (s) atomicAdd(&red_sum[t], (unsigned long long)s);
+                if (c) atomicAdd(&red_cnt[t], c);
+            }
+        }
+    }
+    __syncthreads();
+    if ((int)threadIdx.x < live) {
+        const unsigned long long s = red_sum[threadIdx.x];
+        const int c = red_cnt[threadIdx.x];
+        if (s) atomicAdd(&out[q0 + threadIdx.x], s);
+        if (c)
+            atomicAdd(&out[nq + q0 + threadIdx.x],
+                      (unsigned long long)(long long)c);
+    }
 }
 
 inline bool aligned(const void* p, uintptr_t a) {
@@ -629,13 +787,13 @@ cudaError_t launch(const int* fcodes, const int* acodes, const uint8_t* fvalid,
     // the correction slice gets as many, of which those past the stacks'
     // rows leave at once
     const long long per_block = (long long)THREADS * (VEC ? 4 : 1);
-    long long want = n_shards > 0 ? (width + per_block - 1) / per_block : 0;
+    long long want = (width + per_block - 1) / per_block;
     if (CORR) {
         const long long nr = nr_a > nr_j ? nr_a : nr_j;
         const long long cw = (nr + THREADS - 1) / THREADS;
         if (cw > want) want = cw;
     }
-    long long cap = (long long)sms * occ / (n_shards > 0 ? n_shards : 1);
+    long long cap = (long long)sms * occ / n_shards;
     if (cap < 1) cap = 1;
     if (want > cap) want = cap;
     if (want < 1) want = 1;
@@ -649,12 +807,15 @@ cudaError_t launch(const int* fcodes, const int* acodes, const uint8_t* fvalid,
 }
 
 // The island kernel's grid: as many blocks as the card holds at once,
-// shared among the islands, each island's share sized for the widest.
-template <bool JOIN, int QN>
-cudaError_t launch_islands(const IslandTable& tab, int n_islands,
-                           long long widest, const int* bounds, int nq,
-                           unsigned long long* out, cudaStream_t stream) {
-    auto kern = scan_islands_kernel<JOIN, QN>;
+// shared among the islands, each island's share sized for the widest; with
+// the correction slice at least a block a 512 stack rows (a launch may hold
+// the slice alone: n_islands 0).
+template <bool JOIN, bool CORR, int QN>
+cudaError_t launch_islands(const typename TableOf<CORR>::type& tab,
+                           int n_islands, long long widest, long long nr,
+                           const int* bounds, int nq, unsigned long long* out,
+                           cudaStream_t stream) {
+    auto kern = scan_islands_kernel<JOIN, CORR, QN>;
     cudaError_t err;
     int dev = 0, sms = 0, occ = 0;
     if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
@@ -666,27 +827,78 @@ cudaError_t launch_islands(const IslandTable& tab, int n_islands,
         return err;
     if (occ < 1) return cudaErrorLaunchOutOfResources;
     long long want = (widest + THREADS * 4LL - 1) / (THREADS * 4LL);
-    long long cap = (long long)sms * occ / n_islands;
+    if (CORR && (nr + THREADS - 1) / THREADS > want)
+        want = (nr + THREADS - 1) / THREADS;
+    long long cap = (long long)sms * occ / (n_islands > 0 ? n_islands : 1);
     if (cap < 1) cap = 1;
     if (want > cap) want = cap;
     if (want < 1) want = 1;
     dim3 grid((unsigned)want, (unsigned)((nq + QN - 1) / QN),
-              (unsigned)n_islands);
+              (unsigned)(n_islands + (CORR ? 1 : 0)));
     kern<<<grid, THREADS, 0, stream>>>(tab, bounds, nq, out);
     return cudaGetLastError();
 }
 
+// Fills the island table from the host's ISLAND_FIELDS int64s an island;
+// returns the widest island's rows, or -1 for a malformed island.
+constexpr int ISLAND_FIELDS = 8;
+
+long long fill_islands(Island* at, const long long* table, int n_islands,
+                       bool join) {
+    long long widest = 0;
+    for (int s = 0; s < n_islands; ++s) {
+        const long long* f = table + s * ISLAND_FIELDS;
+        Island& isl = at[s];
+        isl.fcodes = reinterpret_cast<const int*>(f[0]);
+        isl.acodes = reinterpret_cast<const int*>(f[1]);
+        isl.fvalid = reinterpret_cast<const uint8_t*>(f[2]);
+        isl.adict = reinterpret_cast<const int*>(f[3]);
+        isl.jcodes = join ? reinterpret_cast<const int*>(f[4]) : nullptr;
+        isl.jvalid = join ? reinterpret_cast<const uint8_t*>(f[5]) : nullptr;
+        isl.rcount = join ? reinterpret_cast<const int*>(f[6]) : nullptr;
+        isl.n = f[7];
+        if (isl.n <= 0 || (join && (!isl.jcodes || !isl.jvalid))) return -1;
+        if (isl.n > widest) widest = isl.n;
+        // 16-byte loads from the first row at which every column is
+        // aligned, where that is one row for all of them: an island is a
+        // slice of a column at any offset, so only its rows' position
+        // modulo 4 tells
+        isl.head = same_phase(isl.fcodes, isl.acodes, isl.fvalid, isl.jcodes,
+                              isl.jvalid)
+                       ? (int)((4 - row_mod4(isl.fcodes)) & 3)
+                       : -1;
+    }
+    return widest;
+}
+
+// Predicates a pass of the island kernel: the join lane's rule (one for a
+// one-predicate group), and the same for the scan's instance with the
+// correction slice; the scan's without it keeps QT.
+template <bool JOIN, bool CORR>
+cudaError_t islands_by_qn(const typename TableOf<CORR>::type& tab,
+                          int n_islands, long long widest, long long nr,
+                          const int* bounds, int nq, unsigned long long* out,
+                          cudaStream_t st) {
+    if constexpr (JOIN || CORR) {
+        if (join_qn(nq) == 1)
+            return launch_islands<JOIN, CORR, 1>(tab, n_islands, widest, nr,
+                                                 bounds, nq, out, st);
+    }
+    return launch_islands<JOIN, CORR, QT>(tab, n_islands, widest, nr, bounds,
+                                          nq, out, st);
+}
+
 }  // namespace
 
-// Columns are (n_shards, width) row-major; out: (n_shards, 2, nq) int64
-// zeros without the join lane (sums, counts), (n_shards, 3, nq) with it
-// (sums, counts, join sums). jcodes == nullptr selects no join lane.
-// vbounds != nullptr adds the correction lane and one output row after the
-// shards' (out: (n_shards + 1, lanes, nq)): corr_a is the aggregate stack,
-// (6, nr_a) int32, or (3, nr_a) with only the effective triple when
-// corr_base is 0; corr_j the join-weight stack, (6, nr_j), with the join
-// lane only; vbounds (nq, 2) inclusive raw-value ranges. n_shards == 0
-// runs the lane alone.
+// Columns are (n_shards, width) row-major, n_shards >= 1; out: (n_shards,
+// 2, nq) int64 zeros without the join lane (sums, counts), (n_shards, 3,
+// nq) with it (sums, counts, join sums). jcodes == nullptr selects no join
+// lane. vbounds != nullptr adds the correction lane and one output row
+// after the shards' (out: (n_shards + 1, lanes, nq)): corr_a is the
+// aggregate stack, (6, nr_a) int32, or (3, nr_a) with only the effective
+// triple when corr_base is 0; corr_j the join-weight stack, (6, nr_j), with
+// the join lane only; vbounds (nq, 2) inclusive raw-value ranges. The lane
+// alone is `scan_values`.
 extern "C" int scan_exact(const int* fcodes, const int* acodes,
                           const uint8_t* fvalid, const int* adict,
                           const int* bounds, int nq, const int* jcodes,
@@ -696,17 +908,16 @@ extern "C" int scan_exact(const int* fcodes, const int* acodes,
                           long long nr_j, const int* vbounds,
                           unsigned long long* out, void* stream) {
     const bool corr = vbounds != nullptr;
-    if (nq <= 0 || n_shards < 0) return (int)cudaSuccess;
-    if (!corr && (n_shards == 0 || width <= 0)) return (int)cudaSuccess;
-    if (width < 0 || nr_a < 0 || nr_j < 0) return (int)cudaErrorInvalidValue;
+    if (nq <= 0) return (int)cudaSuccess;
+    if (n_shards < 1 || width < 0 || nr_a < 0 || nr_j < 0)
+        return (int)cudaErrorInvalidValue;
+    if (!corr && width == 0) return (int)cudaSuccess;
     if (n_shards + (corr ? 1 : 0) > 65535 || (nq + QT - 1) / QT > 65535)
         return (int)cudaErrorInvalidValue;
     const bool join = jcodes != nullptr;
     // 16-byte loads where every column has its rows at one position modulo
     // 4; each shard steps up to its own first aligned row in the kernel
-    // (the correction lane alone reads no column)
-    const bool vec = n_shards == 0 ||
-                     same_phase(fcodes, acodes, fvalid, jcodes, jvalid);
+    const bool vec = same_phase(fcodes, acodes, fvalid, jcodes, jvalid);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define GO(J, V, C, Q)                                                      \
     launch<J, V, C, Q>(fcodes, acodes, fvalid, adict, bounds, nq, jcodes,   \
@@ -730,56 +941,77 @@ extern "C" int scan_exact(const int* fcodes, const int* acodes,
 // The mesh scans' launch: `table` is HOST memory, ISLAND_FIELDS int64s per
 // island - fcodes, acodes, fvalid, adict, jcodes, jvalid, rcount (device
 // pointers; the last three 0 without the join lane) and the island's rows
-// n - for 1 <= n_islands <= MAX_ISLANDS non-empty flat islands on the
+// n - for 0 <= n_islands <= MAX_ISLANDS non-empty flat islands on the
 // current device. Every island's (sums, counts[, join sums]) for the
 // (nq, 2) code ranges `bounds` are added into the one zeroed (2|3, nq)
-// int64 `out`.
-constexpr int ISLAND_FIELDS = 8;
-
+// int64 `out`. `vbounds` (HOST memory, (nq, 2) inclusive value ranges, nq
+// <= MAX_CORR_Q) adds the correction slice over the device stacks corr_a
+// and, with the join lane, corr_j, as `scan_exact` takes them, into the
+// same `out`; without it n_islands 0 launches nothing.
 extern "C" int scan_exact_islands(const long long* table, int n_islands,
                                   const int* bounds, int nq, int join,
+                                  const int* corr_a, long long nr_a,
+                                  int corr_base, const int* corr_j,
+                                  long long nr_j, const int* vbounds,
                                   unsigned long long* out, void* stream) {
-    if (nq <= 0 || n_islands == 0) return (int)cudaSuccess;
+    const bool corr = vbounds != nullptr;
+    if (nq <= 0 || (n_islands == 0 && !corr)) return (int)cudaSuccess;
     if (n_islands < 0 || n_islands > MAX_ISLANDS ||
-        (nq + QT - 1) / QT > 65535)
+        (nq + QT - 1) / QT > 65535 || nr_a < 0 || nr_j < 0 ||
+        (corr && nq > MAX_CORR_Q))
         return (int)cudaErrorInvalidValue;
-    IslandTable tab = {};
-    long long widest = 0;
-    for (int s = 0; s < n_islands; ++s) {
-        const long long* f = table + s * ISLAND_FIELDS;
-        Island& isl = tab.at[s];
-        isl.fcodes = reinterpret_cast<const int*>(f[0]);
-        isl.acodes = reinterpret_cast<const int*>(f[1]);
-        isl.fvalid = reinterpret_cast<const uint8_t*>(f[2]);
-        isl.adict = reinterpret_cast<const int*>(f[3]);
-        isl.jcodes = join ? reinterpret_cast<const int*>(f[4]) : nullptr;
-        isl.jvalid = join ? reinterpret_cast<const uint8_t*>(f[5]) : nullptr;
-        isl.rcount = join ? reinterpret_cast<const int*>(f[6]) : nullptr;
-        isl.n = f[7];
-        if (isl.n <= 0 || (join && (!isl.jcodes || !isl.jvalid)))
-            return (int)cudaErrorInvalidValue;
-        if (isl.n > widest) widest = isl.n;
-        // 16-byte loads from the first row at which every column is
-        // aligned, where that is one row for all of them: an island is a
-        // slice of a column at any offset, so only its rows' position
-        // modulo 4 tells
-        isl.head = same_phase(isl.fcodes, isl.acodes, isl.fvalid, isl.jcodes,
-                              isl.jvalid)
-                       ? (int)((4 - row_mod4(isl.fcodes)) & 3)
-                       : -1;
-    }
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     cudaError_t err;
-    if (!join)
-        err = launch_islands<false, QT>(tab, n_islands, widest, bounds, nq,
-                                        out, st);
-    else if (join_qn(nq) == 1)
-        err = launch_islands<true, 1>(tab, n_islands, widest, bounds, nq,
-                                      out, st);
-    else
-        err = launch_islands<true, QT>(tab, n_islands, widest, bounds, nq,
-                                       out, st);
+    if (!corr) {
+        IslandTable tab = {};
+        const long long widest = fill_islands(tab.at, table, n_islands, join);
+        if (widest < 0) return (int)cudaErrorInvalidValue;
+        err = join ? islands_by_qn<true, false>(tab, n_islands, widest, 0,
+                                                bounds, nq, out, st)
+                   : islands_by_qn<false, false>(tab, n_islands, widest, 0,
+                                                 bounds, nq, out, st);
+        return (int)err;
+    }
+    IslandCorrTable tab = {};
+    const long long widest = fill_islands(tab.at, table, n_islands, join);
+    if (widest < 0) return (int)cudaErrorInvalidValue;
+    CorrSlice& c = tab.corr;
+    c.a = corr_a;
+    c.nr_a = corr_a ? nr_a : 0;
+    c.base = corr_base;
+    c.j = join ? corr_j : nullptr;
+    c.nr_j = join && corr_j ? nr_j : 0;
+    for (int i = 0; i < 2 * nq; ++i) c.vb[i] = vbounds[i];
+    const long long nr = c.nr_a > c.nr_j ? c.nr_a : c.nr_j;
+    err = join ? islands_by_qn<true, true>(tab, n_islands, widest, nr, bounds,
+                                           nq, out, st)
+               : islands_by_qn<false, true>(tab, n_islands, widest, nr,
+                                            bounds, nq, out, st);
     return (int)err;
+}
+
+// The correction lane alone over a (6, nr) stack (3 rows when corr_base is
+// 0) on the current device: per (nq, 2) inclusive range `vbounds` (device)
+// the effective-minus-base sum and count added into the zeroed (2, nq)
+// int64 `out`.
+extern "C" int scan_values(const int* stack, long long nr, int corr_base,
+                           const int* vbounds, int nq,
+                           unsigned long long* out, void* stream) {
+    if (nq <= 0 || nr == 0) return (int)cudaSuccess;
+    if (nr < 0) return (int)cudaErrorInvalidValue;
+    const int qn = nq == 1 ? 1 : QT;
+    if ((nq + qn - 1) / qn > 65535) return (int)cudaErrorInvalidValue;
+    long long blocks = (nr + VTHREADS - 1) / VTHREADS;
+    if (blocks > VMAX_BLOCKS) blocks = VMAX_BLOCKS;
+    dim3 grid((unsigned)blocks, (unsigned)((nq + qn - 1) / qn));
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (qn == 1)
+        values_kernel<1><<<grid, VTHREADS, 0, st>>>(stack, nr, corr_base,
+                                                    vbounds, nq, out);
+    else
+        values_kernel<QT><<<grid, VTHREADS, 0, st>>>(stack, nr, corr_base,
+                                                     vbounds, nq, out);
+    return (int)cudaGetLastError();
 }
 
 // Blocks of THREADS threads one multiprocessor holds at once, by the
@@ -803,6 +1035,28 @@ extern "C" int scan_exact_occupancy(int join, int vec, int corr, int qn,
     else
         err = BY(true, QT);
 #undef BY
+#undef OCC
+    return (int)err;
+}
+
+// The same for the island kernel's instance (join, corr, qn) - qn 1 or
+// QT with the join lane or the correction slice, QT otherwise.
+extern "C" int scan_islands_occupancy(int join, int corr, int qn,
+                                      int* blocks) {
+    if (qn != 1 && qn != QT) return (int)cudaErrorInvalidValue;
+    if (!join && !corr && qn != QT) return (int)cudaErrorInvalidValue;
+#define OCC(J, C, Q)                                                        \
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(                          \
+        blocks, scan_islands_kernel<J, C, Q>, THREADS, 0)
+    cudaError_t err;
+    if (!join && qn == 1)
+        err = OCC(false, true, 1);
+    else if (!join)
+        err = corr ? OCC(false, true, QT) : OCC(false, false, QT);
+    else if (qn == 1)
+        err = corr ? OCC(true, true, 1) : OCC(true, false, 1);
+    else
+        err = corr ? OCC(true, true, QT) : OCC(true, false, QT);
 #undef OCC
     return (int)err;
 }

@@ -18,18 +18,21 @@ stack is a (6, nr) int32 tensor of overlay rows ``[fv_eff, av_eff,
 valid_eff, fv_base, av_base, valid_base]`` and ``vbounds`` the same
 predicates as INCLUSIVE raw-value ranges ``(lo, hi)``. `scan_exact_group`
 is a base scan plus the lane in one launch (a query group on the delta
-plane: `scan_filter_agg_group`, its sharded sibling, and the join group of
-``kernels/hash_probe``); `scan_values_exact` is the lane alone
-(`scan_values_delta`, and `scan_values_agg` over a 3-row stack holding only
-the effective triple). ``None`` for a stack is a zero-row stack; stacks are
-not padded.
+plane: `scan_filter_agg_group`, its sharded sibling, and the join groups of
+``kernels/hash_probe``, flat and sharded); `scan_values_exact` is the lane
+alone, a kernel of its own sized for a stack (`scan_values_delta`, and
+`scan_values_agg` over a 3-row stack holding only the effective triple).
+``None`` for a stack is a zero-row stack; stacks are not padded.
 
 On the mesh placement (`scan_filter_agg_mesh`, and the join group's
 `scan_filter_agg_join_mesh` in ``kernels/hash_probe``) each island's shard
 is a flat column on its own device: one launch of the scan's island-table
 entry per device (up to MAX_ISLANDS islands a launch, `mesh_launch_groups`)
 adding every island there into one int64 partial, and the partials of
-other devices added on island 0's device.
+other devices added on island 0's device. On the delta plane
+(`scan_filter_agg_group_mesh`, `scan_filter_agg_join_group_mesh`) the
+correction lane is one more slice of the first launch on island 0's
+device, where the stacks live.
 
 Every bare launch goes through `build.launch` (the raw stream handle, a
 device guard only off the current device).
@@ -111,23 +114,17 @@ def launch_scan_exact(fcodes, acodes, fvalid_u8, adict, bounds_dev, out,
     With `vbounds_dev` ((Q, 2) int32, inclusive) the correction lane runs
     in the same launch over `corr_a` ((6 or 3, nr) int32) and, with the
     join lane, `corr_j` ((6, nr) int32), into one more row of `out`:
-    (S + 1, 2|3, Q), a flat column counting as S = 1. `fcodes` None runs
-    the lane alone into a (1, 2, Q) `out`."""
-    if fcodes is None:
-        n_shards, width = 0, 0
-    else:
-        n_shards = fcodes.shape[0] if fcodes.dim() == 2 else 1
-        width = fcodes.shape[-1]
-    nq = (bounds_dev if bounds_dev is not None else vbounds_dev).shape[0]
+    (S + 1, 2|3, Q), a flat column counting as S = 1."""
+    n_shards = fcodes.shape[0] if fcodes.dim() == 2 else 1
     nr_a = 0 if corr_a is None else corr_a.shape[1]
     nr_j = 0 if corr_j is None else corr_j.shape[1]
     corr_base = int(corr_a is None or corr_a.shape[0] == 6)
     build.launch("scan_exact", out.device,
-                 _ptr(fcodes), _ptr(acodes), _ptr(fvalid_u8), _ptr(adict),
-                 _ptr(bounds_dev), nq, _ptr(jcodes), _ptr(jvalid_u8),
-                 _ptr(rcount), n_shards, width, _ptr(corr_a), nr_a,
-                 corr_base, _ptr(corr_j), nr_j, _ptr(vbounds_dev),
-                 out.data_ptr())
+                 fcodes.data_ptr(), acodes.data_ptr(), fvalid_u8.data_ptr(),
+                 adict.data_ptr(), bounds_dev.data_ptr(), bounds_dev.shape[0],
+                 _ptr(jcodes), _ptr(jvalid_u8), _ptr(rcount), n_shards,
+                 fcodes.shape[-1], _ptr(corr_a), nr_a, corr_base,
+                 _ptr(corr_j), nr_j, _ptr(vbounds_dev), out.data_ptr())
 
 
 def scan_exact(fcodes, acodes, fvalid, adict, bounds, jcodes=None,
@@ -407,22 +404,31 @@ def scan_values_exact_ref(stack, vbounds) -> torch.Tensor:
     return out
 
 
+def launch_scan_values(stack, vbounds_dev, out) -> None:
+    """The bare launch of the correction lane alone (``scan_values``) on
+    checked GPU tensors: `stack` (6 or 3, nr) int32, `vbounds_dev` (Q, 2)
+    int32 inclusive ranges, `out` a zeroed (2, Q) int64 tensor it adds
+    into. No allocation, no synchronisation."""
+    build.launch("scan_values", out.device, stack.data_ptr(), stack.shape[1],
+                 int(stack.shape[0] == 6), vbounds_dev.data_ptr(),
+                 vbounds_dev.shape[0], out.data_ptr())
+
+
 def scan_values_exact(stack, vbounds) -> torch.Tensor:
-    """The correction lane alone on the stack's device (the CUDA kernel
+    """The correction lane alone on the stack's device (its CUDA kernel
     for a GPU tensor, one launch; the plain version for a CPU tensor).
     Same layout as `scan_values_exact_ref`."""
     if not on_gpu(stack):
         return scan_values_exact_ref(stack, vbounds)
     nq = len(vbounds)
-    out = torch.zeros((1, 2, nq), dtype=torch.int64, device=stack.device)
+    out = torch.zeros((2, nq), dtype=torch.int64, device=stack.device)
     if stack.shape[1] == 0 or nq == 0:
-        return out[0]
+        return out
     _check_stack(stack, "correction stack")
-    launch_scan_exact(None, None, None, None, None, out, corr_a=stack,
-                      vbounds_dev=_bounds_tensor(vbounds, stack.device))
+    launch_scan_values(stack, _bounds_tensor(vbounds, stack.device), out)
     count_launch("scan_values" if stack.shape[0] == 3 else
                  "scan_values_delta", (stack.shape[1], nq))
-    return out[0]
+    return out
 
 
 def scan_exact_group_ref(fcodes, acodes, fvalid, adict, bounds, corr_a,
@@ -627,9 +633,15 @@ def scan_filter_agg_group_sharded(fcodes, acodes, valid, dictionary,
 # device's current stream. Arguments are sequences with one tensor per
 # island (codes, validity, and the replicated dictionary and build-side
 # histogram, each on its island's device, not assumed to be one tensor);
-# `bounds` is the host sequence of code ranges.
+# `bounds` is the host sequence of code ranges. On the delta plane the
+# correction stacks lie on island 0's device, and the lane rides the first
+# launch there as one more slice of its grid (a launch of the slice alone
+# where island 0's device holds no rows), the stacks' pointers and the
+# value bounds passed by value with the island table: up to MAX_CORR_Q
+# predicates a launch, a larger group in slices of MAX_CORR_Q.
 
 MAX_ISLANDS = 16    # islands one launch takes (csrc/scan_exact.cu)
+MAX_CORR_Q = 64     # predicates of a launch with the correction slice
 
 
 def _islands(*per_island) -> list[tuple]:
@@ -671,32 +683,59 @@ def _island_table(islands) -> ctypes.Array:
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def launch_scan_exact_islands(islands, bounds_dev, out) -> None:
+def launch_scan_exact_islands(islands, bounds_dev, out, corr_a=None,
+                              corr_j=None, vbounds=None) -> None:
     """The bare launch of ``scan_exact_islands`` on checked GPU tensors:
-    1 - MAX_ISLANDS non-empty islands, each a tuple (fcodes, acodes,
+    up to MAX_ISLANDS non-empty islands, each a tuple (fcodes, acodes,
     fvalid_u8, adict[, jcodes, jvalid_u8, rcount]) of flat tensors on
     `out`'s device, `bounds_dev` their (Q, 2) int32 bounds there, `out` a
-    zeroed (2|3, Q) int64 partial every island adds into. No allocation, no
-    synchronisation."""
+    zeroed (2|3, Q) int64 partial every island adds into (3 rows: the join
+    lane). With `vbounds` (a host sequence of Q <= MAX_CORR_Q inclusive
+    ranges) the correction slice runs in the same launch over the stacks
+    `corr_a` ((6 or 3, nr) int32) and, with the join lane, `corr_j` ((6,
+    nr)) on `out`'s device; the launch may then hold no island. No
+    allocation, no synchronisation."""
+    join = out.shape[0] == 3
+    vb = None
+    if vbounds is not None:
+        flat = [int(x) for pair in vbounds for x in pair]
+        vb = (ctypes.c_int * len(flat))(*flat)
     build.launch("scan_exact_islands", out.device, _island_table(islands),
                  len(islands), bounds_dev.data_ptr(), bounds_dev.shape[0],
-                 int(len(islands[0]) == 7), out.data_ptr())
+                 int(join), _ptr(corr_a),
+                 0 if corr_a is None else corr_a.shape[1],
+                 int(corr_a is None or corr_a.shape[0] == 6), _ptr(corr_j),
+                 0 if corr_j is None else corr_j.shape[1], vb,
+                 out.data_ptr())
+
+
+def _corr_ref(total, corr_a, corr_j, vbounds) -> torch.Tensor:
+    """`total` (2|3, Q) plus the correction lane's deltas, on its device."""
+    dev = total.device
+    total[:2] += scan_values_exact_ref(_stack(corr_a, dev), vbounds)
+    if total.shape[0] == 3:
+        total[2] += scan_values_exact_ref(_stack(corr_j, dev), vbounds)[0]
+    return total
 
 
 def scan_exact_mesh_ref(fcodes, acodes, fvalid, adict, bounds, jcodes=None,
-                        jvalid=None, rcount=None) -> torch.Tensor:
+                        jvalid=None, rcount=None, corr_a=None, corr_j=None,
+                        vbounds=None) -> torch.Tensor:
     """Plain version of `scan_exact_mesh`: `scan_exact_ref` on each island,
-    the partials summed on island 0's device in island order."""
+    the partials summed on island 0's device in island order, and with
+    `vbounds` the correction lane over the stacks there."""
     join = jcodes is not None
     extra = (jcodes, jvalid, rcount) if join else ()
     total = None
     for isl in _islands(fcodes, acodes, fvalid, adict, *extra):
         part = scan_exact_ref(*isl[:4], list(bounds), *isl[4:])
         total = part if total is None else total + part.to(total.device)
+    if vbounds is not None:
+        total = _corr_ref(total, corr_a, corr_j, list(vbounds))
     return total
 
 
-def launch_scan_exact_mesh(islands, groups, bounds_devs, outs
+def launch_scan_exact_mesh(islands, groups, bounds_devs, outs, corr=None
                            ) -> torch.Tensor:
     """The bare launches of a mesh scan on checked GPU tensors: island s's
     ``islands[s]`` = (fcodes, acodes, fvalid_u8, adict[, jcodes, jvalid_u8,
@@ -704,12 +743,22 @@ def launch_scan_exact_mesh(islands, groups, bounds_devs, outs
     (`mesh_launch_groups`), ``bounds_devs[device]`` the (Q, 2) int32 bounds
     and ``outs[device]`` the zeroed (2|3, Q) int64 partial of every device
     that launches, island 0's device first in `outs` (its partial is the
-    total). One launch per group; then every other device's partial is
-    copied to the first and added there. Returns the first. No allocation
-    beyond those copies, no synchronisation."""
+    total). `corr`, the keyword arguments of the correction slice
+    (`launch_scan_exact_islands`), rides the first launch on island 0's
+    device (a group with no island where it has none). One launch per
+    group; then every other device's partial is copied to the first and
+    added there. Returns the first. No allocation beyond those copies, no
+    synchronisation."""
+    first = next(iter(outs))
+    pending = corr
     for dev, members in groups:
-        launch_scan_exact_islands([islands[s] for s in members],
-                                  bounds_devs[dev], outs[dev])
+        if pending is not None and dev == first:
+            launch_scan_exact_islands([islands[s] for s in members],
+                                      bounds_devs[dev], outs[dev], **pending)
+            pending = None
+        else:
+            launch_scan_exact_islands([islands[s] for s in members],
+                                      bounds_devs[dev], outs[dev])
     parts = iter(outs.values())
     total = next(parts)
     for out in parts:
@@ -718,15 +767,20 @@ def launch_scan_exact_mesh(islands, groups, bounds_devs, outs
 
 
 def scan_exact_mesh(fcodes, acodes, fvalid, adict, bounds, jcodes=None,
-                    jvalid=None, rcount=None) -> torch.Tensor:
+                    jvalid=None, rcount=None, corr_a=None, corr_j=None,
+                    vbounds=None) -> torch.Tensor:
     """Every island's scan on its own device, reduced exactly: a (2, Q)
     int64 tensor (sums, counts), or (3, Q) with the join lane, on island
-    0's device. On GPU islands one `scan_exact_islands` launch per
-    (device, group of up to MAX_ISLANDS non-empty islands), counted under
-    ``scan_exact_mesh`` / ``scan_exact_join_mesh`` with the shape
-    (islands in the launch, widest island, k[, kj], Q), k and kj the
-    largest dictionary and histogram among them; on CPU islands the plain
-    version. Islands must all be on GPUs or all on the CPU."""
+    0's device. With `vbounds` (the same Q predicates as inclusive value
+    ranges) the delta plane's correction folds in: `corr_a` and, with the
+    join lane, `corr_j` on island 0's device, as `scan_exact_group` takes
+    them. On GPU islands one `scan_exact_islands` launch per (device, group
+    of up to MAX_ISLANDS non-empty islands), the correction riding the
+    first on island 0's device, counted under ``scan_exact_mesh`` /
+    ``scan_exact_join_mesh`` with the shape (islands in the launch, widest
+    island, k[, kj], Q, stack rows of the launch[, join stack rows]), k
+    and kj the largest dictionary and histogram among them; on CPU islands
+    the plain version. Islands must all be on GPUs or all on the CPU."""
     join = jcodes is not None
     extra = (jcodes, jvalid, rcount) if join else ()
     islands = _islands(fcodes, acodes, fvalid, adict, *extra)
@@ -735,8 +789,20 @@ def scan_exact_mesh(fcodes, acodes, fvalid, adict, bounds, jcodes=None,
         raise ValueError("mesh islands must all lie on GPUs or all on the CPU")
     if not kinds.pop():
         return scan_exact_mesh_ref(fcodes, acodes, fvalid, adict, bounds,
-                                   jcodes, jvalid, rcount)
+                                   jcodes, jvalid, rcount, corr_a, corr_j,
+                                   vbounds)
     bounds = list(bounds)
+    if vbounds is not None:
+        vbounds = list(vbounds)
+        if len(vbounds) != len(bounds):
+            raise ValueError(f"{len(bounds)} code ranges but {len(vbounds)} "
+                             "value ranges")
+        if len(bounds) > MAX_CORR_Q:
+            return torch.cat([scan_exact_mesh(
+                fcodes, acodes, fvalid, adict, bounds[q:q + MAX_CORR_Q],
+                jcodes, jvalid, rcount, corr_a, corr_j,
+                vbounds[q:q + MAX_CORR_Q])
+                for q in range(0, len(bounds), MAX_CORR_Q)], dim=1)
     nq, lanes = len(bounds), 3 if join else 2
     checked = []
     for isl in islands:
@@ -763,17 +829,39 @@ def scan_exact_mesh(fcodes, acodes, fvalid, adict, bounds, jcodes=None,
     groups = mesh_launch_groups([isl[0].device for isl in checked],
                                 [isl[0].shape[0] for isl in checked])
     first = checked[0][0].device
+    corr, rows = None, (0, 0)
+    if vbounds is not None:
+        corr_a, corr_j = _stack(corr_a, first), _stack(corr_j, first)
+        _check_stack(corr_a, "corr_a")
+        if join:
+            _check_stack(corr_j, "corr_j")
+            if corr_j.shape[0] != 6:
+                raise ValueError("corr_j: the join-weight stack has 6 rows")
+        for st in (corr_a, corr_j):
+            if st.device != first:
+                raise ValueError(f"correction stacks lie on {st.device}, "
+                                 f"not on island 0's device {first}")
+        rows = (corr_a.shape[1], corr_j.shape[1] if join else 0)
+        if nq and any(rows):
+            corr = dict(corr_a=corr_a, corr_j=corr_j if join else None,
+                        vbounds=vbounds)
+            if all(dev != first for dev, _ in groups):
+                groups.insert(0, (first, []))
     outs = {dev: torch.zeros((lanes, nq), dtype=torch.int64, device=dev)
             for dev in dict.fromkeys([first] + [dev for dev, _ in groups])}
     if nq == 0 or not groups:
         return outs[first]
     bounds_devs = {dev: _bounds_tensor(bounds, dev) for dev, _ in groups}
-    total = launch_scan_exact_mesh(checked, groups, bounds_devs, outs)
+    total = launch_scan_exact_mesh(checked, groups, bounds_devs, outs, corr)
     name = "scan_exact_join_mesh" if join else "scan_exact_mesh"
-    for _, members in groups:
-        widest = [max(checked[s][c].shape[0] for s in members)
+    carried = corr is not None
+    for dev, members in groups:
+        widest = [max((checked[s][c].shape[0] for s in members), default=0)
                   for c in ((0, 3, 6) if join else (0, 3))]
-        count_launch(name, (len(members), *widest, nq))
+        here = rows if carried and dev == first else (0, 0)
+        carried = carried and dev != first
+        count_launch(name, (len(members), *widest, nq, here[0])
+                     + ((here[1],) if join else ()))
     return total
 
 
@@ -796,3 +884,29 @@ def scan_filter_agg_mesh(fcodes, acodes, valid, dictionary, bounds):
     if not bounds:
         return []
     return _pairs(scan_exact_mesh(fcodes, acodes, valid, dictionary, bounds))
+
+
+def scan_filter_agg_group_mesh_ref(fcodes, acodes, valid, dictionary,
+                                   code_bounds, corr, vbounds):
+    """Plain version of `scan_filter_agg_group_mesh`: each island's plain
+    scan, summed on island 0's device, plus the correction there."""
+    if not code_bounds:
+        return []
+    return _pairs(scan_exact_mesh_ref(fcodes, acodes, valid, dictionary,
+                                      list(code_bounds), corr_a=corr,
+                                      vbounds=list(vbounds)))
+
+
+def scan_filter_agg_group_mesh(fcodes, acodes, valid, dictionary,
+                               code_bounds, corr, vbounds):
+    """The mesh sibling of `scan_filter_agg_group_sharded`: every island's
+    base scan on its own device and the overlay correction (the (6, nr)
+    stack `corr` on island 0's device, None: no overlay) in one launch per
+    device and group of its islands - the correction a slice of the first
+    launch on island 0's device. Returns the reduced ``[(sum, count)]``
+    with the correction folded."""
+    if not code_bounds:
+        return []
+    return _pairs(scan_exact_mesh(fcodes, acodes, valid, dictionary,
+                                  list(code_bounds), corr_a=corr,
+                                  vbounds=list(vbounds)))

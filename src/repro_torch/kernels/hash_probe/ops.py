@@ -16,10 +16,13 @@
   GLOBAL histogram, so the per-island join partials sum exactly.
 * `scan_filter_agg_join_group`: the join group on the delta plane - the
   same scan with the EFFECTIVE histogram plus the correction lane over the
-  aggregate stack and the join-weight stack, in one launch.
+  aggregate stack and the join-weight stack, in one launch; over stacked
+  shards `scan_filter_agg_join_group_sharded`, also one launch.
 * `scan_filter_agg_join_mesh`: the join group on the mesh placement - one
   launch of the same scan per device over a table of its islands, and the
-  devices' exact int64 partials added on island 0's device.
+  devices' exact int64 partials added on island 0's device; on the delta
+  plane `scan_filter_agg_join_group_mesh`, the correction a slice of the
+  first launch on island 0's device.
 """
 
 from __future__ import annotations
@@ -283,6 +286,43 @@ def scan_filter_agg_join_group(fcodes, acodes, jcodes, fvalid, jvalid,
                        scan_exact_group)
 
 
+def _join_group_sharded(fcodes, acodes, jcodes, fvalid, jvalid, adict,
+                        rcount, code_bounds, corr_a, corr_j, vbounds, scan):
+    if fcodes.dim() != 2:
+        raise ValueError(f"fcodes: expected (n_shards, width), got shape "
+                         f"{tuple(fcodes.shape)}")
+    if not code_bounds:
+        return []
+    return _pairs(scan(fcodes, acodes, fvalid, adict, list(code_bounds),
+                       corr_a, list(vbounds), jcodes, jvalid, rcount,
+                       corr_j).sum(0))
+
+
+def scan_filter_agg_join_group_sharded_ref(fcodes, acodes, jcodes, fvalid,
+                                           jvalid, adict, rcount, code_bounds,
+                                           corr_a, corr_j, vbounds):
+    """Plain version of `scan_filter_agg_join_group_sharded`."""
+    return _join_group_sharded(fcodes, acodes, jcodes, fvalid, jvalid, adict,
+                               rcount, code_bounds, corr_a, corr_j, vbounds,
+                               scan_exact_group_ref)
+
+
+def scan_filter_agg_join_group_sharded(fcodes, acodes, jcodes, fvalid,
+                                       jvalid, adict, rcount, code_bounds,
+                                       corr_a, corr_j, vbounds):
+    """Sharded sibling of `scan_filter_agg_join_group`: every island's
+    aggregate and self-join scans over the stacked (n_shards, width)
+    shards and both corrections over the flat (global) overlay stacks, in
+    ONE launch (counted as ``scan_exact_join_group_sharded``). `rcount` is
+    the GLOBAL effective build-side histogram (int32), so the per-island
+    join partials sum exactly. Returns the reduced ``[(sum, count,
+    join_count)]`` with the corrections folded: equal to
+    `scan_filter_agg_join_sharded` reduced plus two values deltas."""
+    return _join_group_sharded(fcodes, acodes, jcodes, fvalid, jvalid, adict,
+                               rcount, code_bounds, corr_a, corr_j, vbounds,
+                               scan_exact_group)
+
+
 def scan_filter_agg_join_mesh_ref(fcodes, acodes, jcodes, fvalid, jvalid,
                                   adict, rcount, bounds):
     """Plain version of `scan_filter_agg_join_mesh`."""
@@ -308,3 +348,33 @@ def scan_filter_agg_join_mesh(fcodes, acodes, jcodes, fvalid, jvalid, adict,
         return []
     return _pairs(scan_exact_mesh(fcodes, acodes, fvalid, adict, bounds,
                                   jcodes, jvalid, rcount))
+
+
+def scan_filter_agg_join_group_mesh_ref(fcodes, acodes, jcodes, fvalid,
+                                        jvalid, adict, rcount, code_bounds,
+                                        corr_a, corr_j, vbounds):
+    """Plain version of `scan_filter_agg_join_group_mesh`: each island's
+    plain join scan, summed on island 0's device, plus both corrections
+    there."""
+    if not code_bounds:
+        return []
+    return _pairs(scan_exact_mesh_ref(fcodes, acodes, fvalid, adict,
+                                      list(code_bounds), jcodes, jvalid,
+                                      rcount, corr_a, corr_j, list(vbounds)))
+
+
+def scan_filter_agg_join_group_mesh(fcodes, acodes, jcodes, fvalid, jvalid,
+                                    adict, rcount, code_bounds, corr_a,
+                                    corr_j, vbounds):
+    """The mesh sibling of `scan_filter_agg_join_group_sharded`: per-island
+    sequences as `scan_filter_agg_join_mesh` takes them, `rcount` each
+    island's copy of the GLOBAL effective histogram, and the stacks
+    `corr_a` / `corr_j` (either may be None) on island 0's device. One
+    launch per device and group of its islands, both corrections a slice of
+    the first launch on island 0's device. Returns ``[(sum, count,
+    join_count)]`` with the corrections folded."""
+    if not code_bounds:
+        return []
+    return _pairs(scan_exact_mesh(fcodes, acodes, fvalid, adict,
+                                  list(code_bounds), jcodes, jvalid, rcount,
+                                  corr_a, corr_j, list(vbounds)))

@@ -346,16 +346,22 @@ def test_update_dictionary_keeps_the_values_dtype(rng, be, dtype):
 
 def test_hopper_backend_fuses_and_falls_back_like_the_reference(rng):
     """Which kernel entry each batch reaches (on any device): two fusable
-    columns ride one fused call; one fusable column takes the sort unit and
-    the dictionary merge on their own."""
+    columns ride one fused call, and so does one fusable column (where the
+    reference takes the sort unit and the dictionary merge on their own:
+    the same entries, one launch instead of two)."""
     be = port("hopper")
     cols = [(torch.from_numpy(o), wv) for o, wv in _stage_columns(rng)]
     with counting_kernel_calls() as counts:
         be.apply_stages_batch(cols[:2])
     assert counts == {"apply_pipeline_batch": 1}
     with counting_kernel_calls() as counts:
-        be.apply_stages_batch(cols[:1])
-    assert counts == {"sort_1024": 1, "merge_sorted_runs": 1}
+        got = be.apply_stages_batch(cols[:1])
+    assert counts == {"apply_pipeline_batch": 1}
+    for g, w in zip(got, REF.apply_stages_batch(
+            [(o.numpy(), wv) for o, wv in cols[:1]])):
+        np.testing.assert_array_equal(g[0].numpy(), np.asarray(w[0]))
+        np.testing.assert_array_equal(g[1].numpy(), np.asarray(w[1]))
+        np.testing.assert_array_equal(g[3].numpy(), np.asarray(w[3]))
     with counting_kernel_calls() as counts:
         port("torch").apply_stages_batch(cols)
     assert counts == {}

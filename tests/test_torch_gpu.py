@@ -21,6 +21,7 @@ from repro_torch.kernels.bitonic_sort import (apply_pipeline_batch,
                                               apply_pipeline_batch_ref,
                                               sort_rows, sort_rows_ref)
 from repro_torch.kernels.common import (kernel_launch_counts,
+                                        kernel_launch_shapes,
                                         reset_kernel_launch_counts)
 from repro_torch.kernels.dict_ops import (MAX_ISLANDS, scan_exact,
                                           scan_exact_group,
@@ -233,11 +234,12 @@ def _stack(gen, cuda, rows, nr):
     return x
 
 
-@pytest.mark.parametrize("nr", [0, 1, 3, 4097])
+@pytest.mark.parametrize("nr", [0, 1, 3, 4097, 300_001])
 @pytest.mark.parametrize("rows,nq", [(3, 1), (6, 3), (6, 9)])
 def test_values_lane_kernel_matches_its_plain_version(cuda, nr, rows, nq):
-    """The correction lane alone: the raw-value scan (3-row stack) and the
-    values delta (6 rows); 9 predicates take two slices."""
+    """The correction lane alone (its own kernel): the raw-value scan
+    (3-row stack) and the values delta (6 rows); 9 predicates take two
+    slices, 300,001 rows more than one pass of the grid."""
     gen = torch.Generator(device=cuda).manual_seed(nr)
     stack = _stack(gen, cuda, rows, nr)
     reset_kernel_launch_counts()
@@ -286,6 +288,56 @@ def test_group_kernel_matches_its_plain_version(cuda, nr, sizes, join):
     got = scan_exact_group(*args, *extra)
     torch.cuda.synchronize()
     assert torch.equal(got, scan_exact_group_ref(*args, *extra))
+
+
+@pytest.mark.parametrize("nr", [1, 4097])
+@pytest.mark.parametrize("nq", [1, 3, 70])
+@pytest.mark.parametrize("sizes", [(0, 40, 41), (0, 0), (5000, 4999, 5000),
+                                   (7,) * 17])
+@pytest.mark.parametrize("join", [False, True])
+def test_mesh_group_kernel_matches_its_plain_version(cuda, sizes, join, nq,
+                                                     nr):
+    """The mesh scans with the correction slice, islands on the one card:
+    one island-table launch per 16 non-empty islands (the slice alone where
+    none holds rows), the slice riding the first, its stacks' rows in that
+    launch's shape; 70 predicates take two launches of at most 64."""
+    gen = torch.Generator(device=cuda).manual_seed(nr + nq)
+    n, k = sum(sizes), 300
+    f, a = (torch.randint(0, k, (n,), generator=gen, device=cuda,
+                          dtype=torch.int32) for _ in range(2))
+    fv = torch.rand(n, generator=gen, device=cuda) < 0.9
+    d = torch.sort(torch.randint(I32_MIN, I32_MAX, (k,), generator=gen,
+                                 device=cuda, dtype=torch.int64)
+                   ).values.to(torch.int32)
+    j = torch.randint(0, 50, (n,), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    jv = torch.rand(n, generator=gen, device=cuda) < 0.8
+    rc = torch.randint(0, 10_000, (50,), generator=gen, device=cuda,
+                       dtype=torch.int32)
+    bounds = [(i % k, i % k + 1 + i % 7) for i in range(nq)]
+    vb = (VBOUNDS * 8)[:nq]
+    cuts = np.cumsum([0, *sizes]).tolist()
+
+    def split(t):
+        return [t[lo:hi] for lo, hi in zip(cuts, cuts[1:])]
+
+    isl = len(sizes)
+    ca, cj = _stack(gen, cuda, 6, nr), _stack(gen, cuda, 6, nr + 2).abs()
+    args = (split(f), split(a), split(fv), [d] * isl, bounds)
+    extra = (split(j), split(jv), [rc] * isl) if join else ()
+    corr = dict(corr_a=ca, corr_j=cj if join else None, vbounds=vb)
+    reset_kernel_launch_counts()
+    got = scan_exact_mesh(*args, *extra, **corr)
+    torch.cuda.synchronize()
+    assert torch.equal(got, scan_exact_mesh_ref(*args, *extra, **corr))
+    name = "scan_exact_join_mesh" if join else "scan_exact_mesh"
+    slices = -(-nq // 64)
+    groups = max(1, -(-sum(1 for s in sizes if s) // MAX_ISLANDS))
+    assert kernel_launch_counts() == {name: slices * groups}
+    rows = (nr, nr + 2) if join else (nr,)
+    carried = [sh for sh in kernel_launch_shapes()[name]
+               if sh[-len(rows):] == rows]
+    assert sum(kernel_launch_shapes()[name][sh] for sh in carried) == slices
 
 
 @pytest.mark.parametrize("B,S,H,Hkv,d,length,cap,kv", [

@@ -242,7 +242,8 @@ def gpu_branch(monkeypatch):
 def test_mesh_wrapper_counts_one_launch_per_nonempty_island(rng, gpu_branch):
     """The islands of one device are one launch: the empty island takes no
     place in it, and the launch counts under the mesh scans' names with
-    (islands, widest island, k[, kj], Q)."""
+    (islands, widest island, k[, kj], Q, stack rows[, join stack rows]),
+    the stacks' rows 0 without the delta plane's correction."""
     f, a, j, fv, jv, d, rc = _columns(rng, 81, 9, 11)
     sizes = (40, 0, 41)
     fi, ai, ji, fvi, jvi = _islands((f, a, j, fv, jv), sizes)
@@ -258,8 +259,8 @@ def test_mesh_wrapper_counts_one_launch_per_nonempty_island(rng, gpu_branch):
     assert common.kernel_launch_counts() == {"scan_exact_join_mesh": 1,
                                              "scan_exact_mesh": 1}
     assert common.kernel_launch_shapes() == {
-        "scan_exact_join_mesh": {(2, 41, 9, 11, 3): 1},
-        "scan_exact_mesh": {(2, 41, 9, 3): 1}}
+        "scan_exact_join_mesh": {(2, 41, 9, 11, 3, 0, 0): 1},
+        "scan_exact_mesh": {(2, 41, 9, 3, 0): 1}}
 
 
 @pytest.mark.parametrize("join", [False, True])
