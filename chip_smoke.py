@@ -86,7 +86,37 @@ Drives `repro_torch` only. Phases, each printing one JSON line:
                  case of the kernel's summation order, about 2e-6 of
                  sum(|v|) at 10M rows) and within 1e-5 * sum(|v|) of the
                  plain version's.
-9. ``lm_serve``  the LM serving path at full width, one line per model of
+9. ``mixed_traffic`` open traffic on the timeline timing model: the
+                 workload's 32 queries dealt round-robin to 4 clients,
+                 each issuing at 3 queries/s (exponential gaps, seed
+                 ``--seed`` + 1) while the 400,000 commits arrive at
+                 100,000/s: the arrivals inside the 4 s horizon, each
+                 batch answered over exactly the commits before its
+                 position (`htap.run_mixed_traffic`). Three runs: `hopper`
+                 synchronous, `hopper` with async propagation,
+                 `hopper@4/mesh` on the delta store with async propagation
+                 (islands on the one card); each driven batch by batch
+                 (timed) and through `run_mixed_traffic` (answers and
+                 modeled numbers equal), the first held to a numpy
+                 evaluation over the row store at every arrival's
+                 position; the scans launch once a query group, the values
+                 delta and the sort unit never. Prints the modeled
+                 freshness, latency p50/p99, makespan, lane utilization
+                 and throughputs (the paper's HMC parameters; for this
+                 made-up schedule only, 5 - 40x fewer queries a commit
+                 than ``benchmarks/fig_serve.py``'s) beside the card's
+                 wall seconds a batch. Each served run is a path of its
+                 own for the launch counts (``mixed_traffic``,
+                 ``mixed_traffic_async``, ``mixed_traffic_mesh``).
+10. ``si_baselines`` SI-SS and SI-MVCC through the same rounds as the main
+                 path, at its rows: one host row store each, answered in numpy; no kernel launch and
+                 no device bytes; SI-SS's answers equal the host
+                 evaluation every round and Polynesia's (the round-end
+                 consistency point), SI-MVCC's the host evaluation over
+                 the table at each round's start. Prints snapshots /
+                 versions, wall seconds a round, modeled throughputs and
+                 Polynesia's modeled throughputs over each baseline's.
+11. ``lm_serve``  the LM serving path at full width, one line per model of
                  ``--lm-models``: gemma2-9b (42 layers, bf16 weights from
                  `init_lm` on the card, seed ``--seed``) serves ``--lm-batch``
                  4 requests of ``--lm-prompt`` 256 prompt tokens fed one at a
@@ -109,7 +139,7 @@ Drives `repro_torch` only. Phases, each printing one JSON line:
                  decode kernel or the plain step. After each model's run,
                  4 more serve steps under `torch.profiler` give the device
                  time per step and the device's busy share.
-10. ``kernels``   every hand-written kernel launched on the card and held
+12. ``kernels``   every hand-written kernel launched on the card and held
                  against its plain PyTorch version - the HTAP kernels with
                  exact equality (integers: tolerance 0), flash-decode
                  attention at 2e-5 and the selective scan at 3e-5 in float32
@@ -609,14 +639,20 @@ def host_answers(data: np.ndarray, queries) -> list[int]:
     return out
 
 
+def sync(dev) -> None:
+    """Wait for the card (a CPU device has nothing to wait for)."""
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def drive(spec, table, stream, late, queries, late_query, n_rounds,
-          check_host: bool, devices=None):
+          check_host: bool, devices=None, device=None):
     """One session through the public entry points: n_rounds of
     execute + query_batch, then one late single write and one query.
     Returns (answers, seconds per round, session, RunResult)."""
     from repro_torch.core.session import HTAPSession
     from repro_torch.core.workload import split_queries, split_stream
-    session = HTAPSession(spec, table, devices=devices)
+    session = HTAPSession(spec, table, device=device, devices=devices)
     answers, seconds = [], []
     rounds = list(zip(split_stream(stream, n_rounds),
                       split_queries(queries, n_rounds)))
@@ -627,7 +663,7 @@ def drive(spec, table, stream, late, queries, late_query, n_rounds,
         t0 = time.perf_counter()
         session.execute(chunk)
         got = session.query_batch(qs)
-        torch.cuda.synchronize()
+        sync(session.device)
         seconds.append(time.perf_counter() - t0)
         if check_host:
             want = host_answers(session.store.data, qs)
@@ -665,9 +701,9 @@ def make_workload(args) -> dict:
                 setup_seconds=time.perf_counter() - t0)
 
 
-def drive_spec(spec, wl, args, check_host: bool, devices=None):
+def drive_spec(spec, wl, args, check_host: bool, devices=None, device=None):
     return drive(spec, wl["table"], wl["stream"], wl["late"], wl["queries"],
-                 wl["late_query"], args.rounds, check_host, devices)
+                 wl["late_query"], args.rounds, check_host, devices, device)
 
 
 def same_columns(got: dict, want: dict, what: str) -> None:
@@ -729,10 +765,11 @@ class MergeCalls:
         return dict(self.counts, merge_runs=want)
 
 
-def phase_main_path(args, wl) -> tuple[dict, dict, list, dict, list]:
+def phase_main_path(args, wl) -> tuple[dict, dict, list, dict, list,
+                                       object]:
     """Returns the launches per kernel and, per kernel, the launches each
     shape got, both of the `hopper` session alone, and that session's
-    answers, final columns and round seconds."""
+    answers, final columns, round seconds and RunResult."""
     from repro_torch.core.session import SystemSpec
     from repro_torch.kernels.common import (kernel_launch_counts,
                                             kernel_launch_shapes,
@@ -787,7 +824,7 @@ def phase_main_path(args, wl) -> tuple[dict, dict, list, dict, list]:
          peak_device_bytes=peak, modeled_txn_seconds=result.txn_seconds,
          modeled_ana_seconds=result.ana_seconds,
          answers_checksum=sum(answers), ok=True)
-    return launches, shapes, answers, cols, seconds
+    return launches, shapes, answers, cols, seconds, result
 
 
 SCANS = ("scan_exact", "scan_exact_join")
@@ -1253,7 +1290,245 @@ def phase_float_scan(args, wl, cols) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the LM serving path
+# phase 8: mixed-traffic serving on the timeline
+# ---------------------------------------------------------------------------
+
+# Not a published traffic mix: 1.2e-4 queries a commit, so that nearly
+# every arrival batch holds one query and runs the kernel path once. The
+# reference's serve sweep (benchmarks/fig_serve.py: 3 clients, 1e6
+# commits/s, 200 - 1,600 queries/s a client) sends 6e-4 - 4.8e-3, 5 - 40x
+# more; the freshness and latency this phase prints hold for this schedule
+# only.
+MIXED_CLIENTS = 4           # the workload's queries dealt round-robin
+MIXED_TXN_RATE = 100_000.0  # commits/s: a 4 s horizon at 400,000 commits
+MIXED_QUERY_RATE = 3.0      # queries/s a client
+
+
+def mixed_schedule(args, wl) -> list:
+    """The seeded open arrival schedule of `mixed_traffic`."""
+    from repro_torch.core.workload import mixed_traffic_schedule
+    clients = [wl["queries"][c::MIXED_CLIENTS] for c in range(MIXED_CLIENTS)]
+    return mixed_traffic_schedule(
+        np.random.default_rng(args.seed + 1), clients, len(wl["stream"]),
+        MIXED_TXN_RATE, [MIXED_QUERY_RATE] * MIXED_CLIENTS)
+
+
+def drive_arrivals(spec, wl, arrivals, check_host: bool, device=None,
+                   devices=None):
+    """The arrival batches through `HTAPSession` as
+    `htap.run_mixed_traffic` drives them, each batch timed (execute and
+    query, to the card's last kernel) and, with `check_host`, its answers
+    held to the host evaluation over the row store at its position.
+    Returns (answers, wall seconds per batch, RunResult)."""
+    from repro_torch.core.session import HTAPSession
+    from repro_torch.core.workload import arrival_batches, slice_stream
+    stream = wl["stream"]
+    session = HTAPSession(spec, wl["table"], device=device, devices=devices)
+    answers, seconds, cursor = [], [], 0
+    for i, (pos, batch) in enumerate(arrival_batches(arrivals)):
+        if i:
+            session.advance_round()
+        qs = [a.query for a in batch]
+        t0 = time.perf_counter()
+        session.execute(slice_stream(stream, cursor, pos))
+        got = session.query_batch(qs)
+        sync(session.device)
+        seconds.append(time.perf_counter() - t0)
+        cursor = pos
+        if check_host and got != host_answers(session.store.data, qs):
+            raise AssertionError(
+                f"mixed traffic at position {pos}: answers {got} != host "
+                f"evaluation {host_answers(session.store.data, qs)}")
+        answers.extend(got)
+    if cursor < len(stream):
+        session.advance_round()
+        session.execute(slice_stream(stream, cursor, len(stream)))
+    return answers, seconds, session.finish()
+
+
+def seconds_summary(seconds: list[float]) -> dict:
+    return dict(sum=sum(seconds), mean=sum(seconds) / len(seconds),
+                median=float(np.median(seconds)), max=max(seconds))
+
+
+def timeline_numbers(res) -> dict:
+    """The modeled numbers a timeline run reports (the paper's HMC
+    parameters, not the card's)."""
+    tl = res.stats["timeline"]
+    return dict(freshness=res.freshness_seconds,
+                latency_p50=res.stats["latency"]["p50"],
+                latency_p99=res.stats["latency"]["p99"],
+                makespan=tl["makespan"], utilization=tl["utilization"],
+                txns_per_s=res.txn_throughput,
+                queries_per_s=res.ana_throughput)
+
+
+def phase_mixed_traffic(args, wl, dev=None) -> dict:
+    """The workload's queries from four clients arriving inside the commit
+    stream, served through `htap.run_mixed_traffic` on the timeline:
+    `hopper` synchronous, `hopper` with async propagation, and
+    `hopper@4/mesh` on the delta store with async propagation (islands on
+    the one card). Each run is driven first batch by batch (timed; the
+    first run's answers held to the host evaluation at each arrival's
+    position), then served; the served answers and modeled numbers must
+    equal the batch-by-batch run's, the answers the host evaluation; the
+    served scans launch once a query group (the flat scans on `hopper`,
+    the mesh scans on the mesh) and the values delta and the sort unit
+    never. Returns each served run's launches and shapes (counts set to 0
+    just before it, read just after) under its path's name."""
+    from repro_torch.core import engine, htap
+    from repro_torch.core.session import SystemSpec
+    from repro_torch.core.workload import arrival_batches
+    from repro_torch.kernels.common import (kernel_launch_counts,
+                                            kernel_launch_shapes,
+                                            reset_kernel_launch_counts)
+    start = time.perf_counter()
+    dev = torch.device("cuda", 0) if dev is None else torch.device(dev)
+    arrivals = mixed_schedule(args, wl)
+    batches = arrival_batches(arrivals)
+    groups = [g for _, b in batches
+              for g in engine.group_queries([a.query for a in b])]
+    n_join = sum(g[0].join_col is not None for g in groups)
+    want_scans = {"scan_exact": len(groups) - n_join,
+                  "scan_exact_join": n_join}
+    emit("mixed_traffic", schedule=True, clients=MIXED_CLIENTS,
+         txn_rate=MIXED_TXN_RATE, query_rate=MIXED_QUERY_RATE,
+         offered=len(wl["queries"]), arrivals=len(arrivals),
+         positions=len(batches), query_groups=len(groups), join_groups=n_join)
+
+    sync_spec = SystemSpec.polynesia(backend="hopper", timing="timeline")
+    runs = [("hopper", "mixed_traffic", sync_spec, None),
+            ("hopper async", "mixed_traffic_async",
+             sync_spec.replace(async_propagation=True), None),
+            ("hopper@4/mesh delta async", "mixed_traffic_mesh",
+             SystemSpec.polynesia(backend="hopper@4/mesh", timing="timeline",
+                                  async_propagation=True, delta_store=True,
+                                  delta_capacity=args.delta_capacity),
+             [dev] * 4)]
+    want, paths = None, {}
+    for what, path, spec, devices in runs:
+        # by hand, batch by batch and timed (the first run held to the host
+        # evaluation at every position), then through the public entry
+        # point, which must give the same answers and modeled numbers
+        answers, batch_seconds, by_hand = drive_arrivals(
+            spec, wl, arrivals, check_host=want is None, device=dev,
+            devices=devices)
+        want = answers if want is None else want
+        reset_kernel_launch_counts()
+        t0 = time.perf_counter()
+        res = htap.run_mixed_traffic(spec, wl["table"], wl["stream"],
+                                     arrivals, device=dev, devices=devices)
+        sync(dev)
+        seconds = time.perf_counter() - t0
+        launches = kernel_launch_counts()
+        paths[path] = (launches, kernel_launch_shapes())
+        for got, how in ((answers, "by hand"), (res.results, "served")):
+            if got != want:
+                raise AssertionError(f"mixed traffic, {what} {how}: answers "
+                                     f"{got} != host evaluation {want}")
+        if timeline_numbers(res) != timeline_numbers(by_hand):
+            raise AssertionError(f"mixed traffic, {what}: run_mixed_traffic "
+                                 "priced differently from its batches")
+        scans = want_scans
+        if devices is not None:
+            per_group = mesh_launches_a_group(devices)
+            scans = {mesh: per_group * want_scans[flat]
+                     for mesh, flat in MESH_SCANS.items()}
+        got_scans = {k: v for k, v in launches.items() if "scan" in k}
+        if got_scans != {k: v for k, v in scans.items() if v}:
+            raise AssertionError(f"mixed traffic, {what}: scan launches "
+                                 f"{got_scans}, expected once a query group "
+                                 f"{scans}")
+        folded = {k: launches[k] for k in NEVER_ON_PATH if launches.get(k)}
+        if folded:
+            raise AssertionError(f"mixed traffic, {what}: {folded} launched")
+        emit("mixed_traffic", run=what, batches=len(batches),
+             batch_seconds=seconds_summary(batch_seconds),
+             served_wall_seconds=seconds, modeled=timeline_numbers(res),
+             launches=launches, answers_checksum=sum(res.results),
+             phase_seconds=time.perf_counter() - start, ok=True)
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the single-instance baselines
+# ---------------------------------------------------------------------------
+
+def device_bytes(dev) -> int:
+    dev = torch.device(dev)
+    return torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+def round_start_answers(wl, args) -> list[int]:
+    """Host answers over the table as it stood at the start of each round
+    of `drive` (SI-MVCC's consistency point)."""
+    from repro_torch.core.nsm import RowStore
+    from repro_torch.core.workload import split_queries, split_stream
+    store = RowStore(wl["table"])
+    rounds = list(zip(split_stream(wl["stream"], args.rounds),
+                      split_queries(wl["queries"], args.rounds)))
+    rounds.append((wl["late"], [wl["late_query"]]))
+    out = []
+    for chunk, qs in rounds:
+        out.extend(host_answers(store.data, qs))
+        store.execute(chunk)
+    return out
+
+
+def phase_si_baselines(args, wl, poly_answers, poly_result,
+                       dev=None) -> tuple[dict, dict]:
+    """SI-SS and SI-MVCC (`SystemSpec.si_ss()` / `si_mvcc()`) through
+    `drive_spec` over the main path's workload: one host row store each,
+    answered in numpy. SI-SS's answers must equal the host
+    evaluation every round and Polynesia's (the round-end consistency
+    point), SI-MVCC's the host evaluation over the table at each round's
+    start; neither may launch a kernel or hold device memory. Polynesia's
+    modeled throughputs over each baseline's are the paper's Fig. 6
+    ratios, on its HMC parameters."""
+    from repro_torch.core.session import SystemSpec
+    from repro_torch.kernels.common import (kernel_launch_counts,
+                                            kernel_launch_shapes,
+                                            reset_kernel_launch_counts)
+    start = time.perf_counter()
+    dev = torch.device("cuda", 0) if dev is None else torch.device(dev)
+    mvcc_want = round_start_answers(wl, args)
+    reset_kernel_launch_counts()
+    for spec in (SystemSpec.si_ss(), SystemSpec.si_mvcc()):
+        held = device_bytes(dev)
+        answers, seconds, session, res = drive_spec(
+            spec, wl, args, check_host=spec.kind == "si_ss", device=dev)
+        if spec.kind == "si_ss" and answers != poly_answers:
+            raise AssertionError(f"SI-SS answers {answers} != Polynesia's "
+                                 f"{poly_answers}")
+        if spec.kind == "si_mvcc" and answers != mvcc_want:
+            raise AssertionError(f"SI-MVCC answers {answers} != the host "
+                                 f"evaluation at round start {mvcc_want}")
+        if kernel_launch_counts() or res.stats["kernel_launches"]:
+            raise AssertionError(f"{spec.name} launched kernels: "
+                                 f"{kernel_launch_counts()}")
+        if hasattr(session, "replica") or device_bytes(dev) > held:
+            raise AssertionError(f"{spec.name} built a replica on the "
+                                 "device")
+        total = sum(seconds)
+        emit("si_baselines", system=spec.name, rows=args.rows,
+             stats={k: v for k, v in res.stats.items()
+                    if k != "kernel_launches"},
+             round_seconds=seconds, txns_per_s=res.n_txn / total,
+             queries_per_s=res.n_ana / total,
+             modeled_txns_per_s=res.txn_throughput,
+             modeled_queries_per_s=res.ana_throughput,
+             polynesia_over_this=dict(
+                 txn=poly_result.txn_throughput / res.txn_throughput,
+                 ana=poly_result.ana_throughput / res.ana_throughput),
+             modeled_on="the paper's HMC parameters (hwmodel.HMC_PARAMS)",
+             launches={}, answers_checksum=sum(answers),
+             phase_seconds=time.perf_counter() - start, ok=True)
+        del session
+    return kernel_launch_counts(), kernel_launch_shapes()
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the LM serving path
 # ---------------------------------------------------------------------------
 
 def serve(model, cfg, prompts, n_gen: int, max_len: int):
@@ -1490,7 +1765,7 @@ def phase_lm_serve(args, dev=None) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
-# phase 9: every kernel against its plain version
+# phase 11: every kernel against its plain version
 # ---------------------------------------------------------------------------
 # Each kernel has a `*_cost(shape)` -> (bytes, operations) of one launch at a
 # shape its wrapper recorded (each input read once, each output written
@@ -3087,8 +3362,8 @@ def main(argv=None) -> int:
     phase_build()
     wl = make_workload(args)
     runs = {}
-    main_launches, main_shapes, answers, cols, seconds = phase_main_path(
-        args, wl)
+    main_launches, main_shapes, answers, cols, seconds, main_result = \
+        phase_main_path(args, wl)
     runs["main_path"] = (main_launches, main_shapes)
     runs["islands"] = phase_islands(args, wl, main_launches, answers, cols)
     runs["delta"] = phase_delta(args, wl, answers, cols, seconds)
@@ -3096,6 +3371,8 @@ def main(argv=None) -> int:
     runs["ana_only"] = phase_ana_only(args, wl)
     runs["float_scan"] = phase_float_scan(args, wl, cols)
     del cols
+    runs.update(phase_mixed_traffic(args, wl))
+    runs["si_baselines"] = phase_si_baselines(args, wl, answers, main_result)
     torch.cuda.empty_cache()
     runs["lm_serve"] = phase_lm_serve(args)
     # every kernel's launches and shapes from the path that runs it

@@ -6,6 +6,14 @@ dictionary-encoded DSM replica lives on the GPU - connected by update
 propagation (shipping + application), a column-grain snapshot consistency
 mechanism, and an analytical engine whose scans, merges, sorts and
 snapshot copies run as hand-written CUDA kernels.
+
+The public surface mirrors the paper's sections:
+  §4 islands            -> htap.py + session.py (system compositions)
+  §5 update propagation -> shipping.py + application.py
+  §6 consistency        -> consistency.py (+ mvcc.py / snapshot.py baselines)
+  §7 analytical engine  -> engine.py + placement.py + scheduler.py
+  §8 methodology        -> hwmodel.py (the paper's HMC cost/energy model)
+                           + timeline.py (its round-by-round event replay)
 """
 
 from repro_torch.core.schema import TableSchema, gen_table, gen_update_stream  # noqa: F401

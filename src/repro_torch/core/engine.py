@@ -5,6 +5,10 @@ order-preserving dictionary turns value ranges into code ranges, no decode),
 aggregate, and the self-join. Queries follow the paper's microbenchmark
 (§8: select + join over random tables/columns).
 
+The single-instance baselines answer the same queries over the row store
+in host numpy (`run_query_nsm`): they have no dictionary-encoded replica
+for a kernel to scan, which is the point of the baseline.
+
 Cost accounting: `on_pim=True` prices sequential scans on vault-local
 bandwidth with PIM-core cycles; `on_pim=False` prices them on the CPU across
 the shared channel. Functional results are identical - that's asserted in
@@ -22,6 +26,7 @@ from repro_torch.core.backend import get_backend
 from repro_torch.core.dsm import ColumnDelta, EncodedColumn
 from repro_torch.core.hwmodel import CostLog
 from repro_torch.core.placement import Placement
+from repro_torch.core.schema import VALUE_BYTES
 
 PIM_CYCLES_PER_ROW = 1.25  # fused compare+accumulate, 4 cores/vault
 CPU_CYCLES_PER_ROW = 1.0   # OoO + SIMD
@@ -393,4 +398,71 @@ def run_query_group_dsm(
         _launch_cost(cost, on_pim,
                      (1 if no_join else 0) + (1 if joins else 0))
         _correction_cost(cost, on_pim, corr_rows, corr_touched)
+    return out
+
+
+# --------------------------------------------------------------------------
+# NSM operators (single-instance baselines: analytics over the row store)
+# --------------------------------------------------------------------------
+
+# NSM scan traffic per touched column: the strided access pulls whole
+# cachelines (~2x the value), but OoO prefetching keeps it streaming.
+NSM_BYTES_PER_TOUCHED_COL = 2.0 * VALUE_BYTES
+
+
+def run_query_nsm(
+    table: np.ndarray,
+    q: Query,
+    cost: CostLog | None = None,
+    backend=None,
+) -> int:
+    """Execute one query against an NSM table (strided row access, §3.1-(2)).
+
+    `backend` is validated but row-store scans always run in host numpy:
+    the CUDA kernels model the in-memory units, which operate on the
+    dictionary-encoded DSM replica - the single-instance baselines never
+    have one (that's the point of the baseline). Pass a resolved backend
+    (the session passes its own); ``None`` resolves the GPU backend.
+    """
+    get_backend(backend)  # validate the selection even though it's unused
+    jcol = q.join_col
+    result = answer_from_values(table[:, q.filter_col], table[:, q.agg_col],
+                                None if jcol is None else table[:, jcol], q)
+    n_rows = table.shape[0]
+    scanned = n_rows * 2 * NSM_BYTES_PER_TOUCHED_COL  # filter + agg columns
+    rows = n_rows
+    if jcol is not None:
+        scanned += 2 * n_rows * NSM_BYTES_PER_TOUCHED_COL + n_rows * 6.0
+        rows += 2 * n_rows
+    if cost is not None:
+        cost.add(phase="ana", island="ana", resource="cpu",
+                 cycles=rows * CPU_CYCLES_PER_ROW * 1.5,
+                 bytes_offchip=scanned * ANA_MISS_FRACTION)
+    return result
+
+
+def answer_from_values(fvals: np.ndarray, avals: np.ndarray,
+                       jvals: np.ndarray | None, q: Query) -> int:
+    """One query's answer from the values of its filter, aggregate and
+    (optional) join columns, in host numpy: the sum of the aggregate over
+    the selected rows plus, for the self-join, the number of (selected
+    row, any row) pairs with equal join values."""
+    mask = (fvals >= q.lo) & (fvals <= q.hi)
+    result = int(avals[mask].astype(np.int64).sum())
+    if jvals is not None:
+        uv, counts = np.unique(jvals, return_counts=True)
+        lv, lcounts = np.unique(jvals[mask], return_counts=True)
+        _, li, ri = np.intersect1d(lv, uv, return_indices=True)
+        result += int((lcounts[li].astype(np.int64) * counts[ri]).sum())
+    return result
+
+
+def query_task_rows(queries: list[Query], n_rows: int) -> list[tuple[int, int, float]]:
+    """(query_id, col_id, rows) scan list for the scheduler (§7.2)."""
+    out = []
+    for q in queries:
+        out.append((q.query_id, q.filter_col, n_rows))
+        out.append((q.query_id, q.agg_col, n_rows))
+        if q.join_col is not None:
+            out.append((q.query_id, q.join_col, n_rows))
     return out

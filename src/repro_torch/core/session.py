@@ -6,10 +6,12 @@ concurrently. This module is that contract as an API:
 
 * `SystemSpec` - one frozen config object naming a system composition
   (placement flags, hardware parameters, execution backend, timing model).
-  The presets this port covers:
+  The eight named presets reproduce the paper's six systems and two
+  normalization baselines:
 
       SystemSpec.polynesia()   SystemSpec.pim_only()
-      SystemSpec.mi_sw()       SystemSpec.mi_sw_hb()
+      SystemSpec.mi_sw()       SystemSpec.si_ss()
+      SystemSpec.mi_sw_hb()    SystemSpec.si_mvcc()
       SystemSpec.ideal_txn()   SystemSpec.ana_only()
 
 * `HTAPSession` - the long-lived incremental surface over one spec:
@@ -44,10 +46,15 @@ per-column sorted overlays, query groups fold the overlays in as exact
 corrections, and a background compaction folds an overlay into its column
 every ``delta_capacity`` appended entries.
 
-What a spec can name beyond this port so far - ``timing="timeline"`` with
-``async_propagation``, the single-instance kinds ``si_ss`` / ``si_mvcc``,
-`resize_islands`, `checkpoint` / `restore` - raises
-``NotImplementedError`` naming the ROADMAP.md queue item that brings it.
+The single-instance baselines (SI-SS, SI-MVCC) keep the whole table in
+one host row store and answer queries over it in numpy: they build no
+replica on the device and launch no kernel. ``timing="timeline"`` prices
+the session's tagged cost log as a round-by-round event schedule
+(core/timeline.py), which also reports freshness and per-query latency;
+``async_propagation=True`` (timeline only) stops the txn island from
+stalling on update application. `resize_islands` and `checkpoint` /
+`restore` are not ported yet and raise ``NotImplementedError`` naming the
+ROADMAP.md queue item that brings them.
 """
 
 from __future__ import annotations
@@ -68,10 +75,13 @@ from repro_torch.core.consistency import ConsistencyManager
 from repro_torch.core.dsm import ColumnDelta, DSMReplica, empty_delta
 from repro_torch.core.hwmodel import (CostLog, HardwareParams, HB_PARAMS,
                                       HMC_PARAMS)
+from repro_torch.core.mvcc import MVCCStore
 from repro_torch.core.nsm import RowStore
 from repro_torch.core.placement import hybrid
 from repro_torch.core.schema import UpdateStream
 from repro_torch.core.shipping import ship_updates, FINAL_LOG_CAPACITY
+from repro_torch.core.snapshot import SnapshotStore
+from repro_torch.core.timeline import resolve_timing
 from repro_torch.distributed import (clear_island_mesh, current_island_mesh,
                                      install_island_mesh)
 from repro_torch.kernels.common import kernel_launch_counts
@@ -79,8 +89,6 @@ from repro_torch.kernels.common import kernel_launch_counts
 # PIM-Only calibration: OLTP on in-order PIM cores pays extra cycles (no OoO
 # ILP for pointer-heavy txn code) even though more threads are available.
 PIM_TXN_CYCLE_FACTOR = 1.4
-
-TIMINGS = ("phase", "timeline")
 
 # Delta-store compaction trigger: raw overlay entries appended to a column
 # before a background compaction folds the overlay into the base (§5.3's
@@ -113,20 +121,13 @@ class SessionClosedError(RuntimeError):
 
 # System compositions a spec can name. "multi_instance" covers the MI
 # family (MI+SW / MI+SW+HB / PIM-Only / Polynesia - the placement flags
-# select which); "ideal_txn" and "ana_only" are the normalization
-# baselines. The single-instance kinds are named but not ported yet.
+# select which); the others are the single-instance and normalization
+# baselines, each with its own storage engine and round semantics.
 KINDS = ("multi_instance", "si_ss", "si_mvcc", "ideal_txn", "ana_only")
 
-_NOT_PORTED = {
-    "timeline": "timing='timeline' and async_propagation are not ported "
-                "yet - ROADMAP.md queue 1, item 10 (timeline timing + "
-                "async propagation + mixed-traffic serving)",
-    "si": "the single-instance systems (kinds 'si_ss', 'si_mvcc') are not "
-          "ported yet - ROADMAP.md queue 1, item 12 (SI baselines)",
-    "elastic": "resize_islands / checkpoint / restore are not ported yet - "
-               "ROADMAP.md queue 1, item 11 (elastic lifecycle + "
-               "checkpoint)",
-}
+ELASTIC_TODO = ("resize_islands / checkpoint / restore are not ported yet - "
+                "ROADMAP.md queue 1, item 11 (elastic lifecycle + "
+                "checkpoint)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,14 +138,17 @@ class SystemSpec:
     overrides refine them, e.g. ``SystemSpec.polynesia(backend="torch")``.
     ``backend=None`` means ``"hopper"``; ``n_shards=None`` the backend
     spec's island count (``"hopper@4"``), else one island;
-    ``timing=None`` means ``"phase"``. ``delta_store`` (MI family only)
+    ``timing=None`` means ``"phase"``; ``timing="timeline"`` replays the
+    cost log as an event schedule, and ``async_propagation=True`` (which
+    needs it) drops the txn island's round-boundary stalls on update
+    application. ``delta_store`` (MI family only)
     switches Phase 2 to the delta-store overlays, compacted every
     ``delta_capacity`` appended entries (None: `DELTA_CAPACITY_DEFAULT`);
     answers are the eager path's. ``placement="mesh"`` (or a
     ``"name@N/mesh"`` backend) lays island *s* on its own device (the
-    session's ``devices``). The fields for async propagation are kept so
-    that a spec reads like the reference's; any value other than their off
-    position raises ``NotImplementedError``.
+    session's ``devices``). ``zero_cost_snapshot`` / ``zero_cost_mvcc``
+    are the SI baselines' normalization switches (Fig. 1 / Fig. 8): the
+    same run, with snapshot creation or version-chain traversal free.
     """
 
     name: str
@@ -158,6 +162,8 @@ class SystemSpec:
     # -- ablation / normalization switches --------------------------------
     shipping_only: bool = False          # zero-cost application (Fig. 2)
     zero_cost_propagation: bool = False  # Fig. 2/7 "Ideal" baseline
+    zero_cost_snapshot: bool = False     # SI-SS normalization (Fig. 1/8)
+    zero_cost_mvcc: bool = False         # SI-MVCC normalization (Fig. 1/8)
     # -- execution substrate ----------------------------------------------
     backend: str | ExecutionBackend | None = None
     n_shards: int | None = None
@@ -172,8 +178,6 @@ class SystemSpec:
         if self.kind not in KINDS:
             raise ValueError(f"unknown system kind {self.kind!r}; "
                              f"have {KINDS}")
-        if self.kind in ("si_ss", "si_mvcc"):
-            raise NotImplementedError(_NOT_PORTED["si"])
         if self.n_shards is not None and int(self.n_shards) < 1:
             raise ValueError(f"n_shards must be >= 1, got {self.n_shards}")
         if self.placement not in (None, "stacked", "mesh"):
@@ -185,10 +189,7 @@ class SystemSpec:
                 f"enable it")
         if self.delta_capacity is not None and self.delta_capacity <= 0:
             raise ValueError("delta_capacity must be a positive entry count")
-        if self.timing is not None and self.timing not in TIMINGS:
-            raise ValueError(f"unknown timing {self.timing!r}; have {TIMINGS}")
-        if self.timing == "timeline" or self.async_propagation:
-            raise NotImplementedError(_NOT_PORTED["timeline"])
+        resolve_timing(self.timing)
 
     def replace(self, **overrides) -> "SystemSpec":
         """A copy with fields overridden (specs are frozen)."""
@@ -222,12 +223,12 @@ class SystemSpec:
 
     @classmethod
     def si_ss(cls, **kw) -> "SystemSpec":
-        """Single instance (NSM), software full-copy snapshots (not ported)."""
+        """Single instance (NSM), software full-copy snapshots."""
         return cls(name="SI-SS", kind="si_ss").replace(**kw)
 
     @classmethod
     def si_mvcc(cls, **kw) -> "SystemSpec":
-        """Single instance (NSM), MVCC version chains (not ported)."""
+        """Single instance (NSM), MVCC version chains."""
         return cls(name="SI-MVCC", kind="si_mvcc").replace(**kw)
 
     @classmethod
@@ -241,9 +242,11 @@ class SystemSpec:
         return cls(name="Ana-Only", kind="ana_only").replace(**kw)
 
 
-# Preset registry: name -> factory (accepting overrides). The MI family
-# first, then the two normalization baselines.
+# Preset registry: name -> factory (accepting overrides). The paper's six
+# systems first, then the two normalization baselines.
 PRESETS: dict[str, Callable[..., SystemSpec]] = {
+    "SI-SS": SystemSpec.si_ss,
+    "SI-MVCC": SystemSpec.si_mvcc,
     "MI+SW": SystemSpec.mi_sw,
     "MI+SW+HB": SystemSpec.mi_sw_hb,
     "PIM-Only": SystemSpec.pim_only,
@@ -255,14 +258,13 @@ BASELINE_PRESETS: dict[str, Callable[..., SystemSpec]] = {
 }
 ALL_PRESETS: dict[str, Callable[..., SystemSpec]] = {**PRESETS,
                                                     **BASELINE_PRESETS}
-_UNPORTED_PRESETS = {"SI-SS": SystemSpec.si_ss, "SI-MVCC": SystemSpec.si_mvcc}
 
 
 def resolve_spec(system: str | SystemSpec, **overrides) -> SystemSpec:
     """Preset name or spec -> spec, with keyword overrides applied."""
     if isinstance(system, SystemSpec):
         return system.replace(**overrides) if overrides else system
-    factory = ALL_PRESETS.get(system) or _UNPORTED_PRESETS.get(system)
+    factory = ALL_PRESETS.get(system)
     if factory is None:
         raise KeyError(f"unknown system preset {system!r}; "
                        f"have {sorted(ALL_PRESETS)}")
@@ -296,7 +298,7 @@ class HTAPSession:
     """One long-lived HTAP system instance accepting incremental traffic.
 
     The session owns the storage engines of its spec's system kind plus one
-    `CostLog`; `finish()` prices the log under the phase timing model into
+    `CostLog`; `finish()` prices the log under the spec's timing model into
     an `htap.RunResult`. Drive it with any interleaving of
 
     * ``execute(chunk)`` - a contiguous, commit-ordered slice of the
@@ -305,11 +307,15 @@ class HTAPSession:
     * ``query(q)`` / ``query_batch(queries)`` - analytical queries over
       everything executed so far (a batch runs same-column-set queries as
       fused groups, sharing pinned snapshots),
-    * ``advance_round()`` - an explicit round boundary.
+    * ``advance_round()`` - an explicit round boundary: the point where
+      synchronous propagation may stall the next round's transactions and
+      where SI-MVCC queries refresh their snapshot timestamp.
 
     Visibility semantics per kind: the MI family applies every pending
-    update before answering a batch (end-of-round freshness), Ana-Only
-    reads the initial table.
+    update before answering a batch (end-of-round freshness), SI-SS
+    memcpy-snapshots the row store at the batch, SI-MVCC answers at the
+    current round's *start* timestamp (concurrent-query staleness, §3.1),
+    Ana-Only reads the initial table.
 
     ``device`` is where the analytical island lives: ``None`` means the
     GPU and raises when CUDA is not available; it never falls back to the
@@ -323,7 +329,11 @@ class HTAPSession:
     def __init__(self, spec: SystemSpec, table: np.ndarray, device=None,
                  devices=None):
         self.spec = spec
-        self.timing = spec.timing or "phase"
+        self.timing = resolve_timing(spec.timing)
+        if spec.async_propagation and self.timing != "timeline":
+            raise ValueError(
+                "async_propagation requires timing='timeline' (the "
+                "phase-bucket model has no round boundaries to overlap)")
         self.cost = CostLog()
         self.round = 0
         self.results: list[int] = []
@@ -333,6 +343,7 @@ class HTAPSession:
         self._prev_txn: str | None = None   # last txn node (dependency chain)
         self._txn_i = 0                      # txn sub-chunks this round
         self._ana_i = 0                      # per-round query/group counter
+        self._snap_i = 0                     # per-round SI-SS snapshot nodes
         self._launches_at_start = kernel_launch_counts()
         kind = spec.kind
         if kind in ("multi_instance", "ana_only"):
@@ -340,6 +351,9 @@ class HTAPSession:
                                                 spec.placement, spec.hw,
                                                 device, devices)
         else:
+            # single-instance kinds: resolve once for validation (their
+            # scans are host numpy) and pass the resolved object to every
+            # query, never re-resolving the spec
             self.be = get_backend(spec.backend, device=device,
                                   n_shards=spec.n_shards,
                                   placement=spec.placement, devices=devices)
@@ -370,6 +384,14 @@ class HTAPSession:
             self._deltas: dict[int, ColumnDelta] = {}  # col -> live overlay
             self.delta_appends = 0
             self.compactions = 0
+        elif kind == "si_ss":
+            # one host row store, snapshotted whole: no replica on the device
+            self.store = RowStore(table)
+            self.snap = SnapshotStore(table)
+        elif kind == "si_mvcc":
+            self.store = MVCCStore(table)
+            self._round_ts: int | None = None      # round-start commit id - 1
+            self._last_cid = -1                    # newest executed commit id
         elif kind == "ideal_txn":
             self.store = RowStore(table)
         elif kind == "ana_only":
@@ -393,17 +415,22 @@ class HTAPSession:
     def advance_round(self) -> None:
         """Close the current round and open the next.
 
-        For the MI family the next round's first txn chunk carries
-        ``sync_deps`` on this round's Phase-2 applies (metadata for the
-        timeline timing model; the phase model ignores it).
+        For the MI family this is where synchronous propagation bites: the
+        next round's first txn chunk carries ``sync_deps`` on this round's
+        Phase-2 applies (dropped under async propagation; the phase model
+        ignores them). For SI-MVCC the next round's queries snapshot at the
+        next chunk's start timestamp.
         """
         self._check_open()
         self.round += 1
         self._txn_i = 0
         self._ana_i = 0
+        self._snap_i = 0
         if self.spec.kind == "multi_instance":
             self._prev_round_prop = tuple(self._round_prop)
             self._round_prop = []
+        elif self.spec.kind == "si_mvcc":
+            self._round_ts = None
 
     def _release_mesh(self) -> None:
         """Restore the island devices installed before this session."""
@@ -437,6 +464,10 @@ class HTAPSession:
                 stats["compactions"] = self.compactions
                 stats["delta_live_entries"] = sum(
                     d.n_overlay for d in self._deltas.values())
+        elif spec.kind == "si_ss":
+            stats = {"snapshots": self.snap.snapshots_taken}
+        elif spec.kind == "si_mvcc":
+            stats = {"versions": self.store.n_versions}
         # CUDA kernel launches per kernel over this session's lifetime
         # (empty on the CPU, where the wrappers run their plain versions)
         now = kernel_launch_counts()
@@ -445,6 +476,7 @@ class HTAPSession:
             if v - self._launches_at_start.get(k, 0)}
         return htap._price(spec.name, self.cost, self.hw, self.timing,
                            self.n_txn, self.n_ana, self.results, stats=stats,
+                           async_propagation=spec.async_propagation,
                            concurrent_islands=concurrent)
 
     def abort(self) -> None:
@@ -456,21 +488,23 @@ class HTAPSession:
 
     # -- not ported yet ----------------------------------------------------
     def resize_islands(self, n_islands: int, placement: str | None = None):
-        raise NotImplementedError(_NOT_PORTED["elastic"])
+        raise NotImplementedError(ELASTIC_TODO)
 
     def checkpoint(self, ckpt_dir: str, step: int | None = None):
-        raise NotImplementedError(_NOT_PORTED["elastic"])
+        raise NotImplementedError(ELASTIC_TODO)
 
     @classmethod
     def restore(cls, ckpt_dir: str, spec: SystemSpec | None = None,
                 step: int | None = None):
-        raise NotImplementedError(_NOT_PORTED["elastic"])
+        raise NotImplementedError(ELASTIC_TODO)
 
     # -- transactional surface ---------------------------------------------
     def execute(self, chunk: UpdateStream) -> None:
         """Execute a contiguous commit-ordered chunk of transactions.
 
-        Opens one txn timeline node per call. On the MI family,
+        Opens one txn timeline node per call (chained after the previous
+        one; the round's first chunk also waits on the previous round's
+        propagation under synchronous timing). On the MI family,
         capacity-triggered update shipping runs here: whenever the pending
         updates reach the final log's capacity, a ship batch leaves for
         the analytical island.
@@ -497,7 +531,18 @@ class HTAPSession:
                 self.store.execute(chunk, self.cost)
         self._prev_txn = node
         self.n_txn += len(chunk)
-        if kind == "multi_instance":
+        if kind == "si_ss":
+            self.snap.data = self.store.data   # single instance: same storage
+            if chunk.writes_mask().any():
+                self.snap.mark_dirty()
+        elif kind == "si_mvcc":
+            if self._round_ts is None and len(chunk):
+                # queries this round snapshot at the round's start (§3.1):
+                # every version the round commits must be hopped over
+                self._round_ts = int(chunk.commit_id[0]) - 1
+            if len(chunk):
+                self._last_cid = int(chunk.commit_id[-1])
+        elif kind == "multi_instance":
             # §5: ship when the final log's hardware capacity is reached
             while self.store.pending_updates >= FINAL_LOG_CAPACITY:
                 self._ship_once()
@@ -528,6 +573,8 @@ class HTAPSession:
             limit=FINAL_LOG_CAPACITY if spec.propagation_on_pim else None)
         ship_node = f"r{self.round}:ship{self._ship_i}"
         self._ship_i += 1
+        # in sync timing the batch waits for the txn execution that filled
+        # it; async releases it at its last update's commit time
         sync_deps = (self._prev_txn,) if self._prev_txn else ()
         with self.cost.tagged(ship_node, "ship", round=self.round,
                               sync_deps=sync_deps, islands=self.islands):
@@ -696,6 +743,8 @@ class HTAPSession:
                              "this spec only accepts transactions")
         answers = {
             "multi_instance": self._query_batch_mi,
+            "si_ss": self._query_batch_si_ss,
+            "si_mvcc": self._query_batch_si_mvcc,
             "ana_only": self._query_batch_ana_only,
         }[kind](queries)
         self.results.extend(answers)
@@ -735,6 +784,72 @@ class HTAPSession:
             for h in handles:
                 self.cons.end_query(h)
         return [batch_results[id(q)] for q in queries]
+
+    def _query_batch_si_ss(self, queries) -> list[int]:
+        # the memcpy burns txn-island CPU -> the snapshot node lands in
+        # the txn lane, which is exactly the Fig. 1-right stall
+        snap_node = (f"r{self.round}:snap" if self._snap_i == 0
+                     else f"r{self.round}:snap.{self._snap_i}")
+        self._snap_i += 1
+        deps = (self._prev_txn,) if self._prev_txn else ()
+        with self.cost.tagged(snap_node, "snapshot", round=self.round,
+                              deps=deps):
+            view = self.snap.take_snapshot_if_needed(
+                None if self.spec.zero_cost_snapshot else self.cost)
+        answers = []
+        for q in queries:
+            i = self._ana_i
+            self._ana_i += 1
+            with self.cost.tagged(f"r{self.round}:ana{i}", "ana",
+                                  round=self.round, deps=(snap_node,)):
+                answers.append(engine.run_query_nsm(view, q, self.cost,
+                                                    backend=self.be))
+        return answers
+
+    def _query_batch_si_mvcc(self, queries) -> list[int]:
+        # analytics run CONCURRENTLY with this round's transactions: the
+        # snapshot timestamp is the round start, so every version committed
+        # during the round is "newer" and must be hopped over (§3.1). On
+        # the timeline the query nodes therefore depend only on the
+        # previous round's txn nodes.
+        # a round with no transactions (yet) snapshots at "now": everything
+        # committed in earlier rounds is visible, nothing is hopped over
+        ts = self._round_ts if self._round_ts is not None else self._last_cid
+        hops = not self.spec.zero_cost_mvcc
+        deps = ()
+        if self.round:
+            prev = self._mvcc_prev_round_txn
+            if prev is not None:
+                deps = (prev,)
+        answers = []
+        for q in queries:
+            i = self._ana_i
+            self._ana_i += 1
+            with self.cost.tagged(f"r{self.round}:ana{i}", "ana",
+                                  round=self.round, deps=deps):
+                store = self.store
+                fvals, avals, *jvals = [
+                    store.read_column_at(c, ts, self.cost, hops)
+                    for c in q.columns]
+                answers.append(engine.answer_from_values(
+                    fvals, avals, jvals[0] if jvals else None, q))
+                # scan cycles beyond chain traversal (already priced in
+                # read_column_at)
+                self.cost.add(phase="ana", island="ana", resource="cpu",
+                              cycles=store.base.shape[0]
+                              * engine.CPU_CYCLES_PER_ROW)
+        return answers
+
+    @property
+    def _mvcc_prev_round_txn(self) -> str | None:
+        # the last txn node of any PREVIOUS round (queries run concurrently
+        # with the current round's transactions, so they never wait on
+        # them): when this round already executed chunks, that is the
+        # dependency of the round's first chunk; otherwise the chain tail.
+        if self._txn_i:
+            tag = self.cost.tags[f"r{self.round}:txn"]
+            return tag.deps[0] if tag.deps else None
+        return self._prev_txn
 
     def _query_batch_ana_only(self, queries) -> list[int]:
         answers = []

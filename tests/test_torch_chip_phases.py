@@ -1,0 +1,204 @@
+"""A rehearsal, on the CPU, of `chip_smoke.py`'s `mixed_traffic` and
+`si_baselines` phases: their control flow and every check they make on
+the card run here at a few thousand rows.
+
+The phases take their device as an argument (the CPU here, the card in the
+script). The scan wrappers' GPU branch is reached as
+tests/test_torch_kernels_fold.py reaches it: ``on_gpu`` patched to True
+and the bare launches patched to add the plain versions' results, so the
+launch counters the phases check count here as on the card. The mixed
+traffic's commit rate is scaled to the smaller stream, so that the
+schedule spans the same four-second horizon.
+"""
+
+import argparse
+import json
+import pathlib
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.session import SystemSpec
+from repro_torch.kernels import common
+from repro_torch.kernels.dict_ops import ops as dict_ops
+from repro_torch.kernels.dict_ops import (MAX_CORR_Q, scan_exact_group_ref,
+                                          scan_exact_ref,
+                                          scan_values_exact_ref)
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
+
+torch.set_num_threads(1)
+CPU = torch.device("cpu")
+
+
+def _fake_launch(fcodes, acodes, fvalid_u8, adict, bounds_dev, out,
+                 jcodes=None, jvalid_u8=None, rcount=None, corr_a=None,
+                 corr_j=None, vbounds_dev=None):
+    if vbounds_dev is None:
+        out += scan_exact_ref(fcodes, acodes, fvalid_u8, adict,
+                              bounds_dev.tolist(), jcodes, jvalid_u8, rcount)
+    else:
+        out += scan_exact_group_ref(fcodes, acodes, fvalid_u8, adict,
+                                    bounds_dev.tolist(), corr_a,
+                                    vbounds_dev.tolist(), jcodes, jvalid_u8,
+                                    rcount, corr_j)
+
+
+def _fake_values_launch(stack, vbounds_dev, out):
+    out += scan_values_exact_ref(stack, vbounds_dev.tolist())
+
+
+def _fake_island_launch(islands, bounds_dev, out, corr_a=None, corr_j=None,
+                        vbounds=None):
+    assert len(islands) <= dict_ops.MAX_ISLANDS
+    assert vbounds is None or len(vbounds) <= MAX_CORR_Q
+    for isl in islands:
+        out += scan_exact_ref(*isl[:4], bounds_dev.tolist(), *isl[4:])
+    if vbounds is not None:
+        dict_ops._corr_ref(out, corr_a, corr_j, list(vbounds))
+
+
+@pytest.fixture
+def gpu_branch(monkeypatch):
+    monkeypatch.setattr(dict_ops, "on_gpu", lambda *t: True)
+    monkeypatch.setattr(dict_ops, "launch_scan_exact", _fake_launch)
+    monkeypatch.setattr(dict_ops, "launch_scan_values", _fake_values_launch)
+    monkeypatch.setattr(dict_ops, "launch_scan_exact_islands",
+                        _fake_island_launch)
+    common.reset_kernel_launch_counts()
+    yield
+    common.reset_kernel_launch_counts()
+
+
+@pytest.fixture(scope="module")
+def small():
+    args = argparse.Namespace(rows=3000, cols=4, txns=8000, queries=16,
+                              rounds=4, seed=0, delta_capacity=256)
+    return args, chip_smoke.make_workload(args)
+
+
+def _lines(capsys, phase):
+    out = capsys.readouterr().out.splitlines()
+    return [json.loads(line) for line in out
+            if line.startswith("{") and f'"phase": "{phase}"' in line]
+
+
+def test_mixed_traffic_phase_rehearsed(small, gpu_branch, monkeypatch,
+                                       capsys):
+    args, wl = small
+    monkeypatch.setattr(chip_smoke, "MIXED_TXN_RATE", args.txns / 4.0)
+    paths = chip_smoke.phase_mixed_traffic(args, wl, dev=CPU)
+    lines = _lines(capsys, "mixed_traffic")
+    schedule, runs = lines[0], lines[1:]
+    assert schedule["clients"] == 4 and schedule["offered"] == args.queries
+    assert 1 < schedule["positions"] <= schedule["arrivals"] <= args.queries
+    assert [r["run"] for r in runs] == ["hopper", "hopper async",
+                                        "hopper@4/mesh delta async"]
+    assert all(r["ok"] for r in runs)
+    assert len({r["answers_checksum"] for r in runs}) == 1
+    groups, joins = schedule["query_groups"], schedule["join_groups"]
+    assert runs[0]["launches"] == {"scan_exact": groups - joins,
+                                   "scan_exact_join": joins}
+    assert runs[2]["launches"] == {"scan_exact_mesh": groups - joins,
+                                   "scan_exact_join_mesh": joins}
+    sync, asy = runs[0]["modeled"], runs[1]["modeled"]
+    assert asy["txns_per_s"] >= sync["txns_per_s"]
+    assert sync["freshness"]["n_batches"] > 0
+    assert 0.0 <= sync["latency_p50"] <= sync["latency_p99"]
+    for r in runs:
+        assert r["batch_seconds"]["max"] <= r["batch_seconds"]["sum"]
+        assert r["phase_seconds"] >= r["served_wall_seconds"]
+    # each served run is a path of its own, counted from 0: the by-hand
+    # drive before it adds nothing
+    assert list(paths) == ["mixed_traffic", "mixed_traffic_async",
+                           "mixed_traffic_mesh"]
+    for (launches, shapes), r in zip(paths.values(), runs):
+        assert launches == r["launches"]
+        assert set(shapes) == set(launches)
+    assert paths["mixed_traffic"][0]["scan_exact"] == groups - joins
+    assert paths["mixed_traffic_mesh"][0]["scan_exact_join_mesh"] == joins
+
+
+def test_mixed_traffic_phase_fails_on_a_wrong_answer(small, gpu_branch,
+                                                     monkeypatch):
+    """A check that cannot fail proves nothing: an answer off by one in
+    the served runs fails the phase."""
+    args, wl = small
+    monkeypatch.setattr(chip_smoke, "MIXED_TXN_RATE", args.txns / 4.0)
+    from repro_torch.core import htap
+    real = htap.run_mixed_traffic
+
+    def off_by_one(*a, **kw):
+        res = real(*a, **kw)
+        res.results[-1] += 1
+        return res
+
+    monkeypatch.setattr(htap, "run_mixed_traffic", off_by_one)
+    with pytest.raises(AssertionError, match="host evaluation"):
+        chip_smoke.phase_mixed_traffic(args, wl, dev=CPU)
+
+
+def test_mixed_traffic_phase_fails_on_a_second_scan(small, gpu_branch,
+                                                    monkeypatch):
+    args, wl = small
+    monkeypatch.setattr(chip_smoke, "MIXED_TXN_RATE", args.txns / 4.0)
+    from repro_torch.core import engine
+    real = engine.run_query_group_dsm
+
+    def twice(*a, **kw):
+        real(*a, **kw)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(engine, "run_query_group_dsm", twice)
+    with pytest.raises(AssertionError, match="once a query group"):
+        chip_smoke.phase_mixed_traffic(args, wl, dev=CPU)
+
+
+def test_si_baselines_phase_rehearsed(small, capsys):
+    args, wl = small
+    answers, _, _, result = chip_smoke.drive_spec(
+        SystemSpec.polynesia(backend="hopper"), wl, args, check_host=True,
+        device=CPU)
+    common.reset_kernel_launch_counts()
+    launches, shapes = chip_smoke.phase_si_baselines(args, wl, answers,
+                                                     result, dev=CPU)
+    assert launches == {} and shapes == {}
+    lines = _lines(capsys, "si_baselines")
+    assert [ln["system"] for ln in lines] == ["SI-SS", "SI-MVCC"]
+    ss, mvcc = lines
+    assert ss["rows"] == mvcc["rows"] == args.rows
+    assert ss["answers_checksum"] == sum(answers)
+    assert ss["stats"]["snapshots"] >= 1
+    assert mvcc["stats"]["versions"] > 0
+    assert ss["answers_checksum"] != mvcc["answers_checksum"]
+    for ln in lines:
+        assert ln["polynesia_over_this"]["txn"] > 0
+        assert len(ln["round_seconds"]) == args.rounds + 1
+
+
+def test_si_baselines_phase_fails_on_a_stale_mvcc_read(small, monkeypatch):
+    """SI-MVCC held to the round start: reading at "now" instead fails."""
+    args, wl = small
+    answers, _, _, result = chip_smoke.drive_spec(
+        SystemSpec.polynesia(backend="hopper"), wl, args, check_host=True,
+        device=CPU)
+    from repro_torch.core.mvcc import MVCCStore
+    real = MVCCStore.read_column_at
+    monkeypatch.setattr(MVCCStore, "read_column_at",
+                        lambda self, col, ts, *a: real(self, col, 10**12, *a))
+    with pytest.raises(AssertionError, match="round start"):
+        chip_smoke.phase_si_baselines(args, wl, answers, result, dev=CPU)
+
+
+def test_mixed_schedule_is_the_seeded_one(small):
+    args, wl = small
+    from repro.core.workload import mixed_traffic_schedule as ref_schedule
+    got = chip_smoke.mixed_schedule(args, wl)
+    clients = [wl["queries"][c::4] for c in range(4)]
+    want = ref_schedule(np.random.default_rng(args.seed + 1), clients,
+                        args.txns, chip_smoke.MIXED_TXN_RATE, [3.0] * 4)
+    assert [(a.time, a.client, a.position) for a in got] == \
+        [(a.time, a.client, a.position) for a in want]

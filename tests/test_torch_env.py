@@ -138,6 +138,42 @@ def _mesh_fields(port, ref):
             (ref.placement, ref.n_shards or 1))
 
 
+def _timing_spec(**kw):
+    """A timing spec's fields and resolved timing, in the port and in the
+    reference."""
+    from repro.core.timeline import resolve_timing as ref_resolve_timing
+    from repro_torch.core.timeline import resolve_timing
+    port = SystemSpec.polynesia(**kw)
+    ref = ref_session.SystemSpec.polynesia(**kw)
+    return ((port.timing, port.async_propagation, resolve_timing(port.timing)),
+            (ref.timing, ref.async_propagation,
+             ref_resolve_timing(ref.timing)))
+
+
+def _si_spec(kind):
+    """An SI preset's name, kind and normalization switches, in the port
+    and in the reference."""
+    port = getattr(SystemSpec, kind)()
+    ref = getattr(ref_session.SystemSpec, kind)()
+    fields = ("name", "kind", "zero_cost_snapshot", "zero_cost_mvcc")
+    return ([getattr(port, f) for f in fields],
+            [getattr(ref, f) for f in fields])
+
+
+def _si_run(name):
+    """A small SI run's answers, in the port and in the reference."""
+    from repro.core import htap as ref_htap
+    rng = np.random.default_rng(0)
+    sch = schema.make_schema("t", 3, 8)
+    table = schema.gen_table(rng, sch, 64)
+    stream = schema.gen_update_stream(rng, sch, 64, 200)
+    queries = engine.gen_queries(rng, 4, 3)
+    got = htap.run(name, table, stream, queries, n_rounds=2, device="cpu")
+    want = ref_htap.run(name, table, stream, queries, n_rounds=2,
+                        backend="numpy", n_shards=1)
+    return got.results, [int(a) for a in want.results]
+
+
 def _lm(name, make):
     return make(configs.get_smoke_config(name))
 
@@ -172,11 +208,12 @@ def _delta_spec(**kw):
                               placement="mesh")), "item 13"),
     (lambda: _delta_spec(delta_store=True), "item 9"),
     (lambda: _delta_spec(delta_capacity=64), "item 9"),
-    (lambda: SystemSpec.polynesia(timing="timeline"), "item 10"),
-    (lambda: SystemSpec.polynesia(async_propagation=True), "item 10"),
-    (lambda: SystemSpec.si_ss(), "item 12"),
-    (lambda: SystemSpec.si_mvcc(), "item 12"),
-    (lambda: htap.run("SI-SS", _table(), device="cpu"), "item 12"),
+    (lambda: _timing_spec(timing="timeline"), "item 10"),
+    (lambda: _timing_spec(timing="timeline", async_propagation=True),
+     "item 10"),
+    (lambda: _si_spec("si_ss"), "item 12"),
+    (lambda: _si_spec("si_mvcc"), "item 12"),
+    (lambda: _si_run("SI-SS"), "item 12"),
     (lambda: HTAPSession(SystemSpec.polynesia(backend="torch"), _table(),
                          device="cpu").resize_islands(2), "item 11"),
     (lambda: HTAPSession(SystemSpec.polynesia(backend="torch"), _table(),
@@ -198,9 +235,10 @@ def _delta_spec(**kw):
     (lambda: _lm("whisper-base", make_serve_step), "item 14 (whisper)"),
 ])
 def test_unported_features_raise_and_name_their_roadmap_queue(make, queue):
-    if queue in ("item 9", "K18", "item 13"):
-        # the delta store, the float32 scan and the mesh placement are
-        # ported: the call that raised now answers as the reference's does
+    if queue in ("item 9", "K18", "item 13", "item 10", "item 12"):
+        # the delta store, the float32 scan, the mesh placement, the
+        # timeline and the single-instance baselines are ported: the call
+        # that raised now answers as the reference's does
         got, want = make()
         assert got == want
         return
