@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # needs one NVIDIA Hopper card and nvcc
 
-Drives `repro_torch` only. Phases, each printing one JSON line:
+Drives `repro_torch` only. Phases, each printing one JSON line (with the
+script's wall seconds so far, ``elapsed_seconds``):
 
 1. ``env``       versions, nvcc, the card's name and power limit.
 2. ``build``     builds the CUDA sources with nvcc (seconds = set-up time),
@@ -70,13 +71,35 @@ Drives `repro_torch` only. Phases, each printing one JSON line:
                  two or more cards, ``hopper@min(4, cards)/mesh`` over
                  distinct cards with the same checks (``mesh_cards``);
                  with one, a line saying it was skipped.
-7. ``ana_only``  the `Ana-Only` preset at the same size on ``"hopper"`` and
+7. ``elastic``   the main path through the elastic island lifecycle, one
+                 line per part. ``resize``: the `hopper` session resized
+                 after round 0 to 4 stacked islands, after round 1 to 4
+                 mesh islands on the one card (``devices=[cuda:0] * 4``),
+                 after round 2 back to one island; every round's answers
+                 must equal the main path's and the host evaluation, its
+                 scans be the partition's (flat, sharded, mesh; once a
+                 query group; the mesh round adopting the shards the
+                 resize placed), the final columns the main path's and
+                 the resize trail the three transitions; each resize's
+                 wall seconds and its ``reshard`` node's modeled seconds
+                 (the paper's HMC parameters). ``checkpoint``: `hopper@4`
+                 on the delta store checkpointed after round 2 with live
+                 overlays (bytes on disk, write seconds); restored onto
+                 its own spec it must finish with the uninterrupted run's
+                 answers and modeled numbers, onto `hopper@2/mesh` (delta
+                 store, islands on the one card) with the main path's
+                 answers, and onto an eager `hopper` it must be refused
+                 (restore seconds each). ``crash``: `run_with_recovery` on
+                 `hopper` with the crash in round 2, after the step-2
+                 checkpoint (the ship count from ``resize``), recovered
+                 onto `hopper@4/mesh`: the main path's answers.
+8. ``ana_only``  the `Ana-Only` preset at the same size on ``"hopper"`` and
                  ``"hopper@4"`` (the first island count): lone join queries
                  go through the bucket probe, one launch a query, against a
                  table built once per joined dictionary (``tables_built``,
                  at most the distinct join columns); answers must equal the
                  host evaluation.
-8. ``float_scan`` the reference's original float32 scan
+9. ``float_scan`` the reference's original float32 scan
                  (``scan_filter_agg(exact=False)``, as
                  ``examples/htap_analytics.py`` calls it) for every query's
                  filter and aggregate column over the main path's final
@@ -86,7 +109,7 @@ Drives `repro_torch` only. Phases, each printing one JSON line:
                  case of the kernel's summation order, about 2e-6 of
                  sum(|v|) at 10M rows) and within 1e-5 * sum(|v|) of the
                  plain version's.
-9. ``mixed_traffic`` open traffic on the timeline timing model: the
+10. ``mixed_traffic`` open traffic on the timeline timing model: the
                  workload's 32 queries dealt round-robin to 4 clients,
                  each issuing at 3 queries/s (exponential gaps, seed
                  ``--seed`` + 1) while the 400,000 commits arrive at
@@ -108,7 +131,7 @@ Drives `repro_torch` only. Phases, each printing one JSON line:
                  wall seconds a batch. Each served run is a path of its
                  own for the launch counts (``mixed_traffic``,
                  ``mixed_traffic_async``, ``mixed_traffic_mesh``).
-10. ``si_baselines`` SI-SS and SI-MVCC through the same rounds as the main
+11. ``si_baselines`` SI-SS and SI-MVCC through the same rounds as the main
                  path, at its rows: one host row store each, answered in numpy; no kernel launch and
                  no device bytes; SI-SS's answers equal the host
                  evaluation every round and Polynesia's (the round-end
@@ -116,7 +139,7 @@ Drives `repro_torch` only. Phases, each printing one JSON line:
                  the table at each round's start. Prints snapshots /
                  versions, wall seconds a round, modeled throughputs and
                  Polynesia's modeled throughputs over each baseline's.
-11. ``lm_serve``  the LM serving path at full width, one line per model of
+12. ``lm_serve``  the LM serving path at full width, one line per model of
                  ``--lm-models``: gemma2-9b (42 layers, bf16 weights from
                  `init_lm` on the card, seed ``--seed``) serves ``--lm-batch``
                  4 requests of ``--lm-prompt`` 256 prompt tokens fed one at a
@@ -139,7 +162,7 @@ Drives `repro_torch` only. Phases, each printing one JSON line:
                  decode kernel or the plain step. After each model's run,
                  4 more serve steps under `torch.profiler` give the device
                  time per step and the device's busy share.
-12. ``kernels``   every hand-written kernel launched on the card and held
+13. ``kernels``   every hand-written kernel launched on the card and held
                  against its plain PyTorch version - the HTAP kernels with
                  exact equality (integers: tolerance 0), flash-decode
                  attention at 2e-5 and the selective scan at 3e-5 in float32
@@ -198,7 +221,10 @@ the launch, widest island, ...), measured with the islands on one card),
 the bucket
 probe against ``ana_only``, the float32 scan
 against ``float_scan``, flash-decode attention and the selective scan
-against ``lm_serve`` (each model's serve run). The correction lane alone
+against ``lm_serve`` (each model's serve run). ``elastic`` is a path of
+its own that runs kernels already held to these (no kernel is measured
+against it); like every path it may not launch the kernels folded into
+others (`NEVER_ON_PATH`). The correction lane alone
 (the values delta, and the raw-value scan, its kernel over a 3-row stack,
 held and timed beside it under ``raw_value_scan``) and the sort unit have
 no caller on these paths: the lane rides the scan launches and the sort
@@ -225,6 +251,7 @@ import time
 import numpy as np
 import torch
 
+STARTED = time.perf_counter()
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
@@ -322,7 +349,9 @@ I32_MIN, I32_MAX = -2**31, 2**31 - 1
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_seconds": time.perf_counter() - STARTED}),
+          flush=True)
 
 
 def card_line() -> str:
@@ -621,20 +650,26 @@ def decode_registers() -> dict[str, int]:
 # ---------------------------------------------------------------------------
 
 def host_answers(data: np.ndarray, queries) -> list[int]:
-    """Independent numpy evaluation of each query over a row-store table."""
-    hist = {}
-    out = []
+    """Independent numpy evaluation of each query over a row-store table: a
+    join weighs each selected row by its join value's count in the table."""
+    cols, counts, out = {}, {}, []
+
+    def col(c):
+        if c not in cols:
+            cols[c] = np.ascontiguousarray(data[:, c])
+        return cols[c]
+
     for q in queries:
-        fvals = data[:, q.filter_col]
+        fvals = col(q.filter_col)
         mask = (fvals >= q.lo) & (fvals <= q.hi)
-        res = int(data[mask, q.agg_col].astype(np.int64).sum())
+        res = int(col(q.agg_col)[mask].sum(dtype=np.int64))
         if q.join_col is not None:
-            if q.join_col not in hist:
-                _, inv, counts = np.unique(data[:, q.join_col],
-                                           return_inverse=True,
-                                           return_counts=True)
-                hist[q.join_col] = counts[inv.reshape(-1)]
-            res += int(hist[q.join_col][mask].astype(np.int64).sum())
+            jvals = col(q.join_col)
+            if q.join_col not in counts:
+                # the schema's values lie in [0, 2**24); bincount raises
+                # on a negative one
+                counts[q.join_col] = np.bincount(jvals)
+            res += int(counts[q.join_col][jvals[mask]].sum(dtype=np.int64))
         out.append(res)
     return out
 
@@ -1166,6 +1201,269 @@ def phase_mesh(args, wl, one_launches, one_answers, one_cols, dev=None
     else:
         emit("mesh_cards", skipped="1 card visible")
     return kernel_launch_counts(), kernel_launch_shapes()
+
+
+# ---------------------------------------------------------------------------
+# the elastic island lifecycle: resize, checkpoint and restore, crash replay
+# ---------------------------------------------------------------------------
+
+# the scans that must carry a round's query groups under each partition
+FLAT, STACKED, MESH = "flat", "stacked", "mesh"
+
+
+def round_scans(qs, family: str, devices=None) -> dict:
+    """The scan launches a round's query batch makes on `family`'s
+    partition: once a query group (the mesh scans once a device and group
+    of up to 16 of its islands)."""
+    from repro_torch.core import engine
+    groups = engine.group_queries(qs)
+    n_join = sum(g[0].join_col is not None for g in groups)
+    flat = {"scan_exact": len(groups) - n_join, "scan_exact_join": n_join}
+    if family == STACKED:
+        want = {SHARDED_FORM[k]: v for k, v in flat.items()}
+    elif family == MESH:
+        per_group = mesh_launches_a_group(devices)
+        want = {mesh: per_group * flat[f] for mesh, f in MESH_SCANS.items()}
+    else:
+        want = flat
+    return {k: v for k, v in want.items() if v}
+
+
+def launches_since(before: dict) -> dict:
+    from repro_torch.kernels.common import kernel_launch_counts
+    return {k: v - before.get(k, 0) for k, v in kernel_launch_counts().items()
+            if v != before.get(k, 0)}
+
+
+def scans_of(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if "scan" in k}
+
+
+def workload_rounds(args, wl) -> list:
+    """(txn chunk, queries, main-path answers) of each round, the late
+    round last, as `drive` splits them."""
+    from repro_torch.core.workload import split_queries, split_stream
+    rounds = list(zip(split_stream(wl["stream"], args.rounds),
+                      split_queries(wl["queries"], args.rounds)))
+    rounds.append((wl["late"], [wl["late_query"]]))
+    return rounds
+
+
+def ckpt_bytes(ckpt_dir: str, step: int) -> int:
+    d = os.path.join(ckpt_dir, f"step_{step}")
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+
+
+def phase_elastic(args, wl, one_answers, one_cols, dev=None
+                  ) -> tuple[dict, dict]:
+    """The main path through the elastic lifecycle (`core/elastic.py`).
+
+    (a) resize: `hopper`, resized after round 0 to 4 stacked islands, after
+    round 1 to 4 mesh islands on the one card, after round 2 back to one
+    island; every round's answers equal the main path's and the host
+    evaluation, the final columns the main path's, and the round's scans
+    are the partition's (flat, sharded, mesh; once a query group), the mesh
+    adopting the shards the resize placed. (b) checkpoint and restore:
+    `hopper@4` on the delta store, checkpointed after round 2 with live
+    overlays; restored onto the same spec it finishes with the
+    uninterrupted run's answers and modeled numbers, onto `hopper@2/mesh`
+    (delta store) with its answers, and onto an eager `hopper` it is
+    refused. (c) crash: `run_with_recovery` on `hopper`, the crash in round
+    2 after the step-2 checkpoint, recovered onto `hopper@4/mesh`: the main
+    path's answers. Returns the phase's launches and shapes (counts set to
+    0 at its start)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.core import elastic
+    from repro_torch.core.hwmodel import HardwareModel
+    from repro_torch.core.session import HTAPSession, SystemSpec
+    from repro_torch.core.timeline import simulate_timeline
+    from repro_torch.kernels.common import (kernel_launch_counts,
+                                            kernel_launch_shapes,
+                                            reset_kernel_launch_counts)
+    start = time.perf_counter()
+    dev = torch.device("cuda", 0) if dev is None else torch.device(dev)
+    rounds = workload_rounds(args, wl)
+    offsets = np.cumsum([0] + [len(qs) for _, qs in rounds]).tolist()
+    main_answers = [one_answers[offsets[r]:offsets[r + 1]]
+                    for r in range(len(rounds))]
+    reset_kernel_launch_counts()
+
+    # (a) resize: 1 -> 4 stacked -> 4 on the mesh -> 1, one round each
+    plan = {0: (4, STACKED, None), 1: (4, MESH, [dev] * 4),
+            2: (1, STACKED, None)}
+    session = HTAPSession(SystemSpec.polynesia(backend="hopper"),
+                          wl["table"], device=dev)
+    family, devices = FLAT, None
+    resizes, ships, views = [], [], 0
+    for r, (chunk, qs) in enumerate(rounds):
+        if r:
+            session.advance_round()
+        before, resident = kernel_launch_counts(), session.cons.views_resident
+        session.execute(chunk)
+        got = session.query_batch(qs)
+        sync(dev)
+        ships.append(session._ship_i)
+        launches = launches_since(before)
+        host = host_answers(session.store.data, qs)
+        if got != main_answers[r] or got != host:
+            raise AssertionError(f"elastic resize, round {r} on {family}: "
+                                 f"answers {got} != main path "
+                                 f"{main_answers[r]} / host evaluation "
+                                 f"{host}")
+        want = round_scans(qs, family, devices)
+        if scans_of(launches) != want:
+            raise AssertionError(f"elastic resize, round {r} on {family}: "
+                                 f"scans {scans_of(launches)}, the "
+                                 f"partition's are {want}")
+        if family == MESH:
+            views += session.cons.views_resident - resident
+            if session.cons.views_resident == resident:
+                raise AssertionError("elastic resize: the mesh round adopted "
+                                     "no shard the resize placed")
+        if r in plan:
+            n, placement, devices = plan[r]
+            before = kernel_launch_counts()
+            t0 = time.perf_counter()
+            node = session.resize_islands(n, placement=placement,
+                                          devices=devices)
+            sync(dev)
+            seconds = time.perf_counter() - t0
+            if scans_of(launches_since(before)):
+                raise AssertionError(f"elastic resize {node} scanned")
+            family = MESH if placement == MESH else (
+                STACKED if n > 1 else FLAT)
+            resizes.append(dict(node=node, to=n, placement=placement,
+                                wall_seconds=seconds))
+    tl = simulate_timeline(session.cost, HardwareModel(session.hw))
+    modeled = {n.tag.node: n.seconds for n in tl.nodes
+               if n.tag.kind == "reshard"}
+    for rs in resizes:
+        rs["modeled_seconds"] = modeled[rs["node"]]
+    same_columns(session.replica.columns, one_cols,
+                 "elastic resize vs one island")
+    result = session.finish()
+    trail = [(t["from"], t["to"], t["placement"])
+             for t in result.stats["resizes"]]
+    if trail != [(1, 4, STACKED), (4, 4, MESH), (4, 1, STACKED)]:
+        raise AssertionError(f"elastic resize trail {trail}")
+    emit("elastic", part="resize", resizes=resizes, mesh_views_resident=views,
+         ship_batches=ships, answers_checksum=sum(result.results), ok=True)
+    del session
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        # (b) checkpoint with live overlays, restore three ways
+        spec = SystemSpec.polynesia(backend="hopper@4", delta_store=True,
+                                    delta_capacity=args.delta_capacity)
+        cut = 2
+        t0 = time.perf_counter()
+        session = HTAPSession(spec, wl["table"], device=dev)
+        sync(dev)
+        build_seconds = time.perf_counter() - t0
+        for r, (chunk, qs) in enumerate(rounds[:cut + 1]):
+            if r:
+                session.advance_round()
+            session.execute(chunk)
+            session.query_batch(qs)
+        live = sum(d.n_overlay for d in session._deltas.values())
+        if not live:
+            raise AssertionError("elastic checkpoint: no live overlay")
+        t0 = time.perf_counter()
+        step = session.checkpoint(os.path.join(tmp, "b"), step=cut + 1)
+        write_seconds = time.perf_counter() - t0
+        size = ckpt_bytes(os.path.join(tmp, "b"), step)
+
+        def finish(s):
+            for chunk, qs in rounds[cut + 1:]:
+                s.advance_round()
+                s.execute(chunk)
+                s.query_batch(qs)
+            return s.finish()
+
+        whole = finish(session)
+        del session
+        restores = {}
+        for what, target, devices in (
+                ("same", None, None),
+                ("hopper@2/mesh", SystemSpec.polynesia(
+                    backend="hopper@2/mesh", delta_store=True,
+                    delta_capacity=args.delta_capacity), [dev] * 2)):
+            t0 = time.perf_counter()
+            restored = HTAPSession.restore(
+                os.path.join(tmp, "b"), spec=target,
+                device=None if devices else dev, devices=devices)
+            sync(dev)
+            restores[what] = time.perf_counter() - t0
+            res = finish(restored)
+            if res.results != one_answers:
+                raise AssertionError(f"elastic restore onto {what}: answers "
+                                     f"{res.results} != main path "
+                                     f"{one_answers}")
+            if what == "same" and (
+                    res.results, res.txn_seconds, res.ana_seconds,
+                    res.energy_joules) != (
+                    whole.results, whole.txn_seconds, whole.ana_seconds,
+                    whole.energy_joules):
+                raise AssertionError("elastic restore onto the same spec: "
+                                     "modeled numbers differ from the "
+                                     "uninterrupted run's")
+            del restored
+        t0 = time.perf_counter()
+        try:
+            HTAPSession.restore(os.path.join(tmp, "b"),
+                                spec=SystemSpec.polynesia(backend="hopper"),
+                                device=dev)
+        except ValueError as err:
+            restores["eager hopper, refused"] = time.perf_counter() - t0
+            if "delta-overlay" not in str(err):
+                raise
+        else:
+            raise AssertionError("elastic restore: a checkpoint with live "
+                                 "overlays restored onto an eager target")
+        emit("elastic", part="checkpoint", spec=spec.backend, step=step,
+             live_overlay_rows=live, checkpoint_bytes=size,
+             write_seconds=write_seconds, restore_seconds=restores,
+             session_build_seconds=build_seconds,
+             modeled_txn_seconds=whole.txn_seconds,
+             modeled_ana_seconds=whole.ana_seconds,
+             answers_checksum=sum(whole.results), ok=True)
+
+        # (c) crash in round 2, after the step-2 checkpoint
+        limit = ships[1] + (ships[2] - ships[1]) // 2
+        if not ships[1] <= limit < ships[2]:
+            raise AssertionError(f"elastic crash: no ship batch in round 2 "
+                                 f"to crash at ({ships})")
+        ckpt = os.path.join(tmp, "c")
+        t0 = time.perf_counter()
+        res, recovered = elastic.run_with_recovery(
+            SystemSpec.polynesia(backend="hopper"), wl["table"],
+            wl["stream"], wl["queries"], args.rounds, ckpt,
+            crash_after_ships=limit, device=dev,
+            restore_spec=SystemSpec.polynesia(backend="hopper@4/mesh"),
+            restore_devices=[dev] * 4)
+        sync(dev)
+        seconds = time.perf_counter() - t0
+        if not recovered or latest_step(ckpt) != 2:
+            raise AssertionError(f"elastic crash: recovered {recovered}, "
+                                 f"last step {latest_step(ckpt)}")
+        if res.results != one_answers[:args.queries]:
+            raise AssertionError(f"elastic crash: answers {res.results} != "
+                                 f"main path {one_answers[:args.queries]}")
+        if res.stats["placement"] != MESH or res.stats["islands"] != 4:
+            raise AssertionError(f"elastic crash: recovered onto "
+                                 f"{res.stats['placement']}")
+        emit("elastic", part="crash", crash_after_ships=limit,
+             recovered=recovered, restored_step=latest_step(ckpt),
+             seconds=seconds, answers_checksum=sum(res.results), ok=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = kernel_launch_counts()
+    emit("elastic", launches=launches,
+         phase_seconds=time.perf_counter() - start, ok=True)
+    return launches, kernel_launch_shapes()
 
 
 def phase_ana_only(args, wl) -> tuple[dict, dict]:
@@ -3368,6 +3666,7 @@ def main(argv=None) -> int:
     runs["islands"] = phase_islands(args, wl, main_launches, answers, cols)
     runs["delta"] = phase_delta(args, wl, answers, cols, seconds)
     runs["mesh"] = phase_mesh(args, wl, main_launches, answers, cols)
+    runs["elastic"] = phase_elastic(args, wl, answers, cols)
     runs["ana_only"] = phase_ana_only(args, wl)
     runs["float_scan"] = phase_float_scan(args, wl, cols)
     del cols

@@ -9,6 +9,7 @@ snapshot copies run as hand-written CUDA kernels.
 
 The public surface mirrors the paper's sections:
   §4 islands            -> htap.py + session.py (system compositions)
+                           + elastic.py (resize, checkpoint, crash replay)
   §5 update propagation -> shipping.py + application.py
   §6 consistency        -> consistency.py (+ mvcc.py / snapshot.py baselines)
   §7 analytical engine  -> engine.py + placement.py + scheduler.py
@@ -25,4 +26,5 @@ from repro_torch.core.application import apply_updates, apply_updates_naive  # n
 from repro_torch.core.consistency import ConsistencyManager  # noqa: F401
 from repro_torch.core.hwmodel import HardwareModel, HMC_PARAMS, CostLog  # noqa: F401
 from repro_torch.core.session import HTAPSession, SystemSpec  # noqa: F401
+from repro_torch.core import elastic  # noqa: F401
 from repro_torch.core.workload import split_queries, split_stream  # noqa: F401

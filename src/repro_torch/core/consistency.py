@@ -162,6 +162,36 @@ class ConsistencyManager:
         if place is not None:
             self._resident[col_id] = place(shard_cols)
 
+    def rebind_backend(self, backend) -> None:
+        """Re-point the snapshot plane at a resized backend (elastic
+        resharding, core/elastic.py) - all or none, like the Phase-2 swap.
+
+        Every *unpinned* view of every chain is invalidated in one pass (a
+        view partitioned for the old islands must never serve another scan
+        - using one is a hard StaleShardedViewError, never a silently
+        mis-sharded read), pending residency installs are dropped, and the
+        new backend takes over snapshot, shard and placement duties. The
+        replica columns and the snapshot chains themselves are untouched:
+        the next pinned `read_scan` shards the pinned version under the new
+        partition. Refuses to run with pinned queries in flight - a resize
+        happens between query batches, where `_handles` is empty.
+        """
+        if self._handles:
+            raise RuntimeError(
+                f"cannot rebind the consistency backend with "
+                f"{len(self._handles)} pinned query handle(s) in flight; "
+                "finish the query batch first")
+        new_be = get_backend(backend)
+        old_n, new_n = self.backend.n_shards, new_be.n_shards
+        for chain in self.chains.values():
+            for v in chain.versions:
+                v.drop_view(
+                    f"column {chain.col_id}'s analytical islands were "
+                    f"resized ({old_n} -> {new_n} shards); re-pin to scan "
+                    "the new partition")
+        self._resident.clear()
+        self.backend = new_be
+
     # -- analytical side ---------------------------------------------------
     def _snapshot(self, col_id: int) -> _Version:
         col = self.replica.columns[col_id]

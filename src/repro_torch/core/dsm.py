@@ -152,12 +152,18 @@ def column_to_numpy(col: EncodedColumn):
 def encode_column(values: np.ndarray, device=None) -> EncodedColumn:
     """Build the sorted dictionary and encode (order-preserving).
 
-    The unique/inverse pass runs on the host (set-up, once per column);
-    the encoded column then lives on `device`."""
-    values = np.asarray(values)
-    dictionary, codes = np.unique(values, return_inverse=True)
-    return column_from_numpy(codes.reshape(-1), dictionary,
-                             np.ones(values.shape[0], dtype=bool), 0, device)
+    The unique/inverse pass runs once per column (set-up) on `device`,
+    where the encoded column then lives: the same dictionary and codes as
+    numpy's ``np.unique(values, return_inverse=True)``."""
+    dev = resolve_device(device)
+    values = torch.from_numpy(np.ascontiguousarray(values)).to(dev)
+    dictionary, codes = torch.unique(values, sorted=True,
+                                     return_inverse=True)
+    dictionary = dictionary.to(torch.int32)
+    return EncodedColumn(
+        codes=codes.reshape(-1).to(torch.int32), dictionary=dictionary,
+        valid=torch.ones(values.shape[0], dtype=torch.bool, device=dev),
+        version=0, _dict_cache=DictCache(dictionary.cpu().numpy()))
 
 
 def decode_column(col: EncodedColumn) -> torch.Tensor:

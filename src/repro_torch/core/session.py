@@ -52,9 +52,19 @@ replica on the device and launch no kernel. ``timing="timeline"`` prices
 the session's tagged cost log as a round-by-round event schedule
 (core/timeline.py), which also reports freshness and per-query latency;
 ``async_propagation=True`` (timeline only) stops the txn island from
-stalling on update application. `resize_islands` and `checkpoint` /
-`restore` are not ported yet and raise ``NotImplementedError`` naming the
-ROADMAP.md queue item that brings them.
+stalling on update application.
+
+The MI family's lifecycle is elastic (core/elastic.py): `resize_islands`
+repartitions the analytical islands at a round boundary (count and
+placement; the backlog flushes through the old plane, live overlays are
+compacted, the views swap all or none, a mesh target's shards are placed
+on its devices at once), `checkpoint` writes the whole session - columns,
+overlays, the pending ship backlog, the cost log - into the atomic
+checkpoint layout (repro_torch.checkpoint), and `restore` rebuilds it on a
+device, optionally onto another spec, to continue bit for bit. A session's
+``crash_after_ships`` limit makes its next ship batch raise
+`elastic.SessionCrash`; `elastic.run_with_recovery` replays from the last
+checkpoint.
 """
 
 from __future__ import annotations
@@ -64,7 +74,7 @@ from typing import Callable
 
 import numpy as np
 
-from repro_torch.core import engine
+from repro_torch.core import elastic, engine
 from repro_torch.core.application import (apply_updates, apply_updates_delta,
                                           apply_updates_naive,
                                           apply_updates_shards,
@@ -114,8 +124,9 @@ class SessionClosedError(RuntimeError):
     """The session was closed (`finish()` or `abort()`): no more traffic.
 
     Raised by every post-close surface - ``execute``, ``query``,
-    ``query_batch``, ``advance_round``, ``flush_updates`` and a second
-    ``finish()``. Subclasses RuntimeError so existing guards keep working.
+    ``query_batch``, ``advance_round``, ``flush_updates``, a second
+    ``finish()``, ``checkpoint`` and ``resize_islands``. Subclasses
+    RuntimeError so existing guards keep working.
     """
 
 
@@ -124,10 +135,6 @@ class SessionClosedError(RuntimeError):
 # select which); the others are the single-instance and normalization
 # baselines, each with its own storage engine and round semantics.
 KINDS = ("multi_instance", "si_ss", "si_mvcc", "ideal_txn", "ana_only")
-
-ELASTIC_TODO = ("resize_islands / checkpoint / restore are not ported yet - "
-                "ROADMAP.md queue 1, item 11 (elastic lifecycle + "
-                "checkpoint)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -384,6 +391,10 @@ class HTAPSession:
             self._deltas: dict[int, ColumnDelta] = {}  # col -> live overlay
             self.delta_appends = 0
             self.compactions = 0
+            # elastic lifecycle (core/elastic.py): the resize trail, and
+            # the fault-injection limit (None: off; a caller sets it)
+            self.resizes: list[dict] = []
+            self.crash_after_ships: int | None = None
         elif kind == "si_ss":
             # one host row store, snapshotted whole: no replica on the device
             self.store = RowStore(table)
@@ -464,6 +475,8 @@ class HTAPSession:
                 stats["compactions"] = self.compactions
                 stats["delta_live_entries"] = sum(
                     d.n_overlay for d in self._deltas.values())
+            if self.resizes:
+                stats["resizes"] = [dict(r) for r in self.resizes]
         elif spec.kind == "si_ss":
             stats = {"snapshots": self.snap.snapshots_taken}
         elif spec.kind == "si_mvcc":
@@ -486,17 +499,33 @@ class HTAPSession:
             self._release_mesh()
         self._finished = True
 
-    # -- not ported yet ----------------------------------------------------
-    def resize_islands(self, n_islands: int, placement: str | None = None):
-        raise NotImplementedError(ELASTIC_TODO)
+    # -- elastic lifecycle (core/elastic.py) -------------------------------
+    def resize_islands(self, n_islands: int, placement: str | None = None,
+                       devices=None) -> str | None:
+        """Online resharding: repartition the analytical islands to
+        ``n_islands`` at this round boundary (MI family only; mesh islands
+        on ``devices``). Answer-neutral; the rebalance is priced as a
+        ``reshard`` node on the fixed-function lane. See
+        `core.elastic.resize_islands`."""
+        return elastic.resize_islands(self, n_islands, placement=placement,
+                                      devices=devices)
 
-    def checkpoint(self, ckpt_dir: str, step: int | None = None):
-        raise NotImplementedError(ELASTIC_TODO)
+    def checkpoint(self, ckpt_dir: str, step: int | None = None) -> int:
+        """Serialize the full session state into ``ckpt_dir`` through the
+        atomic-commit checkpoint layout. See
+        `core.elastic.checkpoint_session`."""
+        return elastic.checkpoint_session(self, ckpt_dir, step=step)
 
     @classmethod
     def restore(cls, ckpt_dir: str, spec: SystemSpec | None = None,
-                step: int | None = None):
-        raise NotImplementedError(ELASTIC_TODO)
+                step: int | None = None, device=None,
+                devices=None) -> "HTAPSession":
+        """Rebuild a session from the last committed checkpoint on
+        ``device`` (None: the GPU), optionally onto a *different* spec
+        (backend / island count / placement - the elastic-restart path).
+        See `core.elastic.restore_session`."""
+        return elastic.restore_session(ckpt_dir, spec=spec, step=step,
+                                       device=device, devices=devices)
 
     # -- transactional surface ---------------------------------------------
     def execute(self, chunk: UpdateStream) -> None:
@@ -569,6 +598,11 @@ class HTAPSession:
         ships its whole backlog at once.
         """
         spec = self.spec
+        # fault injection (crash_after_ships): the "process" dies before
+        # this batch leaves - executed-but-unshipped updates survive only
+        # in the row store + logs, which is exactly the state a checkpoint
+        # captures and crash recovery replays
+        elastic.maybe_crash(self)
         logs = self.store.drain_logs(
             limit=FINAL_LOG_CAPACITY if spec.propagation_on_pim else None)
         ship_node = f"r{self.round}:ship{self._ship_i}"

@@ -202,3 +202,80 @@ def test_mixed_schedule_is_the_seeded_one(small):
                         args.txns, chip_smoke.MIXED_TXN_RATE, [3.0] * 4)
     assert [(a.time, a.client, a.position) for a in got] == \
         [(a.time, a.client, a.position) for a in want]
+
+
+@pytest.fixture(scope="module")
+def main_path(small):
+    """The main path's answers and final columns on the CPU."""
+    args, wl = small
+    answers, _, session, _ = chip_smoke.drive_spec(
+        SystemSpec.polynesia(backend="hopper"), wl, args, check_host=True,
+        device=CPU)
+    return answers, session.replica.columns
+
+
+def test_elastic_phase_rehearsed(small, main_path, gpu_branch, capsys):
+    args, wl = small
+    answers, cols = main_path
+    launches, shapes = chip_smoke.phase_elastic(args, wl, answers, cols,
+                                                dev=CPU)
+    lines = _lines(capsys, "elastic")
+    assert [ln.get("part") for ln in lines] == ["resize", "checkpoint",
+                                                "crash", None]
+    resize, ckpt, crash, total = lines
+    assert all(ln["ok"] for ln in lines)
+    assert [r["node"] for r in resize["resizes"]] == [
+        "r0:reshard0", "r1:reshard1", "r2:reshard2"]
+    assert all(r["modeled_seconds"] > 0 for r in resize["resizes"])
+    assert 0 < resize["mesh_views_resident"] <= args.cols
+    assert resize["answers_checksum"] == sum(answers)
+    assert ckpt["live_overlay_rows"] > 0 and ckpt["checkpoint_bytes"] > 0
+    assert set(ckpt["restore_seconds"]) == {"same", "hopper@2/mesh",
+                                           "eager hopper, refused"}
+    assert crash["recovered"] and crash["restored_step"] == 2
+    assert crash["answers_checksum"] == sum(answers[:args.queries])
+    # the phase is a launch-count path of its own: every scan family ran
+    assert total["launches"] == launches and set(shapes) == set(launches)
+    for k in ("scan_exact", "scan_exact_sharded", "scan_exact_mesh",
+              "scan_exact_group_sharded"):
+        assert launches.get(k, 0) > 0, (k, launches)
+
+
+def test_elastic_phase_fails_on_a_wrong_restored_answer(small, main_path,
+                                                        gpu_branch,
+                                                        monkeypatch):
+    """A restored session whose answers differ fails the phase."""
+    args, wl = small
+    answers, cols = main_path
+    from repro_torch.core import elastic
+    real = elastic.restore_session
+
+    def off_by_one(*a, **kw):
+        session = real(*a, **kw)
+        session.results[0] += 1
+        return session
+
+    monkeypatch.setattr(elastic, "restore_session", off_by_one)
+    with pytest.raises(AssertionError, match="elastic restore onto same"):
+        chip_smoke.phase_elastic(args, wl, answers, cols, dev=CPU)
+
+
+def test_elastic_phase_fails_on_a_scan_of_the_old_partition(
+        small, main_path, gpu_branch, monkeypatch):
+    """A resize that records its trail but leaves the session scanning its
+    old partition fails the phase: the scans must switch with it."""
+    args, wl = small
+    answers, cols = main_path
+    from repro_torch.core import elastic
+
+    def trail_only(session, n_islands, placement=None, devices=None):
+        node = f"r{session.round}:reshard{len(session.resizes)}"
+        session.resizes.append({"round": session.round,
+                                "from": session.islands, "to": n_islands,
+                                "placement": placement or "stacked",
+                                "node": node})
+        return node
+
+    monkeypatch.setattr(elastic, "resize_islands", trail_only)
+    with pytest.raises(AssertionError, match="the partition's are"):
+        chip_smoke.phase_elastic(args, wl, answers, cols, dev=CPU)

@@ -1,13 +1,14 @@
 """The port's ground rules: what it imports, where it runs, what it refuses.
 
-`repro_torch` imports torch and numpy only - never jax and nothing of the
-JAX package; its entry points mean the GPU when no device is given and
+`repro_torch` imports torch and numpy only - never jax, ml_dtypes or
+anything of the JAX package; its entry points mean the GPU when no device is given and
 raise when there is none (they never carry on on the CPU by themselves);
 everything a spec can name beyond the ported slice raises
 `NotImplementedError` naming the ROADMAP.md queue that brings it (and what
 once raised, since ported, answers as the reference does).
 """
 
+import json
 import pathlib
 import subprocess
 import sys
@@ -20,6 +21,7 @@ from repro.core import backend as ref_backend_mod
 from repro.core import session as ref_session
 from repro.kernels.dict_ops import scan_filter_agg as ref_scan_filter_agg
 from repro_torch import configs
+from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
 from repro_torch.core import engine, htap, schema
 from repro_torch.core import session as session_mod
 from repro_torch.core.backend import (HopperBackend, TorchBackend,
@@ -51,7 +53,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         f"sys.path.insert(0, {str(SRC)!r})\n"
         f"for m in {PORT_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes')]\n"
         "assert not bad, bad\n"
         "assert 'torch' in sys.modules and 'triton' not in sys.modules\n")
     done = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -61,20 +63,33 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_every_port_module_is_covered_by_the_import_check():
     assert "repro_torch.core.session" in PORT_MODULES
+    assert "repro_torch.core.elastic" in PORT_MODULES
+    assert "repro_torch.checkpoint" in PORT_MODULES
+    assert "repro_torch.checkpoint.manager" in PORT_MODULES
     assert "repro_torch.kernels.build" in PORT_MODULES
     assert len(PORT_MODULES) >= 25
 
 
 @pytest.mark.parametrize("entry", ["session", "backend", "replica", "run",
                                    "resolve_device", "init_lm",
-                                   "init_lm_cache"])
-def test_no_device_means_the_gpu_and_raises_without_one(entry):
+                                   "init_lm_cache", "restore",
+                                   "restore_checkpoint"])
+def test_no_device_means_the_gpu_and_raises_without_one(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this check is for a machine without a GPU")
     table = _table()
     cfg = configs.get_smoke_config("gemma2-9b")
+    if entry == "restore":
+        HTAPSession(SystemSpec.polynesia(backend="torch"), table,
+                    device="cpu").checkpoint(str(tmp_path))
+    elif entry == "restore_checkpoint":
+        save_checkpoint(str(tmp_path), 1, {"x": torch.arange(3)})
     with pytest.raises(RuntimeError, match="CUDA"):
-        if entry == "init_lm":
+        if entry == "restore":
+            HTAPSession.restore(str(tmp_path))
+        elif entry == "restore_checkpoint":
+            restore_checkpoint(str(tmp_path), 1, {"x": torch.arange(3)})
+        elif entry == "init_lm":
             init_lm(cfg, generator=torch.Generator())
         elif entry == "init_lm_cache":
             init_lm_cache(cfg, 1, 8)
@@ -174,6 +189,45 @@ def _si_run(name):
     return got.results, [int(a) for a in want.results]
 
 
+def _elastic(surface):
+    """The resize trail, a checkpoint's keys, or a restored session's
+    answers, in the port and in the reference."""
+    import tempfile
+
+    from repro.core import engine as ref_engine
+    from repro.core import schema as ref_schema
+    out = []
+    for eng, sch, cls, spec, kw in (
+            (engine, schema, HTAPSession,
+             SystemSpec.polynesia(backend="torch"), {"device": "cpu"}),
+            (ref_engine, ref_schema, ref_session.HTAPSession,
+             ref_session.SystemSpec.polynesia(
+                 backend="numpy", n_shards=1, placement="stacked",
+                 delta_store=False), {})):
+        rng = np.random.default_rng(0)
+        table = sch.gen_table(rng, sch.make_schema("t", 3, 8), 64)
+        stream = sch.gen_update_stream(rng, sch.make_schema("t", 3, 8), 64,
+                                       200)
+        queries = eng.gen_queries(rng, 4, 3)
+        session = cls(spec, table, **kw)
+        session.execute(stream)
+        session.query_batch(queries[:2])
+        if surface == "resize":
+            session.resize_islands(2)
+            session.query_batch(queries[2:])
+            out.append(session.finish().stats["resizes"])
+            continue
+        d = tempfile.mkdtemp()
+        step = session.checkpoint(d)
+        if surface == "checkpoint":
+            with open(f"{d}/step_{step}/manifest.json") as f:
+                out.append(sorted(json.load(f)["arrays"]))
+            continue
+        restored = cls.restore(d, spec=spec, **kw)
+        out.append([int(a) for a in restored.query_batch(queries[2:])])
+    return tuple(out)
+
+
 def _lm(name, make):
     return make(configs.get_smoke_config(name))
 
@@ -214,11 +268,9 @@ def _delta_spec(**kw):
     (lambda: _si_spec("si_ss"), "item 12"),
     (lambda: _si_spec("si_mvcc"), "item 12"),
     (lambda: _si_run("SI-SS"), "item 12"),
-    (lambda: HTAPSession(SystemSpec.polynesia(backend="torch"), _table(),
-                         device="cpu").resize_islands(2), "item 11"),
-    (lambda: HTAPSession(SystemSpec.polynesia(backend="torch"), _table(),
-                         device="cpu").checkpoint("/nonexistent"), "item 11"),
-    (lambda: HTAPSession.restore("/nonexistent"), "item 11"),
+    (lambda: _elastic("resize"), "item 11"),
+    (lambda: _elastic("checkpoint"), "item 11"),
+    (lambda: _elastic("restore"), "item 11"),
     (_float_scan, "K18"),
     (lambda: _lm("kimi-k2-1t-a32b", lambda c: init_lm(
         c, generator=torch.Generator(), device="cpu")), "item 14 (MoE)"),
@@ -235,10 +287,12 @@ def _delta_spec(**kw):
     (lambda: _lm("whisper-base", make_serve_step), "item 14 (whisper)"),
 ])
 def test_unported_features_raise_and_name_their_roadmap_queue(make, queue):
-    if queue in ("item 9", "K18", "item 13", "item 10", "item 12"):
+    if queue in ("item 9", "K18", "item 13", "item 10", "item 12",
+                 "item 11"):
         # the delta store, the float32 scan, the mesh placement, the
-        # timeline and the single-instance baselines are ported: the call
-        # that raised now answers as the reference's does
+        # timeline, the single-instance baselines and the elastic lifecycle
+        # are ported: the call that raised now answers as the reference's
+        # does
         got, want = make()
         assert got == want
         return
