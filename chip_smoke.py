@@ -152,16 +152,37 @@ script's wall seconds so far, ``elapsed_seconds``):
                  falcon-mamba-7b (64 layers) runs `make_prefill_step` over 4 x
                  ``--lm-prefill`` 2048 tokens twice (64 selective-scan
                  launches a call), then serves as gemma2 through the plain
-                 Mamba step. Before each, a cross-check at full width, float32
-                 weights and reduced depth (one period of gemma2; two layers
-                 of falcon-mamba): prefill logits against token-by-token
-                 decode logits at every one of 64 positions,
+                 Mamba step; the MoE models llama4-scout-17b-a16e (12 of 48
+                 layers) and kimi-k2-1t-a32b (1 of 61 layers: `LM_DEPTH`,
+                 the layers one card holds in bf16 at full width; a depth
+                 whose weights would leave under 8 GiB free is refused)
+                 serve as gemma2, their MoE layers plain torch (no kernel),
+                 and each line names its cut (``full_layers``,
+                 ``reduced``). Before each, a cross-check at full width,
+                 float32 weights and reduced depth (one period of gemma2;
+                 two layers of the others): prefill logits against
+                 token-by-token decode logits at every one of 64 positions,
                  2e-3 relative plus absolute (the reference's
                  ``test_decode_matches_parallel_apply``); the prefill takes
                  the plain attention or the scan kernel, the decode the
-                 decode kernel or the plain step. After each model's run,
-                 4 more serve steps under `torch.profiler` give the device
-                 time per step and the device's busy share.
+                 decode kernel or the plain step; a MoE model's capacity
+                 factor is raised to E there (C = Sg: nothing drops, so
+                 prefill and decode route alike), and where the float32
+                 weights would leave under 8 GiB free (kimi-k2: 77.7 GB a
+                 layer) the check is skipped, saying why. After each
+                 model's run, 4 more serve steps under `torch.profiler`
+                 give the device time per step and the device's busy
+                 share; the line gives the weights' read bound of a step
+                 (every weight but the embedding table over 3.35 TB/s: the
+                 reference's dispatch reads every expert). For a MoE model,
+                 one MoE layer of the served model at the served types
+                 on the decode batch (B = 4, S = 1, so C = Sg):
+                 `moe_apply`'s experts must equal a float32 oracle's
+                 routing of the same bf16 input through the same float32
+                 router, and its output the oracle's sum over each token's
+                 k experts (their weight slices in float32) plus the shared
+                 expert within 2**-6 of the oracle's largest |value|
+                 (`moe_layer_check`).
 13. ``kernels``   every hand-written kernel launched on the card and held
                  against its plain PyTorch version - the HTAP kernels with
                  exact equality (integers: tolerance 0), flash-decode
@@ -176,7 +197,9 @@ script's wall seconds so far, ``elapsed_seconds``):
                  ``at_islands``; for flash-decode also the ``decode_32k``
                  cache length, S = 32768 at B = 4, with gemma2's heads under
                  ``at_decode_32k`` and kimi-k2's (H 64, Hkv 8, d 112) under
-                 ``at_decode_32k_d112``, each with its splits, waves,
+                 ``at_decode_32k_d112``, and at the shape each other head
+                 layout (H, Hkv, d) of ``lm_serve`` launched most under
+                 ``at_heads`` ("H/Hkv/d"), each with its splits, waves,
                  achieved GB/s and ptxas' registers; for the merge unit
                  the k-way merge at a ship batch's shape, four runs of 256,
                  under ``at_ship`` where the path launched another most,
@@ -1920,15 +1943,41 @@ def profile_steps(model, cfg, cache, tok, start: int, n: int) -> dict:
                                   calls_per_step=k[2] / n) for k in top])
 
 
+FREE_BYTES = 8 * 2**30    # device memory a model's weights must leave free
+
+
+def card_bytes(dev) -> int | None:
+    """The card's memory; None on the CPU (a rehearsal), where no model
+    is refused for its size."""
+    if dev.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(dev).total_memory
+
+
 def cross_check(cfg, args, dev) -> dict:
-    """Full width, float32 weights, reduced depth: the prefill's logits
-    against token-by-token decode logits at every prompt position."""
+    """Full width, float32 weights, reduced depth (one period, else up to
+    two layers): the prefill's logits against token-by-token decode logits
+    at every prompt position. A MoE model's capacity routing depends on
+    the batch (the reference's `test_decode_matches_parallel_apply` leaves
+    MoE out for it), so its capacity factor is raised to E here, which
+    makes C = Sg: no token drops, and prefill and decode route each token
+    alike. Skipped, saying why, where the float32 weights would not leave
+    FREE_BYTES of the card free."""
     import dataclasses
     from repro_torch.models.lm import (init_lm, init_lm_cache, lm_apply,
                                        lm_decode_step)
-    depth = cfg.period if cfg.period > 1 else 2
+    depth = cfg.period if cfg.period > 1 else min(2, cfg.n_layers)
     small = dataclasses.replace(cfg, n_layers=depth, param_dtype="float32",
                                 activ_dtype="float32")
+    if cfg.n_experts:
+        small = dataclasses.replace(small,
+                                    capacity_factor=float(cfg.n_experts))
+    need, card = small.param_count() * 4, card_bytes(dev)
+    if card is not None and need > card - FREE_BYTES:
+        return dict(skipped=f"float32 weights of {depth} layer(s) at full "
+                            f"width are {need / 1e9:.1f} GB, over the "
+                            f"card's {card / 1e9:.1f} GB less "
+                            f"{FREE_BYTES / 1e9:.1f} GB free")
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     model = init_lm(small, generator=gen, device=dev)
     n = LM_CHECK
@@ -1950,8 +1999,71 @@ def cross_check(cfg, args, dev) -> dict:
         raise AssertionError(f"{cfg.name} cross-check: prefill logits not "
                              "finite")
     del model, cache
-    return dict(layers=depth, dtype="float32", batch=2, positions=n,
-                max_abs_err=err, max_abs_logit=scale, tolerance=2e-3)
+    out = dict(layers=depth, dtype="float32", batch=2, positions=n,
+               max_abs_err=err, max_abs_logit=scale, tolerance=2e-3)
+    if cfg.n_experts:
+        out["capacity_factor"] = small.capacity_factor
+    return out
+
+
+MOE_CHECK_TOL = 2**-6    # of the oracle's largest |value|
+
+
+def moe_layer_check(p, cfg, x) -> dict:
+    """One MoE layer `p` at the served types on x (B, S, d): the experts
+    `moe_apply` routes each token to (`moe.route`, which it calls) must
+    equal those of a float32 oracle routing the same bf16-rounded input
+    through the same float32 router, exactly; its output must equal the
+    oracle's sum of gate x expert(x), plus the shared expert, computed in
+    float32 from each token's k experts' weight slices, within
+    MOE_CHECK_TOL of the oracle's largest |value| (four bf16 roundings at
+    the output's scale; 1.3 - 1.6 of them measured at llama4-scout's and
+    kimi-k2's widths, while one token sent to a wrong expert moved it by
+    1.37 at kimi-k2's width on the CPU, 30 times the tolerance).
+    The capacity must hold every token (C = Sg), so nothing can drop.
+    Raises on a failure."""
+    from repro_torch.nn import moe
+    from repro_torch.nn.layers import silu
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    G, Sg, C = moe.capacity(B, S, E, k, cfg.capacity_factor)
+    if C != Sg:
+        raise ValueError(f"{cfg.name}: C {C} < Sg {Sg}, tokens could drop")
+    y, _ = moe.moe_apply(p, x, n_experts=E, top_k=k,
+                         capacity_factor=cfg.capacity_factor)
+    got_idx = moe.route(p, x.reshape(G, Sg, d), k)[3].reshape(B * S, k)
+    xf = x.float().reshape(B * S, d)
+    probs = torch.softmax(xf @ p["router"]["w"].float(), dim=-1)
+    gates, idx = torch.topk(probs, k, dim=-1)
+    gates = gates / gates.sum(-1, keepdim=True)
+    if not torch.equal(got_idx, idx):
+        bad = (got_idx != idx).any(-1).nonzero().flatten().tolist()
+        raise AssertionError(f"{cfg.name} MoE layer check: moe_apply routes "
+                             f"tokens {bad} to experts other than the "
+                             "float32 oracle's")
+    want = torch.empty_like(xf)
+    for t in range(B * S):
+        w = {n: p[n][idx[t]].float() for n in ("w_gate", "w_up", "w_down")}
+        xt = xf[t].expand(k, 1, d)
+        h = silu(torch.bmm(xt, w["w_gate"])) * torch.bmm(xt, w["w_up"])
+        want[t] = (gates[t, :, None] * torch.bmm(h, w["w_down"])[:, 0]).sum(0)
+    if "shared" in p:
+        sw = {n: p["shared"][n]["w"].float()
+              for n in ("w_gate", "w_up", "w_down")}
+        want += (silu(xf @ sw["w_gate"]) * (xf @ sw["w_up"])) @ sw["w_down"]
+    got = y.float().reshape(B * S, d)
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    if y.dtype != x.dtype or not bool(torch.isfinite(got).all()) \
+            or not err <= MOE_CHECK_TOL * scale:
+        raise AssertionError(
+            f"{cfg.name} MoE layer check: moe_apply's output {y.dtype} "
+            f"differs from the float32 oracle's by {err}, over "
+            f"{MOE_CHECK_TOL} x {scale}")
+    return dict(tokens=B * S, experts=E, top_k=k, capacity=C,
+                dtype=str(x.dtype), experts_equal=True, max_abs_err=err,
+                max_abs_oracle=scale, tolerance=f"{MOE_CHECK_TOL} x "
+                                                "max |oracle|")
 
 
 def add_counts(into: tuple[dict, dict], launches: dict, shapes: dict):
@@ -1967,14 +2079,35 @@ def add_counts(into: tuple[dict, dict], launches: dict, shapes: dict):
 LM_MAX_LEN = 4096        # KV cache slots per request
 LM_CHECK = 64            # positions of the reduced-depth cross-check
 LM_PROFILE_STEPS = 4     # serve steps traced after each model's run
+# depth cuts: layers run where one card cannot hold them all in bf16 at
+# full width (llama4-scout: 48 layers are 216 GB; kimi-k2: 61 are 2.1 TB)
+LM_DEPTH = {"llama4-scout-17b-a16e": 12, "kimi-k2-1t-a32b": 1}
+
+
+def lm_config(name: str, dev):
+    """The model's full config cut to `LM_DEPTH`'s layers; refused where
+    its weights (from `param_count()`) would not leave FREE_BYTES free."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    layers = min(LM_DEPTH.get(name, cfg.n_layers), cfg.n_layers)
+    cut = dataclasses.replace(cfg, n_layers=layers)
+    need, card = cut.param_count() * cut.pdtype.itemsize, card_bytes(dev)
+    if card is not None and need > card - FREE_BYTES:
+        raise ValueError(
+            f"{name} at {layers} of {cfg.n_layers} layers: "
+            f"{cut.param_count()} parameters, {need / 1e9:.1f} GB of "
+            f"{cut.pdtype} weights, leave under {FREE_BYTES / 1e9:.1f} GB "
+            f"of the card's {card / 1e9:.1f} GB free")
+    return cut, cfg.n_layers
 
 
 def phase_lm_serve(args, dev=None) -> tuple[dict, dict]:
-    """Each model of `--lm-models` at full width and depth in bf16; returns
-    the launches and launch shapes of the models' runs together (the
-    cross-checks are not counted). `dev` is the card (a rehearsal on the
-    CPU passes the CPU and smoke configs)."""
-    from repro_torch.configs import get_config
+    """Each model of `--lm-models` at full width and `LM_DEPTH`'s depth in
+    bf16; returns the launches and launch shapes of the models' runs
+    together (the cross-checks and the MoE layer checks are not counted).
+    `dev` is the card (a rehearsal on the CPU passes the CPU and smoke
+    configs)."""
     from repro_torch.kernels.common import (kernel_launch_counts,
                                             kernel_launch_shapes,
                                             reset_kernel_launch_counts)
@@ -1985,7 +2118,7 @@ def phase_lm_serve(args, dev=None) -> tuple[dict, dict]:
     torch.backends.cudnn.allow_tf32 = False
     total = ({}, {})
     for name in args.lm_models:
-        cfg = get_config(name)
+        cfg, full_layers = lm_config(name, dev)
         check = cross_check(cfg, args, dev)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1996,6 +2129,11 @@ def phase_lm_serve(args, dev=None) -> tuple[dict, dict]:
         init_seconds = time.perf_counter() - t0
         weight_bytes = sum(p.numel() * p.element_size()
                            for p in model.parameters())
+        # a decode step reads every weight but the embedding table's B
+        # rows: every expert too (the reference's dispatch computes all
+        # E x C slots)
+        table = model.embed["table"]
+        read_bytes = weight_bytes - table.numel() * table.element_size()
         B, P, G = args.lm_batch, args.lm_prompt, args.lm_gen
         n_attn = sum(cfg.blocks[i % cfg.period].mixer != "mamba"
                      for i in range(cfg.n_layers))
@@ -2026,13 +2164,19 @@ def phase_lm_serve(args, dev=None) -> tuple[dict, dict]:
                                             LM_MAX_LEN)
         torch.cuda.synchronize()
         launches, shapes = kernel_launch_counts(), kernel_launch_shapes()
-        # after the counts: the profiled steps and the replay are not part
-        # of the run
+        # after the counts: the profiled steps, the replay and the MoE
+        # layer check are not part of the run
         prof = profile_steps(model, cfg, cache, out[:, -1:], P + G - 1,
                              LM_PROFILE_STEPS)
         del cache
         peak = torch.cuda.max_memory_allocated()
         checked = replay(model, cfg, prompts, out, LM_MAX_LEN)
+        if cfg.n_experts:
+            first = next(layer for layer in model.layers
+                         if layer.spec.mlp == "moe")
+            x = torch.randn((B, 1, cfg.d_model), generator=gen, device=dev)
+            fields["moe_check"] = moe_layer_check(first["moe"], cfg,
+                                                  x.to(cfg.adtype))
         want = {}
         if n_attn:
             want["decode_attn"] = n_attn * (P + G - 1)
@@ -2044,7 +2188,10 @@ def phase_lm_serve(args, dev=None) -> tuple[dict, dict]:
                                  f"{P + G - 1} decode steps, {n_mamba} Mamba "
                                  "layers x 2 prefill calls)")
         add_counts(total, launches, shapes)
+        if cfg.n_layers < full_layers:
+            fields["reduced"] = "depth: one card's memory"
         emit("lm_serve", model=name, layers=cfg.n_layers,
+             full_layers=full_layers,
              d_model=cfg.d_model, vocab=cfg.vocab_size,
              params=sum(p.numel() for p in model.parameters()),
              weight_bytes=weight_bytes, dtype=str(cfg.pdtype), batch=B,
@@ -2054,6 +2201,8 @@ def phase_lm_serve(args, dev=None) -> tuple[dict, dict]:
              prompt_seconds=prompt_s, prompt_ms_per_step=prompt_s / P * 1e3,
              gen_seconds=gen_s, gen_ms_per_step=gen_s / (G - 1) * 1e3,
              decode_tokens_per_s=B * (G - 1) / gen_s,
+             weights_read_bytes=read_bytes,
+             weights_read_bound_ms=read_bytes / HBM_BYTES_PER_S * 1e3,
              peak_device_bytes=peak, launches=launches,
              first_tokens=out[0, :8].tolist(), cross_check=check,
              profile=prof, **fields, ok=True)
@@ -3591,6 +3740,20 @@ def phase_kernels(shapes: dict) -> dict:
                 seen.get(SHIP_MERGE, 0))
             cases += 1
         if name == "decode_attn":
+            # each other head layout (H, Hkv, d) the serving path ran, at
+            # the shape it launched most
+            by_heads = {}
+            for shape, n in seen.items():
+                best = by_heads.get(shape[2:5])
+                if best is None or (n, cost(shape)) > (seen[best],
+                                                       cost(best)):
+                    by_heads[shape[2:5]] = shape
+            measured[name]["at_heads"] = {
+                "/".join(map(str, heads)): with_bound(
+                    measure(gen, dev, shape), shape, cost, seen[shape])
+                for heads, shape in sorted(by_heads.items())
+                if heads != most[2:5]}
+            cases += len(by_heads) - 1
             for key, shape in (("at_decode_32k", DECODE_32K),
                                ("at_decode_32k_d112", DECODE_32K_D112)):
                 measured[name][key] = with_bound(measure(gen, dev, shape),
@@ -3628,10 +3791,12 @@ def main(argv=None) -> int:
                     help="island counts of the mesh phase with the islands "
                          "on one card, in order (the first also runs the "
                          "delta store)")
-    ap.add_argument("--lm-models", default="gemma2-9b,falcon-mamba-7b",
+    ap.add_argument("--lm-models",
+                    default="gemma2-9b,falcon-mamba-7b,"
+                            "llama4-scout-17b-a16e,kimi-k2-1t-a32b",
                     type=lambda s: [m for m in s.split(",") if m],
                     help="models of the lm_serve phase, in order (full "
-                         "configs)")
+                         "width; depth cut as LM_DEPTH says)")
     ap.add_argument("--lm-batch", type=int, default=4,
                     help="requests served at once")
     ap.add_argument("--lm-prompt", type=int, default=256,

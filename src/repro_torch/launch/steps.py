@@ -1,7 +1,10 @@
-"""Step factories: prefill and greedy decode against the KV/SSM caches.
+"""Step factories: prefill and greedy decode against the KV/SSM caches,
+for every decoder the port runs (dense, local/global, Mamba, the VLM
+backbone, MoE and the hybrid). A MoE model's prefill and decode drop the
+layers' auxiliary loss, as the reference's do.
 
 The training step comes with the training slice (ROADMAP.md queue 1, item
-14).
+14 (a)).
 """
 
 from __future__ import annotations

@@ -2,12 +2,12 @@
 
 Covers dense GQA (phi3, deepseek-coder, qwen2.5), local/global alternation
 with softcaps (gemma2), pure SSM (falcon-mamba) and the VLM backbone
-(internvl2, with its patch-embedding stub). An `LM` holds one module per
-layer in an ``nn.ModuleList`` and the depth loop is a Python loop; the
+(internvl2, with its patch-embedding stub), MoE (kimi-k2, llama4) and
+the hybrid of attention, Mamba and MoE (jamba). An `LM` holds one module
+per layer in an ``nn.ModuleList`` and the depth loop is a Python loop; the
 reference stacks each period's parameters and scans over them (layer
-``p * period + i`` here is stacked period ``p``, block ``i`` there). MoE
-blocks (kimi-k2, llama4, jamba) and the encoder-decoder (whisper) are not
-ported yet and raise.
+``p * period + i`` here is stacked period ``p``, block ``i`` there). The
+encoder-decoder (whisper) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from repro_torch.nn.layers import (Params, embed, init_dense, init_embed,
 from repro_torch.nn.layers import softcap as apply_softcap
 from repro_torch.nn.mamba import (init_mamba, init_mamba_cache, mamba_decode,
                                   mamba_train)
-from repro_torch.nn.moe import MOE_TODO, init_swiglu, swiglu
+from repro_torch.nn.moe import init_moe, init_swiglu, moe_apply, swiglu
 
 ENCDEC_TODO = ("encoder-decoder models (whisper) are not ported yet: "
                "ROADMAP.md queue 1, item 14 (whisper)")
@@ -36,17 +36,16 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.is_encoder_decoder:
         raise NotImplementedError(ENCDEC_TODO)
     for spec in cfg.blocks:
-        if spec.mlp == "moe":
-            raise NotImplementedError(MOE_TODO)
         if spec.mixer not in ("attn", "attn_local", "mamba"):
             raise ValueError(spec.mixer)
-        if spec.mlp not in ("dense", "none"):
+        if spec.mlp not in ("dense", "moe", "none"):
             raise ValueError(spec.mlp)
 
 
 class Block(Params):
     """One layer: ``ln1``, ``ln2``, the mixer (``attn`` or ``mamba``) and
-    the MLP (``mlp``, absent for ``mlp="none"``), with its `BlockSpec`."""
+    the MLP (``mlp``, or ``moe``; neither for ``mlp="none"``), with its
+    `BlockSpec`."""
 
     def __init__(self, spec: BlockSpec, entries: dict):
         super().__init__(entries)
@@ -91,6 +90,10 @@ def _init_block(gen, cfg: ModelConfig, spec: BlockSpec, dtype,
                                 cfg.d_conv, cfg.dt_rank, **kw)
     if spec.mlp == "dense":
         p["mlp"] = init_swiglu(gen, cfg.d_model, cfg.d_ff, **kw)
+    elif spec.mlp == "moe":
+        # the router stays float32 (init_moe's own choice)
+        p["moe"] = init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                            cfg.top_k, cfg.n_shared_experts, **kw)
     return Block(spec, p)
 
 
@@ -155,7 +158,18 @@ def _mixer_kw(cfg: ModelConfig, spec: BlockSpec) -> dict:
                 attn_softcap=cfg.attn_softcap)
 
 
+def _mlp(p: Block, x, cfg: ModelConfig):
+    """The block's MLP on ``rmsnorm(ln2, x)``: (h, the MoE aux loss or
+    None)."""
+    h = rmsnorm(p["ln2"], x)
+    if p.spec.mlp == "dense":
+        return swiglu(p["mlp"], h), None
+    return moe_apply(p["moe"], h, n_experts=cfg.n_experts, top_k=cfg.top_k,
+                     capacity_factor=cfg.capacity_factor)
+
+
 def _block_train(p: Block, x, cfg: ModelConfig):
+    """-> (x, the MoE aux loss or None)."""
     spec = p.spec
     h = rmsnorm(p["ln1"], x)
     if spec.mixer == "mamba":
@@ -164,23 +178,27 @@ def _block_train(p: Block, x, cfg: ModelConfig):
         h = attention_train(p["attn"], h, **_mixer_kw(cfg, spec))
     x = x + h
     if spec.mlp == "none":
-        return x
-    return x + swiglu(p["mlp"], rmsnorm(p["ln2"], x))
+        return x, None
+    h, aux = _mlp(p, x, cfg)
+    return x + h, aux
 
 
 def lm_hidden(model: LM, tokens, cfg: ModelConfig, patch_embeds=None):
-    """tokens: (B, S) -> hidden states (B, S, d) and the auxiliary loss (0:
-    no MoE yet). The reference's sharding constraints do nothing on one
-    device and are left out."""
+    """tokens: (B, S) -> hidden states (B, S, d) and the auxiliary loss
+    (float32: the MoE layers' summed in layer order, as the reference's
+    scan carries it; 0 without MoE). The reference's sharding constraints
+    do nothing on one device and are left out."""
     x = embed(model.embed, tokens).to(cfg.adtype)
     if cfg.frontend is not None and patch_embeds is not None:
         # VLM stub: precomputed frontend embeddings replace the first
         # n_frontend_tokens positions
         nf = patch_embeds.shape[1]
         x = torch.cat([patch_embeds.to(cfg.adtype), x[:, nf:]], dim=1)
-    for layer in model.layers:
-        x = _block_train(layer, x, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in model.layers:
+        x, a = _block_train(layer, x, cfg)
+        if a is not None:
+            aux = aux + a
     return rmsnorm(model.ln_f, x), aux
 
 
@@ -236,5 +254,5 @@ def lm_decode_step(model: LM, cache: list[dict], token, index,
                                     **_mixer_kw(cfg, spec))
         x = x + h
         if spec.mlp != "none":
-            x = x + swiglu(layer["mlp"], rmsnorm(layer["ln2"], x))
+            x = x + _mlp(layer, x, cfg)[0]         # the aux loss is dropped
     return lm_logits(model, rmsnorm(model.ln_f, x), cfg), cache

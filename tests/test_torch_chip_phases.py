@@ -1,6 +1,7 @@
-"""A rehearsal, on the CPU, of `chip_smoke.py`'s `mixed_traffic` and
-`si_baselines` phases: their control flow and every check they make on
-the card run here at a few thousand rows.
+"""A rehearsal, on the CPU, of `chip_smoke.py`'s `mixed_traffic`,
+`si_baselines` and `elastic` phases: their control flow and every check
+they make on the card run here at a few thousand rows; and of
+`lm_serve`'s MoE models at the smoke configs, with its MoE layer check.
 
 The phases take their device as an argument (the CPU here, the card in the
 script). The scan wrappers' GPU branch is reached as
@@ -279,3 +280,129 @@ def test_elastic_phase_fails_on_a_scan_of_the_old_partition(
     monkeypatch.setattr(elastic, "resize_islands", trail_only)
     with pytest.raises(AssertionError, match="the partition's are"):
         chip_smoke.phase_elastic(args, wl, answers, cols, dev=CPU)
+
+
+# ---------------------------------------------------------------------------
+# lm_serve's MoE models and the MoE layer check
+# ---------------------------------------------------------------------------
+
+MOE_SMOKE = ["kimi-k2-1t-a32b", "llama4-scout-17b-a16e",
+             "jamba-1.5-large-398b"]
+
+
+def _moe_layer(name, seed=0):
+    """A smoke config's first MoE layer in bf16, and the decode batch: B =
+    4 tokens, S = 1, bf16."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.lm import init_lm
+    cfg = get_smoke_config(name)
+    gen = torch.Generator().manual_seed(seed)
+    model = init_lm(cfg, generator=gen, device=CPU, dtype=torch.bfloat16)
+    layer = next(la for la in model.layers if la.spec.mlp == "moe")
+    x = torch.randn((4, 1, cfg.d_model), generator=gen).bfloat16()
+    return layer["moe"], cfg, x
+
+
+def _wrong_route(real):
+    """`moe.route` with token 0's first expert moved to the next one."""
+    def route(p, xg, top_k):
+        logits, probs, gates, idx = real(p, xg, top_k)
+        idx = idx.clone()
+        idx[0, 0, 0] = (idx[0, 0, 0] + 1) % probs.shape[-1]
+        return logits, probs, gates, idx
+    return route
+
+
+@pytest.mark.parametrize("name", MOE_SMOKE)
+def test_moe_layer_check_passes_on_the_ports_moe_apply(name):
+    p, cfg, x = _moe_layer(name)
+    out = chip_smoke.moe_layer_check(p, cfg, x)
+    assert out["experts_equal"] and out["capacity"] == 4
+    assert out["dtype"] == "torch.bfloat16"
+    assert out["max_abs_err"] <= chip_smoke.MOE_CHECK_TOL * \
+        out["max_abs_oracle"]
+
+
+@pytest.mark.parametrize("patched", ["route", "moe_apply"])
+@pytest.mark.parametrize("name", MOE_SMOKE[:2])
+def test_moe_layer_check_fails_on_a_token_sent_to_a_wrong_expert(
+        name, patched, monkeypatch):
+    """`route` patched (moe_apply and the check both see the wrong
+    expert: the exact expert check fails) or only the routing inside
+    `moe_apply` (the output check fails)."""
+    from repro_torch.nn import moe
+    p, cfg, x = _moe_layer(name)
+    wrong = _wrong_route(moe.route)
+    if patched == "route":
+        monkeypatch.setattr(moe, "route", wrong)
+        match = "routes tokens \\[0\\]"
+    else:
+        real = moe.moe_apply
+
+        def apply(*a, **kw):
+            with monkeypatch.context() as m:
+                m.setattr(moe, "route", wrong)
+                return real(*a, **kw)
+
+        monkeypatch.setattr(moe, "moe_apply", apply)
+        match = "differs from the float32 oracle"
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.moe_layer_check(p, cfg, x)
+
+
+def test_moe_layer_check_refuses_a_capacity_that_could_drop():
+    import dataclasses
+    p, cfg, x = _moe_layer("kimi-k2-1t-a32b")
+    with pytest.raises(ValueError, match="could drop"):
+        chip_smoke.moe_layer_check(
+            p, dataclasses.replace(cfg, capacity_factor=1.0),
+            x.expand(4, 4, -1).reshape(2, 8, -1))
+
+
+@pytest.fixture
+def decode_gpu_branch(monkeypatch):
+    """The decode-attention wrapper's GPU branch with its launch replaced
+    by the plain version, so the launch counts run as on the card; the
+    `torch.cuda` calls of `lm_serve` made no-ops; no profiler."""
+    from repro_torch.kernels.decode_attn import ops as da
+
+    def launch(q, k, v, n, out, scale, cap, *rest):
+        out.copy_(da.decode_attention_ref(q, k, v, n, scale, cap))
+
+    monkeypatch.setattr(da, "on_gpu", lambda *t: True)
+    monkeypatch.setattr(da, "resident_blocks", lambda *a: 132)
+    monkeypatch.setattr(da, "launch_decode_attention", launch)
+    for fn in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(chip_smoke, "profile_steps",
+                        lambda *a: {"device_time": "not measured (CPU)"})
+    common.reset_kernel_launch_counts()
+    yield
+    common.reset_kernel_launch_counts()
+
+
+def test_lm_serve_phase_rehearsed_with_the_moe_models(decode_gpu_branch,
+                                                      monkeypatch, capsys):
+    """kimi-k2 and llama4-scout at their smoke configs through the phase:
+    the depth cut (kimi-k2 to one layer), the cross-check with the
+    capacity raised to E, serving, the replay, the MoE layer check and the
+    launch counts, one decode launch a layer and step."""
+    from repro_torch import configs
+    monkeypatch.setattr(configs, "get_config", configs.get_smoke_config)
+    args = argparse.Namespace(lm_models=MOE_SMOKE[:2], lm_batch=4,
+                              lm_prompt=6, lm_gen=3, lm_prefill=32, seed=0)
+    launches, shapes = chip_smoke.phase_lm_serve(args, dev=CPU)
+    kimi, llama = _lines(capsys, "lm_serve")
+    assert (kimi["layers"], kimi["full_layers"]) == (1, 2)
+    assert kimi["reduced"] == "depth: one card's memory"
+    assert "reduced" not in llama and llama["layers"] == 2
+    for line, E in ((kimi, 8), (llama, 4)):
+        assert line["ok"] and line["launches"] == {
+            "decode_attn": line["layers"] * 8}
+        assert line["cross_check"]["capacity_factor"] == E
+        assert line["moe_check"]["experts_equal"]
+        assert line["weights_read_bound_ms"] > 0
+    assert launches == {"decode_attn": 3 * 8}
+    heads = {sh[2:5] for sh in shapes["decode_attn"]}
+    assert heads == {(4, 2, 16)}

@@ -232,6 +232,81 @@ def _lm(name, make):
     return make(configs.get_smoke_config(name))
 
 
+def _shapes(tree):
+    """A reference pytree's leaves (or abstract leaves) by dotted path:
+    (shape, dtype name)."""
+    import jax
+    return {".".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                     for k in path): (tuple(leaf.shape), str(leaf.dtype))
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _torch_shapes(named):
+    return {n: (tuple(t.shape), str(t.dtype).removeprefix("torch."))
+            for n, t in named}
+
+
+def _lm_params(name):
+    """A smoke MoE LM's parameters (name, shape, type) layer by layer, in
+    the port's `init_lm` and the reference's (stacked block i % period,
+    without the stacked axis)."""
+    import jax
+    from repro.configs import get_smoke_config as ref_smoke
+    from repro.models import lm as ref_lm
+    cfg = configs.get_smoke_config(name)
+    model = init_lm(cfg, generator=torch.Generator(), device="cpu")
+    tree = jax.eval_shape(lambda: ref_lm.init_lm(jax.random.PRNGKey(0),
+                                                 ref_smoke(name)))
+    got = [_torch_shapes(layer.named_parameters()) for layer in model.layers]
+    want = [{k: (s[1:], d) for k, (s, d) in _shapes(
+        tree["layers"][i % cfg.period]).items()}
+        for i in range(cfg.n_layers)]
+    return got, want
+
+
+def _lm_cache(name):
+    """A smoke MoE LM's cache shapes and types, layer by layer."""
+    import jax
+    from repro.configs import get_smoke_config as ref_smoke
+    from repro.models import lm as ref_lm
+    cfg = configs.get_smoke_config(name)
+    cache = init_lm_cache(cfg, 1, 8, device="cpu")
+    ref = jax.eval_shape(lambda: ref_lm.init_lm_cache(ref_smoke(name), 1, 8))
+    got = [_torch_shapes(c.items()) for c in cache]
+    want = [{k: (s[1:], d) for k, (s, d) in _shapes(
+        ref[i % cfg.period]).items()} for i in range(cfg.n_layers)]
+    return got, want
+
+
+def _init_moe():
+    """`init_moe(8, 16, 4 experts, top 2)`'s parameters in both."""
+    import jax
+    from repro.nn import moe as ref_moe
+    want = jax.eval_shape(lambda: ref_moe.init_moe(jax.random.PRNGKey(0), 8,
+                                                   16, 4, 2))
+    return (_torch_shapes(init_moe(torch.Generator(), 8, 16, 4,
+                                   2).named_parameters()), _shapes(want))
+
+
+def _moe_apply():
+    """`moe_apply` on the reference's parameters: shape, type and whether
+    y and aux equal the reference's (2e-5)."""
+    import jax
+    from repro.nn import moe as ref_moe
+    from repro_torch.models.lm import _tree
+    from repro_torch.nn.layers import Params
+    p = ref_moe.init_moe(jax.random.PRNGKey(0), 8, 16, 4, 2)
+    x = np.random.default_rng(0).normal(size=(1, 2, 8)).astype(np.float32)
+    want, want_aux = ref_moe.moe_apply(p, x, n_experts=4, top_k=2)
+    got, aux = moe_apply(Params(_tree(jax.tree.map(np.asarray, p), "cpu")),
+                         torch.from_numpy(x), n_experts=4, top_k=2)
+    close = bool(np.allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                             atol=2e-5)) and bool(np.isclose(
+        float(aux), float(want_aux), rtol=2e-5, atol=2e-5))
+    return ((tuple(got.shape), str(got.dtype), close),
+            (tuple(want.shape), "torch." + str(want.dtype), True))
+
+
 def _delta_spec(**kw):
     """A delta-store spec's fields and resolved plane, in the port and in
     the reference."""
@@ -272,15 +347,11 @@ def _delta_spec(**kw):
     (lambda: _elastic("checkpoint"), "item 11"),
     (lambda: _elastic("restore"), "item 11"),
     (_float_scan, "K18"),
-    (lambda: _lm("kimi-k2-1t-a32b", lambda c: init_lm(
-        c, generator=torch.Generator(), device="cpu")), "item 14 (MoE)"),
-    (lambda: _lm("llama4-scout-17b-a16e", lambda c: init_lm_cache(
-        c, 1, 8, device="cpu")), "item 14 (MoE)"),
-    (lambda: _lm("jamba-1.5-large-398b", lambda c: init_lm(
-        c, generator=torch.Generator(), device="cpu")), "item 14 (MoE)"),
-    (lambda: init_moe(torch.Generator(), 8, 16, 4, 2), "item 14 (MoE)"),
-    (lambda: moe_apply({}, torch.zeros(1, 2, 8), n_experts=4, top_k=2),
-     "item 14 (MoE)"),
+    (lambda: _lm_params("kimi-k2-1t-a32b"), "item 14 (MoE)"),
+    (lambda: _lm_cache("llama4-scout-17b-a16e"), "item 14 (MoE)"),
+    (lambda: _lm_params("jamba-1.5-large-398b"), "item 14 (MoE)"),
+    (lambda: _init_moe(), "item 14 (MoE)"),
+    (lambda: _moe_apply(), "item 14 (MoE)"),
     (lambda: _lm("whisper-base", lambda c: init_lm(
         c, generator=torch.Generator(), device="cpu")), "item 14 (whisper)"),
     (lambda: _lm("whisper-base", make_prefill_step), "item 14 (whisper)"),
@@ -288,11 +359,11 @@ def _delta_spec(**kw):
 ])
 def test_unported_features_raise_and_name_their_roadmap_queue(make, queue):
     if queue in ("item 9", "K18", "item 13", "item 10", "item 12",
-                 "item 11"):
+                 "item 11", "item 14 (MoE)"):
         # the delta store, the float32 scan, the mesh placement, the
-        # timeline, the single-instance baselines and the elastic lifecycle
-        # are ported: the call that raised now answers as the reference's
-        # does
+        # timeline, the single-instance baselines, the elastic lifecycle
+        # and the MoE layer are ported: the call that raised now answers
+        # as the reference's does
         got, want = make()
         assert got == want
         return

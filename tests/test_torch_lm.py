@@ -1,14 +1,17 @@
 """The port's LM serving path vs the JAX package's, through weights carried
-across with `params_from_reference`, for the six smoke configs without MoE
-or an encoder-decoder; the layers that hold a kernel against the
-reference's kernel path in interpret mode; the float32 scan (K18); and the
-ten configs, field for field.
+across with `params_from_reference`, for the nine smoke configs without an
+encoder-decoder (the three MoE ones among them); the layers that hold a
+kernel against the reference's kernel path in interpret mode; the float32
+scan (K18); and the ten configs, field for field.
 
 Everything is float32 on the CPU. Port against reference: 2e-5 (the same
-arithmetic in another order); the port's token-by-token decode against
-its own parallel prefill: 2e-3, as the reference's own test
-(`tests/test_models.py::test_decode_matches_parallel_apply`). Greedy tokens
-must be equal.
+arithmetic in another order), the MoE models' aux loss too; the port's
+token-by-token decode against its own parallel prefill: 2e-3, as the
+reference's own test (`tests/test_models.py::
+test_decode_matches_parallel_apply`), which leaves MoE out because capacity
+routing depends on the batch: here the MoE models run it with the capacity
+factor raised to E, so that C = Sg and no token drops. Greedy tokens must
+be equal.
 """
 
 import dataclasses
@@ -39,8 +42,10 @@ from repro_torch.nn.layers import Params
 torch.set_num_threads(1)
 T = torch.from_numpy
 TOL = dict(rtol=2e-5, atol=2e-5)
+MOE_ARCHS = ["kimi-k2-1t-a32b", "llama4-scout-17b-a16e",
+             "jamba-1.5-large-398b"]
 SERVE_ARCHS = ["falcon-mamba-7b", "internvl2-26b", "phi3-medium-14b",
-               "deepseek-coder-33b", "gemma2-9b", "qwen2.5-14b"]
+               "deepseek-coder-33b", "gemma2-9b", "qwen2.5-14b", *MOE_ARCHS]
 B, S = 2, 10
 
 
@@ -97,7 +102,12 @@ def test_lm_apply_matches_the_reference(name):
     got, aux = model(T(toks), None if pe is None else T(pe))
     assert got.dtype == torch.float32 and got.shape == (B, S, cfg.vocab_size)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    assert float(aux) == float(want_aux) == 0.0
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    if name in MOE_ARCHS:
+        assert float(want_aux) > 0
+        np.testing.assert_allclose(float(aux), float(want_aux), **TOL)
+    else:
+        assert float(aux) == float(want_aux) == 0.0
 
 
 @pytest.mark.parametrize("name", SERVE_ARCHS)
@@ -157,8 +167,12 @@ def test_serve_step_tokens_match_the_reference(name):
 def test_decode_matches_parallel_apply_in_the_port(name):
     """The port's own token-by-token decode reproduces its parallel
     logits (on the card: the decode-attention kernel or the plain Mamba
-    step against the plain prefill attention or the scan kernel)."""
+    step against the plain prefill attention or the scan kernel); a MoE
+    model with its capacity factor raised to E, so that nothing drops."""
     _, _, tcfg, model = _ref_model(name)
+    if name in MOE_ARCHS:
+        tcfg = dataclasses.replace(tcfg,
+                                   capacity_factor=float(tcfg.n_experts))
     toks = T(_tokens(tcfg, seed=5))
     want, _ = lm_apply(model, toks, tcfg)
     cache = init_lm_cache(tcfg, B, S, dtype=torch.float32, device="cpu")
@@ -217,6 +231,31 @@ def test_init_lm_draws_the_reference_distributions():
     assert not any(p.requires_grad for p in model.parameters())
     bf = init_lm(cfg, generator=gen, device="cpu", dtype=torch.bfloat16)
     assert bf.head["w"].dtype == torch.bfloat16
+
+
+def test_init_lm_moe_draws_the_reference_distributions():
+    """A MoE model in bf16: the reference's tree, its router float32, the
+    experts drawn one at a time at the reference's scales."""
+    name = "kimi-k2-1t-a32b"
+    cfg = configs.get_smoke_config(name)
+    model = init_lm(cfg, generator=torch.Generator().manual_seed(0),
+                    device="cpu", dtype=torch.bfloat16)
+    ref_tree = jax.eval_shape(lambda: ref_lm.init_lm(
+        jax.random.PRNGKey(0), ref_configs.get_smoke_config(name)))
+    for layer in model.layers:
+        want = {".".join(k.key for k in path): leaf.shape[1:]
+                for path, leaf in jax.tree_util.tree_flatten_with_path(
+                    ref_tree["layers"][0])[0]}
+        got = {n: tuple(t.shape) for n, t in layer.named_parameters()}
+        assert got == {k: tuple(s) for k, s in want.items()}
+        moe = layer["moe"]
+        assert moe["router"]["w"].dtype == torch.float32
+        assert moe["w_gate"].dtype == moe["shared"]["w_up"]["w"].dtype == \
+            torch.bfloat16
+        for n, fan_in in (("w_gate", cfg.d_model), ("w_up", cfg.d_model),
+                          ("w_down", cfg.d_ff)):
+            std = moe[n].float().std(dim=(1, 2)) * fan_in ** 0.5
+            assert float((std - 1).abs().max()) < 0.1, n
 
 
 # ---------------------------------------------------------------------------
