@@ -183,7 +183,33 @@ script's wall seconds so far, ``elapsed_seconds``):
                  k experts (their weight slices in float32) plus the shared
                  expert within 2**-6 of the oracle's largest |value|
                  (`moe_layer_check`).
-13. ``kernels``   every hand-written kernel launched on the card and held
+13. ``lm_train``  LM training fed by the HTAP token pipeline:
+                 falcon-mamba-7b at full width (d_model 4,096, d_inner
+                 8,192, d_state 16, vocab 65,024), `LM_TRAIN_DEPTH` 16 of
+                 its 64 layers (``reduced``: one card's memory), bf16
+                 weights, remat, the optimizer `default_optimizer_for`
+                 picks for the full model (AdamW, lr 1e-4), 4 steps of
+                 2 x 4,096 tokens in 2 micro-batches (so the 2,048-token
+                 loss chunks run), each fed by an `HTAPTokenPipeline` on
+                 the card (a 16.8M-row token column; 65,536 tokens
+                 ingested and propagated before the step - ship, K5; the
+                 one-column apply, K7; the snapshot at the pinned read,
+                 K10 - and the batch from ``get_batch(step)``). Before it,
+                 a gradient cross-check at 2 layers, full width, float32,
+                 1 x 512 tokens: the loss and every parameter's gradient
+                 on the card (the scan kernel and its backward kernel)
+                 against the same model's on the CPU (the plain scan under
+                 autograd), within 1e-3 of each leaf's largest |g|. Fails
+                 on a loss that is not finite, on selective-scan launches
+                 other than layers x 2 (remat) x micro-batches x steps or
+                 backward launches other than layers x micro-batches x
+                 steps, and where the pipeline launched no K5, K7 or K10.
+                 Prints ms a step and tokens/s (the steps after the
+                 first), peak device bytes, one more step under
+                 `torch.profiler` (device ms, busy share), propagate and
+                 get_batch ms a step, the freshness lag before and after
+                 each propagation, the losses.
+14. ``kernels``   every hand-written kernel launched on the card and held
                  against its plain PyTorch version - the HTAP kernels with
                  exact equality (integers: tolerance 0), flash-decode
                  attention at 2e-5 and the selective scan at 3e-5 in float32
@@ -208,7 +234,13 @@ script's wall seconds so far, ``elapsed_seconds``):
                  inputs too large for shared memory; for the selective
                  scan ptxas' registers and spills of each instance, and
                  ``bound_sfu_ms`` (the
-                 exponentials on the SFUs alone); for the bucket probe
+                 exponentials on the SFUs alone); for its backward
+                 (``selective_scan_bwd``, the port's own kernel: the
+                 reference differentiates its plain scan) the six
+                 gradients within 1e-4 of each one's largest |value| at
+                 the scan's edge shapes and the path's, two identical
+                 calls equal bit for bit, and twice the forward's
+                 ``bound_sfu_ms``; for the bucket probe
                  the host's cost of one launch, item by item, under
                  ``host_us``; for the join scans and the float32 scan the
                  instances they ran, under ``instances``; the join lane
@@ -243,8 +275,10 @@ against ``delta``, the mesh scans against ``mesh`` (counted under
 the launch, widest island, ...), measured with the islands on one card),
 the bucket
 probe against ``ana_only``, the float32 scan
-against ``float_scan``, flash-decode attention and the selective scan
-against ``lm_serve`` (each model's serve run). ``elastic`` is a path of
+against ``float_scan``, flash-decode attention against ``lm_serve``
+(each model's serve run), the selective scan against ``lm_serve`` and
+``lm_train`` (launched on each, counted over both) and its backward
+against ``lm_train``. ``elastic`` is a path of
 its own that runs kernels already held to these (no kernel is measured
 against it); like every path it may not launch the kernels folded into
 others (`NEVER_ON_PATH`). The correction lane alone
@@ -320,6 +354,9 @@ REPLACES = {
     "scan_float": "src/repro/kernels/dict_ops/dict_ops.py:218",
     "decode_attn": "src/repro/kernels/decode_attn/decode_attn.py:74",
     "selective_scan": "src/repro/kernels/selective_scan/selective_scan.py:59",
+    "selective_scan_bwd": "none: the reference takes this gradient by "
+                          "autodiff of src/repro/kernels/selective_scan/"
+                          "ref.py:7 (no Pallas backward)",
 }
 SOURCES = {
     "scan_exact": "src/repro_torch/kernels/csrc/scan_exact.cu",
@@ -343,8 +380,10 @@ SOURCES = {
     "scan_float": "src/repro_torch/kernels/csrc/scan_float.cu",
     "decode_attn": "src/repro_torch/kernels/csrc/decode_attn.cu",
     "selective_scan": "src/repro_torch/kernels/csrc/selective_scan.cu",
+    "selective_scan_bwd": "src/repro_torch/kernels/csrc/selective_scan.cu",
 }
-# the path that runs each kernel: its launches are counted on that path
+# the path that runs each kernel (or the paths: the kernel must launch on
+# each): its launches are counted on that path (summed over the paths)
 PATH_OF = {"scan_exact_sharded": "islands",
            "scan_exact_join_sharded": "islands", "hash_probe": "ana_only",
            "scan_exact_group": "delta", "scan_exact_group_sharded": "delta",
@@ -353,7 +392,11 @@ PATH_OF = {"scan_exact_sharded": "islands",
            "scan_values_delta": "delta",
            "scan_exact_mesh": "mesh", "scan_exact_join_mesh": "mesh",
            "scan_float": "float_scan", "decode_attn": "lm_serve",
-           "selective_scan": "lm_serve"}
+           "merge_runs": ("main_path", "lm_train"),
+           "bitonic_apply": ("main_path", "lm_train"),
+           "snapshot_copy": ("main_path", "lm_train"),
+           "selective_scan": ("lm_serve", "lm_train"),
+           "selective_scan_bwd": "lm_train"}
 # kernels a path launches only for some data, or none: the tile merge (K6)
 # sorts a row wider than one tile's 32,768 keys, which the paths may not
 # have; the sort unit (K4) sorts only a dictionary stage the fused apply
@@ -368,6 +411,11 @@ NO_CALLER_SHAPE = {"bitonic_merge_rows": (2, 32768, 32768),
 # ... and of those, the kernels no path of this workload may launch: its
 # values never reach int32.max, and every correction rides a scan
 NEVER_ON_PATH = ("bitonic_sort", "scan_values_delta")
+
+
+def paths_of(kernel: str) -> tuple[str, ...]:
+    path = PATH_OF.get(kernel, "main_path")
+    return path if isinstance(path, tuple) else (path,)
 I32_MIN, I32_MAX = -2**31, 2**31 - 1
 
 
@@ -1849,7 +1897,7 @@ def phase_si_baselines(args, wl, poly_answers, poly_result,
 
 
 # ---------------------------------------------------------------------------
-# phase 10: the LM serving path
+# phase 12: the LM serving path
 # ---------------------------------------------------------------------------
 
 def serve(model, cfg, prompts, n_gen: int, max_len: int):
@@ -1912,19 +1960,17 @@ def replay(model, cfg, prompts, gen, max_len: int) -> int:
     return feed.shape[1]
 
 
-def profile_steps(model, cfg, cache, tok, start: int, n: int) -> dict:
-    """`n` more serve steps under `torch.profiler`: device time per step
-    (the CUDA kernels' own times, summed) against the wall time, which the
-    profiler inflates; "not measured" when it records no device time."""
+def profile_device(run, n: int) -> dict:
+    """`run()`, which takes `n` steps, under `torch.profiler`: device time
+    per step (the CUDA kernels' own times, summed) against the wall time,
+    which the profiler inflates; "not measured" when it records no device
+    time."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.launch.steps import make_serve_step
-    step = make_serve_step(cfg)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i in range(start, start + n):
-            tok, cache = step(model, cache, tok, i)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [(e.key, e.self_device_time_total, e.count)
@@ -1934,13 +1980,25 @@ def profile_steps(model, cfg, cache, tok, start: int, n: int) -> dict:
     device_us = sum(k[1] for k in kernels)
     if not device_us:
         return {"device_time": "not measured (no device events)"}
-    top = sorted(kernels, key=lambda k: -k[1])[:6]
+    top = sorted(kernels, key=lambda k: -k[1])[:8]
     return dict(steps=n, wall_ms_per_step=wall / n * 1e3,
                 device_ms_per_step=device_us / 1e3 / n,
                 device_busy_share=device_us / 1e6 / wall,
                 kernel_launches_per_step=sum(k[2] for k in kernels) / n,
                 top_kernels=[dict(name=k[0][:60], ms_per_step=k[1] / 1e3 / n,
                                   calls_per_step=k[2] / n) for k in top])
+
+
+def profile_steps(model, cfg, cache, tok, start: int, n: int) -> dict:
+    """`n` more serve steps from position `start`, profiled."""
+    from repro_torch.launch.steps import make_serve_step
+    step = make_serve_step(cfg)
+
+    def run():
+        t, c = tok, cache
+        for i in range(start, start + n):
+            t, c = step(model, c, t, i)
+    return profile_device(run, n)
 
 
 FREE_BYTES = 8 * 2**30    # device memory a model's weights must leave free
@@ -2212,7 +2270,257 @@ def phase_lm_serve(args, dev=None) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
-# phase 11: every kernel against its plain version
+# phase 13: LM training fed by the HTAP token pipeline
+# ---------------------------------------------------------------------------
+
+LM_TRAIN_MODEL = "falcon-mamba-7b"
+# 16 of 64 layers: 2.22B parameters, about 35.5 GB with AdamW (bf16
+# weights and gradients, float32 m, v and masters); all 64 would need
+# about 117 GB
+LM_TRAIN_DEPTH = 16
+LM_TRAIN_BATCH = 2           # sequences a step
+LM_TRAIN_SEQ = 4096          # tokens a sequence: two 2,048-token loss chunks
+LM_TRAIN_MICRO = 2           # micro-batches a step
+LM_TRAIN_STEPS = 4
+LM_TRAIN_LR = 1e-4
+LM_TRAIN_TOKENS = 1 << 24    # the token column at the start
+LM_TRAIN_INGEST = 65_536     # tokens ingested and propagated before a step
+# the token pipeline's kernels: ship, one-column apply stage, snapshot
+PIPELINE_KERNELS = ("merge_runs", "bitonic_apply", "snapshot_copy")
+# the gradient cross-check: layers, batch, sequence (float32, full width)
+LM_GRAD_CHECK = (2, 1, 512)
+LM_GRAD_TOL = 1e-3           # of each parameter's largest |g| (and the loss)
+
+
+def token_window(column: np.ndarray, n_rows: int, step: int):
+    """The batch `get_batch(step)` must return when the column holds
+    `column[:n_rows]`: the reference's window of LM_TRAIN_BATCH sequences
+    of LM_TRAIN_SEQ + 1 tokens, as (tokens, labels)."""
+    need = LM_TRAIN_BATCH * (LM_TRAIN_SEQ + 1)
+    start = (step * need) % max(n_rows - need, 1)
+    w = column[start:start + need].reshape(LM_TRAIN_BATCH, LM_TRAIN_SEQ + 1)
+    return w[:, :-1], w[:, 1:]
+
+
+def same_batch(got, column, n_rows, step) -> None:
+    """`got` (tokens, labels) on the card equals `token_window`, token for
+    token: the apply and the snapshot wrote the ingested tokens."""
+    for what, g, w in zip(("tokens", "labels"), got,
+                          token_window(column, n_rows, step)):
+        g = g.cpu().numpy()
+        if g.shape != w.shape or not np.array_equal(g, w):
+            bad = int((g != w).sum()) if g.shape == w.shape else g.size
+            raise AssertionError(
+                f"lm_train: get_batch({step})'s {what} differ from the "
+                f"ingested tokens at {bad} of {w.size} places")
+
+
+def train_grad_check(cfg, args, dev) -> dict:
+    """`LM_GRAD_CHECK`'s layers at full width in float32: the loss and
+    every parameter's gradient on `dev` (the scan kernel and its backward
+    kernel; remat as the config says) against the same model's on the
+    CPU (the plain scan, differentiated by autograd), each within
+    LM_GRAD_TOL of the CPU gradient's largest |value|, and every Mamba
+    mixer parameter's gradient non-zero. Raises on a failure."""
+    import copy
+    import dataclasses
+    from repro_torch.models.lm import init_lm, lm_loss
+    layers, batch, seq = LM_GRAD_CHECK
+    small = dataclasses.replace(cfg, n_layers=layers, param_dtype="float32",
+                                activ_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 3)
+    model = init_lm(small, generator=gen, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=gen,
+                         device=dev, dtype=torch.int32)
+    host = copy.deepcopy(model).to("cpu")
+
+    def loss_and_grads(m, t):
+        t0 = time.perf_counter()
+        m.requires_grad_(True)
+        loss = lm_loss(m, t[:, :-1], t[:, 1:], small)
+        loss.backward()
+        grads = {k: p.grad.float().cpu() for k, p in m.named_parameters()
+                 if p.grad is not None}
+        return float(loss.detach()), grads, time.perf_counter() - t0
+
+    loss_dev, g_dev, dev_s = loss_and_grads(model, toks)
+    loss_cpu, g_cpu, cpu_s = loss_and_grads(host, toks.cpu())
+    del model, host
+    if not math.isfinite(loss_dev) or abs(loss_dev - loss_cpu) > \
+            LM_GRAD_TOL * abs(loss_cpu):
+        raise AssertionError(f"lm_train gradient check: loss {loss_dev} on "
+                             f"the card, {loss_cpu} on the CPU")
+    if set(g_dev) != set(g_cpu):
+        raise AssertionError("lm_train gradient check: the card and the CPU "
+                             f"reached other parameters: "
+                             f"{sorted(set(g_dev) ^ set(g_cpu))}")
+    worst, errs = 0.0, {}
+    for k, want in g_cpu.items():
+        scale = float(want.abs().max())
+        err = float((g_dev[k] - want).abs().max())
+        rel = err / scale if scale else (0.0 if err == 0 else math.inf)
+        errs[k] = rel
+        if not rel <= LM_GRAD_TOL:
+            raise AssertionError(
+                f"lm_train gradient check: {k}'s gradient differs from the "
+                f"CPU's by {err}, over {LM_GRAD_TOL} x {scale}")
+        if ".mamba." in k and scale == 0:
+            raise AssertionError(f"lm_train gradient check: {k} has a zero "
+                                 "gradient")
+        worst = max(worst, rel)
+    return dict(layers=layers, batch=batch, seq=seq, dtype="float32",
+                remat=small.remat, loss_card=loss_dev, loss_cpu=loss_cpu,
+                leaves=len(errs), max_rel_err=worst,
+                worst_leaf=max(errs, key=errs.get),
+                tolerance=f"{LM_GRAD_TOL} x each leaf's max |g|",
+                card_seconds=dev_s, cpu_seconds=cpu_s)
+
+
+def phase_lm_train(args, dev=None) -> tuple[dict, dict]:
+    """`LM_TRAIN_MODEL` at full width, `LM_TRAIN_DEPTH` layers, bf16,
+    remat, the optimizer `default_optimizer_for` picks for the full
+    model, `LM_TRAIN_STEPS` steps of `LM_TRAIN_BATCH` x `LM_TRAIN_SEQ`
+    tokens in `LM_TRAIN_MICRO` micro-batches, each fed by an
+    `HTAPTokenPipeline` on the card (`LM_TRAIN_INGEST` tokens ingested and
+    propagated before the step, its batch from `get_batch(step)`). Returns
+    the launches and launch shapes of the steps (the gradient cross-check
+    before and the profiled step after are not counted)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import HTAPTokenPipeline
+    from repro_torch.kernels.common import (kernel_launch_counts,
+                                            kernel_launch_shapes,
+                                            reset_kernel_launch_counts)
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.lm import init_lm
+    from repro_torch.optim import default_optimizer_for, get_optimizer
+    dev = torch.device("cuda", 0) if dev is None else dev
+    torch.backends.cuda.matmul.allow_tf32 = False    # float32 is float32
+    torch.backends.cudnn.allow_tf32 = False
+    full = get_config(LM_TRAIN_MODEL)
+    cfg = dataclasses.replace(full,
+                              n_layers=min(LM_TRAIN_DEPTH, full.n_layers))
+    check = train_grad_check(cfg, args, dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    t0 = time.perf_counter()
+    model = init_lm(cfg, generator=gen, device=dev)
+    opt_name = default_optimizer_for(full.param_count())
+    opt = get_optimizer(opt_name, lr=LM_TRAIN_LR, period=cfg.period)
+    opt_state = opt[0](dict(model.named_parameters()))
+    step_fn = make_train_step(cfg, opt, micro_batches=LM_TRAIN_MICRO)
+    pipe = HTAPTokenPipeline(cfg.vocab_size, LM_TRAIN_SEQ, LM_TRAIN_BATCH,
+                             seed=args.seed, initial_tokens=LM_TRAIN_TOKENS,
+                             device=dev)
+    torch.cuda.synchronize()
+    setup_seconds = time.perf_counter() - t0
+    feed = np.random.default_rng(args.seed + 2)
+    # the column as the host sees it: the seed's initial tokens (drawn as
+    # the pipeline documents), then every ingested chunk
+    column = np.empty(LM_TRAIN_TOKENS + (LM_TRAIN_STEPS + 1)
+                      * LM_TRAIN_INGEST, np.int32)
+    column[:LM_TRAIN_TOKENS] = np.random.default_rng(args.seed).integers(
+        0, cfg.vocab_size, size=(LM_TRAIN_TOKENS, 1))[:, 0]
+    n_rows = LM_TRAIN_TOKENS
+
+    def ingest():
+        nonlocal n_rows
+        chunk = feed.integers(0, cfg.vocab_size, LM_TRAIN_INGEST)
+        column[n_rows:n_rows + LM_TRAIN_INGEST] = chunk
+        n_rows += LM_TRAIN_INGEST
+        pipe.ingest(chunk)
+    losses, step_s, prop_s, batch_s, lags = [], [], [], [], []
+    reset_kernel_launch_counts()
+    for step in range(LM_TRAIN_STEPS):
+        ingest()
+        lags.append(pipe.freshness_lag())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        applied = pipe.propagate()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        toks, labels = pipe.get_batch(step)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        model, opt_state, metrics = step_fn(
+            model, opt_state, step, {"tokens": toks, "labels": labels})
+        losses.append(float(metrics["loss"]))      # synchronises
+        t3 = time.perf_counter()
+        if applied != LM_TRAIN_INGEST or pipe.freshness_lag() != 0:
+            raise AssertionError(f"lm_train: propagate applied {applied} of "
+                                 f"{LM_TRAIN_INGEST}, lag "
+                                 f"{pipe.freshness_lag()}")
+        if toks.shape != (LM_TRAIN_BATCH, LM_TRAIN_SEQ) or \
+                toks.device != dev or toks.dtype != torch.int32:
+            raise AssertionError(f"lm_train: batch {tuple(toks.shape)} "
+                                 f"{toks.dtype} on {toks.device}")
+        same_batch((toks, labels), column, n_rows, step)
+        prop_s.append(t1 - t0)
+        batch_s.append(t2 - t1)
+        step_s.append(t3 - t2)
+    launches, shapes = kernel_launch_counts(), kernel_launch_shapes()
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"lm_train: a loss is not finite: {losses}")
+    n_mamba = sum(cfg.blocks[i % cfg.period].mixer == "mamba"
+                  for i in range(cfg.n_layers))
+    remat = 2 if cfg.remat else 1
+    want = {"selective_scan": n_mamba * remat * LM_TRAIN_MICRO
+            * LM_TRAIN_STEPS,
+            "selective_scan_bwd": n_mamba * LM_TRAIN_MICRO * LM_TRAIN_STEPS}
+    got = {k: launches.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(
+            f"lm_train: launches {got}, expected {want} ({n_mamba} Mamba "
+            f"layers x {remat} (remat) x {LM_TRAIN_MICRO} micro-batches x "
+            f"{LM_TRAIN_STEPS} steps forward; the backward once a layer and "
+            "micro-batch)")
+    idle = [k for k in PIPELINE_KERNELS if not launches.get(k)]
+    if idle:
+        raise AssertionError(f"lm_train: the token pipeline launched no "
+                             f"{idle}")
+    peak = torch.cuda.max_memory_allocated()
+    ingest()
+    pipe.propagate()
+    batch = dict(zip(("tokens", "labels"), pipe.get_batch(LM_TRAIN_STEPS)))
+    same_batch((batch["tokens"], batch["labels"]), column, n_rows,
+               LM_TRAIN_STEPS)
+    prof = profile_device(lambda: step_fn(model, opt_state, LM_TRAIN_STEPS,
+                                           batch), 1)
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    steady = step_s[1:] or step_s
+    fields = {}
+    if cfg.n_layers < full.n_layers:
+        fields["reduced"] = "depth: one card's memory"
+    emit("lm_train", model=LM_TRAIN_MODEL, layers=cfg.n_layers,
+         full_layers=full.n_layers, d_model=cfg.d_model,
+         d_inner=cfg.d_inner, d_state=cfg.d_state, vocab=cfg.vocab_size,
+         params=sum(p.numel() for p in model.parameters()),
+         dtype=str(cfg.pdtype), remat=cfg.remat, optimizer=opt_name,
+         lr=LM_TRAIN_LR, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
+         micro_batches=LM_TRAIN_MICRO, loss_chunk=cfg.loss_chunk,
+         steps=LM_TRAIN_STEPS, seed=args.seed, setup_seconds=setup_seconds,
+         losses=losses, step_seconds=step_s,
+         ms_per_step=sum(steady) / len(steady) * 1e3,
+         ms_per_step_of="the steps after the first",
+         tokens_per_s=tokens * len(steady) / sum(steady),
+         peak_device_bytes=peak, profile=prof,
+         pipeline=dict(initial_tokens=LM_TRAIN_TOKENS,
+                       ingest_per_step=LM_TRAIN_INGEST,
+                       rows_at_end=pipe.replica.columns[0].n_rows,
+                       propagate_ms=[x * 1e3 for x in prop_s],
+                       get_batch_ms=[x * 1e3 for x in batch_s],
+                       freshness_lag_before_propagate=lags,
+                       freshness_lag_after=pipe.freshness_lag(),
+                       batches_equal_ingested_tokens=LM_TRAIN_STEPS + 1),
+         launches=launches, grad_check=check, **fields, ok=True)
+    del model, opt_state, pipe, batch
+    torch.cuda.empty_cache()
+    return launches, shapes
+
+
+# ---------------------------------------------------------------------------
+# phase 14: every kernel against its plain version
 # ---------------------------------------------------------------------------
 # Each kernel has a `*_cost(shape)` -> (bytes, operations) of one launch at a
 # shape its wrapper recorded (each input read once, each output written
@@ -3578,16 +3886,21 @@ def ssm_inputs(gen, dev, shape):
     return x, dt, a, b, c, d
 
 
-def ssm_registers() -> dict[str, dict]:
+def ssm_registers(backward: bool = False) -> dict[str, dict]:
     """ptxas' registers and spill bytes of each selective-scan instance, by
-    d_state and staging (16-byte or 4-byte copies)."""
+    d_state and staging (16-byte or 4-byte copies); of the backward's, by
+    d_state."""
     out = {}
     for entry, n in REGISTERS.items():
-        m = re.search(r"selective_scan_kernelILi(\d+)ELb([01])E", entry)
+        if backward:
+            m = re.search(r"selective_scan_bwd_kernelILi(\d+)E", entry)
+            key = m and f"N{m.group(1)}"
+        else:
+            m = re.search(r"selective_scan_kernelILi(\d+)ELb([01])E", entry)
+            key = m and (f"N{m.group(1)} "
+                         f"{'16B' if m.group(2) == '1' else '4B'}")
         if m:
-            staging = "16B" if m.group(2) == "1" else "4B"
-            out[f"N{m.group(1)} {staging}"] = dict(
-                registers=n, spill_bytes=SPILLS.get(entry, 0))
+            out[key] = dict(registers=n, spill_bytes=SPILLS.get(entry, 0))
     return out
 
 
@@ -3633,6 +3946,104 @@ def measure_ssm(gen, dev, shape) -> dict:
         bound_sfu_ms=ssm_sfu_bound_ms(shape), registers=ssm_registers())
 
 
+def ssm_bwd_cost(shape):
+    """(B, T, D, N) of the backward: x, dt and gy read and gx, gdt written
+    (20 B per (t, channel)), B_t and C_t read and their gradients written
+    (16 N B per step), A and the skip read and their gradients written;
+    per (t, channel, state) the recurrence once to re-derive h (the
+    forward's 7 operations less y's multiply-add: 5) and the reverse
+    recurrence with its products (19 more), and 4 per (t, channel)."""
+    B, T, D, N = shape
+    return (20 * B * T * D + 16 * B * T * N + 8 * D * (N + 1),
+            B * T * D * (24 * N + 4))
+
+
+SSM_BWD_TOL = 1e-4     # of each gradient's largest |value|
+
+
+def ssm_bwd_check(name, got, want) -> float:
+    """Each of the six gradients within SSM_BWD_TOL of the plain version's
+    largest |value| (sums over T, B and D in other orders); returns the
+    largest absolute difference."""
+    err = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape:
+            raise AssertionError(f"{name}: gradient {i} shape "
+                                 f"{tuple(g.shape)} != {tuple(w.shape)}")
+        e = float((g - w).abs().max()) if g.numel() else 0.0
+        scale = float(w.abs().max()) if w.numel() else 0.0
+        if not e <= SSM_BWD_TOL * scale:
+            raise AssertionError(
+                f"kernel check {name!r}: gradient {i} differs from its "
+                f"plain version (max abs err {e}, tolerance {SSM_BWD_TOL} x "
+                f"{scale})")
+        err = max(err, e)
+    return err
+
+
+def ssm_bwd_repeatable(name, args, got) -> None:
+    """A second identical call gives identical bits (no float atomics)."""
+    from repro_torch.kernels.selective_scan import selective_scan_bwd
+    again = selective_scan_bwd(*args)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"kernel check {name!r}: two identical calls "
+                             "gave different bits")
+
+
+def ssm_bwd_inputs(gen, dev, shape):
+    x = ssm_inputs(gen, dev, shape)
+    return (*x, torch.randn(x[0].shape, generator=gen, device=dev))
+
+
+def edge_ssm_bwd(gen, dev) -> int:
+    """The backward at the forward's edge shapes, bit for bit repeatable."""
+    from repro_torch.kernels.selective_scan import (selective_scan_bwd,
+                                                    selective_scan_bwd_ref)
+    for shape in SSM_EDGES:
+        args = ssm_bwd_inputs(gen, dev, shape)
+        got = selective_scan_bwd(*args)
+        name = f"selective scan backward {shape}"
+        ssm_bwd_check(name, got, selective_scan_bwd_ref(*args))
+        ssm_bwd_repeatable(name, args, got)
+    return len(SSM_EDGES)
+
+
+def measure_ssm_bwd(gen, dev, shape) -> dict:
+    """Held to SSM_BWD_TOL and bit for bit repeatable; `bound_sfu_ms` (twice
+    the forward's exponentials on the SFUs) beside the bytes and
+    operations bound."""
+    from repro_torch.kernels.selective_scan import (
+        BWD_CHANNELS, BWD_TILE, launch_selective_scan_bwd, selective_scan_bwd,
+        selective_scan_bwd_ref)
+    B, T, D, N = shape
+    args = ssm_bwd_inputs(gen, dev, shape)
+    t0 = time.perf_counter()
+    want = selective_scan_bwd_ref(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = selective_scan_bwd(*args)
+    name = f"selective scan backward {shape}"
+    err = ssm_bwd_check(name, got, want)
+    ssm_bwd_repeatable(name, args, got)
+    del want
+    blocks = -(-D // BWD_CHANNELS)
+    kw = dict(device=dev)
+    bufs = (torch.empty_like(args[0]), torch.empty_like(args[0]),
+            torch.empty((B, D, N), **kw), torch.empty((blocks, B, T, N), **kw),
+            torch.empty((blocks, B, T, N), **kw), torch.empty((B, D), **kw),
+            torch.empty((B, -(-T // BWD_TILE), D, N), **kw))
+    return dict(
+        max_abs_err=err, tolerance=f"{SSM_BWD_TOL} x each gradient's max "
+                                   "|value|", bitwise_repeatable=True,
+        ms=time_ms(lambda: launch_selective_scan_bwd(*args, *bufs), 10),
+        **device_time(lambda: launch_selective_scan_bwd(*args, *bufs)),
+        wrapper_ms=time_ms(lambda: selective_scan_bwd(*args), 10),
+        plain_ms=plain_ms, library_ms=None,
+        bound_sfu_ms=2 * ssm_sfu_bound_ms(shape),
+        scratch_bytes=sum(b.numel() * 4 for b in bufs[2:]),
+        registers=ssm_registers(backward=True))
+
+
 # kernel name -> (cost of one launch at a shape, measurement at a shape)
 KERNELS = {
     "scan_exact": (lambda s: scan_cost(s, False),
@@ -3670,6 +4081,7 @@ KERNELS = {
     "scan_float": (float_scan_cost, measure_float_scan),
     "decode_attn": (decode_cost, measure_decode),
     "selective_scan": (ssm_cost, measure_ssm),
+    "selective_scan_bwd": (ssm_bwd_cost, measure_ssm_bwd),
 }
 DECODE_32K = (4, 32768, 16, 8, 256, 32768)    # gemma2's heads at decode_32k
 DECODE_32K_D112 = (4, 32768, 64, 8, 112, 32768)   # kimi-k2's heads
@@ -3684,11 +4096,18 @@ def with_bound(m: dict, shape, cost, launches: int) -> dict:
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
 
 
-def phase_kernels(shapes: dict) -> dict:
-    """`shapes`: per kernel, the launches each shape got on its path.
+def most_launched(seen: dict, cost):
+    """The shape launched most (ties: the costlier)."""
+    return max(seen, key=lambda s: (seen[s], cost(s)))
+
+
+def phase_kernels(shapes: dict, path_shapes: dict) -> dict:
+    """`shapes`: per kernel, the launches each shape got on its paths;
+    `path_shapes`: per kernel with more than one path, the same per path.
     Returns per kernel the measurement at the shape launched most (ties:
     the costlier), with the costliest shape's under ``largest`` where that
-    is another."""
+    is another, and under ``at_paths`` each path's most launched shape
+    where that is neither."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -3697,11 +4116,12 @@ def phase_kernels(shapes: dict) -> dict:
              + edge_scan_mesh(gen, dev) + edge_probe(gen, dev) + edge_merge(gen, dev)
              + edge_bitonic(gen, dev) + edge_snapshot(gen, dev)
              + edge_delta(gen, dev) + edge_float_scan(gen, dev)
-             + edge_decode(gen, dev) + edge_ssm(gen, dev))
+             + edge_decode(gen, dev) + edge_ssm(gen, dev)
+             + edge_ssm_bwd(gen, dev))
     measured = {}
     for name, (cost, measure) in KERNELS.items():
         seen = shapes[name]
-        most = max(seen, key=lambda s: (seen[s], cost(s)))
+        most = most_launched(seen, cost)
         largest = max(seen, key=cost)
         measured[name] = with_bound(measure(gen, dev, most), most, cost,
                                     seen[most])
@@ -3710,6 +4130,12 @@ def phase_kernels(shapes: dict) -> dict:
             measured[name]["largest"] = with_bound(
                 measure(gen, dev, largest), largest, cost, seen[largest])
             cases += 1
+        for path, on_path in path_shapes.get(name, {}).items():
+            at = most_launched(on_path, cost)
+            if at not in (most, largest):
+                measured[name].setdefault("at_paths", {})[path] = with_bound(
+                    measure(gen, dev, at), at, cost, on_path[at])
+                cases += 1
         if name in SHARDED_SCANS:
             # the islands runs' other island counts, at the shape each
             # launched most: an even split and an uneven one differ
@@ -3763,7 +4189,9 @@ def phase_kernels(shapes: dict) -> dict:
     emit("kernels", cases=cases,
          tolerance="0 (integers); float32: decode_attn 2e-5 (bf16 output: "
                    f"{BF16_OUT_RTOL} relative plus {BF16_OUT_ATOL}), "
-                   f"selective_scan 3e-5, scan_float: {FLOAT_SCAN_TOL}",
+                   f"selective_scan 3e-5, selective_scan_bwd {SSM_BWD_TOL} "
+                   f"x each gradient's max |value|, scan_float: "
+                   f"{FLOAT_SCAN_TOL}",
          kernels=[dict(name=k, ok=True, **m) for k, m in measured.items()])
     return measured
 
@@ -3839,9 +4267,11 @@ def main(argv=None) -> int:
     runs["si_baselines"] = phase_si_baselines(args, wl, answers, main_result)
     torch.cuda.empty_cache()
     runs["lm_serve"] = phase_lm_serve(args)
-    # every kernel's launches and shapes from the path that runs it
+    torch.cuda.empty_cache()
+    runs["lm_train"] = phase_lm_train(args)
+    # every kernel's launches and shapes from the paths that run it
     missing = [k for k in REPLACES if k not in NO_CALLER_SHAPE
-               and k not in runs[PATH_OF.get(k, "main_path")][0]]
+               and any(k not in runs[p][0] for p in paths_of(k))]
     if missing:
         raise AssertionError(f"kernels never launched on their paths: "
                              f"{missing}")
@@ -3850,11 +4280,19 @@ def main(argv=None) -> int:
     if folded:
         raise AssertionError(f"kernels folded into other launches launched "
                              f"on their own: {folded}")
-    launches = {k: runs[PATH_OF.get(k, "main_path")][0].get(k, 0)
+    launches = {k: sum(runs[p][0].get(k, 0) for p in paths_of(k))
                 for k in REPLACES}
-    shapes = {k: runs[PATH_OF.get(k, "main_path")][1][k] for k in REPLACES
-              if k not in NO_CALLER_SHAPE}
-    by_path = {}
+    shapes, path_shapes = {}, {}
+    for k in REPLACES:
+        if k not in NO_CALLER_SHAPE:
+            shapes[k] = {}
+            for p in paths_of(k):
+                for sh, n in runs[p][1][k].items():
+                    shapes[k][sh] = shapes[k].get(sh, 0) + n
+            if len(paths_of(k)) > 1:
+                path_shapes[k] = {p: runs[p][1][k] for p in paths_of(k)}
+    by_path = {k: {p: runs[p][0][k] for p in paths_of(k)} for k in REPLACES
+               if len(paths_of(k)) > 1}
     for k, shape in NO_CALLER_SHAPE.items():
         # the shapes any path launched it at, else the made-up one
         by_path[k] = {p: r[0].get(k, 0) for p, r in runs.items()}
@@ -3863,7 +4301,7 @@ def main(argv=None) -> int:
             for sh, c in r[1].get(k, {}).items():
                 seen[sh] = seen.get(sh, 0) + c
         shapes[k] = seen or {shape: 0}
-    measured = phase_kernels(shapes)
+    measured = phase_kernels(shapes, path_shapes)
 
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=SOURCES[k], replaces=REPLACES[k],

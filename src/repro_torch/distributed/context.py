@@ -17,7 +17,8 @@ emulated host devices (``--xla_force_host_platform_device_count``).
 
 The JAX package's partitioning hook for its neural layers
 (``set_partitioning``, ``constrain``) belongs to the LM's sharded
-training, which is not ported (ROADMAP.md queue 1, item 14).
+training, which is not ported (ROADMAP.md queue 1, item 14 (e)); on one
+device its constraints do nothing, and the port trains without them.
 """
 
 from __future__ import annotations

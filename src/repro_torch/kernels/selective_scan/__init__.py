@@ -1,3 +1,4 @@
 from repro_torch.kernels.selective_scan.ops import (  # noqa: F401
-    STATE_SIZES, launch_selective_scan, selective_scan, selective_scan_ref,
-    selective_scan_step_ref)
+    BWD_CHANNELS, BWD_TILE, STATE_SIZES, SelectiveScan, launch_selective_scan,
+    launch_selective_scan_bwd, selective_scan, selective_scan_bwd,
+    selective_scan_bwd_ref, selective_scan_ref, selective_scan_step_ref)

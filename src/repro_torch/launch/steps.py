@@ -1,10 +1,10 @@
-"""Step factories: prefill and greedy decode against the KV/SSM caches,
-for every decoder the port runs (dense, local/global, Mamba, the VLM
-backbone, MoE and the hybrid). A MoE model's prefill and decode drop the
-layers' auxiliary loss, as the reference's do.
-
-The training step comes with the training slice (ROADMAP.md queue 1, item
-14 (a)).
+"""Step factories for every decoder the port runs (dense, local/global,
+Mamba, the VLM backbone, MoE and the hybrid): the training step (loss,
+gradients, optimizer update), prefill, and greedy decode against the
+KV/SSM caches. A MoE model's prefill and decode drop the layers'
+auxiliary loss, as the reference's do; its training loss adds it.
+Prefill and decode run under ``torch.no_grad()``: they record no graph
+(and take no remat) even for a model whose gradients are on.
 """
 
 from __future__ import annotations
@@ -13,7 +13,53 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import (ENCDEC_TODO, lm_decode_step, lm_hidden,
-                                   lm_logits)
+                                   lm_logits, lm_loss)
+
+
+def make_train_step(cfg: ModelConfig, optimizer, micro_batches: int = 1):
+    """train_step(model, opt_state, step, batch) -> (model, opt_state,
+    {"loss": 0-d float32 tensor}). ``optimizer`` is an ``(init, update)``
+    pair of `repro_torch.optim` over ``dict(model.named_parameters())``;
+    ``batch`` holds ``tokens`` and ``labels`` (B, S) and, for a VLM,
+    ``patch_embeds``. The step turns the model's gradients on, and the
+    update writes the new parameters into the model in place.
+
+    ``micro_batches`` > 1 splits the batch's leading axis and runs the
+    forward and backward one part at a time (activation memory shrinks by
+    that factor); the gradients accumulate in the parameters' dtype and,
+    with the loss, are divided by ``micro_batches``, as the reference's
+    scan does."""
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(ENCDEC_TODO)
+    _, opt_update = optimizer
+
+    def train_step(model, opt_state, step, batch):
+        model.requires_grad_(True)
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.grad = None
+        n = batch["tokens"].shape[0]
+        if n % micro_batches:
+            raise ValueError(f"batch of {n} does not split into "
+                             f"{micro_batches} micro-batches")
+        part = n // micro_batches
+        loss = torch.zeros((), dtype=torch.float32,
+                           device=batch["tokens"].device)
+        for i in range(micro_batches):
+            mb = {k: v[i * part:(i + 1) * part] for k, v in batch.items()}
+            l = lm_loss(model, mb["tokens"], mb["labels"], cfg,
+                        mb.get("patch_embeds"))
+            l.backward()          # adds into .grad, in the params' dtype
+            loss = loss + l.detach()
+        grads = {}
+        for k, p in params.items():
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            grads[k] = g.div_(micro_batches)
+            p.grad = None
+        opt_update(params, grads, opt_state, step)
+        return model, opt_state, {"loss": loss / micro_batches}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig):
@@ -24,6 +70,7 @@ def make_prefill_step(cfg: ModelConfig):
     if cfg.is_encoder_decoder:
         raise NotImplementedError(ENCDEC_TODO)
 
+    @torch.no_grad()
     def prefill(model, batch):
         x, _ = lm_hidden(model, batch["tokens"], cfg,
                          batch.get("patch_embeds"))
@@ -38,6 +85,7 @@ def make_serve_step(cfg: ModelConfig):
     if cfg.is_encoder_decoder:
         raise NotImplementedError(ENCDEC_TODO)
 
+    @torch.no_grad()
     def serve_step(model, cache, token, index):
         logits, cache = lm_decode_step(model, cache, token, index, cfg)
         next_token = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)

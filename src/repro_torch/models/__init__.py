@@ -3,6 +3,6 @@
 ported yet."""
 
 from repro_torch.models.config import BlockSpec, ModelConfig  # noqa: F401
-from repro_torch.models.lm import (LM, init_lm, init_lm_cache,  # noqa: F401
-                                   lm_apply, lm_decode_step,
-                                   params_from_reference)
+from repro_torch.models.lm import (LM, chunked_ce, init_lm,  # noqa: F401
+                                   init_lm_cache, lm_apply, lm_decode_step,
+                                   lm_loss, params_from_reference)

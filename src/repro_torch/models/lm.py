@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.config import BlockSpec, ModelConfig
@@ -145,7 +146,7 @@ def params_from_reference(cfg: ModelConfig, tree, device) -> LM:
 
 
 # ---------------------------------------------------------------------------
-# Prefill forward
+# Train / prefill forward
 # ---------------------------------------------------------------------------
 
 def _mixer_kw(cfg: ModelConfig, spec: BlockSpec) -> dict:
@@ -183,11 +184,22 @@ def _block_train(p: Block, x, cfg: ModelConfig):
     return x + h, aux
 
 
+def _period_train(layers, x, aux, cfg: ModelConfig):
+    """`cfg.period` consecutive layers -> (x, aux plus their MoE aux)."""
+    for layer in layers:
+        x, a = _block_train(layer, x, cfg)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
 def lm_hidden(model: LM, tokens, cfg: ModelConfig, patch_embeds=None):
     """tokens: (B, S) -> hidden states (B, S, d) and the auxiliary loss
     (float32: the MoE layers' summed in layer order, as the reference's
     scan carries it; 0 without MoE). The reference's sharding constraints
-    do nothing on one device and are left out."""
+    do nothing on one device and are left out. With ``cfg.remat`` and
+    autograd recording, each period runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``)."""
     x = embed(model.embed, tokens).to(cfg.adtype)
     if cfg.frontend is not None and patch_embeds is not None:
         # VLM stub: precomputed frontend embeddings replace the first
@@ -195,10 +207,17 @@ def lm_hidden(model: LM, tokens, cfg: ModelConfig, patch_embeds=None):
         nf = patch_embeds.shape[1]
         x = torch.cat([patch_embeds.to(cfg.adtype), x[:, nf:]], dim=1)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in model.layers:
-        x, a = _block_train(layer, x, cfg)
-        if a is not None:
-            aux = aux + a
+    remat = cfg.remat and torch.is_grad_enabled()
+    for p0 in range(0, cfg.n_layers, cfg.period):
+        period = model.layers[p0:p0 + cfg.period]
+        if remat:
+            # the reference's jax.checkpoint of each period: only the
+            # period's input is kept, its inside recomputed in backward
+            x, aux = checkpoint(_period_train, period, x, aux, cfg,
+                                use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            x, aux = _period_train(period, x, aux, cfg)
     return rmsnorm(model.ln_f, x), aux
 
 
@@ -212,6 +231,35 @@ def lm_apply(model: LM, tokens, cfg: ModelConfig, patch_embeds=None):
     """Full forward to logits (B, S, V)."""
     x, aux = lm_hidden(model, tokens, cfg, patch_embeds)
     return lm_logits(model, x, cfg), aux
+
+
+def chunked_ce(x, head_w, labels, cfg: ModelConfig):
+    """Mean next-token cross entropy of hidden states x (B, S, d) against
+    labels (B, S): float32 logits with the final softcap, logsumexp minus
+    the gold logit. Where ``cfg.loss_chunk`` divides S and is smaller, the
+    sequence is cut into chunks of that many positions, one chunk's
+    logits at a time, and the loss is the mean of the chunks' means (the
+    reference's order)."""
+
+    def ce(xc, yc):
+        logits = apply_softcap((xc @ head_w).float(), cfg.final_softcap)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, yc[..., None].long())[..., 0]
+        return (logz - gold).mean()
+
+    chunk, S = cfg.loss_chunk, x.shape[1]
+    if chunk and S % chunk == 0 and S > chunk:
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(0, S, chunk):
+            total = total + ce(x[:, i:i + chunk], labels[:, i:i + chunk])
+        return total / (S // chunk)
+    return ce(x, labels)
+
+
+def lm_loss(model: LM, tokens, labels, cfg: ModelConfig, patch_embeds=None):
+    """Next-token cross entropy plus 0.01 x the MoE auxiliary loss."""
+    x, aux = lm_hidden(model, tokens, cfg, patch_embeds)
+    return chunked_ce(x, model.head["w"], labels, cfg) + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------

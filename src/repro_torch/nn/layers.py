@@ -16,8 +16,10 @@ from torch.nn import functional as F
 class Params(nn.Module):
     """One node of a parameter tree. Its entries - tensors, registered as
     parameters, and sub-trees, registered as submodules - are read as the
-    reference's nested dicts are: ``p["w"]``, ``"b" in p``. Gradients are
-    off: the serving path never differentiates."""
+    reference's nested dicts are: ``p["w"]``, ``"b" in p``. Parameters are
+    made with gradients off, which is what serving wants; a trainer turns
+    them on (`launch.steps.make_train_step` calls
+    ``model.requires_grad_(True)``)."""
 
     def __init__(self, entries: dict | None = None, **kw):
         super().__init__()

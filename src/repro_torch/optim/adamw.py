@@ -1,0 +1,52 @@
+"""AdamW with optional float32 master weights for bf16 parameters."""
+
+from __future__ import annotations
+
+import torch
+
+
+def f32_step(step, device) -> torch.Tensor:
+    """The reference's ``step.astype(float32) + 1``, on `device`."""
+    return torch.as_tensor(step, device=device).to(torch.float32) + 1.0
+
+
+def adamw(lr: float = 1e-4, b1: float = 0.9, b2: float = 0.95,
+          eps: float = 1e-8, weight_decay: float = 0.01,
+          master_weights: bool = True):
+    def init(params):
+        state = {
+            "m": {k: torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device) for k, p in params.items()},
+            "v": {k: torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device) for k, p in params.items()},
+        }
+        if master_weights:
+            state["master"] = {k: p.detach().to(torch.float32, copy=True)
+                               for k, p in params.items()}
+        return state
+
+    @torch.no_grad()
+    def update(params, grads, state, step):
+        """The reference's arithmetic in float32; m, v and the masters
+        are updated in place, the parameters overwritten with the new
+        values. Returns (params, state)."""
+        if not params:
+            return params, state
+        t = f32_step(step, next(iter(params.values())).device)
+        bc1 = 1.0 - b1 ** t
+        bc2 = 1.0 - b2 ** t
+        has_master = "master" in state
+        for k, p in params.items():
+            g = grads[k].to(torch.float32)
+            m, v = state["m"][k], state["v"][k]
+            w = state["master"][k] if has_master else p.to(torch.float32)
+            m.copy_(b1 * m + (1 - b1) * g)
+            v.copy_(b2 * v + (1 - b2) * g * g)
+            u = (m / bc1) / (torch.sqrt(v / bc2) + eps) + weight_decay * w
+            w = w - lr * u
+            if has_master:
+                state["master"][k].copy_(w)
+            p.copy_(w.to(p.dtype))
+        return params, state
+
+    return init, update

@@ -3,9 +3,10 @@ package's: atomic commit, async save, GC, bf16 leaves, and the on-disk
 layout read across packages in both directions.
 
 Mirrors tests/test_checkpoint.py's tree-level tests on torch trees on the
-CPU. Its `test_restart_resumes_bit_identical` drives the LM trainer, which
-the port does not have yet (ROADMAP.md queue 1, item 14 (a)). Values are
-compared exactly; bf16 leaves bit for bit.
+CPU, and its `test_restart_resumes_bit_identical` on the port's LM trainer
+(a crash after step 4, resumed from the step-4 checkpoint: the same
+parameters as the uninterrupted run, bit for bit). Values are compared
+exactly; bf16 leaves bit for bit.
 """
 
 import os
@@ -227,3 +228,61 @@ def test_port_checkpoint_loads_in_the_reference(tmp_path):
             h=jnp.asarray(bf.float().numpy(), jnp.bfloat16)))))
     assert out["h"].dtype == jnp.bfloat16
     np.testing.assert_array_equal(np.asarray(out["t"]), tree["z"] * 3)
+
+
+# ---------------------------------------------------------------------------
+# the trainer: checkpoint / restart
+# ---------------------------------------------------------------------------
+
+def _run_steps(ckpt_dir, n_steps, resume, save_every=2):
+    """Tiny deterministic train loop with checkpoint/restart: qwen2.5's
+    smoke config, AdamW at lr 1e-3, `SyntheticPipeline` batches."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.lm import init_lm
+    from repro_torch.optim import get_optimizer
+    cfg = get_smoke_config("qwen2.5-14b")
+    model = init_lm(cfg, generator=torch.Generator().manual_seed(0),
+                    device="cpu")
+    opt = get_optimizer("adamw", lr=1e-3)
+    params = dict(model.named_parameters())
+    opt_state = opt[0](params)
+    step_fn = make_train_step(cfg, opt)
+    pipe = SyntheticPipeline(cfg.vocab_size, seq_len=8, batch=2,
+                             device="cpu")
+    mgr = CheckpointManager(ckpt_dir, save_every=save_every,
+                            async_save=False)
+    start = 0
+    if resume:
+        got = mgr.resume({"params": _like(params), "opt": _like(opt_state)},
+                         device="cpu")
+        if got[0] is not None:
+            start = got[0] + 1
+            with torch.no_grad():
+                for k, p in params.items():
+                    p.copy_(got[1]["params"][k])
+            opt_state = got[1]["opt"]
+    for step in range(start, n_steps):
+        toks, labels = pipe.get_batch(step)
+        model, opt_state, metrics = step_fn(
+            model, opt_state, step, {"tokens": toks, "labels": labels})
+        assert torch.isfinite(metrics["loss"])
+        mgr.maybe_save(step, {"params": dict(model.named_parameters()),
+                              "opt": opt_state})
+    mgr.wait()
+    return model
+
+
+def test_restart_resumes_bit_identical(tmp_path):
+    """Crash at step 4, restart, finish -> identical to uninterrupted run."""
+    uninterrupted = _run_steps(str(tmp_path / "a"), 6, resume=False)
+    _run_steps(str(tmp_path / "b"), 4, resume=False)      # "crashes" after 4
+    assert latest_step(str(tmp_path / "b")) == 2
+    resumed = _run_steps(str(tmp_path / "b"), 6, resume=True)
+    for (k, a), (_, b) in zip(uninterrupted.named_parameters(),
+                              resumed.named_parameters()):
+        assert torch.equal(a, b), k
+    fresh = _run_steps(str(tmp_path / "c"), 0, resume=False)
+    assert not all(torch.equal(a, b) for a, b in zip(
+        fresh.parameters(), uninterrupted.parameters()))

@@ -406,3 +406,189 @@ def test_lm_serve_phase_rehearsed_with_the_moe_models(decode_gpu_branch,
     assert launches == {"decode_attn": 3 * 8}
     heads = {sh[2:5] for sh in shapes["decode_attn"]}
     assert heads == {(4, 2, 16)}
+
+
+# ---------------------------------------------------------------------------
+# lm_train: falcon-mamba's smoke config (remat on, two loss chunks) fed by
+# the token pipeline, every kernel's GPU branch faked with its plain version
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def train_gpu_branch(monkeypatch):
+    """The GPU branch of the wrappers `lm_train` runs - the selective scan
+    and its backward, the k-way merge, the fused apply, the snapshot copy
+    - with each bare launch writing its plain version's result, so the
+    launch counts run as on the card; the `torch.cuda` calls made no-ops;
+    no profiler; the phase's sizes cut to a few hundred tokens."""
+    from repro_torch.kernels.bitonic_sort import ops as bitonic_ops
+    from repro_torch.kernels.merge_runs import ops as merge_ops
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+    from repro_torch.kernels.snapshot_copy import ops as snap_ops
+
+    def scan(x, dt, a, b, c, d, y):
+        y.copy_(scan_ops.selective_scan_ref(x, dt, a, b, c, d))
+
+    def scan_bwd(x, dt, a, b, c, d, gy, gx, gdt, ga_part, gb_part, gc_part,
+                 gd_part, ckpt):
+        gx_, gdt_, ga, gb, gc, gd = scan_ops.selective_scan_bwd_ref(
+            x, dt, a, b, c, d, gy)
+        gx.copy_(gx_)
+        gdt.copy_(gdt_)
+        for part, total in ((ga_part, ga), (gb_part, gb), (gc_part, gc),
+                            (gd_part, gd)):
+            part.zero_()[0] = total
+
+    def kway(keys, offsets, out_keys, out_idx):
+        # runs concatenated in order, each ascending: a stable sort keeps
+        # ties in run order, as the kernel does
+        order = torch.sort(keys, stable=True).indices
+        out_keys.copy_(keys[order])
+        out_idx.copy_(order.to(out_idx.dtype))
+
+    def apply(old_rows, val_rows, svals, merged, scratch=None):
+        s, m = bitonic_ops.apply_pipeline_batch_ref(old_rows, val_rows)
+        svals.copy_(s)
+        merged.copy_(m)
+
+    def snap(src, prev, flags_u8, out, block=8192):
+        out.copy_(snap_ops.snapshot_copy_ref(src, prev, flags_u8, block))
+
+    for mod, name, fake in ((scan_ops, "launch_selective_scan", scan),
+                            (scan_ops, "launch_selective_scan_bwd", scan_bwd),
+                            (merge_ops, "launch_merge_kway", kway),
+                            (bitonic_ops, "launch_bitonic_apply", apply),
+                            (snap_ops, "launch_snapshot_copy", snap)):
+        monkeypatch.setattr(mod, "on_gpu", lambda *t: True)
+        monkeypatch.setattr(mod, name, fake)
+    for fn in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(chip_smoke, "profile_device",
+                        lambda *a: {"device_time": "not measured (CPU)"})
+    for name, value in (("LM_TRAIN_SEQ", 8), ("LM_TRAIN_STEPS", 3),
+                        ("LM_TRAIN_TOKENS", 4096), ("LM_TRAIN_INGEST", 96),
+                        ("LM_GRAD_CHECK", (2, 1, 8))):
+        monkeypatch.setattr(chip_smoke, name, value)
+    common.reset_kernel_launch_counts()
+    yield
+    common.reset_kernel_launch_counts()
+
+
+def _smoke_train_config(monkeypatch, depth=None):
+    import dataclasses
+
+    from repro_torch import configs
+
+    def get(name):
+        cfg = dataclasses.replace(configs.get_smoke_config(name), remat=True,
+                                  loss_chunk=4)
+        return cfg if depth is None else dataclasses.replace(cfg,
+                                                             n_layers=depth)
+    monkeypatch.setattr(configs, "get_config", get)
+
+
+def test_lm_train_phase_rehearsed(train_gpu_branch, monkeypatch, capsys):
+    """The phase at the smoke config: the gradient cross-check, four
+    kernels' launches counted (the scan twice a layer and micro-batch for
+    remat, its backward once), the pipeline's kernels, finite losses that
+    the steps bring down, the freshness lag before and after each
+    propagation."""
+    _smoke_train_config(monkeypatch, depth=4)
+    monkeypatch.setattr(chip_smoke, "LM_TRAIN_DEPTH", 2)
+    args = argparse.Namespace(seed=0)
+    launches, shapes = chip_smoke.phase_lm_train(args, dev=CPU)
+    (line,) = _lines(capsys, "lm_train")
+    assert line["ok"] and line["layers"] == 2 and line["full_layers"] == 4
+    assert line["reduced"] == "depth: one card's memory"
+    assert line["remat"] and line["optimizer"] == "adamw"
+    assert launches["selective_scan"] == 2 * 2 * 2 * 3
+    assert launches["selective_scan_bwd"] == 2 * 2 * 3
+    for k in ("merge_runs", "bitonic_apply", "snapshot_copy"):
+        assert launches[k] > 0, k
+    assert line["launches"] == launches
+    assert shapes["selective_scan_bwd"] == {(1, 8, 128, 4): 12}
+    losses = line["losses"]
+    assert len(losses) == 3 and all(np.isfinite(losses))
+    pipe = line["pipeline"]
+    assert pipe["freshness_lag_before_propagate"] == [96] * 3
+    assert pipe["freshness_lag_after"] == 0
+    assert pipe["rows_at_end"] == 4096 + 4 * 96
+    assert pipe["batches_equal_ingested_tokens"] == 4
+    check = line["grad_check"]
+    assert check["max_rel_err"] <= chip_smoke.LM_GRAD_TOL
+    assert check["leaves"] == 2 * 10 + 3        # ln2 gets no gradient
+
+
+def test_lm_train_phase_fails_on_a_missing_backward_launch(
+        train_gpu_branch, monkeypatch):
+    """A backward that never reached the kernel (the scan's output without
+    a graph, as before `SelectiveScan`) leaves its launches at 0: the
+    phase must fail on the counts."""
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+    _smoke_train_config(monkeypatch)
+    real = scan_ops.selective_scan
+
+    def no_graph(*args):
+        with torch.no_grad():
+            return real(*args)
+    monkeypatch.setattr(chip_smoke, "LM_TRAIN_DEPTH", 2)
+    import repro_torch.nn.mamba as mamba
+    monkeypatch.setattr(mamba, "selective_scan", no_graph)
+    with pytest.raises(AssertionError, match="gradient|launches"):
+        chip_smoke.phase_lm_train(argparse.Namespace(seed=0), dev=CPU)
+
+
+def test_lm_train_phase_fails_on_a_wrong_token(train_gpu_branch,
+                                              monkeypatch):
+    """A snapshot that loses one ingested token's code (the apply or the
+    copy wrong at the pipeline's size) gives a batch that differs from
+    the tokens ingested: the phase must fail on the batch, though the
+    losses stay finite."""
+    from repro_torch.kernels.snapshot_copy import ops as snap_ops
+    _smoke_train_config(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "LM_TRAIN_DEPTH", 2)
+    real = snap_ops.launch_snapshot_copy
+
+    def wrong(src, prev, flags_u8, out, *rest):
+        real(src, prev, flags_u8, out, *rest)
+        out[0] = (out[0] + 1) % int(out.max() + 1)     # step 0's window
+    monkeypatch.setattr(snap_ops, "launch_snapshot_copy", wrong)
+    with pytest.raises(AssertionError, match="differ from the ingested"):
+        chip_smoke.phase_lm_train(argparse.Namespace(seed=0), dev=CPU)
+
+
+def test_lm_train_grad_check_fails_on_a_wrong_backward(train_gpu_branch,
+                                                       monkeypatch):
+    """A backward kernel that loses a term (here gB) is caught by the
+    cross-check: the "card" model (the first `lm_loss` call) takes the
+    faked GPU branch, the CPU model the plain scan and autograd."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+    from repro_torch.models import lm
+    real_bwd, real_loss = scan_ops.launch_selective_scan_bwd, lm.lm_loss
+    seen = []
+
+    def wrong(*args):
+        real_bwd(*args)
+        args[10].zero_()                        # gb_part
+
+    def loss(model, *args):
+        seen.append(model)
+        return real_loss(model, *args)
+
+    monkeypatch.setattr(scan_ops, "launch_selective_scan_bwd", wrong)
+    monkeypatch.setattr(lm, "lm_loss", loss)
+    monkeypatch.setattr(scan_ops, "on_gpu",
+                        lambda *t: len(seen) == 1)
+    cfg = dataclasses.replace(configs.get_smoke_config("falcon-mamba-7b"),
+                              remat=True)
+    with pytest.raises(AssertionError, match="gradient differs from the CPU's"):
+        chip_smoke.train_grad_check(cfg, argparse.Namespace(seed=0), CPU)
+    assert len(seen) == 2
+    # the same check passes with the right backward
+    seen.clear()
+    monkeypatch.setattr(scan_ops, "launch_selective_scan_bwd", real_bwd)
+    out = chip_smoke.train_grad_check(cfg, argparse.Namespace(seed=0), CPU)
+    assert len(seen) == 2 and out["max_rel_err"] <= chip_smoke.LM_GRAD_TOL

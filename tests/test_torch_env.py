@@ -28,6 +28,7 @@ from repro_torch.core.backend import (HopperBackend, TorchBackend,
                                       get_backend)
 from repro_torch.core.dsm import DSMReplica
 from repro_torch.core.session import HTAPSession, SystemSpec
+from repro_torch.data import HTAPTokenPipeline, SyntheticPipeline
 from repro_torch.kernels import common
 from repro_torch.kernels.dict_ops import scan_filter_agg
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
@@ -73,7 +74,8 @@ def test_every_port_module_is_covered_by_the_import_check():
 @pytest.mark.parametrize("entry", ["session", "backend", "replica", "run",
                                    "resolve_device", "init_lm",
                                    "init_lm_cache", "restore",
-                                   "restore_checkpoint"])
+                                   "restore_checkpoint", "token_pipeline",
+                                   "synthetic_pipeline"])
 def test_no_device_means_the_gpu_and_raises_without_one(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this check is for a machine without a GPU")
@@ -93,6 +95,10 @@ def test_no_device_means_the_gpu_and_raises_without_one(entry, tmp_path):
             init_lm(cfg, generator=torch.Generator())
         elif entry == "init_lm_cache":
             init_lm_cache(cfg, 1, 8)
+        elif entry == "token_pipeline":
+            HTAPTokenPipeline(100, 8, 2, initial_tokens=64)
+        elif entry == "synthetic_pipeline":
+            SyntheticPipeline(100, 8, 2)
         elif entry == "session":
             HTAPSession(SystemSpec.polynesia(), table)
         elif entry == "backend":

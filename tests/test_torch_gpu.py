@@ -2,7 +2,9 @@
 PyTorch version on CUDA tensors - the HTAP kernels with tolerance 0, the
 LM serving kernels (flash-decode attention, selective scan) at the float32
 tolerances of the reference's kernel tests (2e-5, 3e-5; a bf16 output one
-bf16 rounding more, 2**-8 relative), the float32 scan with an exact count
+bf16 rounding more, 2**-8 relative), the selective scan's backward within
+1e-4 of each gradient's largest |value| and bit for bit repeatable, the
+float32 scan with an exact count
 and its sum within ``float_scan_error_bound`` of the exact sum and 1e-5 *
 sum(|v|) of the plain version's.
 
@@ -42,6 +44,8 @@ from repro_torch.kernels.merge_runs import (MAX_RUNS, merge_runs_ref,
                                             merge_sorted_runs)
 from repro_torch.kernels.selective_scan import (launch_selective_scan,
                                                 selective_scan,
+                                                selective_scan_bwd,
+                                                selective_scan_bwd_ref,
                                                 selective_scan_ref)
 
 pytestmark = pytest.mark.gpu
@@ -422,6 +426,55 @@ def test_selective_scan_ragged_channels(cuda, B, T, D, N):
     torch.cuda.synchronize()
     torch.testing.assert_close(y, selective_scan_ref(x, dt, a, b, c, d),
                                rtol=3e-5, atol=3e-5)
+
+
+def _scan_inputs(cuda, B, T, D, N, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((B, T, D), generator=gen, device=cuda)
+    dt = torch.randn((B, T, D), generator=gen, device=cuda).abs() * 0.1
+    a = -torch.randn((D, N), generator=gen, device=cuda).abs()
+    b = torch.randn((B, T, N), generator=gen, device=cuda)
+    c = torch.randn((B, T, N), generator=gen, device=cuda)
+    d = torch.randn((D,), generator=gen, device=cuda)
+    gy = torch.randn((B, T, D), generator=gen, device=cuda)
+    return x, dt, a, b, c, d, gy
+
+
+def _grads_close(got, want, tol=1e-4):
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape, i
+        scale = float(w.abs().max())
+        assert float((g - w).abs().max()) <= tol * scale, i
+
+
+@pytest.mark.parametrize("B,T,D,N", [(1, 1, 1, 4), (2, 257, 100, 8),
+                                     (3, 1000, 130, 16), (2, 300, 8200, 16),
+                                     (2, 129, 4101, 8), (1, 40, 70, 4)])
+def test_selective_scan_backward_kernel_matches_its_plain_version(
+        cuda, B, T, D, N):
+    *args, gy = _scan_inputs(cuda, B, T, D, N, T + D)
+    reset_kernel_launch_counts()
+    got = selective_scan_bwd(*args, gy)
+    torch.cuda.synchronize()
+    assert kernel_launch_counts() == {"selective_scan_bwd": 1}
+    _grads_close(got, selective_scan_bwd_ref(*args, gy))
+    again = selective_scan_bwd(*args, gy)
+    assert all(torch.equal(p, q) for p, q in zip(got, again))
+
+
+def test_selective_scan_autograd_runs_both_kernels(cuda):
+    """An input that needs a gradient: the forward kernel, then the
+    backward kernel from `loss.backward()`, the plain backward's
+    gradients."""
+    *args, gy = _scan_inputs(cuda, 2, 77, 96, 16, 5)
+    leaves = [t.clone().requires_grad_() for t in args]
+    reset_kernel_launch_counts()
+    y = selective_scan(*leaves)
+    (y * gy).sum().backward()
+    torch.cuda.synchronize()
+    assert kernel_launch_counts() == {"selective_scan": 1,
+                                      "selective_scan_bwd": 1}
+    _grads_close([t.grad for t in leaves], selective_scan_bwd_ref(*args, gy))
 
 
 @pytest.mark.parametrize("lens", [(1000,), (0, 1), (256, 256, 255, 257),

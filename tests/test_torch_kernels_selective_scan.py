@@ -4,6 +4,9 @@ at sizes the kernel's wrapper does not take (T or D not a multiple of the
 blocks), and the decode step. float32, 3e-5 (the reference's kernel
 test)."""
 
+import pathlib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +22,7 @@ from repro_torch.kernels.common import (kernel_launch_counts,
                                         reset_kernel_launch_counts)
 from repro_torch.kernels.selective_scan import ops as scan_ops
 from repro_torch.kernels.selective_scan import (STATE_SIZES, selective_scan,
+                                                selective_scan_bwd_ref,
                                                 selective_scan_ref,
                                                 selective_scan_step_ref)
 
@@ -165,3 +169,143 @@ def test_selective_scan_gpu_branch_refuses(gpu_branch, rng):
     with pytest.raises(ValueError):                       # not contiguous
         selective_scan(x.transpose(0, 1), dt.transpose(0, 1), a, b, c, d)
     assert gpu_branch == [] and kernel_launch_counts() == {}
+
+
+# ---------------------------------------------------------------------------
+# The backward (csrc/selective_scan.cu: selective_scan_bwd) and its plain
+# version. Against jax.grad of the reference's oracle and torch autograd of
+# the port's: within 1e-5 of each gradient's largest |value| (sums over
+# T, B and D in other orders).
+# ---------------------------------------------------------------------------
+
+GRAD_TOL = 1e-5
+GRAD_SHAPES = [(1, 256, 128, 8), (2, 512, 256, 16), (1, 1, 1, 4),
+               (2, 37, 100, 4), (3, 300, 130, 16), (1, 17, 128, 8)]
+
+
+def _assert_rel(got, want, tol=GRAD_TOL, what=""):
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = np.asarray(g), np.asarray(w)
+        assert g.shape == w.shape, (what, i)
+        err = float(np.abs(g - w).max())
+        assert err <= tol * max(float(np.abs(w).max()), 1e-30), (
+            f"{what} gradient {i}: max abs err {err}")
+
+
+@pytest.mark.parametrize("B,Tn,D,N", GRAD_SHAPES)
+def test_selective_scan_bwd_ref_vs_jax_grad(rng, B, Tn, D, N):
+    import jax
+    args = _inputs(rng, B, Tn, D, N)
+    gy = rng.normal(size=(B, Tn, D)).astype(np.float32)
+    want = jax.grad(lambda *a: jnp.sum(ref_plain(*a) * gy),
+                    argnums=tuple(range(6)))(*map(jnp.asarray, args))
+    got = selective_scan_bwd_ref(*map(T, args), T(gy))
+    _assert_rel([g.numpy() for g in got], want, what="vs jax.grad")
+    # and torch autograd of the port's plain scan
+    targs = [T(a).requires_grad_() for a in args]
+    auto = torch.autograd.grad(selective_scan_ref(*targs), targs, T(gy))
+    _assert_rel([g.numpy() for g in got], [a.numpy() for a in auto],
+                what="vs autograd")
+
+
+class _PlainScan(torch.autograd.Function):
+    """`selective_scan_ref` with `selective_scan_bwd_ref` as its backward,
+    for gradcheck."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        ctx.save_for_backward(*args)
+        return selective_scan_ref(*args)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return scan_ops.selective_scan_bwd_ref(*ctx.saved_tensors, gy)
+
+
+@pytest.mark.parametrize("B,Tn,D,N", [(1, 5, 3, 4), (2, 7, 2, 8)])
+def test_selective_scan_bwd_ref_gradcheck(rng, B, Tn, D, N):
+    args = [T(a).double().requires_grad_() for a in _inputs(rng, B, Tn, D,
+                                                             N)]
+    assert torch.autograd.gradcheck(_PlainScan.apply, args, eps=1e-6,
+                                    atol=1e-7, rtol=1e-5)
+
+
+def test_backward_constants_match_the_source():
+    src = (pathlib.Path(scan_ops.__file__).resolve().parents[1] / "csrc"
+           / "selective_scan.cu").read_text()
+    consts = {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"constexpr int (\w+) = (\d+);", src)}
+    assert consts["CH"] == scan_ops.BWD_CHANNELS
+    assert consts["TT"] == scan_ops.BWD_TILE
+
+
+@pytest.fixture
+def bwd_gpu_branch(monkeypatch):
+    """Both wrappers' GPU branch on CPU tensors: the forward's launch
+    writes the plain scan, the backward's writes the plain backward's
+    results as one partial row (the wrapper sums the partials)."""
+    seen = []
+
+    def fwd(x, dt, a, b, c, d, y):
+        y.copy_(selective_scan_ref(x, dt, a, b, c, d))
+
+    def bwd(x, dt, a, b, c, d, gy, gx, gdt, ga_part, gb_part, gc_part,
+            gd_part, ckpt):
+        B, Tn, D = x.shape
+        N = a.shape[1]
+        assert ga_part.shape == (B, D, N) and gd_part.shape == (B, D)
+        blocks = -(-D // scan_ops.BWD_CHANNELS)
+        assert gb_part.shape == gc_part.shape == (blocks, B, Tn, N)
+        assert ckpt.shape == (B, -(-Tn // scan_ops.BWD_TILE), D, N)
+        seen.append((B, Tn, D, N))
+        gx_, gdt_, ga, gb, gc, gd = scan_ops.selective_scan_bwd_ref(
+            x, dt, a, b, c, d, gy)
+        gx.copy_(gx_)
+        gdt.copy_(gdt_)
+        for part, total in ((ga_part, ga), (gb_part, gb), (gc_part, gc),
+                            (gd_part, gd)):
+            part.zero_()[0] = total
+
+    monkeypatch.setattr(scan_ops, "on_gpu", lambda *tensors: True)
+    monkeypatch.setattr(scan_ops, "launch_selective_scan", fwd)
+    monkeypatch.setattr(scan_ops, "launch_selective_scan_bwd", bwd)
+    reset_kernel_launch_counts()
+    yield seen
+    reset_kernel_launch_counts()
+
+
+@pytest.mark.parametrize("B,Tn,D,N", [(1, 1, 1, 4), (2, 37, 100, 8),
+                                      (3, 70, 130, 16)])
+def test_selective_scan_autograd_gpu_branch(bwd_gpu_branch, rng, B, Tn, D,
+                                            N):
+    """`SelectiveScan` rehearsed: the same gradients as plain autograd, one
+    launch of each kernel, and None where an input needs none."""
+    args = _inputs(rng, B, Tn, D, N)
+    gy = rng.normal(size=(B, Tn, D)).astype(np.float32)
+    plain = [T(a).requires_grad_() for a in args]
+    want = torch.autograd.grad(selective_scan_ref(*plain), plain, T(gy))
+    targs = [T(a).requires_grad_(i != 5) for i, a in enumerate(args)]
+    y = selective_scan(*targs)
+    assert y.grad_fn is not None
+    y.backward(T(gy))
+    assert bwd_gpu_branch == [(B, Tn, D, N)]
+    assert kernel_launch_counts() == {"selective_scan": 1,
+                                      "selective_scan_bwd": 1}
+    assert targs[5].grad is None
+    _assert_rel([t.grad.numpy() for t in targs[:5]],
+                [w.numpy() for w in want[:5]], what="rehearsed")
+    # no gradient asked for: the plain launch, no graph
+    reset_kernel_launch_counts()
+    with torch.no_grad():
+        assert selective_scan(*targs).grad_fn is None
+    assert kernel_launch_counts() == {"selective_scan": 1}
+
+
+def test_selective_scan_backward_refuses_cpu_tensors(rng):
+    """The Function's backward never falls back to the plain version."""
+    import types
+    inputs = tuple(map(T, _inputs(rng, 1, 3, 4, 4)))
+    ctx = types.SimpleNamespace(saved_tensors=inputs,
+                                needs_input_grad=(True,) * 6)
+    with pytest.raises(RuntimeError, match="CUDA tensors only"):
+        scan_ops.SelectiveScan.backward(ctx, torch.ones(1, 3, 4))
