@@ -54,6 +54,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int CH = 32;        // channels per block
@@ -262,39 +264,136 @@ cudaError_t launch(const float* x, const float* dt, const float* a,
 //     gB_t  = sum_d G_t * dt_t * x_t          gC_t = sum_d gy_t * h_t
 //     gD    = sum_{b,t} gy_t * x_t
 //
-// What bounds it on an H100: as the forward, the instruction issue and the
-// exponentials, not the bytes (x, dt, gy read and gx, gdt written: 20 B per
-// (t, channel)). The least work is twice the forward's exponentials (da_t
-// once for h, once for G); this design pays three (see below).
+// What bounds it on an H100: not the bytes (x, dt, gy read and gx, gdt
+// written: 20 B per (t, channel); 0.20 ms at the training shape (1, 4096,
+// 8192, 16)), nor the two exponentials owed on the SFUs (0.26 ms), but the
+// instruction issue and the latencies behind it. The recurrence runs twice
+// forward (the checkpoints, then a tile's states again) and once backward:
+// about 68 SASS instructions per (t, channel, state) at LB = 8 (a sweep-1
+// tile 17, a sweep-2 tile's recompute and walk 45, its tile-end sums 6;
+// the accurate `expf` is 8 of them), 1.1 ms of issue at four a clock an
+// SM. Every cross-lane sum is a shuffle or a shared-memory access (one warp
+// a clock an SM), and the time loop is a chain of dependent steps whose
+// latencies (`expf`, shuffles, shared memory) only warps in flight hide:
+// at B = 1 there are only ceil(D / 32) blocks. It runs at about 70 % of its
+// issue rate (PERF.md, K17 bwd).
 //
-// Design (simple first; a faster one is queued in ROADMAP.md):
-// - The forward's layout: a block holds CH = 32 channels of one sequence,
-//   each channel's N states split across L = 2 lanes (S = N / 2 a lane),
-//   tiles of TT = 16 steps staged in shared memory with `cp.async`
-//   (4-byte copies, double-buffered, zero past T and D: a zero step leaves
-//   h as it is and adds nothing to any gradient).
-// - Sweep 1 re-runs the recurrence, rounded as the forward rounds it, and
-//   stores the state entering every tile in `ckpt` (B, ceil(T/TT), D, N).
-// - Sweep 2 walks the tiles backwards: it recomputes the tile's TT states
-//   from its checkpoint into shared memory (each thread's own slots), then
-//   walks the tile backwards carrying da_{t+1} * G_{t+1} in registers.
-//   gx_t and gdt_t: each lane's sum over its states, the two lanes' added
-//   by `__shfl_xor_sync`. gA and gD: each thread's sum over t, written per
-//   sequence (`ga_part` (B, D, N), `gd_part` (B, D)). gB_t and gC_t: the
-//   sums over a warp's 16 channels by an xor butterfly, the block's two
-//   warps added in shared memory, one row per block (`gb_part`,
-//   `gc_part` (n_blocks, B, T, N)).
-// - No float atomics: every sum has a fixed order, and the wrapper adds
-//   the partials with `torch.sum` over their leading axis, so two
-//   identical calls give identical bits.
+// Design:
+// - Lanes. Each channel's N states are spread over LB lanes of a warp
+//   (`bwd_lanes`, by N; a template parameter, LB <= N): lane l carries
+//   states l*S .. l*S + S - 1 (S = N / LB) and runs each state's
+//   recurrence alone, in the forward's order (`expf`, `__fmul_rn`,
+//   `__fadd_rn`), so h is the forward kernel's h bit for bit. A block holds
+//   CH = 32 channels of one sequence (32 * LB threads): at N = 16 and
+//   LB = 8 two blocks of 8 warps an SM at B = 1, against about 4 warps an
+//   SM with the forward's two lanes. More lanes buy warps and cost
+//   instructions: the per-(t, channel) work (x_t, dt_t, gy_t, the gx / gdt
+//   sums, the store) is paid once for S states. LB = 16 (one state a lane,
+//   32 warps an SM) measured slowest; LB = 4 (8 warps an SM: its 86 KB of
+//   shared memory leave two blocks) a little faster than LB = 8, which is
+//   kept for its 16 warps. Every LB up to N is built (`lanes` of the C
+//   entry).
+// - Sweep 1 runs the recurrence over T and stores the state entering every
+//   TT = 16-step tile in `ckpt` (B, ceil(T/TT), D, N). Sweep 2 walks the
+//   tiles backwards: it recomputes the tile's states from its checkpoint
+//   and keeps both h_t and da_t in shared memory, and the reverse walk reads
+//   da_t there: two exponentials per (t, channel, state), the two owed.
+//   Tiles of x, dt, gy, B_t and C_t are staged with `cp.async` (4-byte
+//   copies from offsets fixed a thread, double-buffered, zero past T and
+//   D: a zero step leaves h as it is and adds nothing to any gradient); the
+//   next tile's checkpoint is loaded into registers a tile ahead.
+// - gx_t, gdt_t (sums over the channel's N states): each lane sums its S
+//   states, then the channel's LB lanes add their two partials by a
+//   reduce-scatter (`scatter_sum`: the lower half of the lanes keeps the gx
+//   partial, the upper the gdt partial, then an xor butterfly): log2(LB)
+//   shuffles for both. Lanes 0 and LB/2 store them through a pointer that
+//   steps back a row a step (an address rebuilt each step cost a fifth of
+//   the walk's instructions).
+// - gB_t, gC_t (sums over channels): the lane's 2S values (G dt x and gy h
+//   of its states) are reduce-scattered over the warp's 32/LB channels
+//   (lane bits 16 .. LB), which leaves each lane one (which, state) sum of
+//   the warp (2N = 32 values, one a lane, at N = 16); the block's warps
+//   are added in shared memory in warp order after the tile, one row per
+//   block (`gb_part`, `gc_part` (n_blocks, B, T, N)).
+// - gA and gD: each thread's sum over t (lane 0 alone for gD), written once
+//   per (sequence, channel, state) (`ga_part` (B, D, N), `gd_part` (B, D)).
+// - No float atomics: every sum has a fixed order (each level of a shuffle
+//   tree adds a + b of two partners, so partners agree bit for bit), and
+//   the wrapper adds the partials with `torch.sum` over their leading axis,
+//   so two identical calls give identical bits.
+// - Shared memory (`BwdSmem`): 94 KB at N = 16, LB = 8 (110 KB at LB = 16,
+//   the most that leaves two blocks an SM; the carve-out is set to its
+//   maximum), and registers capped so that 16 warps an SM fit where the
+//   shared memory allows (`MIN_BLOCKS`): no instance spills.
 
-constexpr int BWD_THREADS = CH * L;
-constexpr int BWD_WARPS = BWD_THREADS / 32;
+constexpr int LB4 = 4;       // the backward's lanes a channel at N = 4,
+constexpr int LB8 = 8;       // ... at N = 8
+constexpr int LB16 = 8;      // ... and at N = 16 (PERF.md, K17 bwd)
+
+__host__ __device__ constexpr int bwd_lanes(int N) {
+    return N == 4 ? LB4 : N == 8 ? LB8 : LB16;
+}
+
+// S consecutive floats into shared or global memory (16-, 8- or 4-byte
+// stores)
+template <int S>
+__device__ __forceinline__ void store_states(float* p, const float (&v)[S]) {
+    if constexpr (S % 4 == 0) {
+#pragma unroll
+        for (int q = 0; q < S; q += 4)
+            *reinterpret_cast<float4*>(p + q) =
+                make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]);
+    } else if constexpr (S == 2) {
+        *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+    } else {
+#pragma unroll
+        for (int q = 0; q < S; ++q) p[q] = v[q];
+    }
+}
+
+// Adds the first M values of V across the lanes that differ in lane bit O,
+// then O / 2, ..., LO. While a lane holds more than one value it keeps half
+// of them at each level (the upper half where its bit O is set) and sends
+// the other half to its partner: a reduce-scatter; once it holds one, an
+// xor butterfly. Each sum is (own + partner's), so partners agree bit for
+// bit, and the order is a fold in half over the lane bits, highest first.
+template <int K, int M, int O, int LO>
+__device__ __forceinline__ void scatter_sum(float (&V)[K], int lane) {
+    if constexpr (O >= LO) {
+        if constexpr (M > 1) {
+            const bool up = lane & O;
+#pragma unroll
+            for (int v = 0; v < M / 2; ++v) {
+                const float lo = V[v], hi = V[v + M / 2];
+                V[v] = __fadd_rn(up ? hi : lo,
+                                 __shfl_xor_sync(0xffffffffu, up ? lo : hi,
+                                                 O));
+            }
+            scatter_sum<K, M / 2, O / 2, LO>(V, lane);
+        } else {
+            V[0] = __fadd_rn(V[0], __shfl_xor_sync(0xffffffffu, V[0], O));
+            scatter_sum<K, 1, O / 2, LO>(V, lane);
+        }
+    }
+}
+
+// The index (of the M values) whose sum scatter_sum<K, M, O, LO> leaves in
+// V[0] on `lane`
+template <int M, int O, int LO>
+__device__ __forceinline__ int scatter_index(int lane) {
+    if constexpr (O >= LO && M > 1)
+        return ((lane & O) ? M / 2 : 0)
+            + scatter_index<M / 2, O / 2, LO>(lane);
+    else
+        return 0;
+}
 
 // dynamic shared memory of the backward kernel, in floats
-template <int N>
+template <int N, int LB>
 struct BwdSmem {
-    static constexpr int S = N / L;
+    static constexpr int S = N / LB;
+    static constexpr int THREADS = CH * LB;
+    static constexpr int WARPS = THREADS / 32;
     static constexpr int IN_ROW = TT * CH;      // x, dt, gy: a tile
     static constexpr int IN_BC = TT * N;        // B_t, C_t: a tile
     static constexpr int X = 0;
@@ -302,15 +401,22 @@ struct BwdSmem {
     static constexpr int GY = DT + 2 * IN_ROW;
     static constexpr int BB = GY + 2 * IN_ROW;
     static constexpr int CC = BB + 2 * IN_BC;
-    static constexpr int H = CC + 2 * IN_BC;    // [TT][S][BWD_THREADS]
-    static constexpr int WB = H + TT * S * BWD_THREADS;   // [warps][TT][N]
-    static constexpr int WC = WB + BWD_WARPS * TT * N;
-    static constexpr int FLOATS = WC + BWD_WARPS * TT * N;
+    static constexpr int DA = CC + 2 * IN_BC;            // [TT][THREADS][S]
+    static constexpr int H = DA + TT * THREADS * S;      // [TT-1][THREADS][S]
+    static constexpr int WP = H + (TT - 1) * THREADS * S;  // [TT][WARPS][2N]
+    static constexpr int FLOATS = WP + TT * WARPS * 2 * N;
     static constexpr int BYTES = FLOATS * 4;
+    // blocks an SM that ptxas must leave registers for: 16 warps an SM or
+    // more, as many blocks as an SM's 228 KB of shared memory holds (1 KB
+    // of it reserved a block)
+    static constexpr int SM_BLOCKS = 233472 / (BYTES + 1024);
+    static constexpr int WARP_BLOCKS = 512 / THREADS > 2 ? 512 / THREADS : 2;
+    static constexpr int MIN_BLOCKS =
+        WARP_BLOCKS < SM_BLOCKS ? WARP_BLOCKS : SM_BLOCKS;
 };
 
-template <int N>
-__global__ void __launch_bounds__(CH * L)
+template <int N, int LB>
+__global__ void __launch_bounds__(CH * LB, BwdSmem<N, LB>::MIN_BLOCKS)
 selective_scan_bwd_kernel(const float* __restrict__ x,
                           const float* __restrict__ dt,
                           const float* __restrict__ a,
@@ -324,248 +430,284 @@ selective_scan_bwd_kernel(const float* __restrict__ x,
                           float* __restrict__ gc_part,
                           float* __restrict__ gd_part,
                           float* __restrict__ ckpt, int B, int T, int D) {
-    using M = BwdSmem<N>;
-    constexpr int S = M::S;
+    using M = BwdSmem<N, LB>;
+    constexpr int S = M::S, THREADS = M::THREADS, WARPS = M::WARPS;
+    constexpr int HALF = LB / 2;
     extern __shared__ __align__(16) float smem[];
     float* sx = smem + M::X;
     float* sdt = smem + M::DT;
     float* sgy = smem + M::GY;
     float* sb = smem + M::BB;
     float* sc = smem + M::CC;
+    float* sda = smem + M::DA;
     float* sh = smem + M::H;
-    float* swb = smem + M::WB;
-    float* swc = smem + M::WC;
+    float* swp = smem + M::WP;
 
     const int tid = threadIdx.x;
-    const int c = tid / L, l = tid % L;
-    const int warp = tid / 32;
+    const int c = tid / LB, l = tid % LB;
+    const int lane = tid & 31, warp = tid / 32;
     const int ch0 = blockIdx.x * CH;
     const int ch = ch0 + c;
     const bool live = ch < D;
     const int bidx = blockIdx.y;
     const long long row0 = (long long)bidx * T;
     const int tiles = (T + TT - 1) / TT;
+    // this lane's (gB or gC, state) after the sums over the warp's channels
+    const int wp_at = [&] {
+        const int v = scatter_index<2 * S, 16, LB>(lane);
+        return (v < S ? 0 : N) + l * S + v % S;
+    }();
 
     float A[S];
 #pragma unroll
     for (int i = 0; i < S; ++i)
         A[i] = live ? a[(long long)ch * N + l * S + i] : 0.f;
     const float dsk = live ? dskip[ch] : 0.f;
+    const long long ck = (long long)(live ? ch : 0) * N + l * S;
+    const long long ck_tile = (long long)D * N;
 
     // tile k into buffer `buf`: x, dt and B_t always, gy and C_t for the
-    // reverse sweep; zero past T and D
+    // reverse sweep; zero past T and D. This thread copies rows jr + m * LB
+    // (m < TT / LB) of column q of x, dt and gy, and floats tid + m *
+    // THREADS of B_t and C_t; its offsets are fixed, only the tile moves.
+    const int q = tid % CH, jr = tid / CH;
+    const bool q_live = ch0 + q < D;
+    const long long in0 = (row0 + jr) * D + ch0 + q;
     auto stage = [&](int k, int buf, bool rev) {
         const int t0 = k * TT;
-        for (int i = tid; i < TT * CH; i += BWD_THREADS) {
-            const int j = i / CH, q = i % CH;
-            const bool ok = t0 + j < T && ch0 + q < D;
-            const long long at = ok ? (row0 + t0 + j) * D + ch0 + q : 0;
-            const int o = buf * M::IN_ROW + i;
+        const long long at0 = in0 + (long long)t0 * D;
+#pragma unroll
+        for (int m = 0; m < TT / LB; ++m) {
+            const bool ok = q_live && t0 + jr + m * LB < T;
+            const long long at = ok ? at0 + (long long)m * LB * D : 0;
+            const int o = buf * M::IN_ROW + tid + m * THREADS;
             cp_async<4>(sx + o, x + at, ok);
             cp_async<4>(sdt + o, dt + at, ok);
             if (rev) cp_async<4>(sgy + o, gy + at, ok);
         }
         const int nb = min(TT, T - t0) * N;
-        for (int i = tid; i < TT * N; i += BWD_THREADS) {
-            const bool ok = i < nb;
-            const long long at = ok ? (row0 + t0) * N + i : 0;
-            const int o = buf * M::IN_BC + i;
-            cp_async<4>(sb + o, bm + at, ok);
-            if (rev) cp_async<4>(sc + o, cm + at, ok);
+        const long long bc0 = (row0 + t0) * N;
+#pragma unroll
+        for (int m = 0; m < (TT * N + THREADS - 1) / THREADS; ++m) {
+            const int i = tid + m * THREADS;
+            if (TT * N % THREADS == 0 || i < TT * N) {
+                const bool ok = i < nb;
+                const long long at = ok ? bc0 + i : 0;
+                const int o = buf * M::IN_BC + i;
+                cp_async<4>(sb + o, bm + at, ok);
+                if (rev) cp_async<4>(sc + o, cm + at, ok);
+            }
         }
         cp_async_commit();
     };
 
-    // one forward step of this lane's states, rounded as the forward kernel
+    // one forward step of this lane's states, rounded as the forward
+    // kernel; da_t into `da`
     auto fwd_step = [&](const float* xs, const float* dts, const float* bs,
-                        int j, float (&h)[S]) {
+                        int j, float (&h)[S], float (&da)[S]) {
         const float xt = xs[j * CH + c], dtt = dts[j * CH + c];
         const float dx = __fmul_rn(dtt, xt);
         float bv[S];
         load_states<S>(bs + j * N + l * S, bv);
 #pragma unroll
         for (int i = 0; i < S; ++i) {
-            const float da = expf(__fmul_rn(dtt, A[i]));
-            h[i] = __fadd_rn(__fmul_rn(da, h[i]), __fmul_rn(dx, bv[i]));
+            da[i] = expf(__fmul_rn(dtt, A[i]));
+            h[i] = __fadd_rn(__fmul_rn(da[i], h[i]), __fmul_rn(dx, bv[i]));
         }
     };
 
     // ---- sweep 1: the state entering every tile -> ckpt ----------------
     {
-        float h[S];
+        float h[S], da[S];
 #pragma unroll
         for (int i = 0; i < S; ++i) h[i] = 0.f;
         stage(0, 0, false);
         for (int k = 0; k < tiles; ++k) {
             const int buf = k & 1;
-            if (k + 1 < tiles) {
-                stage(k + 1, buf ^ 1, false);
-                cp_async_wait<1>();
-            } else {
-                cp_async_wait<0>();
-            }
-            __syncthreads();
-            if (live) {
-                float* dst = ckpt + (((long long)bidx * tiles + k) * D + ch)
-                                        * N + l * S;
-#pragma unroll
-                for (int i = 0; i < S; ++i) dst[i] = h[i];
-            }
+            cp_async_wait<0>();
+            __syncthreads();          // tile k is in, tile k - 1 was read
+            if (k + 1 < tiles) stage(k + 1, buf ^ 1, false);
+            if (live)
+                store_states<S>(ckpt + ((long long)bidx * tiles + k)
+                                * ck_tile + ck, h);
             const float* xs = sx + buf * M::IN_ROW;
             const float* dts = sdt + buf * M::IN_ROW;
             const float* bs = sb + buf * M::IN_BC;
 #pragma unroll
-            for (int j = 0; j < TT; ++j) fwd_step(xs, dts, bs, j, h);
-            __syncthreads();                  // buffer `buf` is free
+            for (int j = 0; j < TT; ++j) fwd_step(xs, dts, bs, j, h, da);
         }
     }
+    __syncthreads();                  // sweep 1 read its last buffer
 
     // ---- sweep 2: tiles in reverse ---------------------------------------
-    float P[S], gacc[S];
+    float P[S], gacc[S], hnext[S];
 #pragma unroll
     for (int i = 0; i < S; ++i) { P[i] = 0.f; gacc[i] = 0.f; }
     float gdacc = 0.f;
     const long long blk_row = ((long long)blockIdx.x * B + bidx) * T;
+    // lane 0 of a channel writes gx_t, lane LB/2 gdt_t
+    const bool writes = live && (l & (HALF - 1)) == 0;
+    float* const gout = (l == 0 ? gx : gdt) + row0 * D + (writes ? ch : 0);
+    const float* ck_seq = ckpt + (long long)bidx * tiles * ck_tile + ck;
+    load_states<S>(ck_seq + (long long)(tiles - 1) * ck_tile, hnext);
 
     stage(tiles - 1, 0, true);
     for (int r = 0; r < tiles; ++r) {
         const int k = tiles - 1 - r;
         const int buf = r & 1;
-        if (k > 0) {
-            stage(k - 1, buf ^ 1, true);
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
-        __syncthreads();                      // tile k has landed
+        float hin[S];
+#pragma unroll
+        for (int i = 0; i < S; ++i) hin[i] = live ? hnext[i] : 0.f;
+        if (k > 0) load_states<S>(ck_seq + (long long)(k - 1) * ck_tile,
+                                  hnext);
+        cp_async_wait<0>();
+        __syncthreads();    // tile k is in; tile k + 1's walk and sums done
+        if (k > 0) stage(k - 1, buf ^ 1, true);
         const int t0 = k * TT;
+        const int steps = writes ? T - t0 : 0;      // steps this lane writes
+        float* gp = gout + (long long)(t0 + TT - 1) * D;    // at step TT - 1
         const float* xs = sx + buf * M::IN_ROW;
         const float* dts = sdt + buf * M::IN_ROW;
         const float* gys = sgy + buf * M::IN_ROW;
         const float* bs = sb + buf * M::IN_BC;
         const float* cs = sc + buf * M::IN_BC;
 
-        // the tile's states from its checkpoint: h_j for j < TT - 1 into
-        // this thread's shared slots, the last in registers
-        float hin[S], hlast[S];
-        {
-            const float* src = ckpt + (((long long)bidx * tiles + k) * D
-                                       + (live ? ch : 0)) * N + l * S;
+        // the tile's states and decays from its checkpoint: da_j for every
+        // j and h_j for j < TT - 1 into this thread's shared slots, the last
+        // h in registers
+        float hc[S];
 #pragma unroll
-            for (int i = 0; i < S; ++i) {
-                hin[i] = live ? src[i] : 0.f;
-                hlast[i] = hin[i];
-            }
-        }
+        for (int i = 0; i < S; ++i) hc[i] = hin[i];
 #pragma unroll
         for (int j = 0; j < TT; ++j) {
-            fwd_step(xs, dts, bs, j, hlast);
-            if (j < TT - 1) {
-#pragma unroll
-                for (int i = 0; i < S; ++i)
-                    sh[(j * S + i) * BWD_THREADS + tid] = hlast[i];
-            }
+            float da[S];
+            fwd_step(xs, dts, bs, j, hc, da);
+            store_states<S>(sda + (j * THREADS + tid) * S, da);
+            if (j < TT - 1) store_states<S>(sh + (j * THREADS + tid) * S, hc);
         }
 
-        // walk the tile backwards
+        // walk the tile backwards; hc is h_j, hp h_{j-1}
 #pragma unroll
         for (int j = TT - 1; j >= 0; --j) {
             const float xt = xs[j * CH + c], dtt = dts[j * CH + c];
             const float gyt = gys[j * CH + c];
             const float dx = __fmul_rn(dtt, xt);
-            float bv[S], cv[S], vb[S], vc[S];
+            float bv[S], cv[S], da[S], hp[S], V[2 * S];
             load_states<S>(bs + j * N + l * S, bv);
             load_states<S>(cs + j * N + l * S, cv);
-            float sgb = 0.f, sgdt = 0.f;
+            load_states<S>(sda + (j * THREADS + tid) * S, da);
+            if (j > 0) {
+                load_states<S>(sh + ((j - 1) * THREADS + tid) * S, hp);
+            } else {
+#pragma unroll
+                for (int i = 0; i < S; ++i) hp[i] = hin[i];
+            }
+            float gbs = 0.f, gds = 0.f;
 #pragma unroll
             for (int i = 0; i < S; ++i) {
-                const float hc = j == TT - 1
-                    ? hlast[i] : sh[(j * S + i) * BWD_THREADS + tid];
-                const float hp = j == 0
-                    ? hin[i] : sh[((j - 1) * S + i) * BWD_THREADS + tid];
-                const float da = expf(__fmul_rn(dtt, A[i]));
-                const float G = __fadd_rn(__fmul_rn(gyt, cv[i]), P[i]);
-                sgb = __fadd_rn(sgb, __fmul_rn(G, bv[i]));
-                const float in = __fadd_rn(
-                    __fmul_rn(__fmul_rn(A[i], da), hp), __fmul_rn(xt, bv[i]));
-                sgdt = __fadd_rn(sgdt, __fmul_rn(G, in));
-                gacc[i] = __fadd_rn(
-                    gacc[i], __fmul_rn(__fmul_rn(__fmul_rn(G, dtt), da), hp));
-                vb[i] = __fmul_rn(G, dx);
-                vc[i] = __fmul_rn(gyt, hc);
-                P[i] = __fmul_rn(da, G);
+                const float G = __fmaf_rn(gyt, cv[i], P[i]);
+                gbs = __fmaf_rn(G, bv[i], gbs);
+                const float qh = __fmul_rn(__fmul_rn(G, da[i]), hp[i]);
+                gacc[i] = __fmaf_rn(dtt, qh, gacc[i]);
+                gds = __fmaf_rn(A[i], qh, gds);
+                V[i] = __fmul_rn(G, dx);
+                V[S + i] = __fmul_rn(gyt, hc[i]);
+                P[i] = __fmul_rn(da[i], G);
+                hc[i] = hp[i];
             }
-            gdacc = __fadd_rn(gdacc, __fmul_rn(gyt, xt));
-#pragma unroll
-            for (int o = 1; o < L; o <<= 1) {
-                sgb = __fadd_rn(sgb, __shfl_xor_sync(0xffffffffu, sgb, o));
-                sgdt = __fadd_rn(sgdt, __shfl_xor_sync(0xffffffffu, sgdt, o));
-            }
-            const int t = t0 + j;
-            if (l == 0 && live && t < T) {
-                const long long at = (row0 + t) * D + ch;
-                gx[at] = __fadd_rn(__fmul_rn(dsk, gyt), __fmul_rn(dtt, sgb));
-                gdt[at] = sgdt;
-            }
-            // sums over the warp's 16 channels (lane bits 1..4)
-#pragma unroll
-            for (int i = 0; i < S; ++i) {
-#pragma unroll
-                for (int o = L; o < 32; o <<= 1) {
-                    vb[i] = __fadd_rn(vb[i],
-                                      __shfl_xor_sync(0xffffffffu, vb[i], o));
-                    vc[i] = __fadd_rn(vc[i],
-                                      __shfl_xor_sync(0xffffffffu, vc[i], o));
-                }
-            }
-            if ((tid & 31) < L) {
-#pragma unroll
-                for (int i = 0; i < S; ++i) {
-                    swb[(warp * TT + j) * N + l * S + i] = vb[i];
-                    swc[(warp * TT + j) * N + l * S + i] = vc[i];
-                }
-            }
+            if (l == 0) gdacc = __fmaf_rn(gyt, xt, gdacc);
+
+            // gx_t, gdt_t: the channel's LB lanes' partials added
+            float W[2] = {gbs, __fmaf_rn(xt, gbs, gds)};
+            scatter_sum<2, 2, HALF, 1>(W, lane);
+            const float gxt = __fmaf_rn(dtt, W[0], __fmul_rn(dsk, gyt));
+            if (j < steps) *gp = l == 0 ? gxt : W[0];
+            gp -= D;
+            // gB_t, gC_t: summed over the warp's channels, one a lane
+            scatter_sum<2 * S, 2 * S, 16, LB>(V, lane);
+            swp[(j * WARPS + warp) * 2 * N + wp_at] = V[0];
         }
         __syncthreads();                      // the warps' sums are in
-        for (int i = tid; i < TT * N; i += BWD_THREADS) {
-            const int j = i / N, n = i % N;
+        for (int i = tid; i < TT * 2 * N; i += THREADS) {
+            const int j = i / (2 * N), v = i % (2 * N);
             if (t0 + j < T) {
-                float vbs = swb[j * N + n], vcs = swc[j * N + n];
+                const float* w = swp + j * WARPS * 2 * N + v;
+                float sum = w[0];
 #pragma unroll
-                for (int w = 1; w < BWD_WARPS; ++w) {
-                    vbs = __fadd_rn(vbs, swb[(w * TT + j) * N + n]);
-                    vcs = __fadd_rn(vcs, swc[(w * TT + j) * N + n]);
-                }
-                gb_part[(blk_row + t0 + j) * N + n] = vbs;
-                gc_part[(blk_row + t0 + j) * N + n] = vcs;
+                for (int q = 1; q < WARPS; ++q)
+                    sum = __fadd_rn(sum, w[q * 2 * N]);
+                (v < N ? gb_part : gc_part)[(blk_row + t0 + j) * N
+                                            + v % N] = sum;
             }
         }
-        __syncthreads();           // buffer `buf` and the warp sums are free
     }
     if (live) {
-        float* dst = ga_part + ((long long)bidx * D + ch) * N + l * S;
-#pragma unroll
-        for (int i = 0; i < S; ++i) dst[i] = gacc[i];
+        store_states<S>(ga_part + ((long long)bidx * D + ch) * N + l * S,
+                        gacc);
         if (l == 0) gd_part[(long long)bidx * D + ch] = gdacc;
     }
 }
 
-template <int N>
-cudaError_t launch_bwd(const float* x, const float* dt, const float* a,
-                       const float* bm, const float* cm, const float* dskip,
-                       const float* gy, float* gx, float* gdt, float* ga_part,
-                       float* gb_part, float* gc_part, float* gd_part,
-                       float* ckpt, int B, int T, int D, cudaStream_t s) {
-    constexpr int bytes = BwdSmem<N>::BYTES;
+struct BwdArgs {
+    const float *x, *dt, *a, *b, *c, *d, *gy;
+    float *gx, *gdt, *ga_part, *gb_part, *gc_part, *gd_part, *ckpt;
+    int B, T, D;
+};
+
+// the shared-memory attributes of instance (N, LB): above 48 KB, and the
+// carve-out at its maximum so that two blocks fit an SM
+template <int N, int LB>
+cudaError_t prepare_bwd() {
     cudaError_t err = cudaFuncSetAttribute(
-        selective_scan_bwd_kernel<N>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        selective_scan_bwd_kernel<N, LB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, BwdSmem<N, LB>::BYTES);
     if (err != cudaSuccess) return err;
-    const dim3 grid((D + CH - 1) / CH, B);
-    selective_scan_bwd_kernel<N><<<grid, BWD_THREADS, bytes, s>>>(
-        x, dt, a, bm, cm, dskip, gy, gx, gdt, ga_part, gb_part, gc_part,
-        gd_part, ckpt, B, T, D);
+    return cudaFuncSetAttribute(
+        selective_scan_bwd_kernel<N, LB>,
+        cudaFuncAttributePreferredSharedMemoryCarveout,
+        (int)cudaSharedmemCarveoutMaxShared);
+}
+
+template <int N, int LB>
+cudaError_t launch_bwd(const BwdArgs& p, cudaStream_t s) {
+    cudaError_t err = prepare_bwd<N, LB>();
+    if (err != cudaSuccess) return err;
+    const dim3 grid((p.D + CH - 1) / CH, p.B);
+    selective_scan_bwd_kernel<N, LB><<<grid, CH * LB, BwdSmem<N, LB>::BYTES,
+                                       s>>>(
+        p.x, p.dt, p.a, p.b, p.c, p.d, p.gy, p.gx, p.gdt, p.ga_part,
+        p.gb_part, p.gc_part, p.gd_part, p.ckpt, p.B, p.T, p.D);
     return cudaGetLastError();
+}
+
+template <int N, int LB>
+cudaError_t occupancy_bwd(int* blocks) {
+    cudaError_t err = prepare_bwd<N, LB>();
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, selective_scan_bwd_kernel<N, LB>, CH * LB,
+        BwdSmem<N, LB>::BYTES);
+}
+
+// f(N, LB) for the backward's instance of d_state N and `lanes` lanes a
+// channel (0: bwd_lanes(N)); every LB in {4, 8, 16} up to N is built
+template <class F>
+cudaError_t with_bwd_instance(int N, int lanes, F&& f) {
+    using std::integral_constant;
+    if (lanes == 0) lanes = bwd_lanes(N);
+    if (N == 4 && lanes == 4)
+        return f(integral_constant<int, 4>{}, integral_constant<int, 4>{});
+    if (N == 8 && lanes == 4)
+        return f(integral_constant<int, 8>{}, integral_constant<int, 4>{});
+    if (N == 8 && lanes == 8)
+        return f(integral_constant<int, 8>{}, integral_constant<int, 8>{});
+    if (N == 16 && lanes == 4)
+        return f(integral_constant<int, 16>{}, integral_constant<int, 4>{});
+    if (N == 16 && lanes == 8)
+        return f(integral_constant<int, 16>{}, integral_constant<int, 8>{});
+    if (N == 16 && lanes == 16)
+        return f(integral_constant<int, 16>{}, integral_constant<int, 16>{});
+    return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -590,7 +732,8 @@ extern "C" int selective_scan(const float* x, const float* dt, const float* a,
 // The backward, all float32, contiguous: x, dt, gy, gx, gdt (B, T, D);
 // a (D, N); b, c (B, T, N); d (D,); partial sums ga_part (B, D, N),
 // gd_part (B, D), gb_part and gc_part (ceil(D / 32), B, T, N); scratch
-// ckpt (B, ceil(T / 16), D, N). N in {4, 8, 16}.
+// ckpt (B, ceil(T / 16), D, N). N in {4, 8, 16}; `lanes` a channel 4, 8
+// or 16 (at most N), 0 for the default (`bwd_lanes`).
 extern "C" int selective_scan_bwd(const float* x, const float* dt,
                                   const float* a, const float* b,
                                   const float* c, const float* d,
@@ -598,20 +741,22 @@ extern "C" int selective_scan_bwd(const float* x, const float* dt,
                                   float* ga_part, float* gb_part,
                                   float* gc_part, float* gd_part,
                                   float* ckpt, int B, int T, int D, int N,
-                                  void* stream) {
+                                  int lanes, void* stream) {
     if (B <= 0 || T <= 0 || D <= 0) return (int)cudaSuccess;
     if (B > 65535) return (int)cudaErrorInvalidValue;
+    const BwdArgs p{x, dt, a, b, c, d, gy, gx, gdt, ga_part, gb_part,
+                    gc_part, gd_part, ckpt, B, T, D};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (N) {
-        case 4: return (int)launch_bwd<4>(x, dt, a, b, c, d, gy, gx, gdt,
-                                          ga_part, gb_part, gc_part, gd_part,
-                                          ckpt, B, T, D, s);
-        case 8: return (int)launch_bwd<8>(x, dt, a, b, c, d, gy, gx, gdt,
-                                          ga_part, gb_part, gc_part, gd_part,
-                                          ckpt, B, T, D, s);
-        case 16: return (int)launch_bwd<16>(x, dt, a, b, c, d, gy, gx, gdt,
-                                            ga_part, gb_part, gc_part,
-                                            gd_part, ckpt, B, T, D, s);
-        default: return (int)cudaErrorInvalidValue;
-    }
+    return (int)with_bwd_instance(N, lanes, [&](auto n, auto lb) {
+        return launch_bwd<decltype(n)::value, decltype(lb)::value>(p, s);
+    });
+}
+
+// The occupancy API's resident blocks an SM of the backward's instance
+// (N, lanes; lanes 0 for the default) into *blocks.
+extern "C" int selective_scan_bwd_occupancy(int N, int lanes, int* blocks) {
+    return (int)with_bwd_instance(N, lanes, [&](auto n, auto lb) {
+        return occupancy_bwd<decltype(n)::value, decltype(lb)::value>(
+            blocks);
+    });
 }

@@ -4,7 +4,8 @@ Mamba-1's recurrence over a prompt: x, dt (B, T, D), a (D, N), b, c
 (B, T, N), d (D,), all float32, -> y (B, T, D). The reference's wrapper
 falls back to its jnp oracle when D or T is not a multiple of its blocks;
 the kernel here takes any T and D. It splits each channel's N states
-across two lanes of a warp (``csrc/selective_scan.cu``). One decode step
+across two lanes of a warp (``csrc/selective_scan.cu``); its backward
+across `BWD_LANES` lanes. One decode step
 (``selective_scan_step_ref``) stays plain PyTorch on every device, as in
 the reference.
 
@@ -29,6 +30,11 @@ STATE_SIZES = (4, 8, 16)
 # scratch one state per tile
 BWD_CHANNELS = 32
 BWD_TILE = 16
+# the backward's lanes a channel by d_state (`bwd_lanes`: LB4, LB8, LB16),
+# and every count built (4, 8, 16 up to N; `lanes=` of the bare launch)
+BWD_LANES = {4: 4, 8: 8, 16: 8}
+BWD_LANE_CHOICES = {n: tuple(lb for lb in (4, 8, 16) if lb <= n)
+                    for n in STATE_SIZES}
 
 
 def selective_scan_step_ref(h, xt, dtt, a, bt, ct, d):
@@ -96,16 +102,33 @@ def launch_selective_scan(x, dt, a, b, c, d, y) -> None:
 
 
 def launch_selective_scan_bwd(x, dt, a, b, c, d, gy, gx, gdt, ga_part,
-                              gb_part, gc_part, gd_part, ckpt) -> None:
+                              gb_part, gc_part, gd_part, ckpt,
+                              lanes: int = 0) -> None:
     """The backward's bare launch on checked GPU tensors into the outputs,
-    the partial sums and the scratch (`_bwd_buffers`). No allocation, no
-    synchronisation."""
+    the partial sums and the scratch (`_bwd_buffers`). ``lanes`` a channel
+    one of ``BWD_LANE_CHOICES[N]``, 0 for ``BWD_LANES[N]``. No allocation,
+    no synchronisation."""
     B, T, D = x.shape
     N = a.shape[1]
     build.launch("selective_scan_bwd", x.device, *(
         t.data_ptr() for t in (x, dt, a, b, c, d, gy, gx, gdt, ga_part,
                                gb_part, gc_part, gd_part, ckpt)),
-        B, T, D, N)
+        B, T, D, N, lanes)
+
+
+def _bwd_buffers(B, T, D, N, device):
+    """The backward kernel's partial sums and scratch, in launch order:
+    ga_part (B, D, N) and gd_part (B, D), one row per sequence; gb_part and
+    gc_part (ceil(D / BWD_CHANNELS), B, T, N), one row per block of
+    channels; ckpt (B, ceil(T / BWD_TILE), D, N), the state entering every
+    tile. Returns (ga_part, gb_part, gc_part, gd_part, ckpt)."""
+    kw = dict(dtype=torch.float32, device=device)
+    blocks = -(-D // BWD_CHANNELS)
+    return (torch.empty((B, D, N), **kw),
+            torch.empty((blocks, B, T, N), **kw),
+            torch.empty((blocks, B, T, N), **kw),
+            torch.empty((B, D), **kw),
+            torch.empty((B, -(-T // BWD_TILE), D, N), **kw))
 
 
 def _check(x, dt, a, b, c, d, *more) -> None:
@@ -149,13 +172,8 @@ def selective_scan_bwd(x, dt, a, b, c, d, gy):
     if x.numel() == 0:
         return (gx, gdt, torch.zeros_like(a), torch.zeros_like(b),
                 torch.zeros_like(c), torch.zeros_like(d))
-    kw = dict(dtype=torch.float32, device=x.device)
-    blocks = -(-D // BWD_CHANNELS)
-    ga_part = torch.empty((B, D, N), **kw)
-    gb_part = torch.empty((blocks, B, T, N), **kw)
-    gc_part = torch.empty((blocks, B, T, N), **kw)
-    gd_part = torch.empty((B, D), **kw)
-    ckpt = torch.empty((B, -(-T // BWD_TILE), D, N), **kw)
+    ga_part, gb_part, gc_part, gd_part, ckpt = _bwd_buffers(B, T, D, N,
+                                                            x.device)
     launch_selective_scan_bwd(x, dt, a, b, c, d, gy, gx, gdt, ga_part,
                               gb_part, gc_part, gd_part, ckpt)
     count_launch("selective_scan_bwd", (B, T, D, N))

@@ -237,13 +237,136 @@ def test_backward_constants_match_the_source():
         r"constexpr int (\w+) = (\d+);", src)}
     assert consts["CH"] == scan_ops.BWD_CHANNELS
     assert consts["TT"] == scan_ops.BWD_TILE
+    # the lanes a channel by d_state, and every instance the host builds
+    assert {n: consts[f"LB{n}"] for n in STATE_SIZES} == scan_ops.BWD_LANES
+    built = {(int(n), int(lb)) for n, lb in re.findall(
+        r"N == (\d+) && lanes == (\d+)", src)}
+    assert built == {(n, lb) for n, lbs in scan_ops.BWD_LANE_CHOICES.items()
+                     for lb in lbs}
+    assert all(scan_ops.BWD_LANES[n] in scan_ops.BWD_LANE_CHOICES[n]
+               for n in STATE_SIZES)
+
+
+# ---------------------------------------------------------------------------
+# The backward kernel's arithmetic modelled in numpy, float32: h and da_t as
+# the forward rounds them; per (t, channel) each lane's sums over its S
+# states in order (fused multiply-adds, modelled as one rounding of the
+# float64 value), the channel's LB lane partials folded in half (the
+# reduce-scatter and butterfly of `scatter_sum`: lanes l and l + LB/2
+# first); per (t, state) the sums over a warp's 32/LB channels folded in
+# half, the block's warps added in warp order, one row per block of 32
+# channels (the wrapper adds the rows).
+# ---------------------------------------------------------------------------
+
+SSM_BWD_TOL = 1e-4      # chip_smoke.SSM_BWD_TOL: of each gradient's max |g|
+
+
+def _fma(a, b, c):
+    f64 = np.float64
+    return (np.asarray(a, f64) * np.asarray(b, f64)
+            + np.asarray(c, f64)).astype(np.float32)
+
+
+def _fold(v):
+    """Sum over the last axis, folded in half (pairs i, i + n/2 first)."""
+    while v.shape[-1] > 1:
+        h = v.shape[-1] // 2
+        v = v[..., :h] + v[..., h:]
+    return v[..., 0]
+
+
+def lanes_bwd_np(x, dt, a, b, c, d, gy, lanes):
+    """float32 model of the backward kernel at `lanes` lanes a channel:
+    (gx, gdt, ga_part, gb_part, gc_part, gd_part), the partial sums shaped
+    as `_bwd_buffers` shapes them."""
+    f32 = np.float32
+    B, Tn, D = x.shape
+    N = a.shape[1]
+    S, CH = N // lanes, scan_ops.BWD_CHANNELS
+    cw = 32 // lanes                       # channels a warp
+    blocks = -(-D // CH)
+    h = np.zeros((B, D, N), f32)
+    hs, das = [], []
+    for t in range(Tn):
+        da = np.exp(dt[:, t, :, None] * a[None])
+        h = da * h + (dt[:, t] * x[:, t])[..., None] * b[:, t][:, None, :]
+        hs.append(h)
+        das.append(da)
+    gx, gdt = np.empty_like(x), np.empty_like(x)
+    gb_part = np.empty((blocks, B, Tn, N), f32)
+    gc_part = np.empty_like(gb_part)
+    P = np.zeros((B, D, N), f32)
+    gacc = np.zeros((B, D, N), f32)
+    gd = np.zeros((B, D), f32)
+    al = a.reshape(D, lanes, S)
+
+    def channels(v):                       # (B, D, N) -> (blocks, B, N)
+        v = np.concatenate([v, np.zeros((B, blocks * CH - D, N), f32)], 1)
+        v = v.reshape(B, blocks, CH // cw, cw, N).transpose(1, 0, 2, 4, 3)
+        w = _fold(v)                       # (blocks, B, warps, N)
+        out = w[:, :, 0]
+        for q in range(1, CH // cw):
+            out = out + w[:, :, q]
+        return out
+
+    for t in reversed(range(Tn)):
+        xt, dtt, gyt = x[:, t], dt[:, t], gy[:, t]
+        da, hc = das[t], hs[t]
+        hp = hs[t - 1] if t else np.zeros_like(h)
+        G = _fma(gyt[..., None], c[:, t][:, None, :], P)
+        qh = (G * da) * hp
+        gl, bl, ql = (G.reshape(B, D, lanes, S),
+                      np.broadcast_to(b[:, t][:, None, :],
+                                      (B, D, N)).reshape(B, D, lanes, S),
+                      qh.reshape(B, D, lanes, S))
+        gbs = np.zeros((B, D, lanes), f32)
+        gds = np.zeros((B, D, lanes), f32)
+        for i in range(S):
+            gbs = _fma(gl[..., i], bl[..., i], gbs)
+            gds = _fma(al[None, :, :, i], ql[..., i], gds)
+        gacc = _fma(dtt[..., None], qh, gacc)
+        gx[:, t] = _fma(dtt, _fold(gbs), d[None] * gyt)
+        gdt[:, t] = _fold(_fma(xt[..., None], gbs, gds))
+        gb_part[:, :, t] = channels(G * (dtt * xt)[..., None])
+        gc_part[:, :, t] = channels(gyt[..., None] * hc)
+        P = da * G
+        gd = _fma(gyt, xt, gd)
+    return gx, gdt, gacc, gb_part, gc_part, gd
+
+
+_JAX_GRADS = {}
+
+
+@pytest.mark.parametrize("N,lanes", [(n, lb) for n in STATE_SIZES
+                                     for lb in scan_ops.BWD_LANE_CHOICES[n]])
+def test_lane_sums_of_the_backward_hold_the_tolerance(N, lanes):
+    """The backward kernel's summation orders at each lane count it builds
+    against jax.grad of the JAX package's oracle at T = 2048, two sequences
+    and 40 channels (two blocks of channels, several warps)."""
+    import jax
+    rng = np.random.default_rng(N)
+    args = _inputs(rng, 2, 2048, 40, N)
+    gy = rng.normal(size=(2, 2048, 40)).astype(np.float32)
+    if N not in _JAX_GRADS:
+        _JAX_GRADS[N] = jax.grad(lambda *a: jnp.sum(ref_plain(*a) * gy),
+                                 argnums=tuple(range(6)))(
+            *map(jnp.asarray, args))
+    gx, gdt, ga, gb, gc, gd = lanes_bwd_np(*args, gy, lanes)
+    shapes = [tuple(t.shape) for t in scan_ops._bwd_buffers(
+        2, 2048, 40, N, "meta")[:4]]
+    assert [ga.shape, gb.shape, gc.shape, gd.shape] == shapes
+    got = [gx, gdt, ga.sum(0), gb.sum(0), gc.sum(0), gd.sum(0)]
+    assert all(g.dtype == np.float32 and np.isfinite(g).all() for g in got)
+    _assert_rel(got, _JAX_GRADS[N], tol=SSM_BWD_TOL,
+                what=f"lane model N={N} LB={lanes}")
 
 
 @pytest.fixture
 def bwd_gpu_branch(monkeypatch):
     """Both wrappers' GPU branch on CPU tensors: the forward's launch
-    writes the plain scan, the backward's writes the plain backward's
-    results as one partial row (the wrapper sums the partials)."""
+    writes the plain scan, the backward's the numpy model of the kernel at
+    its lanes, every partial row as the kernel writes them (the wrapper
+    sums them)."""
     seen = []
 
     def fwd(x, dt, a, b, c, d, y):
@@ -253,18 +376,15 @@ def bwd_gpu_branch(monkeypatch):
             gd_part, ckpt):
         B, Tn, D = x.shape
         N = a.shape[1]
-        assert ga_part.shape == (B, D, N) and gd_part.shape == (B, D)
-        blocks = -(-D // scan_ops.BWD_CHANNELS)
-        assert gb_part.shape == gc_part.shape == (blocks, B, Tn, N)
-        assert ckpt.shape == (B, -(-Tn // scan_ops.BWD_TILE), D, N)
+        want = scan_ops._bwd_buffers(B, Tn, D, N, "meta")
+        assert [t.shape for t in (ga_part, gb_part, gc_part, gd_part,
+                                  ckpt)] == [t.shape for t in want]
         seen.append((B, Tn, D, N))
-        gx_, gdt_, ga, gb, gc, gd = scan_ops.selective_scan_bwd_ref(
-            x, dt, a, b, c, d, gy)
-        gx.copy_(gx_)
-        gdt.copy_(gdt_)
-        for part, total in ((ga_part, ga), (gb_part, gb), (gc_part, gc),
-                            (gd_part, gd)):
-            part.zero_()[0] = total
+        got = lanes_bwd_np(*(t.numpy() for t in (x, dt, a, b, c, d, gy)),
+                           scan_ops.BWD_LANES[N])
+        for out, v in zip((gx, gdt, ga_part, gb_part, gc_part, gd_part),
+                          got):
+            out.copy_(T(v))
 
     monkeypatch.setattr(scan_ops, "on_gpu", lambda *tensors: True)
     monkeypatch.setattr(scan_ops, "launch_selective_scan", fwd)
