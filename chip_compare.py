@@ -19,13 +19,12 @@ join delta group K14 (stacks 4,163 and 4,064), the sharded scan K2 and the
 sharded join scan K11 at 3 x 3,333,334, the float32 scan K18 and the
 snapshot copy K10 (chunks of 8,192); the selective scan K17 and its
 backward at the training path's (1, 4,096, 8,192, 16), the backward also
-at d_state 8, with its registers, its other lane counts (`lanes`) and,
-where the run built the tree, its SASS instructions per region between
-barriers (`sass`):
-`ms` (bare launches), `device_ms` (the device's own time of 20 bare launches under `torch.profiler`, a
-launch, by the tree's own `device_time`) and `wrapper_ms` of each, and for
-K7 and K15 also `wrapper_device_ms`, the device time of 20 wrapper calls,
-a call, measured here the same way for both trees; where the run built the
+at d_state 8, with its registers:
+`ms` (bare launches), `device_ms` (the device's own time of 20 bare
+launches under `torch.profiler`, a launch, by the tree's own
+`device_time`) and `wrapper_ms` of each, and for K7 and K15 also
+`wrapper_device_ms`, the device time of 20 wrapper calls, a call,
+measured here the same way for both trees; where the run built the
 tree's library, ptxas' registers and spill bytes of its scan kernels
 (`ptxas`).
 
@@ -177,34 +176,6 @@ def _folds(cs, dev, gen) -> dict:
     return out
 
 
-def _bwd_sass(lib_path) -> dict:
-    """Per instance of the selective scan's backward in the built library
-    ("N16 LB8"): its SASS instructions (`cuobjdump -sass`, beside `nvcc`)
-    counted per region between barriers, with the region's `expf`s
-    (MUFU.EX2) - the time loops are unrolled, so a tile's region runs
-    once a tile."""
-    import pathlib
-    from repro_torch.kernels import build
-    cuobjdump = pathlib.Path(build._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
-                          check=True, capture_output=True, text=True).stdout
-    out = {}
-    for fn in re.split(r"\n\s+Function : ", sass):
-        m = re.match(r"\S*selective_scan_bwd_kernelILi(\d+)ELi(\d+)E", fn)
-        if not m:
-            continue
-        regions, n, ex2 = [], 0, 0
-        for op in re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
-                             r"([A-Z0-9_.]+)", fn):
-            n += 1
-            ex2 += op.startswith("MUFU.EX2")
-            if op.startswith("BAR"):
-                regions.append([n, ex2])
-                n = ex2 = 0
-        out[f"N{m.group(1)} LB{m.group(2)}"] = regions + [[n, ex2]]
-    return out
-
-
 def _one(root: str) -> dict:
     sys.argv = ["chip_compare"]
     sys.path[:0] = [root, root + "/src"]
@@ -285,13 +256,9 @@ def _one(root: str) -> dict:
              (1, 4096, 8192, 8))):
         m = measure(gen, dev, shape)
         out[name] = dict({key: m.get(key) for key in keys},
-                         shape=list(shape), lanes=m.get("lanes"),
-                         lanes_run=m.get("lanes_run"))
+                         shape=list(shape))
         torch.cuda.empty_cache()
     out["selective_scan_bwd"]["registers"] = cs.ssm_registers(backward=True)
-    if cs.REGISTERS and "selective_scan_bwd" in out:
-        from repro_torch.kernels import build
-        out["selective_scan_bwd"]["sass"] = _bwd_sass(build.build_library())
     # ptxas' registers and spill bytes of the scans' kernels (the selective
     # scan's and its backward's among them), where this process built the
     # tree's library

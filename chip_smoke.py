@@ -14,10 +14,9 @@ script's wall seconds so far, ``elapsed_seconds``):
                  must hold 2 blocks of 512 an SM, and ptxas must read at
                  most 64 registers and no spills for it and for the island
                  kernel without the correction slice); and each instance
-                 of the selective scan's backward by d_state and lanes a
-                 channel (``ssm_bwd_instances``: no spill at d_state 16,
-                 and 16 warps an SM or more for the instance each d_state
-                 runs).
+                 of the selective scan's backward by d_state
+                 (``ssm_bwd_instances``: no spill at d_state 16, and 16
+                 warps an SM or more).
 3. ``main_path`` one HTAP session of the full system (`Polynesia` preset,
                  ``backend="hopper"``) at 10,000,000 rows x 8 columns,
                  400,000 transactions, 32 queries, 4 rounds, plus one late
@@ -244,9 +243,7 @@ script's wall seconds so far, ``elapsed_seconds``):
                  gradients within 1e-4 of each one's largest |value| at
                  the scan's edge shapes and the path's, two identical
                  calls equal bit for bit, and twice the forward's
-                 ``bound_sfu_ms``, its instances at the other lane counts
-                 held to the same tolerance at those shapes and timed at
-                 the path's under ``lanes``; for the bucket probe
+                 ``bound_sfu_ms``; for the bucket probe
                  the host's cost of one launch, item by item, under
                  ``host_us``; for the join scans and the float32 scan the
                  instances they ran, under ``instances``; the join lane
@@ -605,12 +602,12 @@ def phase_build() -> None:
     if bad:
         raise AssertionError(f"ptxas: more than 64 registers or spills: "
                              f"{bad}")
-    # the selective scan's backward: no spill at d_state 16, and the
-    # instance each d_state runs holds 16 warps an SM or more
+    # the selective scan's backward: no spill at d_state 16, and every
+    # instance holds 16 warps an SM or more
     bwd = ssm_bwd_instances()
     bad = {k: v for k, v in bwd.items()
-           if (k.startswith("N16 ") and v.get("spill_bytes"))
-           or (v["runs"] and v["warps_per_sm"] < 16)}
+           if (k == "N16" and v.get("spill_bytes"))
+           or v["warps_per_sm"] < 16}
     if bad:
         raise AssertionError(f"selective_scan_bwd: a spill at N = 16, or "
                              f"under 16 warps an SM: {bad}")
@@ -717,27 +714,23 @@ def join_instances(nq: int) -> dict[str, dict]:
 
 
 def ssm_bwd_instances() -> dict[str, dict]:
-    """Per instance of the selective scan's backward ("N<d_state>
-    LB<lanes a channel>"): the occupancy API's resident blocks and warps an
-    SM, ``runs`` where it is the instance the wrapper launches at its
-    d_state, and, when this process built the library, ptxas' registers
-    and spill bytes."""
+    """Per instance of the selective scan's backward ("N<d_state>"): its
+    lanes a channel, the occupancy API's resident blocks and warps an SM,
+    and, when this process built the library, ptxas' registers and spill
+    bytes."""
     import ctypes
     from repro_torch.kernels import build
-    from repro_torch.kernels.selective_scan import (BWD_CHANNELS,
-                                                    BWD_LANE_CHOICES,
-                                                    BWD_LANES)
+    from repro_torch.kernels.selective_scan import BWD_CHANNELS, BWD_LANES
     ptxas = ssm_registers(backward=True)
     out = {}
-    for n, choices in BWD_LANE_CHOICES.items():
-        for lb in choices:
-            blocks = ctypes.c_int(0)
-            build.check(build.entry("selective_scan_bwd_occupancy")(
-                n, lb, ctypes.byref(blocks)), "selective_scan_bwd_occupancy")
-            key = f"N{n} LB{lb}"
-            out[key] = dict(ptxas.get(key, {}), blocks_per_sm=blocks.value,
+    for n, lb in BWD_LANES.items():
+        blocks = ctypes.c_int(0)
+        build.check(build.entry("selective_scan_bwd_occupancy")(
+            n, ctypes.byref(blocks)), "selective_scan_bwd_occupancy")
+        out[f"N{n}"] = dict(ptxas.get(f"N{n}", {}), lanes=lb,
+                            blocks_per_sm=blocks.value,
                             warps_per_sm=blocks.value * BWD_CHANNELS * lb
-                            // 32, runs=lb == BWD_LANES[n])
+                            // 32)
     return out
 
 
@@ -3929,13 +3922,12 @@ def ssm_inputs(gen, dev, shape):
 def ssm_registers(backward: bool = False) -> dict[str, dict]:
     """ptxas' registers and spill bytes of each selective-scan instance, by
     d_state and staging (16-byte or 4-byte copies); of the backward's, by
-    d_state and lanes a channel."""
+    d_state."""
     out = {}
     for entry, n in REGISTERS.items():
         if backward:
-            m = re.search(r"selective_scan_bwd_kernelILi(\d+)ELi(\d+)E",
-                          entry)
-            key = m and f"N{m.group(1)} LB{m.group(2)}"
+            m = re.search(r"selective_scan_bwd_kernelILi(\d+)E", entry)
+            key = m and f"N{m.group(1)}"
         else:
             m = re.search(r"selective_scan_kernelILi(\d+)ELb([01])E", entry)
             key = m and (f"N{m.group(1)} "
@@ -4036,52 +4028,23 @@ def ssm_bwd_inputs(gen, dev, shape):
     return (*x, torch.randn(x[0].shape, generator=gen, device=dev))
 
 
-def ssm_bwd_lanes(args, lanes: int):
-    """The backward's bare launch at `lanes` lanes a channel, its partial
-    sums added as the wrapper adds them: the six gradients."""
-    from repro_torch.kernels.selective_scan import launch_selective_scan_bwd
-    from repro_torch.kernels.selective_scan.ops import _bwd_buffers
-    x = args[0]
-    B, T, D = x.shape
-    gx, gdt = torch.empty_like(x), torch.empty_like(x)
-    parts = _bwd_buffers(B, T, D, args[2].shape[1], x.device)
-    launch_selective_scan_bwd(*args, gx, gdt, *parts, lanes=lanes)
-    return (gx, gdt) + tuple(p.sum(0) for p in parts[:4])
-
-
-def other_lanes(n: int) -> tuple[int, ...]:
-    """The backward's lane counts built for d_state `n` that the wrapper
-    does not launch."""
-    from repro_torch.kernels.selective_scan import (BWD_LANE_CHOICES,
-                                                    BWD_LANES)
-    return tuple(lb for lb in BWD_LANE_CHOICES[n] if lb != BWD_LANES[n])
-
-
 def edge_ssm_bwd(gen, dev) -> int:
-    """The backward at the forward's edge shapes, bit for bit repeatable;
-    the instances at the other lane counts held to the same tolerance."""
+    """The backward at the forward's edge shapes, bit for bit repeatable."""
     from repro_torch.kernels.selective_scan import (selective_scan_bwd,
                                                     selective_scan_bwd_ref)
-    cases = 0
     for shape in SSM_EDGES:
         args = ssm_bwd_inputs(gen, dev, shape)
         got = selective_scan_bwd(*args)
         name = f"selective scan backward {shape}"
-        want = selective_scan_bwd_ref(*args)
-        ssm_bwd_check(name, got, want)
+        ssm_bwd_check(name, got, selective_scan_bwd_ref(*args))
         ssm_bwd_repeatable(name, args, got)
-        for lb in other_lanes(shape[3]):
-            ssm_bwd_check(f"{name} at {lb} lanes", ssm_bwd_lanes(args, lb),
-                          want)
-        cases += 1 + len(other_lanes(shape[3]))
-    return cases
+    return len(SSM_EDGES)
 
 
 def measure_ssm_bwd(gen, dev, shape) -> dict:
     """Held to SSM_BWD_TOL and bit for bit repeatable; `bound_sfu_ms` (twice
     the forward's exponentials on the SFUs) beside the bytes and
-    operations bound; under ``lanes`` the device time of the instances at
-    the other lane counts, each held to SSM_BWD_TOL."""
+    operations bound."""
     from repro_torch.kernels.selective_scan import (
         BWD_LANES, launch_selective_scan_bwd, selective_scan_bwd,
         selective_scan_bwd_ref)
@@ -4096,20 +4059,9 @@ def measure_ssm_bwd(gen, dev, shape) -> dict:
     name = f"selective scan backward {shape}"
     err = ssm_bwd_check(name, got, want)
     ssm_bwd_repeatable(name, args, got)
-    del got
+    del got, want
     bufs = (torch.empty_like(args[0]), torch.empty_like(args[0]),
             *_bwd_buffers(B, T, D, N, dev))
-    lanes = {}
-    for lb in other_lanes(N):
-        err_lb = ssm_bwd_check(f"{name} at {lb} lanes",
-                               ssm_bwd_lanes(args, lb), want)
-        lanes[str(lb)] = dict(
-            max_abs_err=err_lb,
-            ms=time_ms(lambda: launch_selective_scan_bwd(*args, *bufs,
-                                                         lanes=lb), 10),
-            **device_time(lambda: launch_selective_scan_bwd(*args, *bufs,
-                                                            lanes=lb)))
-    del want
     return dict(
         max_abs_err=err, tolerance=f"{SSM_BWD_TOL} x each gradient's max "
                                    "|value|", bitwise_repeatable=True,
@@ -4119,8 +4071,7 @@ def measure_ssm_bwd(gen, dev, shape) -> dict:
         plain_ms=plain_ms, library_ms=None,
         bound_sfu_ms=2 * ssm_sfu_bound_ms(shape),
         scratch_bytes=sum(b.numel() * 4 for b in bufs[2:]),
-        registers=ssm_registers(backward=True), lanes_run=BWD_LANES[N],
-        lanes=lanes)
+        registers=ssm_registers(backward=True), lanes=BWD_LANES[N])
 
 
 # kernel name -> (cost of one launch at a shape, measurement at a shape)

@@ -76,11 +76,11 @@ _SIGNATURES = {
     # x dt a b c d y B T D N stream
     "selective_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x dt a b c d gy gx gdt ga_part gb_part gc_part gd_part ckpt B T D N
-    # lanes stream
+    # stream
     "selective_scan_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _P, _P, _I, _I, _I, _I, _I, _P),
-    # N lanes blocks_per_sm (int*)
-    "selective_scan_bwd_occupancy": (_I, _I, _P),
+                           _P, _P, _I, _I, _I, _I, _P),
+    # N blocks_per_sm (int*)
+    "selective_scan_bwd_occupancy": (_I, _P),
     # fcodes acodes valid dict n lo hi psum pcnt n_parts counter out_sum
     # out_cnt stream
     "scan_float": (_P, _P, _P, _P, _L, _I, _I, _P, _P, _I, _P, _P, _P, _P),

@@ -54,8 +54,6 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace {
 
 constexpr int CH = 32;        // channels per block
@@ -269,30 +267,28 @@ cudaError_t launch(const float* x, const float* dt, const float* a,
 // 8192, 16)), nor the two exponentials owed on the SFUs (0.26 ms), but the
 // instruction issue and the latencies behind it. The recurrence runs twice
 // forward (the checkpoints, then a tile's states again) and once backward:
-// about 68 SASS instructions per (t, channel, state) at LB = 8 (a sweep-1
+// about 68 SASS instructions per (t, channel, state) at N = 16 (a sweep-1
 // tile 17, a sweep-2 tile's recompute and walk 45, its tile-end sums 6;
-// the accurate `expf` is 8 of them), 1.1 ms of issue at four a clock an
-// SM. Every cross-lane sum is a shuffle or a shared-memory access (one warp
-// a clock an SM), and the time loop is a chain of dependent steps whose
-// latencies (`expf`, shuffles, shared memory) only warps in flight hide:
-// at B = 1 there are only ceil(D / 32) blocks. It runs at about 70 % of its
-// issue rate (PERF.md, K17 bwd).
+// the accurate `expf` is 8 of them; PERF.md, K17 bwd), 1.1 ms of issue at
+// four a clock an SM. Every cross-lane sum is a shuffle or a shared-memory
+// access (one warp a clock an SM), and the time loop is a chain of
+// dependent steps whose latencies (`expf`, shuffles, shared memory) only
+// warps in flight hide: at B = 1 there are only ceil(D / 32) blocks. It
+// runs at about 70 % of its issue rate (PERF.md, K17 bwd).
 //
 // Design:
-// - Lanes. Each channel's N states are spread over LB lanes of a warp
-//   (`bwd_lanes`, by N; a template parameter, LB <= N): lane l carries
-//   states l*S .. l*S + S - 1 (S = N / LB) and runs each state's
-//   recurrence alone, in the forward's order (`expf`, `__fmul_rn`,
-//   `__fadd_rn`), so h is the forward kernel's h bit for bit. A block holds
-//   CH = 32 channels of one sequence (32 * LB threads): at N = 16 and
-//   LB = 8 two blocks of 8 warps an SM at B = 1, against about 4 warps an
-//   SM with the forward's two lanes. More lanes buy warps and cost
-//   instructions: the per-(t, channel) work (x_t, dt_t, gy_t, the gx / gdt
-//   sums, the store) is paid once for S states. LB = 16 (one state a lane,
-//   32 warps an SM) measured slowest; LB = 4 (8 warps an SM: its 86 KB of
-//   shared memory leave two blocks) a little faster than LB = 8, which is
-//   kept for its 16 warps. Every LB up to N is built (`lanes` of the C
-//   entry).
+// - Lanes. Each channel's N states are spread over LB = bwd_lanes(N) lanes
+//   of a warp: lane l carries states l*S .. l*S + S - 1 (S = N / LB) and
+//   runs each state's recurrence alone, in the forward's order (`expf`,
+//   `__fmul_rn`, `__fadd_rn`), so h is the forward kernel's h bit for bit.
+//   A block holds CH = 32 channels of one sequence (32 * LB threads): at
+//   N = 16 and LB = 8 two blocks of 8 warps an SM at B = 1, against about
+//   4 warps an SM with the forward's two lanes. More lanes buy warps and
+//   cost instructions: the per-(t, channel) work (x_t, dt_t, gy_t, the
+//   gx / gdt sums, the store) is paid once for S states. At N = 16, 16
+//   lanes (one state a lane, 32 warps an SM) measured slowest and 4 lanes
+//   (8 warps an SM: 86 KB of shared memory leave two blocks) about 5 %
+//   faster than 8, which is kept for its 16 warps an SM (PERF.md, K17 bwd).
 // - Sweep 1 runs the recurrence over T and stores the state entering every
 //   TT = 16-step tile in `ckpt` (B, ceil(T/TT), D, N). Sweep 2 walks the
 //   tiles backwards: it recomputes the tile's states from its checkpoint
@@ -321,17 +317,15 @@ cudaError_t launch(const float* x, const float* dt, const float* a,
 //   tree adds a + b of two partners, so partners agree bit for bit), and
 //   the wrapper adds the partials with `torch.sum` over their leading axis,
 //   so two identical calls give identical bits.
-// - Shared memory (`BwdSmem`): 94 KB at N = 16, LB = 8 (110 KB at LB = 16,
-//   the most that leaves two blocks an SM; the carve-out is set to its
-//   maximum), and registers capped so that 16 warps an SM fit where the
-//   shared memory allows (`MIN_BLOCKS`): no instance spills.
+// - Shared memory (`BwdSmem`): 94 KB at N = 16 (two blocks an SM; the
+//   carve-out is set to its maximum), and registers capped so that 16
+//   warps an SM fit where the shared memory allows (`MIN_BLOCKS`): no
+//   instance spills.
 
-constexpr int LB4 = 4;       // the backward's lanes a channel at N = 4,
-constexpr int LB8 = 8;       // ... at N = 8
-constexpr int LB16 = 8;      // ... and at N = 16 (PERF.md, K17 bwd)
-
+// the backward's lanes a channel, by d_state: 4 at N = 4, 8 at 8 and 16
+// (PERF.md, K17 bwd)
 __host__ __device__ constexpr int bwd_lanes(int N) {
-    return N == 4 ? LB4 : N == 8 ? LB8 : LB16;
+    return N == 4 ? 4 : 8;
 }
 
 // S consecutive floats into shared or global memory (16-, 8- or 4-byte
@@ -389,8 +383,9 @@ __device__ __forceinline__ int scatter_index(int lane) {
 }
 
 // dynamic shared memory of the backward kernel, in floats
-template <int N, int LB>
+template <int N>
 struct BwdSmem {
+    static constexpr int LB = bwd_lanes(N);
     static constexpr int S = N / LB;
     static constexpr int THREADS = CH * LB;
     static constexpr int WARPS = THREADS / 32;
@@ -415,8 +410,8 @@ struct BwdSmem {
         WARP_BLOCKS < SM_BLOCKS ? WARP_BLOCKS : SM_BLOCKS;
 };
 
-template <int N, int LB>
-__global__ void __launch_bounds__(CH * LB, BwdSmem<N, LB>::MIN_BLOCKS)
+template <int N>
+__global__ void __launch_bounds__(CH * bwd_lanes(N), BwdSmem<N>::MIN_BLOCKS)
 selective_scan_bwd_kernel(const float* __restrict__ x,
                           const float* __restrict__ dt,
                           const float* __restrict__ a,
@@ -430,8 +425,9 @@ selective_scan_bwd_kernel(const float* __restrict__ x,
                           float* __restrict__ gc_part,
                           float* __restrict__ gd_part,
                           float* __restrict__ ckpt, int B, int T, int D) {
-    using M = BwdSmem<N, LB>;
-    constexpr int S = M::S, THREADS = M::THREADS, WARPS = M::WARPS;
+    using M = BwdSmem<N>;
+    constexpr int LB = M::LB, S = M::S, THREADS = M::THREADS;
+    constexpr int WARPS = M::WARPS;
     constexpr int HALF = LB / 2;
     extern __shared__ __align__(16) float smem[];
     float* sx = smem + M::X;
@@ -654,60 +650,39 @@ struct BwdArgs {
     int B, T, D;
 };
 
-// the shared-memory attributes of instance (N, LB): above 48 KB, and the
+// the shared-memory attributes of instance N: above 48 KB, and the
 // carve-out at its maximum so that two blocks fit an SM
-template <int N, int LB>
+template <int N>
 cudaError_t prepare_bwd() {
     cudaError_t err = cudaFuncSetAttribute(
-        selective_scan_bwd_kernel<N, LB>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, BwdSmem<N, LB>::BYTES);
+        selective_scan_bwd_kernel<N>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, BwdSmem<N>::BYTES);
     if (err != cudaSuccess) return err;
     return cudaFuncSetAttribute(
-        selective_scan_bwd_kernel<N, LB>,
+        selective_scan_bwd_kernel<N>,
         cudaFuncAttributePreferredSharedMemoryCarveout,
         (int)cudaSharedmemCarveoutMaxShared);
 }
 
-template <int N, int LB>
+template <int N>
 cudaError_t launch_bwd(const BwdArgs& p, cudaStream_t s) {
-    cudaError_t err = prepare_bwd<N, LB>();
+    cudaError_t err = prepare_bwd<N>();
     if (err != cudaSuccess) return err;
     const dim3 grid((p.D + CH - 1) / CH, p.B);
-    selective_scan_bwd_kernel<N, LB><<<grid, CH * LB, BwdSmem<N, LB>::BYTES,
-                                       s>>>(
+    selective_scan_bwd_kernel<N><<<grid, BwdSmem<N>::THREADS,
+                                   BwdSmem<N>::BYTES, s>>>(
         p.x, p.dt, p.a, p.b, p.c, p.d, p.gy, p.gx, p.gdt, p.ga_part,
         p.gb_part, p.gc_part, p.gd_part, p.ckpt, p.B, p.T, p.D);
     return cudaGetLastError();
 }
 
-template <int N, int LB>
+template <int N>
 cudaError_t occupancy_bwd(int* blocks) {
-    cudaError_t err = prepare_bwd<N, LB>();
+    cudaError_t err = prepare_bwd<N>();
     if (err != cudaSuccess) return err;
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, selective_scan_bwd_kernel<N, LB>, CH * LB,
-        BwdSmem<N, LB>::BYTES);
-}
-
-// f(N, LB) for the backward's instance of d_state N and `lanes` lanes a
-// channel (0: bwd_lanes(N)); every LB in {4, 8, 16} up to N is built
-template <class F>
-cudaError_t with_bwd_instance(int N, int lanes, F&& f) {
-    using std::integral_constant;
-    if (lanes == 0) lanes = bwd_lanes(N);
-    if (N == 4 && lanes == 4)
-        return f(integral_constant<int, 4>{}, integral_constant<int, 4>{});
-    if (N == 8 && lanes == 4)
-        return f(integral_constant<int, 8>{}, integral_constant<int, 4>{});
-    if (N == 8 && lanes == 8)
-        return f(integral_constant<int, 8>{}, integral_constant<int, 8>{});
-    if (N == 16 && lanes == 4)
-        return f(integral_constant<int, 16>{}, integral_constant<int, 4>{});
-    if (N == 16 && lanes == 8)
-        return f(integral_constant<int, 16>{}, integral_constant<int, 8>{});
-    if (N == 16 && lanes == 16)
-        return f(integral_constant<int, 16>{}, integral_constant<int, 16>{});
-    return cudaErrorInvalidValue;
+        blocks, selective_scan_bwd_kernel<N>, BwdSmem<N>::THREADS,
+        BwdSmem<N>::BYTES);
 }
 
 }  // namespace
@@ -732,8 +707,7 @@ extern "C" int selective_scan(const float* x, const float* dt, const float* a,
 // The backward, all float32, contiguous: x, dt, gy, gx, gdt (B, T, D);
 // a (D, N); b, c (B, T, N); d (D,); partial sums ga_part (B, D, N),
 // gd_part (B, D), gb_part and gc_part (ceil(D / 32), B, T, N); scratch
-// ckpt (B, ceil(T / 16), D, N). N in {4, 8, 16}; `lanes` a channel 4, 8
-// or 16 (at most N), 0 for the default (`bwd_lanes`).
+// ckpt (B, ceil(T / 16), D, N). N in {4, 8, 16}.
 extern "C" int selective_scan_bwd(const float* x, const float* dt,
                                   const float* a, const float* b,
                                   const float* c, const float* d,
@@ -741,22 +715,27 @@ extern "C" int selective_scan_bwd(const float* x, const float* dt,
                                   float* ga_part, float* gb_part,
                                   float* gc_part, float* gd_part,
                                   float* ckpt, int B, int T, int D, int N,
-                                  int lanes, void* stream) {
+                                  void* stream) {
     if (B <= 0 || T <= 0 || D <= 0) return (int)cudaSuccess;
     if (B > 65535) return (int)cudaErrorInvalidValue;
     const BwdArgs p{x, dt, a, b, c, d, gy, gx, gdt, ga_part, gb_part,
                     gc_part, gd_part, ckpt, B, T, D};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return (int)with_bwd_instance(N, lanes, [&](auto n, auto lb) {
-        return launch_bwd<decltype(n)::value, decltype(lb)::value>(p, s);
-    });
+    switch (N) {
+        case 4: return (int)launch_bwd<4>(p, s);
+        case 8: return (int)launch_bwd<8>(p, s);
+        case 16: return (int)launch_bwd<16>(p, s);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
-// The occupancy API's resident blocks an SM of the backward's instance
-// (N, lanes; lanes 0 for the default) into *blocks.
-extern "C" int selective_scan_bwd_occupancy(int N, int lanes, int* blocks) {
-    return (int)with_bwd_instance(N, lanes, [&](auto n, auto lb) {
-        return occupancy_bwd<decltype(n)::value, decltype(lb)::value>(
-            blocks);
-    });
+// The occupancy API's resident blocks an SM of the backward's instance for
+// d_state N into *blocks.
+extern "C" int selective_scan_bwd_occupancy(int N, int* blocks) {
+    switch (N) {
+        case 4: return (int)occupancy_bwd<4>(blocks);
+        case 8: return (int)occupancy_bwd<8>(blocks);
+        case 16: return (int)occupancy_bwd<16>(blocks);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }

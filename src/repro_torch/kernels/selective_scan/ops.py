@@ -30,11 +30,8 @@ STATE_SIZES = (4, 8, 16)
 # scratch one state per tile
 BWD_CHANNELS = 32
 BWD_TILE = 16
-# the backward's lanes a channel by d_state (`bwd_lanes`: LB4, LB8, LB16),
-# and every count built (4, 8, 16 up to N; `lanes=` of the bare launch)
+# the backward's lanes a channel by d_state (`bwd_lanes`)
 BWD_LANES = {4: 4, 8: 8, 16: 8}
-BWD_LANE_CHOICES = {n: tuple(lb for lb in (4, 8, 16) if lb <= n)
-                    for n in STATE_SIZES}
 
 
 def selective_scan_step_ref(h, xt, dtt, a, bt, ct, d):
@@ -102,18 +99,16 @@ def launch_selective_scan(x, dt, a, b, c, d, y) -> None:
 
 
 def launch_selective_scan_bwd(x, dt, a, b, c, d, gy, gx, gdt, ga_part,
-                              gb_part, gc_part, gd_part, ckpt,
-                              lanes: int = 0) -> None:
+                              gb_part, gc_part, gd_part, ckpt) -> None:
     """The backward's bare launch on checked GPU tensors into the outputs,
-    the partial sums and the scratch (`_bwd_buffers`). ``lanes`` a channel
-    one of ``BWD_LANE_CHOICES[N]``, 0 for ``BWD_LANES[N]``. No allocation,
-    no synchronisation."""
+    the partial sums and the scratch (`_bwd_buffers`). No allocation, no
+    synchronisation."""
     B, T, D = x.shape
     N = a.shape[1]
     build.launch("selective_scan_bwd", x.device, *(
         t.data_ptr() for t in (x, dt, a, b, c, d, gy, gx, gdt, ga_part,
                                gb_part, gc_part, gd_part, ckpt)),
-        B, T, D, N, lanes)
+        B, T, D, N)
 
 
 def _bwd_buffers(B, T, D, N, device):

@@ -42,8 +42,7 @@ from repro_torch.kernels.hash_probe import (EMPTY, build_table, probe,
                                             probe_ref, probe_sharded)
 from repro_torch.kernels.merge_runs import (MAX_RUNS, merge_runs_ref,
                                             merge_sorted_runs)
-from repro_torch.kernels.selective_scan import (BWD_LANE_CHOICES,
-                                                STATE_SIZES,
+from repro_torch.kernels.selective_scan import (STATE_SIZES,
                                                 launch_selective_scan,
                                                 launch_selective_scan_bwd,
                                                 selective_scan,
@@ -466,18 +465,17 @@ def test_selective_scan_backward_kernel_matches_its_plain_version(
     assert all(torch.equal(p, q) for p, q in zip(got, again))
 
 
-@pytest.mark.parametrize("N,lanes", [(n, lb) for n in STATE_SIZES
-                                     for lb in BWD_LANE_CHOICES[n]])
+@pytest.mark.parametrize("N", STATE_SIZES)
 @pytest.mark.parametrize("B,T,D", [(1, 1, 1), (2, 257, 100), (1, 33, 4101)])
-def test_selective_scan_backward_at_every_lane_count(cuda, B, T, D, N,
-                                                     lanes):
-    """Each instance the source builds (4, 8 or 16 lanes a channel, up to
-    N), launched bare into `_bwd_buffers`' partials and summed as the
-    wrapper sums them, against the plain backward."""
-    *args, gy = _scan_inputs(cuda, B, T, D, N, T + D + lanes)
+def test_selective_scan_backward_bare_launch_into_its_buffers(cuda, B, T, D,
+                                                              N):
+    """The backward's instance for each d_state, launched bare into
+    `_bwd_buffers`' partials and summed as the wrapper sums them, against
+    the plain backward."""
+    *args, gy = _scan_inputs(cuda, B, T, D, N, T + D + N)
     gx, gdt = torch.empty_like(gy), torch.empty_like(gy)
     parts = _bwd_buffers(B, T, D, N, cuda)
-    launch_selective_scan_bwd(*args, gy, gx, gdt, *parts, lanes=lanes)
+    launch_selective_scan_bwd(*args, gy, gx, gdt, *parts)
     torch.cuda.synchronize()
     _grads_close((gx, gdt) + tuple(p.sum(0) for p in parts[:4]),
                  selective_scan_bwd_ref(*args, gy))

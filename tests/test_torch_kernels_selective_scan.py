@@ -237,14 +237,15 @@ def test_backward_constants_match_the_source():
         r"constexpr int (\w+) = (\d+);", src)}
     assert consts["CH"] == scan_ops.BWD_CHANNELS
     assert consts["TT"] == scan_ops.BWD_TILE
-    # the lanes a channel by d_state, and every instance the host builds
-    assert {n: consts[f"LB{n}"] for n in STATE_SIZES} == scan_ops.BWD_LANES
-    built = {(int(n), int(lb)) for n, lb in re.findall(
-        r"N == (\d+) && lanes == (\d+)", src)}
-    assert built == {(n, lb) for n, lbs in scan_ops.BWD_LANE_CHOICES.items()
-                     for lb in lbs}
-    assert all(scan_ops.BWD_LANES[n] in scan_ops.BWD_LANE_CHOICES[n]
-               for n in STATE_SIZES)
+    # the lanes a channel by d_state, and one instance for each d_state
+    m = re.search(r"constexpr int bwd_lanes\(int N\) \{\s*"
+                  r"return N == 4 \? (\d+) : (\d+);", src)
+    assert m, "bwd_lanes not found in selective_scan.cu"
+    assert {4: int(m.group(1)), 8: int(m.group(2)),
+            16: int(m.group(2))} == scan_ops.BWD_LANES
+    for entry in ("launch_bwd", "occupancy_bwd"):
+        built = {int(n) for n in re.findall(rf"{entry}<(\d+)>\(", src)}
+        assert built == set(STATE_SIZES), entry
 
 
 # ---------------------------------------------------------------------------
@@ -337,12 +338,11 @@ def lanes_bwd_np(x, dt, a, b, c, d, gy, lanes):
 _JAX_GRADS = {}
 
 
-@pytest.mark.parametrize("N,lanes", [(n, lb) for n in STATE_SIZES
-                                     for lb in scan_ops.BWD_LANE_CHOICES[n]])
+@pytest.mark.parametrize("N,lanes", scan_ops.BWD_LANES.items())
 def test_lane_sums_of_the_backward_hold_the_tolerance(N, lanes):
-    """The backward kernel's summation orders at each lane count it builds
-    against jax.grad of the JAX package's oracle at T = 2048, two sequences
-    and 40 channels (two blocks of channels, several warps)."""
+    """The backward kernel's summation orders at its lanes for each
+    d_state against jax.grad of the JAX package's oracle at T = 2048, two
+    sequences and 40 channels (two blocks of channels, several warps)."""
     import jax
     rng = np.random.default_rng(N)
     args = _inputs(rng, 2, 2048, 40, N)
