@@ -185,7 +185,22 @@ script's wall seconds so far, ``elapsed_seconds``):
                  router, and its output the oracle's sum over each token's
                  k experts (their weight slices in float32) plus the shared
                  expert within 2**-6 of the oracle's largest |value|
-                 (`moe_layer_check`).
+                 (`moe_layer_check`). whisper-base (6 encoder + 6 decoder
+                 layers, d 512, heads (8, 8, 64), vocab 51,865, bf16):
+                 each request's 1,500 frames (the stub frontend's
+                 precomputed embeddings, drawn from the seed) go through
+                 `encode` and `precompute_cross_kv` once (``encode_ms``),
+                 `make_prefill_step` runs the prompts against them twice,
+                 then the requests are served as gemma2's against the fixed
+                 cross K/V: K16 once a decoder layer and step (6 x (P + G -
+                 1)), nothing in the encoder, the cross K/V or the prefill;
+                 its cross-check is the reference's
+                 ``test_encdec_decode_matches_parallel_apply`` at full width
+                 and depth in float32 (`encdec_apply` against
+                 `encdec_decode_step` at 64 positions over 1,500 frames,
+                 2e-3); its read bound counts the decoder's weights (not the
+                 encoder's nor the cross K/V projections) and, beside it,
+                 the cross K/V.
 13. ``lm_train``  LM training fed by the HTAP token pipeline:
                  falcon-mamba-7b at full width (d_model 4,096, d_inner
                  8,192, d_state 16, vocab 65,024), `LM_TRAIN_DEPTH` 16 of
@@ -212,7 +227,22 @@ script's wall seconds so far, ``elapsed_seconds``):
                  `torch.profiler` (device ms, busy share), propagate and
                  get_batch ms a step, the freshness lag before and after
                  each propagation, the losses.
-14. ``kernels``   every hand-written kernel launched on the card and held
+14. ``lm_train``  (whisper-base) the encoder-decoder's training at full
+                 width and depth: bf16, remat, loss chunks of 512, AdamW
+                 (`default_optimizer_for`), lr 1e-4, 4 steps of 2 x 4,096
+                 tokens (a `SyntheticPipeline`) against 4,096 frames a
+                 sequence (the reference's train_4k: enc_len = dec_len),
+                 one micro-batch. Every attention (the encoder's, the
+                 decoder's self and cross) takes the blocked attention
+                 (`nn.flash`, plain PyTorch): fails unless it ran (6 + 2 x
+                 6) x 2 (remat) times a step and `_sdpa` never, on any
+                 hand-written kernel's launch (none is on this path) and on
+                 a loss that is not finite. Prints ms a step, tokens/s,
+                 peak bytes and one step under `torch.profiler` with the
+                 blocked attention's own device time and share
+                 (``profile.ranges``: its forward and recompute calls and
+                 the autograd nodes of its forward ops, `own_ops`).
+15. ``kernels``   every hand-written kernel launched on the card and held
                  against its plain PyTorch version - the HTAP kernels with
                  exact equality (integers: tolerance 0), flash-decode
                  attention at 2e-5 and the selective scan at 3e-5 in float32
@@ -279,9 +309,10 @@ the launch, widest island, ...), measured with the islands on one card),
 the bucket
 probe against ``ana_only``, the float32 scan
 against ``float_scan``, flash-decode attention against ``lm_serve``
-(each model's serve run), the selective scan against ``lm_serve`` and
-``lm_train`` (launched on each, counted over both) and its backward
-against ``lm_train``. ``elastic`` is a path of
+(each model's serve run; whisper's heads (8, 8, 64) under
+``at_heads``), the selective scan against ``lm_serve`` and ``lm_train``
+(launched on each, counted over both) and its backward against
+``lm_train``; whisper's training launches none. ``elastic`` is a path of
 its own that runs kernels already held to these (no kernel is measured
 against it); like every path it may not launch the kernels folded into
 others (`NEVER_ON_PATH`). The correction lane alone
@@ -300,6 +331,8 @@ doing anything.
 from __future__ import annotations
 
 import argparse
+import bisect
+import contextlib
 import json
 import math
 import os
@@ -1933,16 +1966,30 @@ def phase_si_baselines(args, wl, poly_answers, poly_result,
 # phase 12: the LM serving path
 # ---------------------------------------------------------------------------
 
-def serve(model, cfg, prompts, n_gen: int, max_len: int):
+def new_cache(cfg, batch: int, max_len: int, dev, cross_kv=None):
+    """A decode cache in the activations' type: the LM's per-layer caches,
+    or an encoder-decoder's self caches with `cross_kv` (its
+    `precompute_cross_kv`, fixed for the requests) beside them."""
+    from repro_torch.models.encdec import init_encdec_cache
+    from repro_torch.models.lm import init_lm_cache
+    if not cfg.is_encoder_decoder:
+        return init_lm_cache(cfg, batch, max_len, dtype=cfg.adtype,
+                             device=dev)
+    cache = init_encdec_cache(cfg, batch, max_len, dtype=cfg.adtype,
+                              device=dev)
+    cache["cross_kv"] = cross_kv
+    return cache
+
+
+def serve(model, cfg, prompts, n_gen: int, max_len: int, cross_kv=None):
     """Greedy serving as `examples/serve_lm.py`: the prompt fed one token
     at a time through `make_serve_step`, then the generated tokens fed
     back. Returns (generated (B, n_gen), prompt seconds, generation
     seconds, cache)."""
     from repro_torch.launch.steps import make_serve_step
-    from repro_torch.models.lm import init_lm_cache
     dev = prompts.device
     batch, n_prompt = prompts.shape
-    cache = init_lm_cache(cfg, batch, max_len, dtype=cfg.adtype, device=dev)
+    cache = new_cache(cfg, batch, max_len, dev, cross_kv)
     step = make_serve_step(cfg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1963,20 +2010,21 @@ def serve(model, cfg, prompts, n_gen: int, max_len: int):
     return gen, t1 - t0, t2 - t1, cache
 
 
-def replay(model, cfg, prompts, gen, max_len: int) -> int:
+def replay(model, cfg, prompts, gen, max_len: int, cross_kv=None) -> int:
     """After the timed run, untimed: the same tokens through
-    `lm_decode_step` on a new cache. Every step's logits must be finite
-    and their argmax the token `make_serve_step` gave there. Returns the
-    steps checked."""
-    from repro_torch.models.lm import init_lm_cache, lm_decode_step
+    `lm_decode_step` (`encdec_decode_step`) on a new cache. Every step's
+    logits must be finite and their argmax the token `make_serve_step`
+    gave there. Returns the steps checked."""
+    from repro_torch.models.encdec import encdec_decode_step
+    from repro_torch.models.lm import lm_decode_step
+    decode = encdec_decode_step if cfg.is_encoder_decoder else lm_decode_step
     batch, n_prompt = prompts.shape
     feed = torch.cat([prompts, gen[:, :-1]], dim=1)
-    cache = init_lm_cache(cfg, batch, max_len, dtype=cfg.adtype,
-                          device=prompts.device)
+    cache = new_cache(cfg, batch, max_len, prompts.device, cross_kv)
     finite = torch.ones((), dtype=torch.bool, device=prompts.device)
     greedy = []
     for i in range(feed.shape[1]):
-        logits, cache = lm_decode_step(model, cache, feed[:, i:i + 1], i, cfg)
+        logits, cache = decode(model, cache, feed[:, i:i + 1], i, cfg)
         finite &= torch.isfinite(logits).all()
         if i >= n_prompt - 1:
             greedy.append(torch.argmax(logits[:, -1], dim=-1))
@@ -1993,11 +2041,70 @@ def replay(model, cfg, prompts, gen, max_len: int) -> int:
     return feed.shape[1]
 
 
-def profile_device(run, n: int) -> dict:
+BACKWARD_SCOPE = 1    # torch's RecordScope.BACKWARD_FUNCTION
+
+
+def _on_device(e) -> bool:
+    """A device event of the profile (kernel, copy or fill); a
+    `record_function` range's span on the device's timeline is not one."""
+    return (str(e.device_type()).endswith("CUDA")
+            and not e.is_user_annotation())
+
+
+class _Spans:
+    """Time spans by thread, merged; `holds(thread, t)` says whether one
+    of them covers time t on that thread."""
+
+    def __init__(self, spans):
+        by_thread = {}
+        for tid, t0, t1 in sorted(spans):
+            merged = by_thread.setdefault(tid, ([], []))
+            if merged[0] and t0 <= merged[1][-1]:
+                merged[1][-1] = max(merged[1][-1], t1)
+            else:
+                merged[0].append(t0)
+                merged[1].append(t1)
+        self.by_thread = by_thread
+
+    def holds(self, tid, t) -> bool:
+        starts, ends = self.by_thread.get(tid, ((), ()))
+        k = bisect.bisect_right(starts, t) - 1
+        return k >= 0 and t <= ends[k]
+
+
+def own_ops(events, name: str) -> list:
+    """The profile's host events (its raw `_KinetoEvent`s, in launch
+    order) that belong to the `record_function` ranges called `name`:
+    every op inside such a range (its forward calls, and the remat's
+    recompute, which runs the range again inside the backward), and every
+    op inside an autograd node that differentiates an op of a forward
+    range (linked to it by sequence number and forward thread). An op
+    lies inside a span when it starts within it on the same thread."""
+    host = [e for e in events if str(e.device_type()).endswith("CPU")]
+
+    def span(e):
+        return (e.start_thread_id(), e.start_ns(), e.end_ns())
+    backward = _Spans(span(e) for e in host if e.scope() == BACKWARD_SCOPE)
+    ranges = [span(e) for e in host if e.name() == name]
+    forward = _Spans(r for r in ranges if not backward.holds(r[0], r[1]))
+    seqs = {(e.start_thread_id(), e.sequence_nr()) for e in host
+            if e.sequence_nr() >= 0
+            and forward.holds(e.start_thread_id(), e.start_ns())}
+    own = _Spans(ranges + [span(e) for e in host
+                           if e.scope() == BACKWARD_SCOPE
+                           and (e.fwd_thread_id(), e.sequence_nr()) in seqs])
+    return [e for e in host if own.holds(e.start_thread_id(), e.start_ns())]
+
+
+def profile_device(run, n: int, ranges=()) -> dict:
     """`run()`, which takes `n` steps, under `torch.profiler`: device time
-    per step (the CUDA kernels' own times, summed) against the wall time,
+    per step (the device events' own times, summed) against the wall time,
     which the profiler inflates; "not measured" when it records no device
-    time."""
+    time. For each `record_function` range named in `ranges`, the device
+    time of the kernels its own ops launched (`own_ops`) a step and its
+    share of the device time. Read from the profiler's raw events: its
+    event tree would take minutes to build for a step of 100,000
+    launches."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2006,20 +2113,35 @@ def profile_device(run, n: int) -> dict:
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [(e.key, e.self_device_time_total, e.count)
-               for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")
-               and e.self_device_time_total > 0]
-    device_us = sum(k[1] for k in kernels)
+    events = prof.profiler.kineto_results.events()
+    device = [e for e in events if _on_device(e)]
+    device_us = sum(e.duration_ns() for e in device) / 1e3
     if not device_us:
         return {"device_time": "not measured (no device events)"}
-    top = sorted(kernels, key=lambda k: -k[1])[:8]
-    return dict(steps=n, wall_ms_per_step=wall / n * 1e3,
-                device_ms_per_step=device_us / 1e3 / n,
-                device_busy_share=device_us / 1e6 / wall,
-                kernel_launches_per_step=sum(k[2] for k in kernels) / n,
-                top_kernels=[dict(name=k[0][:60], ms_per_step=k[1] / 1e3 / n,
-                                  calls_per_step=k[2] / n) for k in top])
+    by_name = {}
+    for e in device:
+        acc = by_name.setdefault(e.name(), [0, 0])
+        acc[0] += e.duration_ns() / 1e3
+        acc[1] += 1
+    top = sorted(by_name.items(), key=lambda k: -k[1][0])[:8]
+    out = dict(steps=n, wall_ms_per_step=wall / n * 1e3,
+               device_ms_per_step=device_us / 1e3 / n,
+               device_busy_share=device_us / 1e6 / wall,
+               kernel_launches_per_step=len(device) / n,
+               top_kernels=[dict(name=k[:60], ms_per_step=us / 1e3 / n,
+                                 calls_per_step=c / n)
+                            for k, (us, c) in top])
+    if ranges:
+        out["ranges"] = {}
+        for name in ranges:
+            launched = {e.correlation_id() for e in own_ops(events, name)}
+            own = [e for e in device if e.linked_correlation_id() in launched]
+            us = sum(e.duration_ns() for e in own) / 1e3
+            out["ranges"][name] = dict(
+                device_ms_per_step=us / 1e3 / n,
+                kernels_per_step=len(own) / n,
+                share_of_device_time=us / device_us)
+    return out
 
 
 def profile_steps(model, cfg, cache, tok, start: int, n: int) -> dict:
@@ -2076,25 +2198,129 @@ def cross_check(cfg, args, dev) -> dict:
                          device=dev, dtype=torch.int32)
     want, _ = lm_apply(model, toks, small)
     cache = init_lm_cache(small, 2, n, dtype=torch.float32, device=dev)
-    err, scale = 0.0, float(want.abs().max())
-    for i in range(n):
-        got, cache = lm_decode_step(model, cache, toks[:, i:i + 1], i, small)
-        if not torch.allclose(got[:, 0], want[:, i], rtol=2e-3, atol=2e-3):
-            raise AssertionError(
-                f"{cfg.name} cross-check: decode logits at position {i} "
-                f"differ from the prefill's (max abs err "
-                f"{float((got[:, 0] - want[:, i]).abs().max())}, tolerance "
-                "2e-3 relative plus absolute)")
-        err = max(err, float((got[:, 0] - want[:, i]).abs().max()))
-    if not bool(torch.isfinite(want).all()):
-        raise AssertionError(f"{cfg.name} cross-check: prefill logits not "
-                             "finite")
+    err = decode_matches(cfg.name, want, toks, lambda t, i: lm_decode_step(
+        model, cache, t, i, small)[0])
     del model, cache
     out = dict(layers=depth, dtype="float32", batch=2, positions=n,
-               max_abs_err=err, max_abs_logit=scale, tolerance=2e-3)
+               max_abs_err=err, max_abs_logit=float(want.abs().max()),
+               tolerance=2e-3)
     if cfg.n_experts:
         out["capacity_factor"] = small.capacity_factor
     return out
+
+
+def decode_matches(name: str, want, toks, decode) -> float:
+    """`decode(token (B, 1), i)`'s logits (B, 1, V) at every position i of
+    toks (B, n) against the parallel logits `want` (B, n, V), 2e-3
+    relative plus absolute; returns the largest absolute error. Raises on
+    a failure."""
+    if not bool(torch.isfinite(want).all()):
+        raise AssertionError(f"{name} cross-check: prefill logits not "
+                             "finite")
+    err = 0.0
+    for i in range(toks.shape[1]):
+        got = decode(toks[:, i:i + 1], i)
+        e = float((got[:, 0] - want[:, i]).abs().max())
+        if not torch.allclose(got[:, 0], want[:, i], rtol=2e-3, atol=2e-3):
+            raise AssertionError(
+                f"{name} cross-check: decode logits at position {i} differ "
+                f"from the prefill's (max abs err {e}, tolerance 2e-3 "
+                "relative plus absolute)")
+        err = max(err, e)
+    return err
+
+
+def enc_layers(cfg) -> int:
+    """An encoder-decoder's encoder layers; 0 for a decoder-only LM."""
+    if not cfg.is_encoder_decoder:
+        return 0
+    return cfg.n_enc_layers or cfg.n_layers
+
+
+def encdec_cross_check(cfg, args, dev) -> dict:
+    """The reference's `test_encdec_decode_matches_parallel_apply` at full
+    width and full depth in float32: `encdec_apply`'s logits against
+    token-by-token `encdec_decode_step` logits at every one of LM_CHECK
+    positions, over `enc_context` frames, 2e-3 relative plus absolute (the
+    apply takes the plain attention, the decode K16 and the plain cross
+    attention over the precomputed cross K/V)."""
+    import dataclasses
+    from repro_torch.models.encdec import (encdec_apply, encdec_decode_step,
+                                           encode, init_encdec,
+                                           precompute_cross_kv)
+    small = dataclasses.replace(cfg, param_dtype="float32",
+                                activ_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    model = init_encdec(small, generator=gen, device=dev)
+    n, T = LM_CHECK, cfg.enc_context
+    frames = torch.randn((2, T, cfg.d_model), generator=gen, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, n), generator=gen,
+                         device=dev, dtype=torch.int32)
+    want, _ = encdec_apply(model, frames, toks, small)
+    cache = new_cache(small, 2, n, dev, precompute_cross_kv(
+        model, encode(model, frames, small), small, dtype=torch.float32))
+    err = decode_matches(cfg.name, want, toks, lambda t, i: encdec_decode_step(
+        model, cache, t, i, small)[0])
+    del model, cache
+    return dict(layers=enc_layers(cfg) + cfg.n_layers, dtype="float32",
+                batch=2, frames=T, positions=n, max_abs_err=err,
+                max_abs_logit=float(want.abs().max()), tolerance=2e-3)
+
+
+def encdec_requests(model, cfg, prompts, gen) -> tuple[list, dict]:
+    """An encoder-decoder's requests: `enc_context` frames each (the stub
+    frontend's precomputed embeddings, drawn from `gen`), encoded and
+    turned into the cross K/V (timed: ``encode_ms``), then
+    `make_prefill_step` over the prompts against the frames; each twice,
+    the first call warming up. Returns (the cross K/V, the line's
+    fields)."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.encdec import encode, precompute_cross_kv
+    B, P = prompts.shape
+    frames = torch.randn((B, cfg.enc_context, cfg.d_model), generator=gen,
+                         device=prompts.device)
+    encode_ms = []
+    for _ in range(2):                     # the first call warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            cross_kv = precompute_cross_kv(model, encode(model, frames, cfg),
+                                           cfg, dtype=cfg.adtype)
+        torch.cuda.synchronize()
+        encode_ms.append((time.perf_counter() - t0) * 1e3)
+    prefill, secs = make_prefill_step(cfg), []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill(model, {"frames": frames, "tokens": prompts})
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    if logits.shape != (B, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg.name}: bad prefill logits")
+    cross_bytes = sum(t.numel() * t.element_size() for kv in cross_kv
+                      for t in kv.values())
+    return cross_kv, dict(frames=cfg.enc_context, encode_ms=encode_ms,
+                          cross_kv_bytes=cross_bytes,
+                          prefill_tokens=B * P, prefill_seconds=secs,
+                          prefill_tokens_per_s=B * P / secs[1])
+
+
+def decode_read_bytes(model, cfg) -> int:
+    """The weights a decode step reads: every one but the embedding
+    table's (B rows of it) - every expert of a MoE layer too (the
+    reference's dispatch computes all E x C slots) - and of an
+    encoder-decoder only the decoder's, without the cross attention's K/V
+    projections (the encoder and those run once a request)."""
+    def read(name):
+        if name.startswith("embed."):
+            return False
+        if cfg.is_encoder_decoder:
+            return not name.startswith(("enc.", "ln_enc.")) and \
+                ".xattn.wk." not in name and ".xattn.wv." not in name
+        return True
+    return sum(p.numel() * p.element_size()
+               for name, p in model.named_parameters() if read(name))
 
 
 MOE_CHECK_TOL = 2**-6    # of the oracle's largest |value|
@@ -2203,6 +2429,7 @@ def phase_lm_serve(args, dev=None) -> tuple[dict, dict]:
                                             kernel_launch_shapes,
                                             reset_kernel_launch_counts)
     from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.encdec import init_encdec
     from repro_torch.models.lm import init_lm
     dev = torch.device("cuda", 0) if dev is None else dev
     torch.backends.cuda.matmul.allow_tf32 = False    # float32 is float32
@@ -2210,21 +2437,20 @@ def phase_lm_serve(args, dev=None) -> tuple[dict, dict]:
     total = ({}, {})
     for name in args.lm_models:
         cfg, full_layers = lm_config(name, dev)
-        check = cross_check(cfg, args, dev)
+        encdec = cfg.is_encoder_decoder
+        check = (encdec_cross_check if encdec else cross_check)(cfg, args,
+                                                                dev)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         gen = torch.Generator(device=dev).manual_seed(args.seed)
         t0 = time.perf_counter()
-        model = init_lm(cfg, generator=gen, device=dev)
+        model = (init_encdec if encdec else init_lm)(cfg, generator=gen,
+                                                     device=dev)
         torch.cuda.synchronize()
         init_seconds = time.perf_counter() - t0
         weight_bytes = sum(p.numel() * p.element_size()
                            for p in model.parameters())
-        # a decode step reads every weight but the embedding table's B
-        # rows: every expert too (the reference's dispatch computes all
-        # E x C slots)
-        table = model.embed["table"]
-        read_bytes = weight_bytes - table.numel() * table.element_size()
+        read_bytes = decode_read_bytes(model, cfg)
         B, P, G = args.lm_batch, args.lm_prompt, args.lm_gen
         n_attn = sum(cfg.blocks[i % cfg.period].mixer != "mamba"
                      for i in range(cfg.n_layers))
@@ -2251,8 +2477,15 @@ def phase_lm_serve(args, dev=None) -> tuple[dict, dict]:
                           prefill_tokens_per_s=B * args.lm_prefill / secs[1])
         prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
                                 device=dev, dtype=torch.int32)
+        cross_kv = None
+        if encdec:
+            cross_kv, more = encdec_requests(model, cfg, prompts, gen)
+            fields.update(more)
+            # a step reads the cross K/V besides the weights
+            fields["read_bound_ms_with_cross_kv"] = (
+                read_bytes + more["cross_kv_bytes"]) / HBM_BYTES_PER_S * 1e3
         out, prompt_s, gen_s, cache = serve(model, cfg, prompts, G,
-                                            LM_MAX_LEN)
+                                            LM_MAX_LEN, cross_kv)
         torch.cuda.synchronize()
         launches, shapes = kernel_launch_counts(), kernel_launch_shapes()
         # after the counts: the profiled steps, the replay and the MoE
@@ -2261,13 +2494,15 @@ def phase_lm_serve(args, dev=None) -> tuple[dict, dict]:
                              LM_PROFILE_STEPS)
         del cache
         peak = torch.cuda.max_memory_allocated()
-        checked = replay(model, cfg, prompts, out, LM_MAX_LEN)
+        checked = replay(model, cfg, prompts, out, LM_MAX_LEN, cross_kv)
         if cfg.n_experts:
-            first = next(layer for layer in model.layers
-                         if layer.spec.mlp == "moe")
+            # nothing of the model may outlive the iteration: a kept layer
+            # would hold its experts' weights under the next model's peak
             x = torch.randn((B, 1, cfg.d_model), generator=gen, device=dev)
-            fields["moe_check"] = moe_layer_check(first["moe"], cfg,
-                                                  x.to(cfg.adtype))
+            fields["moe_check"] = moe_layer_check(
+                next(layer for layer in model.layers
+                     if layer.spec.mlp == "moe")["moe"], cfg,
+                x.to(cfg.adtype))
         want = {}
         if n_attn:
             want["decode_attn"] = n_attn * (P + G - 1)
@@ -2281,8 +2516,11 @@ def phase_lm_serve(args, dev=None) -> tuple[dict, dict]:
         add_counts(total, launches, shapes)
         if cfg.n_layers < full_layers:
             fields["reduced"] = "depth: one card's memory"
-        emit("lm_serve", model=name, layers=cfg.n_layers,
-             full_layers=full_layers,
+        if encdec:
+            fields.update(enc_layers=enc_layers(cfg),
+                          dec_layers=cfg.n_layers)
+        emit("lm_serve", model=name, layers=enc_layers(cfg) + cfg.n_layers,
+             full_layers=enc_layers(cfg) + full_layers,
              d_model=cfg.d_model, vocab=cfg.vocab_size,
              params=sum(p.numel() for p in model.parameters()),
              weight_bytes=weight_bytes, dtype=str(cfg.pdtype), batch=B,
@@ -2297,7 +2535,7 @@ def phase_lm_serve(args, dev=None) -> tuple[dict, dict]:
              peak_device_bytes=peak, launches=launches,
              first_tokens=out[0, :8].tolist(), cross_check=check,
              profile=prof, **fields, ok=True)
-        del model, out
+        del model, out, cross_kv
         torch.cuda.empty_cache()
     return total
 
@@ -2553,7 +2791,147 @@ def phase_lm_train(args, dev=None) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
-# phase 14: every kernel against its plain version
+# phase 14: the encoder-decoder's training on the blocked attention
+# ---------------------------------------------------------------------------
+
+ENCDEC_TRAIN_MODEL = "whisper-base"
+ENCDEC_TRAIN_BATCH = 2        # sequences a step, one micro-batch
+ENCDEC_TRAIN_SEQ = 4096       # tokens and frames a sequence (the reference's
+                              # train_4k: enc_len = dec_len = seq_len)
+ENCDEC_TRAIN_STEPS = 4
+BLOCKED = "flash_attention"
+
+
+@contextlib.contextmanager
+def attention_calls(annotate: bool = False):
+    """While open, counts the calls of the blocked attention
+    (`nn.flash.flash_attention`) and of the plain one
+    (`nn.attention._sdpa`) that the training forms reach (the attention
+    module looks both up at each call); with `annotate`, each blocked call
+    runs inside a `torch.profiler.record_function` range named BLOCKED."""
+    from torch.profiler import record_function
+
+    from repro_torch.nn import attention, flash
+    calls = {BLOCKED: 0, "_sdpa": 0}
+    real = {BLOCKED: (flash, flash.flash_attention),
+            "_sdpa": (attention, attention._sdpa)}
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            calls[name] += 1
+            if annotate and name == BLOCKED:
+                with record_function(BLOCKED):
+                    return fn(*a, **kw)
+            return fn(*a, **kw)
+        return call
+    for name, (mod, fn) in real.items():
+        setattr(mod, name, counted(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, (mod, fn) in real.items():
+            setattr(mod, name, fn)
+
+
+def phase_encdec_train(args, dev=None) -> tuple[dict, dict]:
+    """`ENCDEC_TRAIN_MODEL` at full width and depth, bf16, remat,
+    ``loss_chunk`` as configured, the optimizer `default_optimizer_for`
+    picks, `ENCDEC_TRAIN_STEPS` steps of `ENCDEC_TRAIN_BATCH` x
+    `ENCDEC_TRAIN_SEQ` tokens (a `SyntheticPipeline`) against as many
+    frames (drawn from ``--seed``) in one micro-batch. Every attention of
+    the step (encoder, decoder self and cross) takes the blocked path: the
+    phase fails unless the blocked attention ran (encoder layers + 2 x
+    decoder layers) x (2 with remat) times a step and the plain one never,
+    on any hand-written kernel's launch (none is on this path: no K16, no
+    K17) and on a loss that is not finite. Returns the steps' launches and
+    launch shapes (none)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.kernels.common import (kernel_launch_counts,
+                                            kernel_launch_shapes,
+                                            reset_kernel_launch_counts)
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.encdec import init_encdec
+    from repro_torch.optim import default_optimizer_for, get_optimizer
+    dev = torch.device("cuda", 0) if dev is None else dev
+    cfg = get_config(ENCDEC_TRAIN_MODEL)
+    B, S = ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    t0 = time.perf_counter()
+    model = init_encdec(cfg, generator=gen, device=dev)
+    opt_name = default_optimizer_for(cfg.param_count())
+    opt = get_optimizer(opt_name, lr=LM_TRAIN_LR, period=cfg.period)
+    opt_state = opt[0](dict(model.named_parameters()))
+    step_fn = make_train_step(cfg, opt, micro_batches=1)
+    pipe = SyntheticPipeline(cfg.vocab_size, S, B, seed=args.seed,
+                             device=dev)
+    torch.cuda.synchronize()
+    setup_seconds = time.perf_counter() - t0
+
+    def batch(step):
+        toks, labels = pipe.get_batch(step)
+        frames = torch.randn((B, S, cfg.d_model), generator=gen, device=dev)
+        return {"tokens": toks, "labels": labels, "frames": frames}
+    losses, step_s = [], []
+    reset_kernel_launch_counts()
+    with attention_calls() as calls:
+        for step in range(ENCDEC_TRAIN_STEPS):
+            b = batch(step)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model, opt_state, metrics = step_fn(model, opt_state, step, b)
+            losses.append(float(metrics["loss"]))   # synchronises
+            step_s.append(time.perf_counter() - t0)
+    launches, shapes = kernel_launch_counts(), kernel_launch_shapes()
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{cfg.name} train: a loss is not finite: "
+                             f"{losses}")
+    if launches:
+        raise AssertionError(f"{cfg.name} train: launches {launches}; no "
+                             "hand-written kernel is on this path")
+    per_step = (enc_layers(cfg) + 2 * cfg.n_layers) * (2 if cfg.remat else 1)
+    want = {BLOCKED: per_step * ENCDEC_TRAIN_STEPS, "_sdpa": 0}
+    if calls != want:
+        raise AssertionError(
+            f"{cfg.name} train: attention calls {calls}, expected {want} "
+            f"({enc_layers(cfg)} encoder + 2 x {cfg.n_layers} decoder "
+            "attentions a forward, all blocked at S = T = "
+            f"{S}, twice with remat)")
+    peak = torch.cuda.max_memory_allocated()
+    b = batch(ENCDEC_TRAIN_STEPS)
+
+    def profiled():
+        with attention_calls(annotate=True):
+            step_fn(model, opt_state, ENCDEC_TRAIN_STEPS, b)
+    t0 = time.perf_counter()
+    prof = profile_device(profiled, 1, (BLOCKED,))
+    prof["seconds_with_post_processing"] = time.perf_counter() - t0
+    steady = step_s[1:] or step_s
+    emit("lm_train", model=ENCDEC_TRAIN_MODEL,
+         layers=enc_layers(cfg) + cfg.n_layers,
+         enc_layers=enc_layers(cfg), dec_layers=cfg.n_layers,
+         full_layers=enc_layers(cfg) + cfg.n_layers, d_model=cfg.d_model,
+         heads=[cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_],
+         vocab=cfg.vocab_size,
+         params=sum(p.numel() for p in model.parameters()),
+         dtype=str(cfg.pdtype), remat=cfg.remat, optimizer=opt_name,
+         lr=LM_TRAIN_LR, batch=B, seq=S, frames=S, micro_batches=1,
+         loss_chunk=cfg.loss_chunk, steps=ENCDEC_TRAIN_STEPS,
+         seed=args.seed, setup_seconds=setup_seconds, losses=losses,
+         step_seconds=step_s, ms_per_step=sum(steady) / len(steady) * 1e3,
+         ms_per_step_of="the steps after the first",
+         tokens_per_s=B * S * len(steady) / sum(steady),
+         peak_device_bytes=peak, attention_calls_per_step=per_step,
+         profile=prof, launches=launches, ok=True)
+    del model, opt_state, b
+    torch.cuda.empty_cache()
+    return launches, shapes
+
+
+# ---------------------------------------------------------------------------
+# phase 15: every kernel against its plain version
 # ---------------------------------------------------------------------------
 # Each kernel has a `*_cost(shape)` -> (bytes, operations) of one launch at a
 # shape its wrapper recorded (each input read once, each output written
@@ -3783,9 +4161,10 @@ def decode_inputs(gen, dev, shape, q_dtype, kv_dtype):
 
 def edge_decode(gen, dev) -> int:
     """Ragged S, length 1 and length = S, G 1 to 8, d 16 to 256 (kimi-k2's
-    112 with G 8 among them), softcap on and off, a full rolling cache (S =
-    window = length), a float32 and a bf16 cache (float32 queries: the
-    plain version up-casts the cache), then bf16 queries and output."""
+    112 with G 8 and whisper's 64 with G 1 among them), softcap on and
+    off, a full rolling cache (S = window = length), a float32 and a bf16
+    cache (float32 queries: the plain version up-casts the cache), then
+    bf16 queries and output."""
     from repro_torch.kernels.decode_attn import (decode_attention,
                                                  decode_attention_ref)
     cases = 0
@@ -3799,6 +4178,8 @@ def edge_decode(gen, dev) -> int:
                        ((2, 1001, 64, 8, 112, 1), 50.0),      # kimi-k2: d 112
                        ((1, 777, 64, 8, 112, 777), 0.0),
                        ((3, 4099, 64, 8, 112, 2050), 50.0),
+                       ((4, 4096, 8, 8, 64, 287), 50.0),      # whisper: G 1
+                       ((3, 1500, 8, 8, 64, 1500), 0.0),
                        ((2, 300, 4, 2, 16, 300), 30.0),       # smoke configs
                        ((1, 97, 8, 8, 16, 1), 0.0),
                        ((2, 513, 12, 4, 48, 400), 50.0),
@@ -4251,7 +4632,8 @@ def main(argv=None) -> int:
                          "delta store)")
     ap.add_argument("--lm-models",
                     default="gemma2-9b,falcon-mamba-7b,"
-                            "llama4-scout-17b-a16e,kimi-k2-1t-a32b",
+                            "llama4-scout-17b-a16e,kimi-k2-1t-a32b,"
+                            "whisper-base",
                     type=lambda s: [m for m in s.split(",") if m],
                     help="models of the lm_serve phase, in order (full "
                          "width; depth cut as LM_DEPTH says)")
@@ -4299,6 +4681,8 @@ def main(argv=None) -> int:
     runs["lm_serve"] = phase_lm_serve(args)
     torch.cuda.empty_cache()
     runs["lm_train"] = phase_lm_train(args)
+    torch.cuda.empty_cache()
+    runs["encdec_train"] = phase_encdec_train(args)
     # every kernel's launches and shapes from the paths that run it
     missing = [k for k in REPLACES if k not in NO_CALLER_SHAPE
                and any(k not in runs[p][0] for p in paths_of(k))]

@@ -97,16 +97,19 @@ class HTAPTokenPipeline:
         dictionary on the device (the same values as decoding the whole
         column and slicing it)."""
         h = self.cons.begin_query([self.TOKEN_COL])
-        col = self.cons.read(h, self.TOKEN_COL)
-        need = self.batch * (self.seq_len + 1)
-        n = col.n_rows
-        if n < need:
-            raise ValueError(f"store too small: {n} < {need}")
-        # deterministic offset schedule over the committed prefix
-        start = (step * need) % max(n - need, 1)
-        codes = col.codes[start:start + need].long()
-        window = col.dictionary[codes].reshape(self.batch, self.seq_len + 1)
-        self.cons.end_query(h)
+        try:
+            col = self.cons.read(h, self.TOKEN_COL)
+            need = self.batch * (self.seq_len + 1)
+            n = col.n_rows
+            if n < need:
+                raise ValueError(f"store too small: {n} < {need}")
+            # deterministic offset schedule over the committed prefix
+            start = (step * need) % max(n - need, 1)
+            codes = col.codes[start:start + need].long()
+            window = col.dictionary[codes].reshape(self.batch,
+                                                   self.seq_len + 1)
+        finally:
+            self.cons.end_query(h)
         return (window[:, :-1].to(torch.int32).contiguous(),
                 window[:, 1:].to(torch.int32).contiguous())
 

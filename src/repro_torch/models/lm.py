@@ -7,7 +7,7 @@ the hybrid of attention, Mamba and MoE (jamba). An `LM` holds one module
 per layer in an ``nn.ModuleList`` and the depth loop is a Python loop; the
 reference stacks each period's parameters and scans over them (layer
 ``p * period + i`` here is stacked period ``p``, block ``i`` there). The
-encoder-decoder (whisper) is not ported yet and raises.
+encoder-decoder (whisper) has its own assembly, `models.encdec`.
 """
 
 from __future__ import annotations
@@ -28,14 +28,13 @@ from repro_torch.nn.mamba import (init_mamba, init_mamba_cache, mamba_decode,
                                   mamba_train)
 from repro_torch.nn.moe import init_moe, init_swiglu, moe_apply, swiglu
 
-ENCDEC_TODO = ("encoder-decoder models (whisper) are not ported yet: "
-               "ROADMAP.md queue 1, item 14 (whisper)")
-
-
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port cannot run yet."""
+    """Raise for a config this assembly does not build: an
+    encoder-decoder (`models.encdec`), or an unknown block."""
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(ENCDEC_TODO)
+        raise ValueError(f"{cfg.name} is an encoder-decoder: build it with "
+                         "models.encdec.init_encdec (its cache with "
+                         "init_encdec_cache)")
     for spec in cfg.blocks:
         if spec.mixer not in ("attn", "attn_local", "mamba"):
             raise ValueError(spec.mixer)

@@ -1,7 +1,9 @@
-"""GQA attention: prefill (causal, optional sliding window and softcap)
+"""GQA attention: prefill (causal, optional sliding window and softcap),
+the encoder-decoder's cross and bidirectional forms (no mask, no RoPE),
 and decode (one token against a KV cache through the flash-decode
-kernel). The cross-attention and bidirectional forms of the reference
-wait for the encoder-decoder model (ROADMAP.md queue 1, item 14)."""
+kernel). Each prefill form takes the blocked attention (`nn.flash`) where
+the reference does: at S >= FLASH_THRESHOLD with S % 1024 == 0 (and, for
+the cross form, T % 1024 == 0)."""
 
 from __future__ import annotations
 
@@ -80,6 +82,38 @@ def attention_train(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta=1e4,
     else:
         mask = causal_mask(S, window, x.device)[:, None]   # (1,1,S,T)
         out = _sdpa(q, k, v, mask, attn_softcap)
+    return dense(p["wo"], out.reshape(B, S, n_heads * head_dim))
+
+
+def _full_mask(S: int, T: int, device):
+    return torch.ones((1, 1, S, T), dtype=torch.bool, device=device)
+
+
+def cross_attention_train(p, x, ctx, *, n_heads, n_kv_heads, head_dim):
+    """Encoder-decoder cross attention (no mask, no rope): queries from x
+    (B, S, d), keys and values from ctx (B, T, d)."""
+    B, S, _ = x.shape
+    T = ctx.shape[1]
+    q = dense(p["wq"], x).reshape(B, S, n_heads, head_dim)
+    k = dense(p["wk"], ctx).reshape(B, T, n_kv_heads, head_dim)
+    v = dense(p["wv"], ctx).reshape(B, T, n_kv_heads, head_dim)
+    if S >= FLASH_THRESHOLD and S % 1024 == 0 and T % 1024 == 0:
+        from repro_torch.nn.flash import flash_attention
+        out = flash_attention(q, k, v, causal=False)
+    else:
+        out = _sdpa(q, k, v, _full_mask(S, T, x.device))
+    return dense(p["wo"], out.reshape(B, S, n_heads * head_dim))
+
+
+def bidir_attention_train(p, x, *, n_heads, n_kv_heads, head_dim):
+    """Encoder self-attention (bidirectional, no rope - whisper style)."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, x, n_heads, n_kv_heads, head_dim)
+    if S >= FLASH_THRESHOLD and S % 1024 == 0:
+        from repro_torch.nn.flash import flash_attention
+        out = flash_attention(q, k, v, causal=False)
+    else:
+        out = _sdpa(q, k, v, _full_mask(S, S, x.device))
     return dense(p["wo"], out.reshape(B, S, n_heads * head_dim))
 
 

@@ -1,7 +1,9 @@
 """A rehearsal, on the CPU, of `chip_smoke.py`'s `mixed_traffic`,
 `si_baselines` and `elastic` phases: their control flow and every check
-they make on the card run here at a few thousand rows; and of
-`lm_serve`'s MoE models at the smoke configs, with its MoE layer check.
+they make on the card run here at a few thousand rows; of `lm_serve`'s
+MoE models and whisper at the smoke configs, with the MoE layer check and
+whisper's cross-check; of `lm_train` and whisper's training on the
+blocked attention; and the profile's attribution of a range's own events.
 
 The phases take their device as an argument (the CPU here, the card in the
 script). The scan wrappers' GPU branch is reached as
@@ -408,6 +410,96 @@ def test_lm_serve_phase_rehearsed_with_the_moe_models(decode_gpu_branch,
     assert heads == {(4, 2, 16)}
 
 
+def _whisper_serve_args():
+    return argparse.Namespace(lm_models=["whisper-base"], lm_batch=4,
+                              lm_prompt=6, lm_gen=3, lm_prefill=32, seed=0)
+
+
+def test_lm_serve_phase_rehearsed_with_whisper(decode_gpu_branch,
+                                               monkeypatch, capsys):
+    """whisper-base-smoke through the phase: the float32 cross-check of
+    `encdec_decode_step` against `encdec_apply` at LM_CHECK positions over
+    `enc_context` frames, the encode and cross K/V, the prefill against
+    the frames, serving, the replay and the launch counts: one decode
+    launch a decoder layer and step, none in the encoder, the cross K/V
+    or the prefill."""
+    from repro_torch import configs
+    monkeypatch.setattr(configs, "get_config", configs.get_smoke_config)
+    launches, shapes = chip_smoke.phase_lm_serve(_whisper_serve_args(),
+                                                 dev=CPU)
+    (line,) = _lines(capsys, "lm_serve")
+    assert line["ok"] and line["model"] == "whisper-base"
+    assert (line["layers"], line["full_layers"]) == (4, 4)
+    assert (line["enc_layers"], line["dec_layers"]) == (2, 2)
+    assert "reduced" not in line
+    assert line["launches"] == launches == {"decode_attn": 2 * 8}
+    assert {sh[2:5] for sh in shapes["decode_attn"]} == {(4, 4, 16)}
+    check = line["cross_check"]
+    assert (check["layers"], check["positions"], check["frames"]) == (
+        4, chip_smoke.LM_CHECK, 16)
+    assert check["max_abs_err"] <= 2e-3
+    assert line["frames"] == 16 and line["prefill_tokens"] == 4 * 6
+    assert line["finite_checked_steps"] == 6 + 3 - 1
+    # a step reads the decoder (without the cross K/V projections), the
+    # final norm and the head, in float32 here, and the cross K/V
+    cfg = configs.get_smoke_config("whisper-base")
+    d, f, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    layer = 3 * d + 6 * d * d + 3 * d * f      # ln1, lnx, ln2
+    assert line["weights_read_bytes"] == 4 * (2 * layer + d + d * V)
+    assert line["cross_kv_bytes"] == 2 * 2 * 4 * 16 * d * 4
+    assert line["read_bound_ms_with_cross_kv"] > line["weights_read_bound_ms"]
+
+
+def test_lm_serve_phase_frees_each_model_before_the_next(decode_gpu_branch,
+                                                        monkeypatch):
+    """Nothing of a model outlives its iteration (a MoE layer kept for the
+    layer check held kimi-k2's experts under the next model's peak bytes):
+    when a model is built, no parameter of a model built before it is
+    left."""
+    import gc
+    import weakref
+
+    from repro_torch import configs
+    from repro_torch.models import encdec, lm
+    monkeypatch.setattr(configs, "get_config", configs.get_smoke_config)
+    built, params = [], []
+
+    def tracked(real):
+        def init(*a, **kw):
+            gc.collect()
+            alive = [r() for r in params if r() is not None]
+            assert not alive, f"{len(alive)} earlier parameter(s) alive"
+            model = real(*a, **kw)
+            built.append(model.cfg.name)
+            params.extend(weakref.ref(p) for p in model.parameters())
+            return model
+        return init
+    monkeypatch.setattr(lm, "init_lm", tracked(lm.init_lm))
+    monkeypatch.setattr(encdec, "init_encdec", tracked(encdec.init_encdec))
+    args = _whisper_serve_args()
+    args.lm_models = ["kimi-k2-1t-a32b", "whisper-base"]
+    chip_smoke.phase_lm_serve(args, dev=CPU)
+    assert len(built) == 4          # each model's cross-check and its run
+
+
+def test_lm_serve_phase_fails_on_wrong_cross_kv(decode_gpu_branch,
+                                               monkeypatch):
+    """A cross K/V of zeros (the encoder's output never reaching the
+    decoder at decode) makes decode differ from the parallel apply: the
+    cross-check fails the phase."""
+    from repro_torch import configs
+    from repro_torch.models import encdec
+    monkeypatch.setattr(configs, "get_config", configs.get_smoke_config)
+    real = encdec.precompute_cross_kv
+
+    def zeros(*a, **kw):
+        return [{k: torch.zeros_like(v) for k, v in kv.items()}
+                for kv in real(*a, **kw)]
+    monkeypatch.setattr(encdec, "precompute_cross_kv", zeros)
+    with pytest.raises(AssertionError, match="cross-check: decode logits"):
+        chip_smoke.phase_lm_serve(_whisper_serve_args(), dev=CPU)
+
+
 # ---------------------------------------------------------------------------
 # lm_train: falcon-mamba's smoke config (remat on, two loss chunks) fed by
 # the token pipeline, every kernel's GPU branch faked with its plain version
@@ -592,3 +684,94 @@ def test_lm_train_grad_check_fails_on_a_wrong_backward(train_gpu_branch,
     monkeypatch.setattr(scan_ops, "launch_selective_scan_bwd", real_bwd)
     out = chip_smoke.train_grad_check(cfg, argparse.Namespace(seed=0), CPU)
     assert len(seen) == 2 and out["max_rel_err"] <= chip_smoke.LM_GRAD_TOL
+
+
+# ---------------------------------------------------------------------------
+# whisper's training: every attention on the blocked path at S = 2,048
+# ---------------------------------------------------------------------------
+
+def _whisper_train(monkeypatch):
+    """whisper-base-smoke with remat and 1,024-token loss chunks, one step
+    of 2 x 2,048 tokens: the blocked attention's threshold."""
+    import dataclasses
+
+    from repro_torch import configs
+    def get(name):
+        return dataclasses.replace(configs.get_smoke_config(name),
+                                   remat=True, loss_chunk=1024)
+    monkeypatch.setattr(configs, "get_config", get)
+    monkeypatch.setattr(chip_smoke, "ENCDEC_TRAIN_SEQ", 2048)
+    monkeypatch.setattr(chip_smoke, "ENCDEC_TRAIN_STEPS", 1)
+
+
+def test_encdec_train_phase_rehearsed(train_gpu_branch, monkeypatch,
+                                      capsys):
+    """The phase at the smoke config: finite losses, no kernel launch, the
+    blocked attention (2 encoder + 2 x 2 decoder attentions, twice with
+    remat) on every call and the plain one never."""
+    _whisper_train(monkeypatch)
+    launches, shapes = chip_smoke.phase_encdec_train(
+        argparse.Namespace(seed=0), dev=CPU)
+    assert launches == {} and shapes == {}
+    (line,) = _lines(capsys, "lm_train")
+    assert line["ok"] and line["model"] == "whisper-base"
+    assert (line["layers"], line["enc_layers"], line["dec_layers"]) == (
+        4, 2, 2)
+    assert line["attention_calls_per_step"] == (2 + 2 * 2) * 2
+    assert (line["seq"], line["frames"], line["batch"]) == (2048, 2048, 2)
+    assert line["remat"] and line["optimizer"] == "adamw"
+    assert len(line["losses"]) == 1 and all(np.isfinite(line["losses"]))
+
+
+def test_encdec_train_phase_fails_on_a_stray_scan_launch(train_gpu_branch,
+                                                         monkeypatch):
+    """A selective-scan launch inside the step (here from a patched MLP)
+    is not on whisper's path: the phase fails on the launch counts."""
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+    from repro_torch.models import encdec
+    _whisper_train(monkeypatch)
+    real = encdec.swiglu
+    g = torch.Generator().manual_seed(0)
+    x, dt = torch.randn(1, 8, 128, generator=g), torch.rand(1, 8, 128)
+    a, b = -torch.rand(128, 4), torch.randn(1, 8, 4, generator=g)
+
+    def swiglu(p, h):
+        scan_ops.selective_scan(x, dt, a, b, b, torch.ones(128))
+        return real(p, h)
+    monkeypatch.setattr(encdec, "swiglu", swiglu)
+    with pytest.raises(AssertionError, match="no hand-written kernel"):
+        chip_smoke.phase_encdec_train(argparse.Namespace(seed=0), dev=CPU)
+
+
+def test_own_ops_link_a_range_to_its_backward():
+    """On a CPU profile of a remat'd layer: a range's own ops are its
+    forward ops, its recompute inside the backward and the autograd nodes
+    of its forward ops with the ops under them, and none of the layer's
+    other ops or nodes."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.utils.checkpoint import checkpoint
+    g = torch.Generator().manual_seed(0)
+    w = torch.randn(16, 16, generator=g, requires_grad=True)
+    v = torch.randn(16, 16, generator=g, requires_grad=True)
+
+    def layer(x):
+        h = x @ w
+        with record_function("attn"):
+            h = torch.softmax(h @ h.T, dim=-1) @ h
+        return torch.tanh(h @ v)
+    x = torch.randn(8, 16, generator=g)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        checkpoint(layer, x, use_reentrant=False).sum().backward()
+    events = prof.profiler.kineto_results.events()
+    names = [e.name() for e in chip_smoke.own_ops(events, "attn")]
+    assert names.count("attn") == 2                  # forward and recompute
+    assert names.count("aten::softmax") == 2
+    assert names.count("aten::_softmax_backward_data") == 1
+    for node in ("SoftmaxBackward0", "MmBackward0"):
+        assert node in names, node
+    assert "TanhBackward0" not in names
+    # the two products outside the range: their nodes are not its own
+    assert names.count("MmBackward0") == 2
+    assert "aten::tanh" not in names
+    everything = [e.name() for e in events]
+    assert everything.count("MmBackward0") == 4

@@ -313,6 +313,85 @@ def _moe_apply():
             (tuple(want.shape), "torch." + str(want.dtype), True))
 
 
+def _encdec():
+    """whisper-base-smoke in both packages: (reference cfg, its params,
+    the port's cfg, the port's model from the reference's weights)."""
+    import jax
+    from repro.configs import get_smoke_config as ref_smoke
+    from repro.models import encdec as ref_encdec
+    from repro_torch.models.encdec import encdec_params_from_reference
+    cfg = ref_smoke("whisper-base")
+    params = ref_encdec.init_encdec(jax.random.PRNGKey(0), cfg)
+    tcfg = configs.get_smoke_config("whisper-base")
+    return cfg, params, tcfg, encdec_params_from_reference(
+        tcfg, jax.tree.map(np.asarray, params), "cpu")
+
+
+def _encdec_params():
+    """`init_encdec`'s parameters (name, shape, type) in both."""
+    import jax
+    from repro.configs import get_smoke_config as ref_smoke
+    from repro.models import encdec as ref_encdec
+    from repro_torch.models.encdec import init_encdec
+    model = init_encdec(configs.get_smoke_config("whisper-base"),
+                        generator=torch.Generator(), device="cpu")
+    want = jax.eval_shape(lambda: ref_encdec.init_encdec(
+        jax.random.PRNGKey(0), ref_smoke("whisper-base")))
+    return _torch_shapes(model.named_parameters()), _shapes(want)
+
+
+def _encdec_prefill():
+    """The prefill step's last-position logits on the reference's weights:
+    shape, type and whether they equal the reference's (2e-5)."""
+    import jax.numpy as jnp
+    from repro.launch import steps as ref_steps
+    cfg, params, tcfg, model = _encdec()
+    rng = np.random.default_rng(0)
+    frames = rng.normal(size=(2, 16, cfg.d_model)).astype(np.float32)
+    toks = rng.integers(0, cfg.vocab_size, (2, 6)).astype(np.int32)
+    want = np.asarray(ref_steps.make_prefill_step(cfg)(
+        params, {"frames": jnp.asarray(frames), "tokens": jnp.asarray(toks)}))
+    got = make_prefill_step(tcfg)(model, {"frames": torch.from_numpy(frames),
+                                          "tokens": torch.from_numpy(toks)})
+    close = bool(np.allclose(got.numpy(), want, rtol=2e-5, atol=2e-5))
+    return ((tuple(got.shape), str(got.dtype), close),
+            (want.shape, "torch." + str(want.dtype), True))
+
+
+def _encdec_serve():
+    """Greedy tokens of the serve step, four prompt tokens and four
+    generated, against the frames' cross K/V, in both."""
+    import jax.numpy as jnp
+    from repro.launch import steps as ref_steps
+    from repro.models import encdec as ref_encdec
+    from repro_torch.models.encdec import (encode, init_encdec_cache,
+                                           precompute_cross_kv)
+    cfg, params, tcfg, model = _encdec()
+    rng = np.random.default_rng(1)
+    frames = rng.normal(size=(2, 16, cfg.d_model)).astype(np.float32)
+    prompt = rng.integers(0, cfg.vocab_size, (2, 4)).astype(np.int32)
+    ref_cache = ref_encdec.init_encdec_cache(cfg, 2, 8, dtype=jnp.float32)
+    ref_cache["cross_kv"] = ref_encdec.precompute_cross_kv(
+        params, ref_encdec.encode(params, jnp.asarray(frames), cfg), cfg,
+        dtype=jnp.float32)
+    cache = init_encdec_cache(tcfg, 2, 8, dtype=torch.float32, device="cpu")
+    cache["cross_kv"] = precompute_cross_kv(
+        model, encode(model, torch.from_numpy(frames), tcfg), tcfg,
+        dtype=torch.float32)
+    ref_step, step = ref_steps.make_serve_step(cfg), make_serve_step(tcfg)
+    want, got = [], []
+    w, g = None, None
+    for i in range(7):
+        if i < 4:
+            w = jnp.asarray(prompt[:, i:i + 1])
+            g = torch.from_numpy(prompt[:, i:i + 1])
+        w, ref_cache = ref_step(params, ref_cache, w, jnp.int32(i))
+        g, cache = step(model, cache, g, i)
+        want.append(np.asarray(w).tolist())
+        got.append(g.tolist())
+    return got, want
+
+
 def _delta_spec(**kw):
     """A delta-store spec's fields and resolved plane, in the port and in
     the reference."""
@@ -358,18 +437,17 @@ def _delta_spec(**kw):
     (lambda: _lm_params("jamba-1.5-large-398b"), "item 14 (MoE)"),
     (lambda: _init_moe(), "item 14 (MoE)"),
     (lambda: _moe_apply(), "item 14 (MoE)"),
-    (lambda: _lm("whisper-base", lambda c: init_lm(
-        c, generator=torch.Generator(), device="cpu")), "item 14 (whisper)"),
-    (lambda: _lm("whisper-base", make_prefill_step), "item 14 (whisper)"),
-    (lambda: _lm("whisper-base", make_serve_step), "item 14 (whisper)"),
+    (lambda: _encdec_params(), "item 14 (whisper)"),
+    (lambda: _encdec_prefill(), "item 14 (whisper)"),
+    (lambda: _encdec_serve(), "item 14 (whisper)"),
 ])
 def test_unported_features_raise_and_name_their_roadmap_queue(make, queue):
     if queue in ("item 9", "K18", "item 13", "item 10", "item 12",
-                 "item 11", "item 14 (MoE)"):
+                 "item 11", "item 14 (MoE)", "item 14 (whisper)"):
         # the delta store, the float32 scan, the mesh placement, the
-        # timeline, the single-instance baselines, the elastic lifecycle
-        # and the MoE layer are ported: the call that raised now answers
-        # as the reference's does
+        # timeline, the single-instance baselines, the elastic lifecycle,
+        # the MoE layer and the encoder-decoder are ported: the call that
+        # raised now answers as the reference's does
         got, want = make()
         assert got == want
         return

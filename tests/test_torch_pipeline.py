@@ -97,3 +97,25 @@ def test_schedule_equals_the_reference_bit_for_bit(backend):
     assert got.freshness_lag() == ref.freshness_lag() == 0
     for g, w in zip(got.get_batch(99), ref.get_batch(99)):
         np.testing.assert_array_equal(g.numpy(), w)
+
+
+def test_refusing_a_small_store_leaves_no_pinned_version():
+    """A store shorter than one batch is refused (a `ValueError` here, an
+    assertion in the reference) and, as in the reference, the refused
+    read's snapshot is released: no handle stays pinned, and a read after
+    enough tokens came in answers as the reference's does."""
+    kw = dict(vocab_size=50, seq_len=16, batch=4, initial_tokens=40)
+    ref = RefPipeline(**kw)
+    got = HTAPTokenPipeline(backend="hopper", device="cpu", **kw)
+    with pytest.raises(AssertionError, match="store too small"):
+        ref.get_batch(0)
+    with pytest.raises(ValueError, match="store too small: 40 < 68"):
+        got.get_batch(0)
+    assert ref.cons._handles == {} and got.cons._handles == {}
+    tokens = np.random.default_rng(3).integers(0, 50, size=64)
+    for pipe in (ref, got):
+        pipe.ingest(tokens)
+        pipe.propagate()
+    for g, w in zip(got.get_batch(1), ref.get_batch(1)):
+        np.testing.assert_array_equal(g.numpy(), w)
+    assert got.cons._handles == {}

@@ -9,7 +9,9 @@ the nine smoke configs without an encoder-decoder:
   reference's `lm_loss`: within GRAD_TOL of the leaf's largest |g| (the
   backward sums in another order than XLA's; float32 reaches 1e-6 of it);
 - three `make_train_step` steps against the reference's jitted step with
-  AdamW and Adafactor, 1 and 2 micro-batches: losses within 2e-5,
+  AdamW and Adafactor, 1 and 2 micro-batches (whisper-base among them,
+  its batch holding ``frames``; its own loss and gradients are in
+  tests/test_torch_encdec.py): losses within 2e-5,
   parameters within STEP_TOL x lr of the reference's (2.4e-4 lr, two
   float32 ulps of an O(1) weight, measured at most). AdamW runs there
   with eps 1e-3: at its default 1e-8 a first step moves a parameter by
@@ -38,11 +40,13 @@ import torch
 from repro import configs as ref_configs
 from repro import optim as ref_optim
 from repro.launch import steps as ref_steps
+from repro.models import encdec as ref_encdec
 from repro.models import lm as ref_lm
 from repro_torch import configs, optim
 from repro_torch.kernels import common
 from repro_torch.kernels.selective_scan import ops as scan_ops
 from repro_torch.launch.steps import make_train_step
+from repro_torch.models.encdec import encdec_params_from_reference
 from repro_torch.models.lm import lm_loss, params_from_reference
 
 torch.set_num_threads(1)
@@ -65,13 +69,17 @@ B, S = 2, 8
 def _ref(name):
     """(reference cfg, its params as numpy, the port's cfg)."""
     cfg = ref_configs.get_smoke_config(name)
-    params = ref_lm.init_lm(jax.random.PRNGKey(0), cfg)
+    init = ref_encdec.init_encdec if cfg.is_encoder_decoder else \
+        ref_lm.init_lm
+    params = init(jax.random.PRNGKey(0), cfg)
     return cfg, jax.tree.map(np.asarray, params), configs.get_smoke_config(name)
 
 
 def _model(name, tcfg=None):
     cfg, tree, tc = _ref(name)
-    return params_from_reference(tcfg or tc, tree, "cpu")
+    load = encdec_params_from_reference if cfg.is_encoder_decoder else \
+        params_from_reference
+    return load(tcfg or tc, tree, "cpu")
 
 
 def _batch(cfg, seed=0, n=B):
@@ -81,22 +89,28 @@ def _batch(cfg, seed=0, n=B):
     if cfg.frontend == "patch":
         batch["patch_embeds"] = rng.normal(
             size=(n, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.is_encoder_decoder:            # train: enc_len = dec_len = S
+        batch["frames"] = rng.normal(size=(n, S, cfg.d_model)).astype(
+            np.float32)
     return batch
+
+
+def _at(node, parts):
+    """`node` under the dotted path `parts` (a list's entries by index)."""
+    for k in parts:
+        node = node[int(k)] if isinstance(node, (list, tuple)) else node[k]
+    return node
 
 
 def _ref_leaf(tree, name, cfg):
     """The reference's leaf for the port's parameter `name` (layer
-    ``p * period + i`` is stacked period ``p``, block ``i``)."""
+    ``p * period + i`` is stacked period ``p``, block ``i``; an
+    encoder-decoder's ``enc.i`` / ``dec.i`` are its lists' entries)."""
     parts = name.split(".")
     if parts[0] != "layers":
-        node = tree
-        for k in parts:
-            node = node[k]
-        return np.asarray(node)
+        return np.asarray(_at(tree, parts))
     layer = int(parts[1])
-    node = tree["layers"][layer % cfg.period]
-    for k in parts[2:]:
-        node = node[k]
+    node = _at(tree["layers"][layer % cfg.period], parts[2:])
     return np.asarray(node)[layer // cfg.period]
 
 
@@ -179,7 +193,8 @@ STEP_CASES = [("falcon-mamba-7b", "adamw"), ("qwen2.5-14b", "adamw"),
               ("jamba-1.5-large-398b", "adamw"), ("gemma2-9b", "adafactor"),
               ("jamba-1.5-large-398b", "adafactor"),
               ("kimi-k2-1t-a32b", "adafactor"),
-              ("llama4-scout-17b-a16e", "adafactor")]
+              ("llama4-scout-17b-a16e", "adafactor"),
+              ("whisper-base", "adamw"), ("whisper-base", "adafactor")]
 
 
 @pytest.mark.parametrize("micro", [1, 2])
@@ -227,10 +242,8 @@ def _assert_factors_equal(got, want, cfg):
         ({"v"} == set(n) or {"vr", "vc"} == set(n))))
     for k, s in got.items():
         parts = k.split(".")
-        node = want["layers"][int(parts[1])] if parts[0] == "layers" \
-            else want
-        for part in parts[2:] if parts[0] == "layers" else parts:
-            node = node[part]
+        node = _at(want["layers"][int(parts[1])], parts[2:]) \
+            if parts[0] == "layers" else _at(want, parts)
         assert set(s) == set(node), k
         for f, v in s.items():
             w = np.asarray(node[f])
