@@ -16,7 +16,8 @@ script's wall seconds so far, ``elapsed_seconds``):
                  kernel without the correction slice); and each instance
                  of the selective scan's backward by d_state
                  (``ssm_bwd_instances``: no spill at d_state 16, and 16
-                 warps an SM or more).
+                 warps an SM or more); and each blocked-attention instance
+                 (``flash_instances``: pass, head_dim, type).
 3. ``main_path`` one HTAP session of the full system (`Polynesia` preset,
                  ``backend="hopper"``) at 10,000,000 rows x 8 columns,
                  400,000 transactions, 32 queries, 4 rounds, plus one late
@@ -152,6 +153,13 @@ script's wall seconds so far, ``elapsed_seconds``):
                  launch (42 x (P + G - 1)); afterwards, untimed, the same
                  tokens go through `lm_decode_step` on a new cache: every
                  logit must be finite and each argmax the served token;
+                 before serving, gemma2 (`LM_ATTN_PREFILL`) runs
+                 `make_prefill_step` over 4 x `LM_ATTN_PREFILL_LEN` 4096
+                 tokens twice (the first warms up; prefill tokens/s from
+                 the second): every attention layer takes the blocked
+                 kernel, one launch a layer and call (42 x 2), never the
+                 plain blocked loop or `_sdpa`, and the logits (4,
+                 256,000) must be finite;
                  falcon-mamba-7b (64 layers) runs `make_prefill_step` over 4 x
                  ``--lm-prefill`` 2048 tokens twice (64 selective-scan
                  launches a call), then serves as gemma2 through the plain
@@ -234,10 +242,19 @@ script's wall seconds so far, ``elapsed_seconds``):
                  sequence (the reference's train_4k: enc_len = dec_len),
                  one micro-batch. Every attention (the encoder's, the
                  decoder's self and cross) takes the blocked attention
-                 (`nn.flash`, plain PyTorch): fails unless it ran (6 + 2 x
-                 6) x 2 (remat) times a step and `_sdpa` never, on any
-                 hand-written kernel's launch (none is on this path) and on
-                 a loss that is not finite. Prints ms a step, tokens/s,
+                 (`nn.flash`) through its kernel and, in the backward, its
+                 two backward kernels: fails unless it ran (6 + 2 x 6) x 2
+                 (remat) = 36 times a step, one forward launch each, its
+                 backward 18 times a step, two launches each (the dQ pass
+                 and the dK/dV pass), on any other kernel's launch, on a
+                 call of `_sdpa` or of the plain blocked loop, and on a
+                 loss that is not finite. Before it, a gradient
+                 cross-check at 1 encoder + 1 decoder layer, full width,
+                 float32, B 1, S = T = 2,048 (the blocked branch): the
+                 loss and every parameter's gradient on the card against
+                 the same model's on the CPU (the plain blocked loop under
+                 autograd), within 1e-3 of each leaf's largest |g|
+                 (`encdec_grad_check`). Prints ms a step, tokens/s,
                  peak bytes and one step under `torch.profiler` with the
                  blocked attention's own device time and share
                  (``profile.ranges``: its forward and recompute calls and
@@ -267,7 +284,24 @@ script's wall seconds so far, ``elapsed_seconds``):
                  inputs too large for shared memory; for the selective
                  scan ptxas' registers and spills of each instance, and
                  ``bound_sfu_ms`` (the
-                 exponentials on the SFUs alone); for its backward
+                 exponentials on the SFUs alone); for the blocked
+                 attention (``flash_attention``, replacing no Pallas
+                 kernel: the reference's is a jitted nested scan) the
+                 output within 2e-4 in float32 (the reference's own
+                 flash-vs-SDPA tolerance) and a bf16 output as
+                 flash-decode's, the log-sum-exp within 2e-4, at edge
+                 shapes (ragged lengths, Sq != Skv, a window shorter than
+                 S with whole leading tiles masked, Sq > Skv, head_dim 112
+                 at G 8 and 128 at G 5, float32 and bf16) and at every
+                 shape the paths ran (``at_shapes``), with the bound at
+                 the tensor cores' bf16 rate and ``bound_fp32_ms`` beside
+                 it, and ``F.scaled_dot_product_attention`` as the library
+                 call where no softcap or window is asked; for its
+                 backward (``flash_attention_bwd``, two launches a call)
+                 dq, dk, dv within 1e-4 (bf16: one bf16 step more) of each
+                 one's largest |value| at the same shapes, two identical
+                 calls equal bit for bit, and the autograd backward of one
+                 SDPA call as the library row; for the scan's backward
                  (``selective_scan_bwd``, the port's own kernel: the
                  reference differentiates its plain scan) the six
                  gradients within 1e-4 of each one's largest |value| at
@@ -312,7 +346,9 @@ against ``float_scan``, flash-decode attention against ``lm_serve``
 (each model's serve run; whisper's heads (8, 8, 64) under
 ``at_heads``), the selective scan against ``lm_serve`` and ``lm_train``
 (launched on each, counted over both) and its backward against
-``lm_train``; whisper's training launches none. ``elastic`` is a path of
+``lm_train``, the blocked attention against ``lm_serve`` (gemma2's
+prefill) and ``encdec_train`` (whisper's training, counted over both) and
+its backward against ``encdec_train``. ``elastic`` is a path of
 its own that runs kernels already held to these (no kernel is measured
 against it); like every path it may not launch the kernels folded into
 others (`NEVER_ON_PATH`). The correction lane alone
@@ -393,6 +429,9 @@ REPLACES = {
     "selective_scan_bwd": "none: the reference takes this gradient by "
                           "autodiff of src/repro/kernels/selective_scan/"
                           "ref.py:7 (no Pallas backward)",
+    "flash_attention": "none: src/repro/nn/flash.py:30 is a jitted nested "
+                       "lax.scan (plain jnp)",
+    "flash_attention_bwd": "none: jax.grad of the same",
 }
 SOURCES = {
     "scan_exact": "src/repro_torch/kernels/csrc/scan_exact.cu",
@@ -417,6 +456,8 @@ SOURCES = {
     "decode_attn": "src/repro_torch/kernels/csrc/decode_attn.cu",
     "selective_scan": "src/repro_torch/kernels/csrc/selective_scan.cu",
     "selective_scan_bwd": "src/repro_torch/kernels/csrc/selective_scan.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attn.cu",
+    "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_attn.cu",
 }
 # the path that runs each kernel (or the paths: the kernel must launch on
 # each): its launches are counted on that path (summed over the paths)
@@ -432,7 +473,9 @@ PATH_OF = {"scan_exact_sharded": "islands",
            "bitonic_apply": ("main_path", "lm_train"),
            "snapshot_copy": ("main_path", "lm_train"),
            "selective_scan": ("lm_serve", "lm_train"),
-           "selective_scan_bwd": "lm_train"}
+           "selective_scan_bwd": "lm_train",
+           "flash_attention": ("lm_serve", "encdec_train"),
+           "flash_attention_bwd": "encdec_train"}
 # kernels a path launches only for some data, or none: the tile merge (K6)
 # sorts a row wider than one tile's 32,768 keys, which the paths may not
 # have; the sort unit (K4) sorts only a dictionary stage the fused apply
@@ -648,7 +691,8 @@ def phase_build() -> None:
          nvcc_seconds=nvcc_seconds,
          sources=sorted(p.name for p in build.CSRC.glob("*.cu")),
          library=str(build.build_library().name), registers=registers,
-         scan_instances=instances, ssm_bwd_instances=bwd)
+         scan_instances=instances, ssm_bwd_instances=bwd,
+         flash_instances=flash_registers())
 
 
 REGISTERS: dict[str, int] = {}     # ptxas' count per kernel entry (build)
@@ -2399,6 +2443,10 @@ LM_PROFILE_STEPS = 4     # serve steps traced after each model's run
 # depth cuts: layers run where one card cannot hold them all in bf16 at
 # full width (llama4-scout: 48 layers are 216 GB; kimi-k2: 61 are 2.1 TB)
 LM_DEPTH = {"llama4-scout-17b-a16e": 12, "kimi-k2-1t-a32b": 1}
+# attention models whose prefill runs, at `LM_ATTN_PREFILL_LEN` tokens a
+# request (>= 2,048, so every attention layer takes the blocked kernel)
+LM_ATTN_PREFILL = ("gemma2-9b",)
+LM_ATTN_PREFILL_LEN = 4096
 
 
 def lm_config(name: str, dev):
@@ -2457,24 +2505,34 @@ def phase_lm_serve(args, dev=None) -> tuple[dict, dict]:
         n_mamba = cfg.n_layers - n_attn
         fields = {}
         reset_kernel_launch_counts()
-        if n_mamba:
+        n_prefill = (args.lm_prefill if n_mamba else LM_ATTN_PREFILL_LEN
+                     if name in LM_ATTN_PREFILL else 0)
+        # their attention layers' prefill calls take the blocked kernel
+        n_blocked = 2 * n_attn if name in LM_ATTN_PREFILL else 0
+        if n_prefill:
             prefill = make_prefill_step(cfg)
-            toks = torch.randint(0, cfg.vocab_size, (B, args.lm_prefill),
+            toks = torch.randint(0, cfg.vocab_size, (B, n_prefill),
                                  generator=gen, device=dev,
                                  dtype=torch.int32)
             secs = []
-            for _ in range(2):                     # the first call warms up
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                logits = prefill(model, {"tokens": toks})
-                torch.cuda.synchronize()
-                secs.append(time.perf_counter() - t0)
+            with attention_calls() as calls:
+                for _ in range(2):                 # the first call warms up
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    logits = prefill(model, {"tokens": toks})
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t0)
             if logits.shape != (B, cfg.vocab_size) or \
                     not bool(torch.isfinite(logits).all()):
                 raise AssertionError(f"{name}: bad prefill logits")
-            fields.update(prefill_tokens=B * args.lm_prefill,
+            want = {BLOCKED: n_blocked, "_sdpa": 0, PLAIN_BLOCKED: 0}
+            if calls != want:
+                raise AssertionError(f"{name}: prefill attention calls "
+                                     f"{calls}, expected {want}")
+            fields.update(prefill_tokens=B * n_prefill,
                           prefill_seconds=secs,
-                          prefill_tokens_per_s=B * args.lm_prefill / secs[1])
+                          prefill_tokens_per_s=B * n_prefill / secs[1],
+                          prefill_attention_calls=calls)
         prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
                                 device=dev, dtype=torch.int32)
         cross_kv = None
@@ -2508,11 +2566,14 @@ def phase_lm_serve(args, dev=None) -> tuple[dict, dict]:
             want["decode_attn"] = n_attn * (P + G - 1)
         if n_mamba:
             want["selective_scan"] = n_mamba * 2
+        if n_blocked:
+            want[BLOCKED] = n_blocked
         if launches != want:
             raise AssertionError(f"{name}: launches {launches}, expected "
                                  f"{want} ({n_attn} attention layers x "
                                  f"{P + G - 1} decode steps, {n_mamba} Mamba "
-                                 "layers x 2 prefill calls)")
+                                 f"layers x 2 prefill calls, {n_blocked} "
+                                 "blocked attention calls in the prefill)")
         add_counts(total, launches, shapes)
         if cfg.n_layers < full_layers:
             fields["reduced"] = "depth: one card's memory"
@@ -2617,15 +2678,32 @@ def train_grad_check(cfg, args, dev) -> dict:
     loss_dev, g_dev, dev_s = loss_and_grads(model, toks)
     loss_cpu, g_cpu, cpu_s = loss_and_grads(host, toks.cpu())
     del model, host
+    errs = grads_match("lm_train", loss_dev, g_dev, loss_cpu, g_cpu,
+                       nonzero=".mamba.")
+    return dict(layers=layers, batch=batch, seq=seq, dtype="float32",
+                remat=small.remat, loss_card=loss_dev, loss_cpu=loss_cpu,
+                leaves=len(errs), max_rel_err=max(errs.values()),
+                worst_leaf=max(errs, key=errs.get),
+                tolerance=f"{LM_GRAD_TOL} x each leaf's max |g|",
+                card_seconds=dev_s, cpu_seconds=cpu_s)
+
+
+def grads_match(what, loss_dev, g_dev, loss_cpu, g_cpu,
+                nonzero: str) -> dict:
+    """The card's loss within LM_GRAD_TOL of the CPU's, the same leaves,
+    each leaf's gradient within LM_GRAD_TOL of the CPU gradient's largest
+    |value|, and no zero gradient on a leaf whose name holds `nonzero`.
+    Returns each leaf's error over that largest |value|; raises on a
+    failure."""
     if not math.isfinite(loss_dev) or abs(loss_dev - loss_cpu) > \
             LM_GRAD_TOL * abs(loss_cpu):
-        raise AssertionError(f"lm_train gradient check: loss {loss_dev} on "
+        raise AssertionError(f"{what} gradient check: loss {loss_dev} on "
                              f"the card, {loss_cpu} on the CPU")
     if set(g_dev) != set(g_cpu):
-        raise AssertionError("lm_train gradient check: the card and the CPU "
+        raise AssertionError(f"{what} gradient check: the card and the CPU "
                              f"reached other parameters: "
                              f"{sorted(set(g_dev) ^ set(g_cpu))}")
-    worst, errs = 0.0, {}
+    errs = {}
     for k, want in g_cpu.items():
         scale = float(want.abs().max())
         err = float((g_dev[k] - want).abs().max())
@@ -2633,18 +2711,12 @@ def train_grad_check(cfg, args, dev) -> dict:
         errs[k] = rel
         if not rel <= LM_GRAD_TOL:
             raise AssertionError(
-                f"lm_train gradient check: {k}'s gradient differs from the "
+                f"{what} gradient check: {k}'s gradient differs from the "
                 f"CPU's by {err}, over {LM_GRAD_TOL} x {scale}")
-        if ".mamba." in k and scale == 0:
-            raise AssertionError(f"lm_train gradient check: {k} has a zero "
+        if nonzero in k and scale == 0:
+            raise AssertionError(f"{what} gradient check: {k} has a zero "
                                  "gradient")
-        worst = max(worst, rel)
-    return dict(layers=layers, batch=batch, seq=seq, dtype="float32",
-                remat=small.remat, loss_card=loss_dev, loss_cpu=loss_cpu,
-                leaves=len(errs), max_rel_err=worst,
-                worst_leaf=max(errs, key=errs.get),
-                tolerance=f"{LM_GRAD_TOL} x each leaf's max |g|",
-                card_seconds=dev_s, cpu_seconds=cpu_s)
+    return errs
 
 
 def phase_lm_train(args, dev=None) -> tuple[dict, dict]:
@@ -2800,21 +2872,28 @@ ENCDEC_TRAIN_SEQ = 4096       # tokens and frames a sequence (the reference's
                               # train_4k: enc_len = dec_len = seq_len)
 ENCDEC_TRAIN_STEPS = 4
 BLOCKED = "flash_attention"
+PLAIN_BLOCKED = "flash_attention_fwd_ref"
+# the float32 gradient cross-check: (encoder and decoder layers, batch,
+# tokens and frames): the blocked branch (S >= 2,048)
+ENCDEC_GRAD_CHECK = (1, 1, 2048)
 
 
 @contextlib.contextmanager
 def attention_calls(annotate: bool = False):
     """While open, counts the calls of the blocked attention
-    (`nn.flash.flash_attention`) and of the plain one
-    (`nn.attention._sdpa`) that the training forms reach (the attention
-    module looks both up at each call); with `annotate`, each blocked call
+    (`nn.flash.flash_attention`), of the plain one (`nn.attention._sdpa`)
+    and of the plain blocked loop (`flash_attention_fwd_ref`, which a CUDA
+    tensor must never reach) that the prefill and training forms reach (the
+    modules look each up at each call); with `annotate`, each blocked call
     runs inside a `torch.profiler.record_function` range named BLOCKED."""
     from torch.profiler import record_function
 
+    from repro_torch.kernels.flash_attn import ops as flash_ops
     from repro_torch.nn import attention, flash
-    calls = {BLOCKED: 0, "_sdpa": 0}
+    calls = {BLOCKED: 0, "_sdpa": 0, PLAIN_BLOCKED: 0}
     real = {BLOCKED: (flash, flash.flash_attention),
-            "_sdpa": (attention, attention._sdpa)}
+            "_sdpa": (attention, attention._sdpa),
+            PLAIN_BLOCKED: (flash_ops, flash_ops.flash_attention_fwd_ref)}
 
     def counted(name, fn):
         def call(*a, **kw):
@@ -2833,18 +2912,82 @@ def attention_calls(annotate: bool = False):
             setattr(mod, name, fn)
 
 
+def encdec_grad_check(cfg, args, dev) -> dict:
+    """`ENCDEC_GRAD_CHECK`'s encoder and decoder layers at full width in
+    float32 on the blocked branch: the loss and every parameter's gradient
+    on `dev` (the blocked attention's kernel and its backward kernels;
+    remat as the config says) against the same model's on the CPU (the
+    plain blocked loop, differentiated by autograd), by `grads_match`
+    (LM_GRAD_TOL), every attention parameter's gradient non-zero, and the
+    backward kernels launched on `dev`. Raises on a failure."""
+    import copy
+    import dataclasses
+    from repro_torch.kernels.common import kernel_launch_counts
+    from repro_torch.models.encdec import encdec_loss, init_encdec
+    layers, batch, seq = ENCDEC_GRAD_CHECK
+    small = dataclasses.replace(cfg, n_layers=layers, n_enc_layers=layers,
+                                param_dtype="float32", activ_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 5)
+    model = init_encdec(small, generator=gen, device=dev)
+    frames = torch.randn((batch, seq, cfg.d_model), generator=gen,
+                         device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=gen,
+                         device=dev, dtype=torch.int32)
+    host = copy.deepcopy(model).to("cpu")
+
+    def loss_and_grads(m, f, t):
+        t0 = time.perf_counter()
+        m.requires_grad_(True)
+        before = kernel_launch_counts().get("flash_attention_bwd", 0)
+        with attention_calls() as calls:
+            loss = encdec_loss(m, f, t[:, :-1], t[:, 1:], small)
+            loss.backward()
+        grads = {k: p.grad.float().cpu() for k, p in m.named_parameters()
+                 if p.grad is not None}
+        return (float(loss.detach()), grads, time.perf_counter() - t0,
+                calls, kernel_launch_counts().get("flash_attention_bwd", 0)
+                - before)
+
+    loss_dev, g_dev, dev_s, calls, bwd = loss_and_grads(model, frames, toks)
+    loss_cpu, g_cpu, cpu_s, _, _ = loss_and_grads(host, frames.cpu(),
+                                                  toks.cpu())
+    del model, host
+    if calls[PLAIN_BLOCKED] or not calls[BLOCKED] or calls["_sdpa"] or \
+            bwd != 2 * 3 * layers:
+        raise AssertionError(f"{cfg.name} gradient check: attention calls "
+                             f"{calls} and {bwd} backward launches on the "
+                             "card, expected only blocked calls through the "
+                             f"kernels and {2 * 3 * layers} backward "
+                             "launches")
+    errs = grads_match(f"{cfg.name} train", loss_dev, g_dev, loss_cpu, g_cpu,
+                       nonzero="attn.")
+    return dict(enc_layers=layers, dec_layers=layers, batch=batch, seq=seq,
+                frames=seq, dtype="float32", remat=small.remat,
+                loss_card=loss_dev, loss_cpu=loss_cpu, leaves=len(errs),
+                max_rel_err=max(errs.values()),
+                worst_leaf=max(errs, key=errs.get),
+                tolerance=f"{LM_GRAD_TOL} x each leaf's max |g|",
+                blocked_calls_card=calls[BLOCKED],
+                backward_launches_card=bwd, card_seconds=dev_s,
+                cpu_seconds=cpu_s)
+
+
 def phase_encdec_train(args, dev=None) -> tuple[dict, dict]:
     """`ENCDEC_TRAIN_MODEL` at full width and depth, bf16, remat,
     ``loss_chunk`` as configured, the optimizer `default_optimizer_for`
     picks, `ENCDEC_TRAIN_STEPS` steps of `ENCDEC_TRAIN_BATCH` x
     `ENCDEC_TRAIN_SEQ` tokens (a `SyntheticPipeline`) against as many
     frames (drawn from ``--seed``) in one micro-batch. Every attention of
-    the step (encoder, decoder self and cross) takes the blocked path: the
-    phase fails unless the blocked attention ran (encoder layers + 2 x
-    decoder layers) x (2 with remat) times a step and the plain one never,
-    on any hand-written kernel's launch (none is on this path: no K16, no
-    K17) and on a loss that is not finite. Returns the steps' launches and
-    launch shapes (none)."""
+    the step (encoder, decoder self and cross) takes the blocked path, the
+    hand-written kernel and its backward: the phase fails unless the
+    blocked attention ran (encoder layers + 2 x decoder layers) x (2 with
+    remat) times a step, each one forward launch, and its backward as
+    often as (encoder layers + 2 x decoder layers) a step, two launches
+    each (the dQ pass, the dK/dV pass); on any other kernel's launch, on a
+    call of the plain attention or of the plain blocked loop, on a loss
+    that is not finite, and on the float32 gradient cross-check
+    (`encdec_grad_check`). Returns the steps' launches and launch
+    shapes."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticPipeline
     from repro_torch.kernels.common import (kernel_launch_counts,
@@ -2856,6 +2999,7 @@ def phase_encdec_train(args, dev=None) -> tuple[dict, dict]:
     dev = torch.device("cuda", 0) if dev is None else dev
     cfg = get_config(ENCDEC_TRAIN_MODEL)
     B, S = ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ
+    grad_check = encdec_grad_check(cfg, args, dev)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -2888,17 +3032,24 @@ def phase_encdec_train(args, dev=None) -> tuple[dict, dict]:
     if not all(map(math.isfinite, losses)):
         raise AssertionError(f"{cfg.name} train: a loss is not finite: "
                              f"{losses}")
-    if launches:
-        raise AssertionError(f"{cfg.name} train: launches {launches}; no "
-                             "hand-written kernel is on this path")
-    per_step = (enc_layers(cfg) + 2 * cfg.n_layers) * (2 if cfg.remat else 1)
-    want = {BLOCKED: per_step * ENCDEC_TRAIN_STEPS, "_sdpa": 0}
+    n_attn = enc_layers(cfg) + 2 * cfg.n_layers
+    per_step = n_attn * (2 if cfg.remat else 1)
+    want = {BLOCKED: per_step * ENCDEC_TRAIN_STEPS,
+            BLOCKED + "_bwd": 2 * n_attn * ENCDEC_TRAIN_STEPS}
+    if launches != want:
+        raise AssertionError(
+            f"{cfg.name} train: launches {launches}, expected {want} "
+            f"({per_step} forward launches a step, {n_attn} backward calls "
+            "a step of two launches each; no other hand-written kernel is "
+            "on this path)")
+    want = {BLOCKED: per_step * ENCDEC_TRAIN_STEPS, "_sdpa": 0,
+            PLAIN_BLOCKED: 0}
     if calls != want:
         raise AssertionError(
             f"{cfg.name} train: attention calls {calls}, expected {want} "
             f"({enc_layers(cfg)} encoder + 2 x {cfg.n_layers} decoder "
             "attentions a forward, all blocked at S = T = "
-            f"{S}, twice with remat)")
+            f"{S}, twice with remat, never the plain blocked loop)")
     peak = torch.cuda.max_memory_allocated()
     b = batch(ENCDEC_TRAIN_STEPS)
 
@@ -2924,6 +3075,7 @@ def phase_encdec_train(args, dev=None) -> tuple[dict, dict]:
          ms_per_step_of="the steps after the first",
          tokens_per_s=B * S * len(steady) / sum(steady),
          peak_device_bytes=peak, attention_calls_per_step=per_step,
+         backward_calls_per_step=n_attn, grad_check=grad_check,
          profile=prof, launches=launches, ok=True)
     del model, opt_state, b
     torch.cuda.empty_cache()
@@ -4455,6 +4607,273 @@ def measure_ssm_bwd(gen, dev, shape) -> dict:
         registers=ssm_registers(backward=True), lanes=BWD_LANES[N])
 
 
+# The blocked attention: shapes are the wrappers' `launch_shape`, (B, Sq,
+# Skv, H, Hkv, dh, causal, window, softcap).
+
+TENSOR_BF16_FLOPS = 989e12   # the tensor cores' dense bf16 rate (data sheet)
+FLASH_TOL = 2e-4             # float32: the reference's own flash-vs-SDPA
+                             # tolerance (tests/test_kernels.py:191-206)
+FLASH_BWD_TOL = 1e-4         # float32 gradients, of each one's max |value|
+FLASH_BWD_TOL_BF16 = 2**-7 + FLASH_BWD_TOL    # bf16: one bf16 step more
+
+
+def band_pairs(Sq, Skv, causal, window) -> int:
+    """The (query row, key) pairs in the causal / window band."""
+    i = np.arange(Sq)
+    hi = np.minimum(i, Skv - 1) if causal else np.full(Sq, Skv - 1)
+    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros(Sq, int)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def flash_flops(shape, products: int) -> float:
+    """2 dh flops a product for each pair in the band, head and sequence."""
+    B, Sq, Skv, H, Hkv, dh, causal, window, _ = shape
+    return 2.0 * products * dh * B * H * band_pairs(Sq, Skv, causal, window)
+
+
+def flash_cost(shape):
+    """At the paths' bf16: q, k, v read once, out and the float32 lse
+    written once; QK^T and PV on the pairs in the band, at the tensor
+    cores' dense bf16 rate (the kernel itself runs float32 FMAs:
+    `bound_fp32_ms`)."""
+    B, Sq, Skv, H, Hkv, dh = shape[:6]
+    nbytes = 2 * (2 * B * Sq * H * dh + 2 * B * Skv * Hkv * dh) \
+        + 4 * B * H * Sq
+    return nbytes, flash_flops(shape, 2), TENSOR_BF16_FLOPS
+
+
+def flash_bwd_cost(shape):
+    """One backward call (both launches) at bf16: q, k, v, out, dout and
+    lse read once, dq, dk, dv and D written once; five products on the
+    pairs in the band (QK^T again, dO V^T, P^T dO, dS K, dS^T Q)."""
+    B, Sq, Skv, H, Hkv, dh = shape[:6]
+    nbytes = 2 * (4 * B * Sq * H * dh + 4 * B * Skv * Hkv * dh) \
+        + 8 * B * H * Sq
+    return nbytes, flash_flops(shape, 5), TENSOR_BF16_FLOPS
+
+
+def flash_inputs(gen, dev, shape, dtype=torch.bfloat16):
+    B, Sq, Skv, H, Hkv, dh = shape[:6]
+    return (torch.randn((B, Sq, H, dh), generator=gen, device=dev).to(dtype),
+            *(torch.randn((B, Skv, Hkv, dh), generator=gen,
+                          device=dev).to(dtype) for _ in range(2)))
+
+
+def flash_kw(shape) -> dict:
+    causal, window, cap = shape[6:]
+    return dict(causal=bool(causal), window=int(window), softcap=float(cap))
+
+
+def flash_blocks(q, k) -> dict:
+    """The plain versions' blocks for these lengths: their defaults where
+    they divide the lengths, else one block a length."""
+    Sq, Skv = q.shape[1], k.shape[1]
+    return dict(q_block=256 if Sq % 256 == 0 else Sq,
+                kv_block=1024 if Skv % 1024 == 0 else Skv)
+
+
+def flash_registers() -> dict[str, dict]:
+    """ptxas' registers and spill bytes of each blocked-attention instance,
+    by pass, head_dim and type."""
+    out = {}
+    for entry, n in REGISTERS.items():
+        m = re.search(r"flash_(fwd|bwd_dq|bwd_dkdv)_kernelILi(\d+)E", entry)
+        if m:
+            key = (f"{m.group(1)} d{m.group(2)} "
+                   f"{'bf16' if 'bfloat16' in entry else 'f32'}")
+            out[key] = dict(registers=n, spill_bytes=SPILLS.get(entry, 0))
+    return out
+
+
+def flash_fwd_check(name, got, lse, q, k, v, kw) -> float:
+    """The kernel's output and log-sum-exp against the plain version's:
+    float32 within FLASH_TOL relative plus absolute; a bf16 output against
+    the plain version's float32 answer on the same bf16 values by
+    `must_be_close_bf16`. Returns the output's largest difference."""
+    from repro_torch.kernels.flash_attn import flash_attention_fwd_ref
+    want, want_lse = flash_attention_fwd_ref(q.float(), k.float(), v.float(),
+                                             **kw, **flash_blocks(q, k))
+    must_be_close(f"{name} lse", lse, want_lse, FLASH_TOL)
+    if q.dtype == torch.bfloat16:
+        return must_be_close_bf16(name, got, want)
+    return must_be_close(name, got, want, FLASH_TOL)
+
+
+def flash_bwd_check(name, got, want) -> float:
+    """dq, dk, dv within FLASH_BWD_TOL (bf16: FLASH_BWD_TOL_BF16) of the
+    plain version's largest |value| each; returns the largest absolute
+    difference."""
+    err = 0.0
+    for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+        tol = FLASH_BWD_TOL_BF16 if w.dtype == torch.bfloat16 else \
+            FLASH_BWD_TOL
+        g, w = g.float(), w.float()
+        if g.shape != w.shape:
+            raise AssertionError(f"{name}: {what} shape {tuple(g.shape)} != "
+                                 f"{tuple(w.shape)}")
+        e, scale = float((g - w).abs().max()), float(w.abs().max())
+        if not e <= tol * scale:
+            raise AssertionError(
+                f"kernel check {name!r}: {what} differs from its plain "
+                f"version (max abs err {e}, tolerance {tol} x {scale})")
+        err = max(err, e)
+    return err
+
+
+def flash_bwd_run(name, q, k, v, kw, gen) -> tuple:
+    """The backward at these inputs against its plain version and bit for
+    bit repeatable; returns (the largest difference, the inputs of a call:
+    q, k, v, out, lse, dout)."""
+    from repro_torch.kernels.flash_attn import (flash_attention_bwd,
+                                                flash_attention_bwd_ref,
+                                                flash_attention_fwd)
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    dout = torch.randn(out.shape, generator=gen, device=q.device).to(q.dtype)
+    args = (q, k, v, out, lse, dout)
+    got = flash_attention_bwd(*args, **kw)
+    err = flash_bwd_check(name, got, flash_attention_bwd_ref(
+        *args, **kw, **flash_blocks(q, k)))
+    if not all(torch.equal(a, b) for a, b in
+               zip(got, flash_attention_bwd(*args, **kw))):
+        raise AssertionError(f"kernel check {name!r}: two identical calls "
+                             "gave different bits")
+    return err, args
+
+
+# (B, Sq, Skv, H, Hkv, dh, causal, window, softcap): each in float32 and bf16
+FLASH_EDGES = (
+    (2, 300, 300, 8, 8, 64, 1, 0, 0),        # whisper's heads, ragged tiles
+    (2, 1000, 1500, 8, 8, 64, 0, 0, 0),      # the cross form: Sq != Skv
+    (1, 8192, 8192, 16, 8, 256, 1, 4096, 50),  # gemma2's heads, a window
+                                             # shorter than S: whole leading
+                                             # tiles masked
+    (1, 4096, 2048, 16, 8, 256, 1, 0, 50),   # causal with Sq > Skv
+    (1, 777, 777, 64, 8, 112, 1, 0, 50),     # kimi-k2's heads: d 112, G 8
+    (2, 513, 513, 40, 8, 128, 1, 100, 0),    # llama4-scout's: d 128, G 5
+    (1, 200, 333, 5, 1, 128, 0, 0, 30),      # G 5 over one KV head
+)
+
+
+def edge_flash(gen, dev) -> int:
+    """The forward and the backward at FLASH_EDGES in float32 and bf16."""
+    from repro_torch.kernels.flash_attn import flash_attention_fwd
+    cases = 0
+    for shape in FLASH_EDGES:
+        kw = flash_kw(shape)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(gen, dev, shape, dtype)
+            name = f"blocked attention {shape} {dtype}"
+            flash_fwd_check(name, *flash_attention_fwd(q, k, v, **kw),
+                            q, k, v, kw)
+            flash_bwd_run(f"{name} backward", q, k, v, kw, gen)
+            cases += 2
+    return cases
+
+
+def flash_library(shape) -> bool:
+    """One PyTorch call computes this shape's function: no softcap, no
+    window."""
+    return not shape[8] and not shape[7]
+
+
+def sdpa_views(q, k, v):
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def measure_flash(gen, dev, shape) -> dict:
+    """At the paths' bf16: held against the plain version (the output by
+    `must_be_close_bf16`, the log-sum-exp within FLASH_TOL), then timed;
+    the library row `F.scaled_dot_product_attention` on (B, H, S, dh)
+    views where no softcap or window is asked."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import (flash_attention_fwd,
+                                                flash_attention_fwd_ref,
+                                                launch_flash_attention)
+    kw = flash_kw(shape)
+    q, k, v = flash_inputs(gen, dev, shape)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flash_attention_fwd_ref(q, k, v, **kw, **flash_blocks(q, k))
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = flash_fwd_check(f"blocked attention {shape}",
+                          *flash_attention_fwd(q, k, v, **kw), q, k, v, kw)
+    out = torch.empty_like(q)
+    lse = torch.empty((shape[0], shape[3], shape[1]), dtype=torch.float32,
+                      device=dev)
+
+    def bare():
+        launch_flash_attention(q, k, v, out, lse, *kw.values())
+    ms = time_ms(bare, 10)
+    lib = dict(library_ms=None,
+               library="none: no PyTorch call computes a softcap or window")
+    if flash_library(shape):
+        views = sdpa_views(q, k, v)
+        lib = dict(library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            *views, is_causal=kw["causal"], enable_gqa=True), 10),
+            library="F.scaled_dot_product_attention, bf16, (B, H, S, dh) "
+                    "views")
+    return dict(
+        max_abs_err=err, tolerance=f"bf16 output: {BF16_OUT_RTOL} relative "
+        f"plus {BF16_OUT_ATOL} of the plain float32 answer; lse {FLASH_TOL}",
+        ms=ms, **device_time(bare),
+        wrapper_ms=time_ms(lambda: flash_attention_fwd(q, k, v, **kw), 10),
+        plain_ms=plain_ms, **lib,
+        bound_fp32_ms=flash_flops(shape, 2) / ALU_OPS_PER_S * 1e3,
+        achieved_TFLOPs=flash_flops(shape, 2) / ms / 1e9)
+
+
+def measure_flash_bwd(gen, dev, shape) -> dict:
+    """At the paths' bf16: held against the plain version within
+    FLASH_BWD_TOL_BF16 of each gradient's largest |value| and bit for bit
+    repeatable, then both launches timed; the library row the autograd
+    backward of one `F.scaled_dot_product_attention` call where no softcap
+    or window is asked."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import (
+        flash_attention_bwd, flash_attention_bwd_ref,
+        launch_flash_attention_bwd_dkdv, launch_flash_attention_bwd_dq)
+    kw = flash_kw(shape)
+    q, k, v = flash_inputs(gen, dev, shape)
+    err, args = flash_bwd_run(f"blocked attention backward {shape}", q, k, v,
+                              kw, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flash_attention_bwd_ref(*args, **kw, **flash_blocks(q, k))
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    _, _, _, out, lse, dout = args
+    delta = torch.empty_like(lse)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+    def bare():
+        launch_flash_attention_bwd_dq(q, k, v, out, dout, lse, delta, dq,
+                                      *kw.values())
+        launch_flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, dk, dv,
+                                        *kw.values())
+    ms = time_ms(bare, 10)
+    lib = dict(library_ms=None,
+               library="none: no PyTorch call computes a softcap or window")
+    if flash_library(shape):
+        views = [t.detach().requires_grad_(True) for t in sdpa_views(q, k, v)]
+        o = F.scaled_dot_product_attention(*views, is_causal=kw["causal"],
+                                           enable_gqa=True)
+        g = dout.transpose(1, 2)
+        lib = dict(library_ms=time_ms(lambda: torch.autograd.grad(
+            o, views, g, retain_graph=True), 10),
+            library="the autograd backward of one "
+                    "F.scaled_dot_product_attention call, bf16")
+    return dict(
+        max_abs_err=err, tolerance=f"{FLASH_BWD_TOL_BF16} x each gradient's "
+                                   "max |value| (bf16)",
+        bitwise_repeatable=True, launches_a_call=2, ms=ms,
+        **device_time(bare),
+        wrapper_ms=time_ms(lambda: flash_attention_bwd(*args, **kw), 10),
+        plain_ms=plain_ms, **lib,
+        bound_fp32_ms=flash_flops(shape, 5) / ALU_OPS_PER_S * 1e3,
+        achieved_TFLOPs=flash_flops(shape, 5) / ms / 1e9)
+
+
 # kernel name -> (cost of one launch at a shape, measurement at a shape)
 KERNELS = {
     "scan_exact": (lambda s: scan_cost(s, False),
@@ -4493,15 +4912,19 @@ KERNELS = {
     "decode_attn": (decode_cost, measure_decode),
     "selective_scan": (ssm_cost, measure_ssm),
     "selective_scan_bwd": (ssm_bwd_cost, measure_ssm_bwd),
+    "flash_attention": (flash_cost, measure_flash),
+    "flash_attention_bwd": (flash_bwd_cost, measure_flash_bwd),
 }
 DECODE_32K = (4, 32768, 16, 8, 256, 32768)    # gemma2's heads at decode_32k
 DECODE_32K_D112 = (4, 32768, 64, 8, 112, 32768)   # kimi-k2's heads
 
 
 def with_bound(m: dict, shape, cost, launches: int) -> dict:
-    nbytes, ops = cost(shape)
+    """`cost(shape)` is (bytes, operations) at ALU_OPS_PER_S, or (bytes,
+    operations, the card's peak rate for their type)."""
+    nbytes, ops, *rate = cost(shape)
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / ALU_OPS_PER_S * 1e3
+    by_ops = ops / (rate[0] if rate else ALU_OPS_PER_S) * 1e3
     return dict(m, shape=list(shape), launches_at_shape=launches,
                 bound_ms=max(by_bytes, by_ops),
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
@@ -4528,7 +4951,7 @@ def phase_kernels(shapes: dict, path_shapes: dict) -> dict:
              + edge_bitonic(gen, dev) + edge_snapshot(gen, dev)
              + edge_delta(gen, dev) + edge_float_scan(gen, dev)
              + edge_decode(gen, dev) + edge_ssm(gen, dev)
-             + edge_ssm_bwd(gen, dev))
+             + edge_ssm_bwd(gen, dev) + edge_flash(gen, dev))
     measured = {}
     for name, (cost, measure) in KERNELS.items():
         seen = shapes[name]
@@ -4576,6 +4999,17 @@ def phase_kernels(shapes: dict, path_shapes: dict) -> dict:
                 measure(gen, dev, SHIP_MERGE), SHIP_MERGE, cost,
                 seen.get(SHIP_MERGE, 0))
             cases += 1
+        if name in ("flash_attention", "flash_attention_bwd"):
+            # every other shape the paths ran (whisper's causal and
+            # bidirectional forms, gemma2's local and global layers)
+            done = {most, largest, *(tuple(m["shape"]) for m in
+                                     measured[name].get("at_paths",
+                                                        {}).values())}
+            measured[name]["at_shapes"] = {
+                "/".join(map(str, shape)): with_bound(
+                    measure(gen, dev, shape), shape, cost, seen[shape])
+                for shape in sorted(seen) if shape not in done}
+            cases += len(measured[name]["at_shapes"])
         if name == "decode_attn":
             # each other head layout (H, Hkv, d) the serving path ran, at
             # the shape it launched most
@@ -4602,7 +5036,10 @@ def phase_kernels(shapes: dict, path_shapes: dict) -> dict:
                    f"{BF16_OUT_RTOL} relative plus {BF16_OUT_ATOL}), "
                    f"selective_scan 3e-5, selective_scan_bwd {SSM_BWD_TOL} "
                    f"x each gradient's max |value|, scan_float: "
-                   f"{FLOAT_SCAN_TOL}",
+                   f"{FLOAT_SCAN_TOL}; flash_attention float32 {FLASH_TOL} "
+                   "(bf16 output as decode_attn's), flash_attention_bwd "
+                   f"{FLASH_BWD_TOL} (bf16: {FLASH_BWD_TOL_BF16}) x each "
+                   "gradient's max |value|",
          kernels=[dict(name=k, ok=True, **m) for k, m in measured.items()])
     return measured
 

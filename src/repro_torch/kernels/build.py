@@ -81,6 +81,17 @@ _SIGNATURES = {
                            _P, _P, _I, _I, _I, _I, _P),
     # N blocks_per_sm (int*)
     "selective_scan_bwd_occupancy": (_I, _P),
+    # q k v out lse B Sq Skv H Hkv d bf16 causal window scale softcap stream
+    "flash_attn_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _I, _F, _F, _P),
+    # q k v o dout lse delta dq B Sq Skv H Hkv d bf16 causal window scale
+    # softcap stream
+    "flash_attn_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _F, _F, _P),
+    # q k v dout lse delta dk dv B Sq Skv H Hkv d bf16 causal window scale
+    # softcap stream
+    "flash_attn_bwd_dkdv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _F, _F, _P),
     # fcodes acodes valid dict n lo hi psum pcnt n_parts counter out_sum
     # out_cnt stream
     "scan_float": (_P, _P, _P, _P, _L, _I, _I, _P, _P, _I, _P, _P, _P, _P),

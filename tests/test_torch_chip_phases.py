@@ -32,6 +32,7 @@ from repro_torch.kernels.dict_ops import (MAX_CORR_Q, scan_exact_group_ref,
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
+from test_torch_flash_attn import fake_flash_launches  # noqa: E402
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -450,6 +451,55 @@ def test_lm_serve_phase_rehearsed_with_whisper(decode_gpu_branch,
     assert line["read_bound_ms_with_cross_kv"] > line["weights_read_bound_ms"]
 
 
+def _gemma2_prefill(monkeypatch):
+    """gemma2-9b-smoke with head_dim 64 (one the blocked kernel takes; the
+    smoke config's is 16) through `lm_serve`, its prefill at 4 x 2,048
+    tokens (the blocked attention's threshold), the blocked attention's
+    GPU branch faked."""
+    import dataclasses
+
+    from repro_torch import configs
+    monkeypatch.setattr(configs, "get_config", lambda name: dataclasses.replace(
+        configs.get_smoke_config(name), head_dim=64))
+    fake_flash_launches(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "LM_ATTN_PREFILL_LEN", 2048)
+    return argparse.Namespace(lm_models=["gemma2-9b"], lm_batch=4,
+                              lm_prompt=6, lm_gen=3, lm_prefill=32, seed=0)
+
+
+def test_lm_serve_phase_rehearsed_with_gemma2s_prefill(decode_gpu_branch,
+                                                       monkeypatch, capsys):
+    """gemma2-9b-smoke's prefill of 4 x 2,048 tokens, twice: every
+    attention layer (one local, one global) takes the blocked kernel, one
+    launch a layer and call at each layer's window, never the plain loop
+    or the plain attention; finite logits; then serving as before."""
+    args = _gemma2_prefill(monkeypatch)
+    launches, shapes = chip_smoke.phase_lm_serve(args, dev=CPU)
+    (line,) = _lines(capsys, "lm_serve")
+    assert line["ok"] and line["model"] == "gemma2-9b"
+    assert launches == line["launches"] == {"decode_attn": 2 * 8,
+                                            "flash_attention": 2 * 2}
+    local = (4, 2048, 2048, 4, 2, 64, 1, 8, 50)
+    assert shapes["flash_attention"] == {local: 2,
+                                         local[:7] + (0, 50): 2}
+    assert line["prefill_tokens"] == 4 * 2048
+    assert len(line["prefill_seconds"]) == 2
+    assert line["prefill_attention_calls"] == {
+        "flash_attention": 4, "_sdpa": 0, "flash_attention_fwd_ref": 0}
+
+
+def test_lm_serve_phase_fails_when_the_prefill_takes_the_plain_loop(
+        decode_gpu_branch, monkeypatch):
+    """A prefill whose blocked attention reaches the plain loop (the
+    wrapper's GPU branch not taken) fails the phase."""
+    from repro_torch.kernels import common as kernels_common
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    args = _gemma2_prefill(monkeypatch)
+    monkeypatch.setattr(flash_ops, "on_gpu", kernels_common.on_gpu)
+    with pytest.raises(AssertionError, match="prefill attention calls"):
+        chip_smoke.phase_lm_serve(args, dev=CPU)
+
+
 def test_lm_serve_phase_frees_each_model_before_the_next(decode_gpu_branch,
                                                         monkeypatch):
     """Nothing of a model outlives its iteration (a MoE layer kept for the
@@ -509,9 +559,11 @@ def test_lm_serve_phase_fails_on_wrong_cross_kv(decode_gpu_branch,
 def train_gpu_branch(monkeypatch):
     """The GPU branch of the wrappers `lm_train` runs - the selective scan
     and its backward, the k-way merge, the fused apply, the snapshot copy
-    - with each bare launch writing its plain version's result, so the
-    launch counts run as on the card; the `torch.cuda` calls made no-ops;
-    no profiler; the phase's sizes cut to a few hundred tokens."""
+    - and whisper's training runs - the blocked attention and its
+    backward (`fake_flash_launches`) - with each bare launch writing its plain
+    version's result, so the launch counts run as on the card; the
+    `torch.cuda` calls made no-ops; no profiler; the phase's sizes cut to
+    a few hundred tokens."""
     from repro_torch.kernels.bitonic_sort import ops as bitonic_ops
     from repro_torch.kernels.merge_runs import ops as merge_ops
     from repro_torch.kernels.selective_scan import ops as scan_ops
@@ -552,6 +604,7 @@ def train_gpu_branch(monkeypatch):
                             (snap_ops, "launch_snapshot_copy", snap)):
         monkeypatch.setattr(mod, "on_gpu", lambda *t: True)
         monkeypatch.setattr(mod, name, fake)
+    fake_flash_launches(monkeypatch)
     for fn in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
         monkeypatch.setattr(torch.cuda, fn, lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
@@ -691,14 +744,15 @@ def test_lm_train_grad_check_fails_on_a_wrong_backward(train_gpu_branch,
 # ---------------------------------------------------------------------------
 
 def _whisper_train(monkeypatch):
-    """whisper-base-smoke with remat and 1,024-token loss chunks, one step
+    """whisper-base-smoke with remat, 1,024-token loss chunks and head_dim
+    64 (one the blocked kernel takes; the smoke config's is 16), one step
     of 2 x 2,048 tokens: the blocked attention's threshold."""
     import dataclasses
 
     from repro_torch import configs
     def get(name):
         return dataclasses.replace(configs.get_smoke_config(name),
-                                   remat=True, loss_chunk=1024)
+                                   remat=True, loss_chunk=1024, head_dim=64)
     monkeypatch.setattr(configs, "get_config", get)
     monkeypatch.setattr(chip_smoke, "ENCDEC_TRAIN_SEQ", 2048)
     monkeypatch.setattr(chip_smoke, "ENCDEC_TRAIN_STEPS", 1)
@@ -706,14 +760,28 @@ def _whisper_train(monkeypatch):
 
 def test_encdec_train_phase_rehearsed(train_gpu_branch, monkeypatch,
                                       capsys):
-    """The phase at the smoke config: finite losses, no kernel launch, the
-    blocked attention (2 encoder + 2 x 2 decoder attentions, twice with
-    remat) on every call and the plain one never."""
+    """The phase at the smoke config: finite losses, the float32 gradient
+    cross-check on the blocked branch, the blocked attention (2 encoder +
+    2 x 2 decoder attentions, twice with remat) on every call through its
+    kernel, one forward launch a call and two backward launches a
+    backward call (6 a step), and no other launch."""
     _whisper_train(monkeypatch)
     launches, shapes = chip_smoke.phase_encdec_train(
         argparse.Namespace(seed=0), dev=CPU)
-    assert launches == {} and shapes == {}
+    assert launches == {"flash_attention": 12, "flash_attention_bwd": 12}
+    bidir = (2, 2048, 2048, 4, 4, 64, 0, 0, 0)      # encoder and cross
+    causal = bidir[:6] + (1, 0, 0)                   # decoder self
+    assert shapes == {"flash_attention": {bidir: 8, causal: 4},
+                      "flash_attention_bwd": {bidir: 8, causal: 4}}
     (line,) = _lines(capsys, "lm_train")
+    assert line["launches"] == launches
+    assert line["backward_calls_per_step"] == 6
+    check = line["grad_check"]
+    assert (check["enc_layers"], check["dec_layers"], check["seq"]) == (
+        1, 1, 2048)
+    assert check["max_rel_err"] <= chip_smoke.LM_GRAD_TOL
+    assert check["blocked_calls_card"] == 3 * 2     # with the recompute
+    assert check["backward_launches_card"] == 2 * 3
     assert line["ok"] and line["model"] == "whisper-base"
     assert (line["layers"], line["enc_layers"], line["dec_layers"]) == (
         4, 2, 2)
@@ -739,8 +807,52 @@ def test_encdec_train_phase_fails_on_a_stray_scan_launch(train_gpu_branch,
         scan_ops.selective_scan(x, dt, a, b, b, torch.ones(128))
         return real(p, h)
     monkeypatch.setattr(encdec, "swiglu", swiglu)
-    with pytest.raises(AssertionError, match="no hand-written kernel"):
+    with pytest.raises(AssertionError, match="no other hand-written kernel"):
         chip_smoke.phase_encdec_train(argparse.Namespace(seed=0), dev=CPU)
+
+
+def test_encdec_train_phase_fails_on_the_plain_blocked_loop(
+        train_gpu_branch, monkeypatch):
+    """A blocked attention that reaches the plain loop on the card (its
+    wrapper's GPU branch not taken) fails the phase in its gradient
+    cross-check, before any step."""
+    from repro_torch.kernels import common as kernels_common
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    _whisper_train(monkeypatch)
+    monkeypatch.setattr(flash_ops, "on_gpu", kernels_common.on_gpu)
+    with pytest.raises(AssertionError, match="flash_attention_fwd_ref"):
+        chip_smoke.phase_encdec_train(argparse.Namespace(seed=0), dev=CPU)
+
+
+def test_encdec_grad_check_fails_on_a_wrong_backward(train_gpu_branch,
+                                                     monkeypatch):
+    """A dK/dV pass that loses dV is caught by the float32 cross-check: the
+    "card" model (the first loss) takes the faked kernels, the CPU model
+    the plain loop and autograd."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.models import encdec
+    real_dkdv, real_loss = (flash_ops.launch_flash_attention_bwd_dkdv,
+                            encdec.encdec_loss)
+    seen = []
+
+    def wrong(*args):
+        real_dkdv(*args)
+        args[7].zero_()                                 # dv
+
+    def loss(model, *args):
+        seen.append(model)
+        return real_loss(model, *args)
+    monkeypatch.setattr(flash_ops, "launch_flash_attention_bwd_dkdv", wrong)
+    monkeypatch.setattr(encdec, "encdec_loss", loss)
+    monkeypatch.setattr(flash_ops, "on_gpu", lambda *t: len(seen) == 1)
+    cfg = dataclasses.replace(configs.get_smoke_config("whisper-base"),
+                              remat=True, loss_chunk=1024, head_dim=64)
+    with pytest.raises(AssertionError, match="gradient differs from the CPU's"):
+        chip_smoke.encdec_grad_check(cfg, argparse.Namespace(seed=0), CPU)
+    assert len(seen) == 2
 
 
 def test_own_ops_link_a_range_to_its_backward():

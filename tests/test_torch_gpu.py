@@ -4,7 +4,9 @@ LM serving kernels (flash-decode attention, selective scan) at the float32
 tolerances of the reference's kernel tests (2e-5, 3e-5; a bf16 output one
 bf16 rounding more, 2**-8 relative), the selective scan's backward within
 1e-4 of each gradient's largest |value| and bit for bit repeatable, the
-float32 scan with an exact count
+blocked attention and its backward (2e-4 in float32, the reference's own
+flash-vs-SDPA tolerance; 1e-4 of each gradient's largest |value|; bf16
+one bf16 step more), the float32 scan with an exact count
 and its sum within ``float_scan_error_bound`` of the exact sum and 1e-5 *
 sum(|v|) of the plain version's.
 
@@ -662,3 +664,66 @@ def test_lm_decode_matches_prefill_on_the_card(cuda, name):
     if cfg.n_layers - n_mamba:
         want_counts["decode_attn"] = (cfg.n_layers - n_mamba) * 12
     assert kernel_launch_counts() == want_counts
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 300, 300, 8, 8, 64, True, 0, 0.0),        # ragged tiles
+    (1, 200, 333, 5, 1, 128, False, 0, 30.0),     # Sq != Skv, G 5
+    (1, 1024, 1024, 8, 1, 112, True, 100, 50.0),  # d 112, G 8, a window
+    (1, 512, 512, 16, 8, 256, True, 64, 50.0)])   # gemma2's heads
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernels_match_their_plain_versions(cuda, shape,
+                                                            dtype):
+    """The blocked attention's forward (output and log-sum-exp, 2e-4 in
+    float32 as the reference's flash-vs-SDPA test; a bf16 output one bf16
+    step more) and its two backward launches (1e-4 of each gradient's
+    largest |value|, bf16 one bf16 step more; bit for bit repeatable)
+    against the plain versions."""
+    from repro_torch.kernels.flash_attn import (flash_attention_bwd,
+                                                flash_attention_bwd_ref,
+                                                flash_attention_fwd,
+                                                flash_attention_fwd_ref)
+    B, Sq, Skv, H, Hkv, dh, causal, window, cap = shape
+    kw = dict(causal=causal, window=window, softcap=cap)
+    blocks = dict(q_block=Sq, kv_block=Skv)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((B, Sq, H, dh), generator=gen, device=cuda)
+    k, v = (torch.randn((B, Skv, Hkv, dh), generator=gen, device=cuda)
+            for _ in range(2))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    reset_kernel_launch_counts()
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    want, want_lse = flash_attention_fwd_ref(q.float(), k.float(), v.float(),
+                                             **kw, **blocks)
+    step = 2**-7 if dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(out.float(), want, rtol=2e-4 + step,
+                               atol=2e-4)
+    torch.testing.assert_close(lse, want_lse, rtol=2e-4, atol=2e-4)
+    dout = torch.randn(out.shape, generator=gen, device=cuda).to(dtype)
+    got = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                                 **kw, **blocks)):
+        assert g.dtype == dtype
+        scale = float(w.float().abs().max())
+        assert float((g.float() - w.float()).abs().max()) <= \
+            (1e-4 + step) * scale
+    again = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert kernel_launch_counts() == {"flash_attention": 1,
+                                      "flash_attention_bwd": 4}
+
+
+def test_flash_attention_refuses_what_its_kernel_does_not_take(cuda):
+    """head_dim 96 and a row without a key in its band raise, naming the
+    plain version; nothing launches."""
+    from repro_torch.nn.flash import flash_attention
+    q = torch.randn((1, 64, 2, 96), device=cuda)
+    reset_kernel_launch_counts()
+    with pytest.raises(ValueError, match="flash_attention_fwd_ref"):
+        flash_attention(q, q, q)
+    q = torch.randn((1, 64, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="flash_attention_fwd_ref"):
+        flash_attention(q, q[:, :8], q[:, :8], causal=False, window=4,
+                        q_block=64, kv_block=8)
+    assert kernel_launch_counts() == {}

@@ -111,7 +111,9 @@ def test_step_for_step_against_the_reference(kind, dtype, kw):
     params, grads = _trees(np.random.default_rng(5), dtype, 5)
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     rp = {k: jnp.asarray(v).astype(jdt) for k, v in params.items()}
-    tp = {k: torch.from_numpy(v).to(tdt) for k, v in params.items()}
+    # a copy: the port updates its parameters in place, and jnp.asarray may
+    # alias a 64-byte aligned numpy array, so the reference's would change
+    tp = {k: torch.from_numpy(v.copy()).to(tdt) for k, v in params.items()}
     r_init, r_update = ref_optim.get_optimizer(kind, lr=lr, **kw)
     t_init, t_update = get_optimizer(kind, lr=lr, **kw)
     rs, ts = r_init(rp), t_init(tp)
