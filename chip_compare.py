@@ -5,6 +5,8 @@ is compared with its parent under the same clocks and host.
 
     git archive <parent> | tar -x -C build/parent
     python3 chip_compare.py build/parent .      # needs one Hopper card
+    python3 chip_compare.py build/parent . --only flash   # the blocked
+                                                # attention alone
 
 Runs each tree in its own process, in the order A, B, B, A, each through
 that tree's own `chip_smoke.py` measurement functions (its wrappers, its
@@ -20,6 +22,9 @@ sharded join scan K11 at 3 x 3,333,334, the float32 scan K18 and the
 snapshot copy K10 (chunks of 8,192); the selective scan K17 and its
 backward at the training path's (1, 4,096, 8,192, 16), the backward also
 at d_state 8, with its registers:
+the blocked attention's forward at whisper's bidirectional (2, 4,096,
+8, 8, 64) and gemma2's prefill (4, 4,096, 16, 8, 256, causal, window
+4,096, softcap 50) shapes and its backward (both launches) at whisper's:
 `ms` (bare launches), `device_ms` (the device's own time of 20 bare
 launches under `torch.profiler`, a launch, by the tree's own
 `device_time`) and `wrapper_ms` of each, and for K7 and K15 also
@@ -176,7 +181,30 @@ def _folds(cs, dev, gen) -> dict:
     return out
 
 
-def _one(root: str) -> dict:
+# the blocked attention's shapes: (B, Sq, Skv, H, Hkv, dh, causal, window,
+# softcap)
+FLASH_WHISPER = (2, 4096, 4096, 8, 8, 64, 0, 0, 0)
+FLASH_GEMMA2 = (4, 4096, 4096, 16, 8, 256, 1, 4096, 50)
+
+
+def _flash(cs, dev, gen) -> dict:
+    """The blocked attention's forward at whisper's and gemma2's shapes and
+    its backward at whisper's, through the tree's own measurements."""
+    import torch
+    out = {}
+    for name, measure, shape in (
+            ("flash_fwd_whisper", cs.measure_flash, FLASH_WHISPER),
+            ("flash_fwd_gemma2", cs.measure_flash, FLASH_GEMMA2),
+            ("flash_bwd_whisper", cs.measure_flash_bwd, FLASH_WHISPER)):
+        m = measure(gen, dev, shape)
+        out[name] = dict({key: m.get(key) for key in (
+            "ms", "device_ms", "wrapper_ms", "max_abs_err")},
+            shape=list(shape))
+        torch.cuda.empty_cache()
+    return out
+
+
+def _one(root: str, only: str | None = None) -> dict:
     sys.argv = ["chip_compare"]
     sys.path[:0] = [root, root + "/src"]
     import torch
@@ -202,6 +230,9 @@ def _one(root: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     keys = ("ms", "device_ms", "wrapper_ms")
     out = {"tree": root}
+    if only == "flash":
+        out.update(_flash(cs, dev, gen))
+        return out
 
     shape = (8, 32768, 256)
     m = cs.measure_apply(gen, dev, shape)
@@ -259,6 +290,7 @@ def _one(root: str) -> dict:
                          shape=list(shape))
         torch.cuda.empty_cache()
     out["selective_scan_bwd"]["registers"] = cs.ssm_registers(backward=True)
+    out.update(_flash(cs, dev, gen))
     # ptxas' registers and spill bytes of the scans' kernels (the selective
     # scan's and its backward's among them), where this process built the
     # tree's library
@@ -270,10 +302,13 @@ def _one(root: str) -> dict:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    only = None
+    if len(argv) >= 2 and argv[-2] == "--only":
+        only, argv = argv[-1], argv[:-2]
     if len(argv) == 2 and argv[0] == "--one":
-        print(json.dumps(_one(argv[1])), flush=True)
+        print(json.dumps(_one(argv[1], only)), flush=True)
         return 0
-    if len(argv) != 2:
+    if len(argv) != 2 or only not in (None, "flash"):
         print(__doc__, file=sys.stderr)
         return 2
     a, b = argv
@@ -282,7 +317,8 @@ def main(argv=None) -> int:
                          capture_output=True, text=True).stdout.strip(),
           flush=True)
     for root in (a, b, b, a):
-        run = subprocess.run([sys.executable, __file__, "--one", root],
+        run = subprocess.run([sys.executable, __file__, "--one", root]
+                             + (["--only", only] if only else []),
                              capture_output=True, text=True)
         lines = [l for l in run.stdout.splitlines() if l.startswith("{")]
         if run.returncode or not lines:

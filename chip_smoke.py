@@ -17,7 +17,12 @@ script's wall seconds so far, ``elapsed_seconds``):
                  of the selective scan's backward by d_state
                  (``ssm_bwd_instances``: no spill at d_state 16, and 16
                  warps an SM or more); and each blocked-attention instance
-                 (``flash_instances``: pass, head_dim, type).
+                 (``flash_instances``: pass, head_dim, type; registers,
+                 spill bytes, and the HGMMA and HMMA instructions of its
+                 SASS, read with ``cuobjdump -sass``: every bf16 instance
+                 must issue tensor-core instructions, the forward at the
+                 paths' head_dims 64 and 256 HGMMA, and no bf16 instance
+                 at 64 or 256 may spill).
 3. ``main_path`` one HTAP session of the full system (`Polynesia` preset,
                  ``backend="hopper"``) at 10,000,000 rows x 8 columns,
                  400,000 transactions, 32 queries, 4 rounds, plus one late
@@ -687,12 +692,18 @@ def phase_build() -> None:
     if bad:
         raise AssertionError(f"selective_scan_bwd: a spill at N = 16, or "
                              f"under 16 warps an SM: {bad}")
+    # the blocked attention: tensor-core instructions in every bf16
+    # instance's SASS, no spill on the paths' head_dims
+    flash = flash_registers()
+    for key, ops in flash_sass(sass_text(build.build_library())).items():
+        flash.setdefault(key, {}).update(ops)
+    flash_build_check(flash)
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          nvcc_seconds=nvcc_seconds,
          sources=sorted(p.name for p in build.CSRC.glob("*.cu")),
          library=str(build.build_library().name), registers=registers,
          scan_instances=instances, ssm_bwd_instances=bwd,
-         flash_instances=flash_registers())
+         flash_instances=flash)
 
 
 REGISTERS: dict[str, int] = {}     # ptxas' count per kernel entry (build)
@@ -4634,8 +4645,8 @@ def flash_flops(shape, products: int) -> float:
 def flash_cost(shape):
     """At the paths' bf16: q, k, v read once, out and the float32 lse
     written once; QK^T and PV on the pairs in the band, at the tensor
-    cores' dense bf16 rate (the kernel itself runs float32 FMAs:
-    `bound_fp32_ms`)."""
+    cores' dense bf16 rate (`bound_fp32_ms`: the same operations at the
+    CUDA cores' float32 rate, the float32 instances' ceiling)."""
     B, Sq, Skv, H, Hkv, dh = shape[:6]
     nbytes = 2 * (2 * B * Sq * H * dh + 2 * B * Skv * Hkv * dh) \
         + 4 * B * H * Sq
@@ -4672,17 +4683,79 @@ def flash_blocks(q, k) -> dict:
                 kv_block=1024 if Skv % 1024 == 0 else Skv)
 
 
+FLASH_PASSES = ("fwd", "bwd_dq", "bwd_dkdv")
+FLASH_PATH_DH = (64, 256)     # whisper's and gemma2's head_dims
+
+
+def flash_key(entry: str) -> str | None:
+    """The blocked-attention instance a kernel entry is, by pass, head_dim
+    and type ("fwd d64 bf16"), if it is one: the bf16 tensor-core kernels
+    (``flash_*_wgmma_kernel<DH>``) and the float32 FMA kernels
+    (``flash_*_kernel<DH, BR, BC, float>``)."""
+    m = re.search(r"flash_(fwd|bwd_dq|bwd_dkdv)_(?:wgmma_)?kernelILi(\d+)E",
+                  entry)
+    if not m:
+        return None
+    return (f"{m.group(1)} d{m.group(2)} "
+            f"{'bf16' if 'bfloat16' in entry else 'f32'}")
+
+
 def flash_registers() -> dict[str, dict]:
     """ptxas' registers and spill bytes of each blocked-attention instance,
     by pass, head_dim and type."""
     out = {}
     for entry, n in REGISTERS.items():
-        m = re.search(r"flash_(fwd|bwd_dq|bwd_dkdv)_kernelILi(\d+)E", entry)
-        if m:
-            key = (f"{m.group(1)} d{m.group(2)} "
-                   f"{'bf16' if 'bfloat16' in entry else 'f32'}")
+        key = flash_key(entry)
+        if key:
             out[key] = dict(registers=n, spill_bytes=SPILLS.get(entry, 0))
     return out
+
+
+def sass_text(library) -> str:
+    """`cuobjdump -sass` of the built library (the tool beside nvcc)."""
+    from repro_torch.kernels import build
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    return subprocess.run([tool, "-sass", str(library)], check=True,
+                          capture_output=True, text=True).stdout
+
+
+def flash_sass(text: str) -> dict[str, dict]:
+    """Per blocked-attention instance in `cuobjdump -sass` output: its
+    HGMMA (``wgmma``) and HMMA (``mma.sync``) instructions."""
+    out, key = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            key = flash_key(m.group(1))
+            if key:
+                out[key] = dict(HGMMA=0, HMMA=0)
+        elif key:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\.", line):
+                    out[key][op] += 1
+    return out
+
+
+def flash_build_check(instances: dict) -> None:
+    """Raises unless every bf16 blocked-attention instance (three passes x
+    four head_dims) issues HGMMA or HMMA, the forward at the paths'
+    head_dims HGMMA, and no bf16 instance at the paths' head_dims spills
+    (where ptxas' report was read: a library this process built)."""
+    want = {f"{p} d{d} bf16" for p in FLASH_PASSES for d in (64, 112, 128,
+                                                           256)}
+    bad = {k: "not in the SASS" for k in want - instances.keys()}
+    for key in want & instances.keys():
+        got = instances[key]
+        d = int(key.split()[1][1:])
+        if not (got.get("HGMMA") or got.get("HMMA")):
+            bad[key] = "no HGMMA or HMMA"
+        elif key.startswith("fwd ") and d in FLASH_PATH_DH and \
+                not got.get("HGMMA"):
+            bad[key] = "no HGMMA"
+        elif d in FLASH_PATH_DH and got.get("spill_bytes"):
+            bad[key] = f"{got['spill_bytes']} bytes of spill"
+    if bad:
+        raise AssertionError(f"blocked attention's bf16 instances: {bad}")
 
 
 def flash_fwd_check(name, got, lse, q, k, v, kw) -> float:

@@ -13,6 +13,21 @@ gradient summed over its G query heads in one block). On the CPU the plain
 loop `flash_attention_fwd_ref` runs and autograd differentiates it, as
 ``jax.grad`` differentiates the reference's scans.
 
+What bounds the kernels on an H100: the products (4 dh flops a query-key
+pair in the band forward, 10 dh backward) at the tensor cores' bf16 rate,
+and beside them one exponential a pair (two in the backward) on the
+special-function units; the bytes are far behind. The bf16 instances, the
+paths' type, run every product on the tensor cores (``wgmma``, bf16 in,
+float32 sums), with tiles streamed into shared memory by asynchronous
+copies and the online softmax in registers. The forward splits the
+probabilities into bf16(P) + bf16(P - bf16(P)) and adds both products: an
+emulation of the rounding (tests/test_torch_flash_attn.py) keeps every
+output within 0.95 - 0.98 of the bound a bf16 output is held to on the
+card, where bf16(P) alone leaves about a fifth of them outside it. The
+backward rounds P and dS once each and stays within the bf16 gradients'
+bound. The float32 instances stay float32 FMAs on the CUDA cores: their
+callers hold them to 2e-4 and 1e-4, which bf16 operands cannot meet.
+
 Launches are counted as ``flash_attention`` (one a forward) and
 ``flash_attention_bwd`` (two a backward: the dQ pass, the dK/dV pass), at
 `launch_shape`: (B, Sq, Skv, H, Hkv, dh, causal, window, softcap).

@@ -887,3 +887,104 @@ def test_own_ops_link_a_range_to_its_backward():
     assert "aten::tanh" not in names
     everything = [e.name() for e in events]
     assert everything.count("MmBackward0") == 4
+
+
+# ---------------------------------------------------------------------------
+# the build phase's reading of the blocked attention's instances
+# ---------------------------------------------------------------------------
+
+def _flash_entry(pas: str, dh: int, bf16: bool) -> str:
+    """A kernel entry's mangled name as ptxas and cuobjdump print it."""
+    if bf16:
+        name = f"flash_{pas}_wgmma_kernel"
+        return (f"_ZN12_GLOBAL__N_1{len(name)}{name}ILi{dh}EEEvPK13"
+                "__nv_bfloat16S3_S3_PS1_Pfiiiiiiiff")
+    name = f"flash_{pas}_kernel"
+    return f"_ZN12_GLOBAL__N_1{len(name)}{name}ILi{dh}ELi64ELi64EfEEvPKT2_"
+
+
+def _sass(ops: dict) -> str:
+    """cuobjdump -sass text with one function a key of `ops` ((pass, dh,
+    bf16) -> the tensor-core opcode it issues, or None), and a scan kernel
+    that issues none."""
+    lines = ["Fatbin elf code:", "================", "arch = sm_90a"]
+    for (pas, dh, bf16), op in ops.items():
+        lines += [f"\t\tFunction : {_flash_entry(pas, dh, bf16)}",
+                  "        /*0000*/                   LDC R1, c[0x0][0x28] ;"]
+        if op == "HGMMA":
+            lines.append("        /*0450*/                   HGMMA.64x64x16"
+                         ".F32.BF16 R24, gdesc[UR4], R24, gsb0 ;")
+        elif op == "HMMA":
+            lines.append("        /*0450*/                   HMMA.16816.F32"
+                         ".BF16 R4, R8, R12, R4 ;")
+        lines.append("        /*0460*/                   EXIT ;")
+    lines += ["\t\tFunction : _ZN12_GLOBAL__N_116scan_float_kernelILb1EEEvv",
+              "        /*0000*/                   FFMA R1, R2, R3, R4 ;"]
+    return "\n".join(lines) + "\n"
+
+
+def _flash_build(sass_ops: dict, spills: dict | None = None) -> dict:
+    """`phase_build`'s reading of the blocked attention: ptxas' registers
+    and spills (as its build log gives them) merged with the SASS."""
+    regs = {_flash_entry(*k): 128 for k in sass_ops}
+    spill = {_flash_entry(*k): n for k, n in (spills or {}).items()}
+    old = dict(chip_smoke.REGISTERS), dict(chip_smoke.SPILLS)
+    try:
+        chip_smoke.REGISTERS.clear()
+        chip_smoke.REGISTERS.update(regs)
+        chip_smoke.SPILLS.clear()
+        chip_smoke.SPILLS.update(spill)
+        flash = chip_smoke.flash_registers()
+    finally:
+        chip_smoke.REGISTERS.clear()
+        chip_smoke.REGISTERS.update(old[0])
+        chip_smoke.SPILLS.clear()
+        chip_smoke.SPILLS.update(old[1])
+    for key, ops in chip_smoke.flash_sass(_sass(sass_ops)).items():
+        flash.setdefault(key, {}).update(ops)
+    return flash
+
+
+def _designed() -> dict:
+    """The instances as this design builds them: bf16 on wgmma, the float32
+    FMA kernels with no tensor-core instruction."""
+    ops = {(p, d, True): "HGMMA" for p in chip_smoke.FLASH_PASSES
+           for d in (64, 112, 128, 256)}
+    ops.update({(p, d, False): None for p in chip_smoke.FLASH_PASSES
+                for d in (64, 112, 128, 256)})
+    return ops
+
+
+def test_build_phase_reads_the_flash_instances():
+    flash = _flash_build(_designed(), spills={("fwd", 112, True): 8})
+    assert len(flash) == 24
+    assert flash["fwd d64 bf16"] == dict(registers=128, spill_bytes=0,
+                                         HGMMA=1, HMMA=0)
+    assert flash["bwd_dkdv d256 f32"] == dict(registers=128, spill_bytes=0,
+                                              HGMMA=0, HMMA=0)
+    assert flash["fwd d112 bf16"]["spill_bytes"] == 8
+    # a spill off the paths' head_dims, and HMMA in a backward, pass
+    ops = _designed()
+    ops[("bwd_dq", 64, True)] = "HMMA"
+    chip_smoke.flash_build_check(_flash_build(ops, {("fwd", 112, True): 8}))
+
+
+@pytest.mark.parametrize("change,match", [
+    ({("bwd_dkdv", 128, True): None}, "no HGMMA or HMMA"),
+    ({("fwd", 256, True): "HMMA"}, "no HGMMA"),
+    ({("bwd_dq", 64, True): "absent"}, "not in the SASS"),
+    ("spill", "bytes of spill"),
+])
+def test_build_phase_fails_on_a_flash_instance_off_the_tensor_cores(change,
+                                                                    match):
+    ops, spills = _designed(), None
+    if change == "spill":
+        spills = {("bwd_dkdv", 256, True): 16}
+    else:
+        for key, op in change.items():
+            if op == "absent":
+                del ops[key]
+            else:
+                ops[key] = op
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.flash_build_check(_flash_build(ops, spills))

@@ -19,6 +19,9 @@ Inputs come from seeded numpy; tolerances: float32 2e-5 relative plus
 absolute; a bf16 output one bf16 step (2**-7 relative) more.
 """
 
+import pathlib
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +33,9 @@ from repro.nn import flash as ref_flash
 from repro_torch.kernels import common
 from repro_torch.kernels.flash_attn import ops
 from repro_torch.nn import flash
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -299,3 +305,169 @@ def test_gpu_branch_takes_every_configs_head_dim(flash_gpu, dh):
     out = flash.flash_attention(q, k, v, causal=True, softcap=50.0)
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
     assert common.kernel_launch_counts() == {"flash_attention": 1}
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernels' rounding points, emulated in plain torch
+# ---------------------------------------------------------------------------
+#
+# The bf16 instances of csrc/flash_attn.cu multiply bf16 operands on the
+# tensor cores and add in float32. Where they round is emulated here, tile
+# by tile as the kernels walk: the forward splits the probabilities P into
+# P_hi = bf16(P) and P_lo = bf16(P - P_hi) and sums both products, the
+# backward rounds P and dS once each. Each emulation is held against the
+# JAX package's float32 answer on the same bf16 values with the tolerances
+# chip_smoke.py holds the kernels to on the card; a forward that rounds P
+# once is shown to miss that bound, which is why the forward splits it.
+
+LOG2E = 1.4426950408889634
+EMU_TILE = 64                    # the kernels' key (and query) tile
+
+
+def _band(Sq, Skv, causal, window):
+    i, j = torch.arange(Sq)[:, None], torch.arange(Skv)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool)
+    if causal:
+        mask &= j <= i
+    if window > 0:
+        mask &= j > i - window
+    return mask
+
+
+def _scores2(q, k, causal, window, softcap):
+    """float32 scores in base 2, (B, H, Sq, Skv), the masked -1e30, and the
+    backward's factor scale (1 - tanh^2)."""
+    B, Sq, H, dh = q.shape
+    G = H // k.shape[2]
+    scale = dh ** -0.5
+    dot = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                       torch.repeat_interleave(k, G, dim=2).float())
+    if softcap > 0:
+        t = torch.tanh(dot * (scale / softcap))
+        s2, f = softcap * LOG2E * t, scale * (1 - t * t)
+    else:
+        s2, f = dot * (scale * LOG2E), torch.full_like(dot, scale)
+    mask = _band(Sq, k.shape[1], causal, window)
+    return torch.where(mask, s2, torch.tensor(-1e30)), f, mask
+
+
+def _bf16(x):
+    return x.bfloat16().float()
+
+
+def emulate_fwd(q, k, v, causal, window, softcap, split=True):
+    """The bf16 forward's arithmetic: an online softmax in base 2 over key
+    tiles of 64, P (float32) into the product as bf16 P_hi + bf16 P_lo
+    (`split`) or as bf16 P alone. Returns (out bf16, lse float32)."""
+    B, Sq, H, dh = q.shape
+    vh = torch.repeat_interleave(v, H // k.shape[2], dim=2).float()
+    s2, _, _ = _scores2(q, k, causal, window, softcap)
+    m = torch.full((B, H, Sq, 1), -1e30)
+    l = torch.zeros((B, H, Sq, 1))
+    acc = torch.zeros((B, H, Sq, dh))
+    for k0 in range(0, k.shape[1], EMU_TILE):
+        s = s2[..., k0:k0 + EMU_TILE]
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = _bf16(p)
+        vt = vh[:, k0:k0 + EMU_TILE]
+        pv = torch.einsum("bhqk,bkhd->bhqd", hi, vt)
+        if split:
+            pv = pv + torch.einsum("bhqk,bkhd->bhqd", _bf16(p - hi), vt)
+        acc = acc * alpha + pv
+        m = m_new
+    out = (acc / l.clamp(min=1e-30)).transpose(1, 2).bfloat16()
+    return out, (m / LOG2E + torch.log(l))[..., 0]
+
+
+def emulate_bwd(q, k, v, out, lse, dout, causal, window, softcap):
+    """The bf16 backward's arithmetic: P = 2^(s - lse log2 e) and dS = P
+    (dP - D) scale (1 - tanh^2) in float32, each rounded once to bf16 for
+    the products dV = P^T dO, dQ = dS K and dK = dS^T Q (float32 sums).
+    Returns (dq, dk, dv) in bf16."""
+    B, Sq, H, dh = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    s2, f, mask = _scores2(q, k, causal, window, softcap)
+    p = torch.where(mask, torch.exp2(s2 - lse[..., None] * LOG2E), 0.0)
+    do = dout.float()
+    delta = (do * out.float()).sum(-1).transpose(1, 2)[..., None]
+    dp = torch.einsum("bqhd,bkhd->bhqk", do,
+                      torch.repeat_interleave(v, G, dim=2).float())
+    ds = _bf16(p * f * (dp - delta))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds,
+                      torch.repeat_interleave(k, G, dim=2).float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", _bf16(p), do)
+    dk, dv = (g.reshape(B, k.shape[1], Hkv, G, dh).sum(3) for g in (dk, dv))
+    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+ROUNDING_CASES = [
+    # (B, Sq, Skv, H, Hkv, dh), causal, window, softcap
+    ((1, 128, 128, 4, 2, 64), True, 0, 0.0),
+    ((1, 128, 128, 4, 2, 64), True, 48, 50.0),
+    ((2, 96, 160, 2, 1, 64), False, 0, 0.0),        # Sq != Skv
+    ((1, 128, 128, 2, 1, 256), True, 0, 50.0),
+    ((1, 64, 192, 4, 2, 256), False, 0, 50.0),      # Sq != Skv
+    ((1, 192, 128, 2, 2, 256), True, 96, 0.0),      # Sq > Skv, a window
+]
+
+
+def _bf16_inputs(seed, shape):
+    """Seeded inputs rounded to bf16: (torch bf16 tensors, numpy float32
+    arrays of the same values for the JAX package)."""
+    t = tuple(torch.tensor(x).bfloat16() for x in _inputs(seed, *shape))
+    return t, tuple(x.float().numpy() for x in t)
+
+
+@pytest.mark.parametrize("shape,causal,window,cap", ROUNDING_CASES)
+def test_split_p_forward_meets_the_chip_bound(shape, causal, window, cap):
+    (q, k, v), arrays = _bf16_inputs(sum(shape) + 5, shape)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    want = torch.tensor(np.asarray(ref_flash.flash_attention(
+        *map(jnp.asarray, arrays), **kw, q_block=32, kv_block=32)))
+    out, lse = emulate_fwd(q, k, v, causal, window, cap)
+    chip_smoke.must_be_close_bf16("split-P forward", out, want)
+    chip_smoke.must_be_close(
+        "split-P log-sum-exp", lse,
+        torch.tensor(_lse_numpy(*arrays[:2], causal, window, cap)),
+        chip_smoke.FLASH_TOL)
+
+
+@pytest.mark.parametrize("shape,causal,window,cap", ROUNDING_CASES[:3])
+def test_p_rounded_once_misses_the_chip_bound(shape, causal, window, cap):
+    """bf16(P) alone in the product (what a forward without the split
+    does) puts a share of the outputs outside `must_be_close_bf16`."""
+    (q, k, v), arrays = _bf16_inputs(sum(shape) + 5, shape)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    want = torch.tensor(np.asarray(ref_flash.flash_attention(
+        *map(jnp.asarray, arrays), **kw, q_block=32, kv_block=32)))
+    out, _ = emulate_fwd(q, k, v, causal, window, cap, split=False)
+    with pytest.raises(AssertionError, match="bf16 output differs"):
+        chip_smoke.must_be_close_bf16("P rounded once", out, want)
+    bound = chip_smoke.BF16_OUT_ATOL + chip_smoke.BF16_OUT_RTOL * want.abs()
+    assert float(((out.float() - want).abs() > bound).float().mean()) > 0.01
+
+
+@pytest.mark.parametrize("shape,causal,window,cap", ROUNDING_CASES)
+def test_rounded_p_and_ds_backward_meets_the_chip_bound(shape, causal,
+                                                        window, cap):
+    (q, k, v), arrays = _bf16_inputs(sum(shape) + 6, shape)
+    dout = torch.tensor(np.random.default_rng(11).normal(
+        size=q.shape).astype(np.float32)).bfloat16()
+    kw = dict(causal=causal, window=window, softcap=cap)
+
+    def loss(q, k, v):
+        return (ref_flash.flash_attention(q, k, v, **kw, q_block=32,
+                                          kv_block=32)
+                * jnp.asarray(dout.float().numpy())).sum()
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, arrays))
+    out, lse = emulate_fwd(q, k, v, causal, window, cap)
+    got = emulate_bwd(q, k, v, out, lse, dout, causal, window, cap)
+    # held as the card holds the kernels against their bf16 plain version
+    chip_smoke.flash_bwd_check(
+        "rounded-P backward", got,
+        [torch.tensor(np.asarray(w)).bfloat16() for w in want])
