@@ -44,6 +44,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.backend import (HopperBackend, ShardedBackend,
                                       get_backend)
 from repro_torch.core.dsm import ColumnDelta, EncodedColumn, shard_bounds
@@ -255,27 +256,34 @@ def apply_updates(
     """
     be = get_backend(backend)
     n, k_old = col.n_rows, col.dict_size
-    mods, ins, dels = _split_ops(updates)
-    write_vals = np.concatenate([mods["value"], ins["value"]])
     m = len(updates)
+    with tracing.span("apply.dictionary"):
+        tracing.count("apply.updates", m)
+        mods, ins, dels = _split_ops(updates)
+        write_vals = np.concatenate([mods["value"], ins["value"]])
 
-    # Stages 1-2: update-dictionary sort + dictionary merge + old->new index.
-    update_dict, new_dict, encode, old_to_new = (
-        staged if staged is not None
-        else _merge_dictionary_stages(be, col.dictionary, write_vals))
+        # Stages 1-2: update-dictionary sort + dictionary merge + old->new
+        # index.
+        update_dict, new_dict, encode, old_to_new = (
+            staged if staged is not None
+            else _merge_dictionary_stages(be, col.dictionary, write_vals))
 
-    # Encode the write set's values against the new dictionary (the batch's
-    # values cross to the device once).
-    write_ops = _sorted_write_ops(mods, ins)
-    write_codes = encode(write_ops["value"])
+        # Encode the write set's values against the new dictionary (the
+        # batch's values cross to the device once).
+        write_ops = _sorted_write_ops(mods, ins)
+        write_codes = encode(write_ops["value"])
 
-    # Stage 3: sequential re-encode through the index + scatter update
-    # codes. The gather makes a new tensor and validity is cloned, so the
-    # in-place scatters never reach the old column.
-    new_codes = torch.index_select(old_to_new.to(torch.int32), 0, col.codes)
-    new_codes, valid = _apply_row_ops(new_codes, col.valid.clone(), new_dict,
-                                      mods, ins, dels, encode=encode,
-                                      write_set=(write_ops, write_codes))
+    with tracing.span("apply.rewrite"):
+        tracing.count("apply.rows_rewritten", n)
+        # Stage 3: sequential re-encode through the index + scatter update
+        # codes. The gather makes a new tensor and validity is cloned, so
+        # the in-place scatters never reach the old column.
+        new_codes = torch.index_select(old_to_new.to(torch.int32), 0,
+                                       col.codes)
+        new_codes, valid = _apply_row_ops(new_codes, col.valid.clone(),
+                                          new_dict, mods, ins, dels,
+                                          encode=encode,
+                                          write_set=(write_ops, write_codes))
 
     if cost is not None and m:
         _optimized_apply_cost(cost, on_pim, m, n, k_old, len(new_dict),

@@ -63,6 +63,7 @@ from typing import Callable, Iterable, Sequence
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.dsm import (DictCache, EncodedColumn, MeshView,
                                   ShardedView, make_sharded_view, replicate,
                                   shard_column, shard_rows,
@@ -964,9 +965,15 @@ class HopperBackend(TorchBackend):
             if full < n_chunks:
                 dirty[full] = diff[full * SNAPSHOT_BLOCK:].any()
             prev_arr = prev.codes
+            if tracing.enabled():
+                copied = torch.clamp(dirty.sum() * SNAPSHOT_BLOCK, max=n)
+                tracing.count("snapshot.rows_copied", copied)
+                tracing.count("snapshot.rows_carried", n - copied)
         else:
             dirty = torch.ones(n_chunks, dtype=torch.bool, device=src.device)
             prev_arr = col.codes
+            tracing.count("snapshot.rows_copied", n)
+            tracing.count("snapshot.rows_carried", 0)
         codes = snapshot_copy(src, prev_arr, dirty, block=SNAPSHOT_BLOCK)
         # the copy is a fresh tensor; dictionary and valid are aliased,
         # which is safe because installed columns are never written in place

@@ -34,6 +34,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 
+from repro_torch import tracing
 from repro_torch.core.backend import get_backend
 from repro_torch.core.dsm import (DSMReplica, EncodedColumn, MeshView,
                                   ShardedView, check_shard_set,
@@ -129,13 +130,15 @@ class ConsistencyManager:
         Snapshots and views still pinned by in-flight queries stay valid -
         that is snapshot isolation - until their readers finish and GC
         drops the version."""
-        self.replica.columns[col_id] = new_col
-        self.chains[col_id].dirty = True
-        self._resident.pop(col_id, None)  # superseded before adoption
-        for v in self.chains[col_id].versions:
-            if v.readers == 0:
-                v.drop_view(f"column {col_id} was swapped out by a Phase-2 "
-                            f"update (now at version {new_col.version})")
+        with tracing.span("consistency.swap"):
+            self.replica.columns[col_id] = new_col
+            self.chains[col_id].dirty = True
+            self._resident.pop(col_id, None)  # superseded before adoption
+            for v in self.chains[col_id].versions:
+                if v.readers == 0:
+                    v.drop_view(f"column {col_id} was swapped out by a "
+                                f"Phase-2 update (now at version "
+                                f"{new_col.version})")
 
     def on_update_shards(self, col_id: int,
                          shard_cols: list[EncodedColumn]) -> None:
@@ -203,8 +206,9 @@ class ConsistencyManager:
         # way the copy the hardware would do is priced below and the chain
         # is bumped.
         head = self.chains[col_id].head
-        snap = self.backend.snapshot_column(
-            col, prev=head.column if head is not None else None)
+        with tracing.span("consistency.snapshot"):
+            snap = self.backend.snapshot_column(
+                col, prev=head.column if head is not None else None)
         v = _Version(version_id=next(self._version_ids), column=snap)
         self.chains[col_id].versions.append(v)
         self.chains[col_id].dirty = False

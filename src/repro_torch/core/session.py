@@ -74,6 +74,7 @@ from typing import Callable
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core import elastic, engine
 from repro_torch.core.application import (apply_updates, apply_updates_delta,
                                           apply_updates_naive,
@@ -552,11 +553,13 @@ class HTAPSession:
             sync_deps = self._prev_round_prop if self._txn_i == 1 else ()
             with self.cost.tagged(node, "txn", round=self.round, deps=deps,
                                   sync_deps=sync_deps, n=len(chunk),
-                                  cid_lo=lo, cid_hi=hi):
+                                  cid_lo=lo, cid_hi=hi), \
+                    tracing.span("session.txn", self.round):
                 self._execute_mi(chunk)
         else:
             with self.cost.tagged(node, "txn", round=self.round, deps=deps,
-                                  n=len(chunk), cid_lo=lo, cid_hi=hi):
+                                  n=len(chunk), cid_lo=lo, cid_hi=hi), \
+                    tracing.span("session.txn", self.round):
                 self.store.execute(chunk, self.cost)
         self._prev_txn = node
         self.n_txn += len(chunk)
@@ -803,7 +806,8 @@ class HTAPSession:
                     [q.columns for q in group])
             with self.cost.tagged(f"r{self.round}:ana{g}", "ana",
                                   round=self.round, deps=(snap_node,),
-                                  islands=self.islands, n=len(group)):
+                                  islands=self.islands, n=len(group)), \
+                    tracing.span("session.scan", self.round):
                 # delta plane: scans fold each column's live overlay into
                 # the pinned base (appends never dirty the snapshot chain,
                 # so the pinned base holds the overlay's base rows)

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core.backend import get_backend, merge_update_logs_host
 from repro_torch.core.hwmodel import CostLog
 from repro_torch.core.schema import LOG_ENTRY_BYTES
@@ -74,20 +75,23 @@ def ship_updates(
     ``price=False`` suppresses the CostEvents (the Ideal baselines' free
     propagation) but still annotates the batch's timeline metadata.
     """
-    merged = get_backend(backend).merge_update_logs(per_thread_logs)
+    with tracing.span("ship.merge"):
+        merged = get_backend(backend).merge_update_logs(per_thread_logs)
     n = len(merged)
-    targets = locate_columns(merged, n_cols)
     buffers: dict[int, np.ndarray] = {}
-    if n:
-        order = np.argsort(targets, kind="stable")  # group by column, keep commit order
-        sorted_log = merged[order]
-        sorted_tgt = targets[order]
-        splits = np.searchsorted(sorted_tgt, np.arange(n_cols))
-        for c in range(n_cols):
-            lo = splits[c]
-            hi = splits[c + 1] if c + 1 < n_cols else n
-            if hi > lo:
-                buffers[int(c)] = sorted_log[lo:hi]
+    with tracing.span("ship.locate"):
+        targets = locate_columns(merged, n_cols)
+        if n:
+            # group by column, keep commit order
+            order = np.argsort(targets, kind="stable")
+            sorted_log = merged[order]
+            sorted_tgt = targets[order]
+            splits = np.searchsorted(sorted_tgt, np.arange(n_cols))
+            for c in range(n_cols):
+                lo = splits[c]
+                hi = splits[c + 1] if c + 1 < n_cols else n
+                if hi > lo:
+                    buffers[int(c)] = sorted_log[lo:hi]
 
     if cost is not None and n:
         # timeline metadata (hwmodel.TimelineTag): the batch size and its

@@ -24,11 +24,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.application import apply_updates
 from repro_torch.core.backend import get_backend
 from repro_torch.core.consistency import ConsistencyManager
 from repro_torch.core.dsm import DSMReplica, encode_column
-from repro_torch.core.hwmodel import CostLog
 from repro_torch.core.nsm import RowStore, make_entries
 from repro_torch.core.shipping import ship_updates
 from repro_torch.kernels.common import resolve_device
@@ -55,25 +55,26 @@ class HTAPTokenPipeline:
         self.row_store = RowStore(init.astype(np.int32), n_threads=n_threads)
         self.replica = DSMReplica(columns={
             self.TOKEN_COL: encode_column(init[:, 0], self.device)})
-        self.cost = CostLog()
-        self.cons = ConsistencyManager(self.replica, self.cost, on_pim=True,
+        self.cons = ConsistencyManager(self.replica, on_pim=True,
                                        backend=self.backend)
         self.ingested = initial_tokens
 
     # -- transactional island: streaming ingest ---------------------------
     def ingest(self, tokens: np.ndarray) -> None:
         """Append a chunk of tokens (row inserts + update-log entries)."""
-        tokens = np.asarray(tokens, dtype=np.int32).reshape(-1)
-        n = len(tokens)
-        rows = np.arange(self.ingested, self.ingested + n, dtype=np.int64)
-        commit = np.arange(self._commit, self._commit + n, dtype=np.int64)
-        self._commit += n
-        entries = make_entries(commit, np.full(n, 2, np.int8), tokens, rows,
-                               np.full(n, self.TOKEN_COL, np.int32))
-        # round-robin the entries over ingest threads (per-thread logs)
-        for t in range(self.row_store.n_threads):
-            self.row_store.logs[t].append(entries[t::self.row_store.n_threads])
-        self.ingested += n
+        with tracing.span("pipeline.ingest"):
+            tokens = np.asarray(tokens, dtype=np.int32).reshape(-1)
+            n = len(tokens)
+            rows = np.arange(self.ingested, self.ingested + n, dtype=np.int64)
+            commit = np.arange(self._commit, self._commit + n, dtype=np.int64)
+            self._commit += n
+            entries = make_entries(commit, np.full(n, 2, np.int8), tokens,
+                                   rows, np.full(n, self.TOKEN_COL, np.int32))
+            # round-robin the entries over ingest threads (per-thread logs)
+            n_threads = self.row_store.n_threads
+            for t in range(n_threads):
+                self.row_store.logs[t].append(entries[t::n_threads])
+            self.ingested += n
 
     # -- update propagation (§5) -------------------------------------------
     def propagate(self) -> int:
@@ -81,13 +82,14 @@ class HTAPTokenPipeline:
         pending = self.row_store.pending_updates
         if not pending:
             return 0
-        logs = self.row_store.drain_logs()
-        buffers = ship_updates(logs, n_cols=1, cost=self.cost, on_pim=True,
-                               backend=self.backend)
-        for col_id, entries in buffers.items():
-            new = apply_updates(self.replica.columns[col_id], entries,
-                                self.cost, on_pim=True, backend=self.backend)
-            self.cons.on_update(col_id, new)
+        with tracing.span("pipeline.propagate", device=self.device):
+            logs = self.row_store.drain_logs()
+            buffers = ship_updates(logs, n_cols=1, on_pim=True,
+                                   backend=self.backend)
+            for col_id, entries in buffers.items():
+                new = apply_updates(self.replica.columns[col_id], entries,
+                                    on_pim=True, backend=self.backend)
+                self.cons.on_update(col_id, new)
         return pending
 
     # -- analytical island: the training step's batch read ------------------
@@ -96,22 +98,25 @@ class HTAPTokenPipeline:
         the pipeline's device. The window's codes go through the
         dictionary on the device (the same values as decoding the whole
         column and slicing it)."""
-        h = self.cons.begin_query([self.TOKEN_COL])
-        try:
-            col = self.cons.read(h, self.TOKEN_COL)
-            need = self.batch * (self.seq_len + 1)
-            n = col.n_rows
-            if n < need:
-                raise ValueError(f"store too small: {n} < {need}")
-            # deterministic offset schedule over the committed prefix
-            start = (step * need) % max(n - need, 1)
-            codes = col.codes[start:start + need].long()
-            window = col.dictionary[codes].reshape(self.batch,
-                                                   self.seq_len + 1)
-        finally:
-            self.cons.end_query(h)
-        return (window[:, :-1].to(torch.int32).contiguous(),
-                window[:, 1:].to(torch.int32).contiguous())
+        with tracing.span("pipeline.get_batch", step):
+            h = self.cons.begin_query([self.TOKEN_COL])
+            try:
+                col = self.cons.read(h, self.TOKEN_COL)
+                need = self.batch * (self.seq_len + 1)
+                n = col.n_rows
+                if n < need:
+                    raise ValueError(f"store too small: {n} < {need}")
+                with tracing.span("pipeline.gather", step):
+                    # deterministic offset schedule over the committed prefix
+                    start = (step * need) % max(n - need, 1)
+                    codes = col.codes[start:start + need].long()
+                    window = col.dictionary[codes].reshape(self.batch,
+                                                           self.seq_len + 1)
+                    toks = window[:, :-1].to(torch.int32).contiguous()
+                    labels = window[:, 1:].to(torch.int32).contiguous()
+            finally:
+                self.cons.end_query(h)
+        return toks, labels
 
     def freshness_lag(self) -> int:
         """Tokens ingested but not yet visible to readers (data freshness)."""

@@ -5,7 +5,9 @@ kernel when its tensors lie on the GPU and takes the plain PyTorch version
 when they lie on the CPU. Each wrapper bumps its launch counter exactly
 where it launches its kernel, with the shape it launched at, so a run can
 show that it went through the kernels (``kernel_launch_counts``) and at
-which sizes (``kernel_launch_shapes``).
+which sizes (``kernel_launch_shapes``). These counters are always on; the
+program's spans and its other counts, on only while a profiler or a
+recording runs, are `repro_torch.tracing`'s.
 """
 
 from __future__ import annotations

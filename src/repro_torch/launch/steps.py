@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.encdec import (encdec_decode_step, encdec_hidden,
                                        encdec_logits, encdec_loss)
@@ -43,29 +44,35 @@ def make_train_step(cfg: ModelConfig, optimizer, micro_batches: int = 1):
                        mb.get("patch_embeds"))
 
     def train_step(model, opt_state, step, batch):
-        model.requires_grad_(True)
-        params = dict(model.named_parameters())
-        for p in params.values():
-            p.grad = None
-        n = batch["tokens"].shape[0]
-        if n % micro_batches:
-            raise ValueError(f"batch of {n} does not split into "
-                             f"{micro_batches} micro-batches")
-        part = n // micro_batches
-        loss = torch.zeros((), dtype=torch.float32,
-                           device=batch["tokens"].device)
-        for i in range(micro_batches):
-            mb = {k: v[i * part:(i + 1) * part] for k, v in batch.items()}
-            l = loss_of(model, mb)
-            l.backward()          # adds into .grad, in the params' dtype
-            loss = loss + l.detach()
-        grads = {}
-        for k, p in params.items():
-            g = p.grad if p.grad is not None else torch.zeros_like(p)
-            grads[k] = g.div_(micro_batches)
-            p.grad = None
-        opt_update(params, grads, opt_state, step)
-        return model, opt_state, {"loss": loss / micro_batches}
+        with tracing.span("train.step", step):
+            model.requires_grad_(True)
+            params = dict(model.named_parameters())
+            for p in params.values():
+                p.grad = None
+            n = batch["tokens"].shape[0]
+            if n % micro_batches:
+                raise ValueError(f"batch of {n} does not split into "
+                                 f"{micro_batches} micro-batches")
+            part = n // micro_batches
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=batch["tokens"].device)
+            for i in range(micro_batches):
+                mb = {k: v[i * part:(i + 1) * part] for k, v in batch.items()}
+                with tracing.span("train.forward", step):
+                    l = loss_of(model, mb)
+                with tracing.span("train.backward", step):
+                    l.backward()      # adds into .grad, in the params' dtype
+                loss = loss + l.detach()
+            grads = {}
+            with tracing.span("train.grad_scale", step):
+                for k, p in params.items():
+                    g = p.grad if p.grad is not None else torch.zeros_like(p)
+                    grads[k] = g.div_(micro_batches)
+                    p.grad = None
+            with tracing.span("train.optimizer", step,
+                              device=batch["tokens"].device):
+                opt_update(params, grads, opt_state, step)
+            return model, opt_state, {"loss": loss / micro_batches}
 
     return train_step
 
