@@ -234,7 +234,8 @@ script's wall seconds so far, ``elapsed_seconds``):
                  on a loss that is not finite, on selective-scan launches
                  other than layers x 2 (remat) x micro-batches x steps or
                  backward launches other than layers x micro-batches x
-                 steps, and where the pipeline launched no K5, K7 or K10.
+                 steps, on AdamW launches other than `adamw_launches` a
+                 step, and where the pipeline launched no K5, K7 or K10.
                  Prints ms a step and tokens/s (the steps after the
                  first), peak device bytes, one more step under
                  `torch.profiler` (device ms, busy share), propagate and
@@ -251,7 +252,8 @@ script's wall seconds so far, ``elapsed_seconds``):
                  two backward kernels: fails unless it ran (6 + 2 x 6) x 2
                  (remat) = 36 times a step, one forward launch each, its
                  backward 18 times a step, two launches each (the dQ pass
-                 and the dK/dV pass), on any other kernel's launch, on a
+                 and the dK/dV pass), AdamW's kernel `adamw_launches` a
+                 step, on any other kernel's launch, on a
                  call of `_sdpa` or of the plain blocked loop, and on a
                  loss that is not finite. Before it, a gradient
                  cross-check at 1 encoder + 1 decoder layer, full width,
@@ -338,6 +340,17 @@ script's wall seconds so far, ``elapsed_seconds``):
                  (``launches_by_path``, 0 where none) and measured at the
                  shape a path gave it, else at (2, 32768, 32768), with
                  ``torch.sort`` of the concatenated runs beside it.
+                 AdamW's update (``adamw``, replacing no Pallas kernel:
+                 the reference's is plain jnp) bit for bit against its
+                 plain loop, parameters, m, v and masters compared with
+                 ``torch.equal``, at edge leaves (ragged, empty, 16-byte
+                 unaligned views, float32 with and without masters, more
+                 leaves than one launch takes) and at the group of leaves
+                 each training path launched most (the counted elements
+                 split evenly over the counted leaves), with ptxas'
+                 registers of each instance and
+                 ``torch.optim.AdamW(fused=True)`` over float32 weights as
+                 the library row (a yardstick only: other arithmetic).
 
 Each kernel is checked against the path that runs it (counts set to 0 just
 before the path, read just after): the one-island kernels against
@@ -353,7 +366,8 @@ against ``float_scan``, flash-decode attention against ``lm_serve``
 (launched on each, counted over both) and its backward against
 ``lm_train``, the blocked attention against ``lm_serve`` (gemma2's
 prefill) and ``encdec_train`` (whisper's training, counted over both) and
-its backward against ``encdec_train``. ``elastic`` is a path of
+its backward against ``encdec_train``, AdamW's update against
+``lm_train`` and ``encdec_train`` (counted over both). ``elastic`` is a path of
 its own that runs kernels already held to these (no kernel is measured
 against it); like every path it may not launch the kernels folded into
 others (`NEVER_ON_PATH`). The correction lane alone
@@ -437,6 +451,7 @@ REPLACES = {
     "flash_attention": "none: src/repro/nn/flash.py:30 is a jitted nested "
                        "lax.scan (plain jnp)",
     "flash_attention_bwd": "none: jax.grad of the same",
+    "adamw": "none: src/repro/optim/adamw.py is plain jnp (XLA fuses it)",
 }
 SOURCES = {
     "scan_exact": "src/repro_torch/kernels/csrc/scan_exact.cu",
@@ -463,6 +478,7 @@ SOURCES = {
     "selective_scan_bwd": "src/repro_torch/kernels/csrc/selective_scan.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attn.cu",
     "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_attn.cu",
+    "adamw": "src/repro_torch/kernels/csrc/adamw.cu",
 }
 # the path that runs each kernel (or the paths: the kernel must launch on
 # each): its launches are counted on that path (summed over the paths)
@@ -480,7 +496,8 @@ PATH_OF = {"scan_exact_sharded": "islands",
            "selective_scan": ("lm_serve", "lm_train"),
            "selective_scan_bwd": "lm_train",
            "flash_attention": ("lm_serve", "encdec_train"),
-           "flash_attention_bwd": "encdec_train"}
+           "flash_attention_bwd": "encdec_train",
+           "adamw": ("lm_train", "encdec_train")}
 # kernels a path launches only for some data, or none: the tile merge (K6)
 # sorts a row wider than one tile's 32,768 keys, which the paths may not
 # have; the sort unit (K4) sorts only a dictionary stage the fused apply
@@ -495,6 +512,19 @@ NO_CALLER_SHAPE = {"bitonic_merge_rows": (2, 32768, 32768),
 # ... and of those, the kernels no path of this workload may launch: its
 # values never reach int32.max, and every correction rides a scan
 NEVER_ON_PATH = ("bitonic_sort", "scan_values_delta")
+
+
+def adamw_launches(model, opt_state) -> int:
+    """AdamW's kernel launches a step (`repro_torch.kernels.adamw`): the
+    wrapper's own groups of the model's leaves (`launch_groups`: up to
+    MAX_LEAVES leaves of one parameter type, with or without a master),
+    those that hold an element."""
+    from repro_torch.kernels.adamw import launch_groups
+    masters = opt_state.get("master", {})
+    leaves = [(p, None, None, None, masters.get(k))
+              for k, p in model.named_parameters()]
+    return sum(1 for g in launch_groups(leaves)
+               if any(leaves[i][0].numel() for i in g))
 
 
 def paths_of(kernel: str) -> tuple[str, ...]:
@@ -2821,14 +2851,16 @@ def phase_lm_train(args, dev=None) -> tuple[dict, dict]:
     remat = 2 if cfg.remat else 1
     want = {"selective_scan": n_mamba * remat * LM_TRAIN_MICRO
             * LM_TRAIN_STEPS,
-            "selective_scan_bwd": n_mamba * LM_TRAIN_MICRO * LM_TRAIN_STEPS}
+            "selective_scan_bwd": n_mamba * LM_TRAIN_MICRO * LM_TRAIN_STEPS,
+            "adamw": (adamw_launches(model, opt_state) * LM_TRAIN_STEPS
+                      if opt_name == "adamw" else 0)}
     got = {k: launches.get(k, 0) for k in want}
     if got != want:
         raise AssertionError(
             f"lm_train: launches {got}, expected {want} ({n_mamba} Mamba "
             f"layers x {remat} (remat) x {LM_TRAIN_MICRO} micro-batches x "
             f"{LM_TRAIN_STEPS} steps forward; the backward once a layer and "
-            "micro-batch)")
+            "micro-batch; AdamW once a group of leaves and step)")
     idle = [k for k in PIPELINE_KERNELS if not launches.get(k)]
     if idle:
         raise AssertionError(f"lm_train: the token pipeline launched no "
@@ -3046,13 +3078,15 @@ def phase_encdec_train(args, dev=None) -> tuple[dict, dict]:
     n_attn = enc_layers(cfg) + 2 * cfg.n_layers
     per_step = n_attn * (2 if cfg.remat else 1)
     want = {BLOCKED: per_step * ENCDEC_TRAIN_STEPS,
-            BLOCKED + "_bwd": 2 * n_attn * ENCDEC_TRAIN_STEPS}
+            BLOCKED + "_bwd": 2 * n_attn * ENCDEC_TRAIN_STEPS,
+            "adamw": adamw_launches(model, opt_state)
+            * ENCDEC_TRAIN_STEPS}
     if launches != want:
         raise AssertionError(
             f"{cfg.name} train: launches {launches}, expected {want} "
             f"({per_step} forward launches a step, {n_attn} backward calls "
-            "a step of two launches each; no other hand-written kernel is "
-            "on this path)")
+            "a step of two launches each, AdamW once a group of leaves and "
+            "step; no other hand-written kernel is on this path)")
     want = {BLOCKED: per_step * ENCDEC_TRAIN_STEPS, "_sdpa": 0,
             PLAIN_BLOCKED: 0}
     if calls != want:
@@ -4947,6 +4981,139 @@ def measure_flash_bwd(gen, dev, shape) -> dict:
         achieved_TFLOPs=flash_flops(shape, 5) / ms / 1e9)
 
 
+# AdamW's update at the training paths' hyper-parameters
+ADAMW_HYPER = dict(lr=LM_TRAIN_LR, b1=0.9, b2=0.95, eps=1e-8,
+                   weight_decay=0.01)
+
+
+def adamw_cost(shape):
+    """(leaves, elements, parameter bytes, master): per element the
+    gradient read and the parameter written, m and v read and written,
+    the master read and written (without one, the parameter read in its
+    place); 16 float32 operations."""
+    _, n, pb, master = shape
+    return n * (2 * pb + 16 + (8 if master else pb)), 16 * n
+
+
+def adamw_leaves(gen, dev, sizes, bf16: bool, master: bool, offset=0):
+    """Leaves of one instance, one a size in `sizes`; with `offset` each
+    tensor is a view that many elements into a buffer of its own."""
+    dt = torch.bfloat16 if bf16 else torch.float32
+
+    def put(x):
+        buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=dev)
+        buf[offset:].copy_(x)
+        return buf[offset:]
+    leaves = []
+    for n in sizes:
+        w = torch.randn(n, generator=gen, device=dev) * 0.05
+        g = torch.randn(n, generator=gen, device=dev) * 1e-2
+        m = torch.randn(n, generator=gen, device=dev) * 1e-3
+        v = torch.rand(n, generator=gen, device=dev) * 1e-5
+        leaves.append((put(w.to(dt)), put(g.to(dt)), put(m), put(v),
+                       put(w) if master else None))
+    return leaves
+
+
+def adamw_bc(dev, step: int):
+    """The bias corrections as the optimizer makes them at `step`."""
+    from repro_torch.optim.adamw import f32_step
+    t = f32_step(step, dev)
+    return 1.0 - ADAMW_HYPER["b1"] ** t, 1.0 - ADAMW_HYPER["b2"] ** t
+
+
+def adamw_must_equal(name: str, leaves, bc1, bc2) -> int:
+    """One update by the wrapper against the plain loop on copies of the
+    leaves: every parameter, m, v and master equal bit for bit."""
+    from repro_torch.kernels.adamw import adamw_update, adamw_update_ref
+    copies = [tuple(None if t is None else t.clone() for t in leaf)
+              for leaf in leaves]
+    adamw_update(leaves, bc1, bc2, **ADAMW_HYPER)
+    adamw_update_ref(copies, bc1, bc2, *ADAMW_HYPER.values())
+    for i, (got, want) in enumerate(zip(leaves, copies)):
+        for part, x, y in zip(("param", "grad", "m", "v", "master"), got,
+                              want):
+            if x is not None and not torch.equal(x, y):
+                raise AssertionError(
+                    f"kernel check {name!r}: leaf {i}'s {part} differs "
+                    "from its plain version (tolerance 0: bit for bit)")
+    return 0
+
+
+def edge_adamw(gen, dev) -> int:
+    """Ragged lengths around the 8-element vector and the 2,048-element
+    chunk, empty leaves, float32 parameters with and without masters, bf16
+    without, views off 16-byte boundaries, more leaves than one launch's
+    table: two steps each."""
+    cases = 0
+    for sizes, bf16, master, offset in (
+            ((1, 7, 8, 9, 2047, 2049, 0, 3 * 2048 + 5), True, True, 0),
+            ((1, 7, 2049, 0), False, True, 0),
+            ((5, 2049, 0, 8), False, False, 0),
+            ((5, 2049, 8), True, False, 0),
+            ((1, 7, 2049, 4096), True, True, 1),
+            ((3, 2049), False, False, 1),
+            ((17,) * 90, True, True, 0)):
+        leaves = adamw_leaves(gen, dev, sizes, bf16, master, offset)
+        for step in range(2):
+            adamw_must_equal(f"adamw {len(sizes)} leaves bf16={bf16} "
+                             f"master={master} off={offset} step={step}",
+                             leaves, *adamw_bc(dev, step))
+            cases += 1
+    return cases
+
+
+def adamw_registers() -> dict:
+    """ptxas' registers and spill bytes of each AdamW instance."""
+    out = {}
+    for entry, n in REGISTERS.items():
+        m = re.search(r"adamw_kernelI(\w+?)Lb([01])E", entry)
+        if m:
+            key = (f"{'bf16' if 'bfloat16' in m.group(1) else 'float32'},"
+                   f"{'master' if m.group(2) == '1' else 'no master'}")
+            out[key] = dict(registers=n, spill_bytes=SPILLS.get(entry, 0))
+    return out
+
+
+def measure_adamw(gen, dev, shape) -> dict:
+    """A group of (leaves, elements, parameter bytes, master) as a training
+    path launched it, the elements split evenly over the leaves; the
+    library row is torch's fused AdamW over float32 weights and gradients
+    (28 B a parameter too), timed after the group is freed."""
+    from repro_torch.kernels.adamw import (adamw_update, adamw_update_ref,
+                                           launch_adamw)
+    k, n, pb, master = shape
+    leaves = adamw_leaves(gen, dev, [n // k + (i < n % k) for i in range(k)],
+                          pb == 2, bool(master))
+    bc1, bc2 = adamw_bc(dev, 2)
+    err = adamw_must_equal(f"adamw {shape}", leaves, bc1, bc2)
+    hyper = tuple(ADAMW_HYPER.values())
+
+    def bare():
+        launch_adamw(leaves, bc1, bc2, *hyper)
+    out = dict(max_abs_err=err, bitwise_equal=True,
+               registers=adamw_registers(), ms=time_ms(bare, 20),
+               **device_time(bare),
+               wrapper_ms=time_ms(lambda: adamw_update(
+                   leaves, bc1, bc2, **ADAMW_HYPER), 20),
+               plain_ms=time_ms(lambda: adamw_update_ref(
+                   leaves, bc1, bc2, *hyper), 3))
+    weights = [torch.nn.Parameter(w if master else p.float())
+               for p, _, _, _, w in leaves]
+    del leaves
+    for w in weights:
+        w.grad = torch.randn(w.shape, generator=gen, device=dev) * 1e-2
+    lib = torch.optim.AdamW(weights, lr=ADAMW_HYPER["lr"],
+                            betas=(ADAMW_HYPER["b1"], ADAMW_HYPER["b2"]),
+                            eps=ADAMW_HYPER["eps"],
+                            weight_decay=ADAMW_HYPER["weight_decay"],
+                            fused=True)
+    out.update(library_ms=time_ms(lib.step, 10),
+               library="torch.optim.AdamW(fused=True), float32 weights and "
+                       "gradients (yardstick only)")
+    return out
+
+
 # kernel name -> (cost of one launch at a shape, measurement at a shape)
 KERNELS = {
     "scan_exact": (lambda s: scan_cost(s, False),
@@ -4987,6 +5154,7 @@ KERNELS = {
     "selective_scan_bwd": (ssm_bwd_cost, measure_ssm_bwd),
     "flash_attention": (flash_cost, measure_flash),
     "flash_attention_bwd": (flash_bwd_cost, measure_flash_bwd),
+    "adamw": (adamw_cost, measure_adamw),
 }
 DECODE_32K = (4, 32768, 16, 8, 256, 32768)    # gemma2's heads at decode_32k
 DECODE_32K_D112 = (4, 32768, 64, 8, 112, 32768)   # kimi-k2's heads
@@ -5024,7 +5192,8 @@ def phase_kernels(shapes: dict, path_shapes: dict) -> dict:
              + edge_bitonic(gen, dev) + edge_snapshot(gen, dev)
              + edge_delta(gen, dev) + edge_float_scan(gen, dev)
              + edge_decode(gen, dev) + edge_ssm(gen, dev)
-             + edge_ssm_bwd(gen, dev) + edge_flash(gen, dev))
+             + edge_ssm_bwd(gen, dev) + edge_flash(gen, dev)
+             + edge_adamw(gen, dev))
     measured = {}
     for name, (cost, measure) in KERNELS.items():
         seen = shapes[name]
@@ -5112,7 +5281,7 @@ def phase_kernels(shapes: dict, path_shapes: dict) -> dict:
                    f"{FLOAT_SCAN_TOL}; flash_attention float32 {FLASH_TOL} "
                    "(bf16 output as decode_attn's), flash_attention_bwd "
                    f"{FLASH_BWD_TOL} (bf16: {FLASH_BWD_TOL_BF16}) x each "
-                   "gradient's max |value|",
+                   "gradient's max |value|; adamw 0 (bit for bit)",
          kernels=[dict(name=k, ok=True, **m) for k, m in measured.items()])
     return measured
 

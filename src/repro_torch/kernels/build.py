@@ -97,6 +97,8 @@ _SIGNATURES = {
     "scan_float": (_P, _P, _P, _P, _L, _I, _I, _P, _P, _I, _P, _P, _P, _P),
     # vec blocks_per_sm (int*)
     "scan_float_occupancy": (_I, _P),
+    # table(host) n_leaves bf16 master b1 c1 b2 c2 eps wd lr bc1 bc2 stream
+    "adamw_update": (_P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P, _P),
 }
 
 _lib: ctypes.CDLL | None = None

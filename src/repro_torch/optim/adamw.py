@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.adamw import adamw_update
+
 
 def f32_step(step, device) -> torch.Tensor:
     """The reference's ``step.astype(float32) + 1``, on `device`."""
@@ -27,26 +29,20 @@ def adamw(lr: float = 1e-4, b1: float = 0.9, b2: float = 0.95,
 
     @torch.no_grad()
     def update(params, grads, state, step):
-        """The reference's arithmetic in float32; m, v and the masters
-        are updated in place, the parameters overwritten with the new
-        values. Returns (params, state)."""
+        """The reference's arithmetic in float32 (`kernels.adamw`: one
+        kernel over the leaves on the GPU, the plain loop on the CPU); m, v
+        and the masters are updated in place, the parameters overwritten
+        with the new values. Returns (params, state)."""
         if not params:
             return params, state
         t = f32_step(step, next(iter(params.values())).device)
         bc1 = 1.0 - b1 ** t
         bc2 = 1.0 - b2 ** t
-        has_master = "master" in state
-        for k, p in params.items():
-            g = grads[k].to(torch.float32)
-            m, v = state["m"][k], state["v"][k]
-            w = state["master"][k] if has_master else p.to(torch.float32)
-            m.copy_(b1 * m + (1 - b1) * g)
-            v.copy_(b2 * v + (1 - b2) * g * g)
-            u = (m / bc1) / (torch.sqrt(v / bc2) + eps) + weight_decay * w
-            w = w - lr * u
-            if has_master:
-                state["master"][k].copy_(w)
-            p.copy_(w.to(p.dtype))
+        masters = state.get("master")
+        adamw_update([(p, grads[k], state["m"][k], state["v"][k],
+                       None if masters is None else masters[k])
+                      for k, p in params.items()], bc1, bc2, lr=lr, b1=b1,
+                     b2=b2, eps=eps, weight_decay=weight_decay)
         return params, state
 
     return init, update

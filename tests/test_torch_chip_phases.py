@@ -558,12 +558,13 @@ def test_lm_serve_phase_fails_on_wrong_cross_kv(decode_gpu_branch,
 @pytest.fixture
 def train_gpu_branch(monkeypatch):
     """The GPU branch of the wrappers `lm_train` runs - the selective scan
-    and its backward, the k-way merge, the fused apply, the snapshot copy
-    - and whisper's training runs - the blocked attention and its
-    backward (`fake_flash_launches`) - with each bare launch writing its plain
-    version's result, so the launch counts run as on the card; the
-    `torch.cuda` calls made no-ops; no profiler; the phase's sizes cut to
-    a few hundred tokens."""
+    and its backward, the k-way merge, the fused apply, the snapshot copy,
+    AdamW's update - and whisper's training runs - the blocked attention
+    and its backward (`fake_flash_launches`) - with each bare launch
+    writing its plain version's result, so the launch counts run as on the
+    card; the `torch.cuda` calls made no-ops; no profiler; the phase's
+    sizes cut to a few hundred tokens."""
+    from repro_torch.kernels.adamw import ops as adamw_ops
     from repro_torch.kernels.bitonic_sort import ops as bitonic_ops
     from repro_torch.kernels.merge_runs import ops as merge_ops
     from repro_torch.kernels.selective_scan import ops as scan_ops
@@ -601,7 +602,9 @@ def train_gpu_branch(monkeypatch):
                             (scan_ops, "launch_selective_scan_bwd", scan_bwd),
                             (merge_ops, "launch_merge_kway", kway),
                             (bitonic_ops, "launch_bitonic_apply", apply),
-                            (snap_ops, "launch_snapshot_copy", snap)):
+                            (snap_ops, "launch_snapshot_copy", snap),
+                            (adamw_ops, "launch_adamw",
+                             adamw_ops.adamw_update_ref)):
         monkeypatch.setattr(mod, "on_gpu", lambda *t: True)
         monkeypatch.setattr(mod, name, fake)
     fake_flash_launches(monkeypatch)
@@ -648,6 +651,7 @@ def test_lm_train_phase_rehearsed(train_gpu_branch, monkeypatch, capsys):
     assert line["remat"] and line["optimizer"] == "adamw"
     assert launches["selective_scan"] == 2 * 2 * 2 * 3
     assert launches["selective_scan_bwd"] == 2 * 2 * 3
+    assert launches["adamw"] == 3      # one table of leaves a step
     for k in ("merge_runs", "bitonic_apply", "snapshot_copy"):
         assert launches[k] > 0, k
     assert line["launches"] == launches
@@ -764,16 +768,21 @@ def test_encdec_train_phase_rehearsed(train_gpu_branch, monkeypatch,
     cross-check on the blocked branch, the blocked attention (2 encoder +
     2 x 2 decoder attentions, twice with remat) on every call through its
     kernel, one forward launch a call and two backward launches a
-    backward call (6 a step), and no other launch."""
+    backward call (6 a step), AdamW's one launch a step, and no other
+    launch."""
     _whisper_train(monkeypatch)
     launches, shapes = chip_smoke.phase_encdec_train(
         argparse.Namespace(seed=0), dev=CPU)
-    assert launches == {"flash_attention": 12, "flash_attention_bwd": 12}
+    assert launches == {"flash_attention": 12, "flash_attention_bwd": 12,
+                        "adamw": 1}
     bidir = (2, 2048, 2048, 4, 4, 64, 0, 0, 0)      # encoder and cross
     causal = bidir[:6] + (1, 0, 0)                   # decoder self
+    (line,) = _lines(capsys, "lm_train")
+    ((leaves, n, nbytes, master), times), = shapes.pop("adamw").items()
+    assert (n, times, master) == (line["params"], 1, 1) and leaves <= 80
+    assert nbytes == getattr(torch, line["dtype"].split(".")[-1]).itemsize
     assert shapes == {"flash_attention": {bidir: 8, causal: 4},
                       "flash_attention_bwd": {bidir: 8, causal: 4}}
-    (line,) = _lines(capsys, "lm_train")
     assert line["launches"] == launches
     assert line["backward_calls_per_step"] == 6
     check = line["grad_check"]
@@ -853,6 +862,64 @@ def test_encdec_grad_check_fails_on_a_wrong_backward(train_gpu_branch,
     with pytest.raises(AssertionError, match="gradient differs from the CPU's"):
         chip_smoke.encdec_grad_check(cfg, argparse.Namespace(seed=0), CPU)
     assert len(seen) == 2
+
+
+# ---------------------------------------------------------------------------
+# AdamW's kernel in the kernels phase: its bytes, its expected launches,
+# its edge cases on the wrapper's GPU branch
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,per_element", [
+    ((80, 1000, 2, 1), 28), ((32, 1000, 4, 1), 32), ((3, 1000, 4, 0), 28),
+    ((3, 1000, 2, 0), 22)])
+def test_adamw_cost_counts_each_byte_once(shape, per_element):
+    assert chip_smoke.adamw_cost(shape) == (1000 * per_element, 16 * 1000)
+
+
+@pytest.mark.parametrize("masters", [True, False])
+def test_adamw_launches_follow_the_wrappers_groups(masters, monkeypatch):
+    """The expected launches a step are the launches the optimizer's update
+    makes: groups of one parameter type and master flag, at most MAX_LEAVES
+    leaves, none for a group without an element."""
+    from repro_torch.kernels.adamw import ops as adamw_ops
+    from repro_torch.optim import adamw
+    model = torch.nn.Module()
+    shapes = ([((3,), torch.bfloat16)] * (adamw_ops.MAX_LEAVES + 2)
+              + [((0,), torch.float32), ((2, 2), torch.float32)])
+    for i, (shape, dt) in enumerate(shapes):
+        model.register_parameter(f"p{i}", torch.nn.Parameter(
+            torch.ones(shape, dtype=dt)))
+    params = dict(model.named_parameters())
+    init, update = adamw(master_weights=masters)
+    state = init(params)
+    monkeypatch.setattr(adamw_ops, "on_gpu", lambda *t: True)
+    monkeypatch.setattr(adamw_ops, "launch_adamw", adamw_ops.adamw_update_ref)
+    common.reset_kernel_launch_counts()
+    update(params, {k: torch.ones_like(p) for k, p in params.items()},
+           state, 0)
+    assert chip_smoke.adamw_launches(model, state) == 3
+    assert common.kernel_launch_counts()["adamw"] == 3
+    common.reset_kernel_launch_counts()
+
+
+def test_adamw_edges_rehearsed_and_a_lost_write_caught(monkeypatch):
+    """The kernels phase's AdamW edges on the wrapper's GPU branch, the
+    bare launch faked with the plain loop: every case passes; a launch
+    that drops the master's write fails the bit-for-bit check."""
+    from repro_torch.kernels.adamw import ops as adamw_ops
+    monkeypatch.setattr(adamw_ops, "on_gpu", lambda *t: True)
+    monkeypatch.setattr(adamw_ops, "launch_adamw", adamw_ops.adamw_update_ref)
+    gen = torch.Generator().manual_seed(0)
+    assert chip_smoke.edge_adamw(gen, CPU) == 14
+
+    def lost_write(leaves, *rest):
+        adamw_ops.adamw_update_ref([(p, g, m, v, None if w is None
+                                     else w.clone())
+                                    for p, g, m, v, w in leaves], *rest)
+    monkeypatch.setattr(adamw_ops, "launch_adamw", lost_write)
+    with pytest.raises(AssertionError, match="master differs"):
+        chip_smoke.edge_adamw(gen, CPU)
+    common.reset_kernel_launch_counts()
 
 
 def test_own_ops_link_a_range_to_its_backward():

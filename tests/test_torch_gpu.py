@@ -727,3 +727,75 @@ def test_flash_attention_refuses_what_its_kernel_does_not_take(cuda):
         flash_attention(q, q[:, :8], q[:, :8], causal=False, window=4,
                         q_block=64, kv_block=8)
     assert kernel_launch_counts() == {}
+
+
+# falcon-mamba-7b's leaves in the benchmark's training cell: in_proj,
+# x_proj, dt_proj's bias, a_log (float32) and the 65,024 x 4,096 embedding
+ADAMW_FM7B = [((4096, 16384), torch.bfloat16), ((8192, 288), torch.bfloat16),
+              ((8192,), torch.bfloat16), ((8192, 16), torch.float32),
+              ((65024, 4096), torch.bfloat16)]
+ADAMW_EDGES = ([((n,), torch.bfloat16) for n in (1, 7, 8, 9, 2047, 2049)]
+               + [((0,), torch.bfloat16), ((3, 5), torch.float32)]
+               + [((17,), torch.bfloat16)] * 90)
+
+
+def _adamw_leaves(cuda, shapes, masters, offset, gen):
+    """Leaves drawn on the card; with `offset` each tensor is a view one
+    element into a buffer of its own (not 16-byte aligned)."""
+    def put(x):
+        if not offset:
+            return x.contiguous()
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+        view = buf[1:].view(x.shape)
+        view.copy_(x)
+        return view
+    leaves = []
+    for shape, dt in shapes:
+        p = (torch.randn(shape, generator=gen, device=cuda) * 0.05).to(dt)
+        w = p.float() + torch.randn(shape, generator=gen, device=cuda) * 1e-4
+        leaves.append((put(w.to(dt) if masters else p),
+                       None, put(torch.zeros(shape, device=cuda)),
+                       put(torch.zeros(shape, device=cuda)),
+                       put(w) if masters else None))
+    return leaves
+
+
+@pytest.mark.parametrize("shapes,masters,offset", [
+    (ADAMW_FM7B, True, False), (ADAMW_EDGES, True, False),
+    (ADAMW_EDGES, False, False), (ADAMW_EDGES, True, True),
+    (ADAMW_EDGES[:8], False, True)],
+    ids=["fm7b", "edges", "edges_plain", "edges_unaligned",
+         "plain_unaligned"])
+def test_adamw_kernel_equals_its_plain_version_bit_for_bit(cuda, shapes,
+                                                            masters, offset):
+    """Three steps of the fused update against the plain version on copies
+    of the same leaves, with weight decay and the bf16 cast: parameters, m,
+    v and masters equal bit for bit after every step; one launch a group
+    of up to MAX_LEAVES leaves of one instance."""
+    from repro_torch.kernels.adamw import (adamw_update, adamw_update_ref,
+                                           launch_groups)
+    from repro_torch.optim.adamw import f32_step
+    hyper = dict(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.01)
+    gen = torch.Generator(device=cuda).manual_seed(32)
+    fused = _adamw_leaves(cuda, shapes, masters, offset, gen)
+    plain = [tuple(None if t is None else t.clone() for t in leaf)
+             for leaf in fused]
+    for step in range(3):
+        grads = [(torch.randn(leaf[0].shape, generator=gen, device=cuda)
+                  * 1e-2).to(leaf[0].dtype) for leaf in fused]
+        t = f32_step(step, cuda)
+        bc1, bc2 = 1.0 - hyper["b1"] ** t, 1.0 - hyper["b2"] ** t
+        with_g = [(p, g, m, v, w) for (p, _, m, v, w), g in zip(fused, grads)]
+        reset_kernel_launch_counts()
+        adamw_update(with_g, bc1, bc2, **hyper)
+        n_launches = kernel_launch_counts().get("adamw", 0)
+        adamw_update_ref([(p, g.clone(), m, v, w) for (p, _, m, v, w), g
+                          in zip(plain, grads)], bc1, bc2, *hyper.values())
+        torch.cuda.synchronize()
+        for a, b in zip(fused, plain):
+            for x, y in zip(a, b):
+                if x is not None:
+                    assert x.dtype == y.dtype and torch.equal(x, y), step
+        groups = [g for g in launch_groups(with_g)
+                  if sum(with_g[i][0].numel() for i in g)]
+        assert n_launches == len(groups)
