@@ -206,7 +206,9 @@ script's wall seconds so far, ``elapsed_seconds``):
                  `make_prefill_step` runs the prompts against them twice,
                  then the requests are served as gemma2's against the fixed
                  cross K/V: K16 once a decoder layer and step (6 x (P + G -
-                 1)), nothing in the encoder, the cross K/V or the prefill;
+                 1)), and the blocked attention (which a card takes at any
+                 lengths) once an encoder layer an encode and once an
+                 attention a prefill: 2 x 6 + 2 x (6 + 2 x 6);
                  its cross-check is the reference's
                  ``test_encdec_decode_matches_parallel_apply`` at full width
                  and depth in float32 (`encdec_apply` against
@@ -266,7 +268,19 @@ script's wall seconds so far, ``elapsed_seconds``):
                  blocked attention's own device time and share
                  (``profile.ranges``: its forward and recompute calls and
                  the autograd nodes of its forward ops, `own_ops`).
-15. ``kernels``   every hand-written kernel launched on the card and held
+15. ``kernels``   first the blocked attention, forward and backward, at
+                 whisper-large-v3's three shapes (16 clips; bidirectional
+                 1,500, causal 448, cross 448 x 1,500; bf16) and at every
+                 pair of Sq and Skv in 1, 63, 65, 449, 1,500, causal and
+                 not, float32 and bf16 (`edge_flash_whisper`), and one
+                 training step of whisper-large-v3 at full width and
+                 lengths, 2 + 2 layers, under `tracing.recording()`: the
+                 count ``attn.plain_calls`` must read 0 and the blocked
+                 attention run 12 forward launches (3 attentions x 2
+                 layers x 2 with remat) and 6 backward calls of two
+                 launches a micro-batch (`whisper_step_check`,
+                 ``whisper_step`` in the line); then
+                 every hand-written kernel launched on the card and held
                  against its plain PyTorch version - the HTAP kernels with
                  exact equality (integers: tolerance 0), flash-decode
                  attention at 2e-5 and the selective scan at 3e-5 in float32
@@ -2352,6 +2366,15 @@ def encdec_cross_check(cfg, args, dev) -> dict:
                 max_abs_logit=float(want.abs().max()), tolerance=2e-3)
 
 
+def encdec_blocked(cfg, dev) -> bool:
+    """Whether an encoder-decoder's attentions at whisper's 1,500 frames
+    take the blocked kernel on `dev`: on a card, whenever the kernel takes
+    the head size and type (`nn.attention._blocked`); on the CPU not (the
+    reference's rule wants multiples of 1,024)."""
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    return dev.type == "cuda" and flash_ops.takes(cfg.head_dim_, cfg.adtype)
+
+
 def encdec_requests(model, cfg, prompts, gen) -> tuple[list, dict]:
     """An encoder-decoder's requests: `enc_context` frames each (the stub
     frontend's precomputed embeddings, drawn from `gen`), encoded and
@@ -2607,6 +2630,11 @@ def phase_lm_serve(args, dev=None) -> tuple[dict, dict]:
             want["decode_attn"] = n_attn * (P + G - 1)
         if n_mamba:
             want["selective_scan"] = n_mamba * 2
+        if encdec and encdec_blocked(cfg, dev):
+            # the encoder's attentions in both encode calls and the three
+            # attentions of both prefill calls, at any lengths on the card
+            n_blocked += 2 * enc_layers(cfg) + 2 * (enc_layers(cfg)
+                                                    + 2 * cfg.n_layers)
         if n_blocked:
             want[BLOCKED] = n_blocked
         if launches != want:
@@ -2614,7 +2642,8 @@ def phase_lm_serve(args, dev=None) -> tuple[dict, dict]:
                                  f"{want} ({n_attn} attention layers x "
                                  f"{P + G - 1} decode steps, {n_mamba} Mamba "
                                  f"layers x 2 prefill calls, {n_blocked} "
-                                 "blocked attention calls in the prefill)")
+                                 "blocked attention calls in the prefill "
+                                 "and, for an encoder-decoder, the encode)")
         add_counts(total, launches, shapes)
         if cfg.n_layers < full_layers:
             fields["reduced"] = "depth: one card's memory"
@@ -4877,6 +4906,140 @@ def edge_flash(gen, dev) -> int:
     return cases
 
 
+# whisper-large-v3's three attentions at a micro-batch of 16 clips (bf16, as
+# its training runs them): the encoder's bidirectional 1,500, the
+# decoder's causal 448, the cross 448 x 1,500
+WHISPER_FLASH = ((16, 1500, 1500, 20, 20, 64, 0, 0, 0),
+                 (16, 448, 448, 20, 20, 64, 1, 0, 0),
+                 (16, 448, 1500, 20, 20, 64, 0, 0, 0))
+# tail lengths: under one tile, a tile and one short or over, whisper's
+FLASH_TAILS = (1, 63, 65, 449, 1500)
+
+
+def single_key(shape) -> bool:
+    """Whether every query row has one key in its band (Skv 1, or Sq 1
+    under the causal mask): the softmax is then 1 whatever the scores, and
+    dq and dk are 0 in exact arithmetic."""
+    return shape[2] == 1 or (bool(shape[6]) and shape[1] == 1)
+
+
+def flash_bwd_single_key(name, q, k, v, kw, gen) -> float:
+    """The backward where `single_key` holds: dv against the plain version
+    as `flash_bwd_check` holds it, dq and dk (both sides' are rounding
+    noise about 0) within the same share of dv's largest |value|, the
+    call's gradient scale. Returns the largest difference."""
+    from repro_torch.kernels.flash_attn import (flash_attention_bwd,
+                                                flash_attention_bwd_ref,
+                                                flash_attention_fwd)
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    dout = torch.randn(out.shape, generator=gen, device=q.device).to(q.dtype)
+    args = (q, k, v, out, lse, dout)
+    dq, dk, dv = flash_attention_bwd(*args, **kw)
+    want = flash_attention_bwd_ref(*args, **kw, **flash_blocks(q, k))
+    err = flash_bwd_check(name, [dv], [want[2]])
+    tol = (FLASH_BWD_TOL_BF16 if q.dtype == torch.bfloat16 else
+           FLASH_BWD_TOL) * float(want[2].float().abs().max())
+    for g, what in ((dq, "dq"), (dk, "dk")):
+        e = float(g.float().abs().max())
+        if not e <= tol:
+            raise AssertionError(f"kernel check {name!r}: {what} is {e} "
+                                 f"where it is 0 (tolerance {tol})")
+        err = max(err, e)
+    return err
+
+
+def edge_flash_whisper(gen, dev) -> int:
+    """The forward and the backward at WHISPER_FLASH (bf16) and at every
+    pair of Sq and Skv in FLASH_TAILS, causal and not, in float32 and
+    bf16 at whisper's heads (B 1, 4 heads of 64), against the plain
+    versions (`flash_fwd_check`; `flash_bwd_run`, or where each row has a
+    single key `flash_bwd_single_key`)."""
+    from repro_torch.kernels.flash_attn import flash_attention_fwd
+    shapes = [(sh, torch.bfloat16) for sh in WHISPER_FLASH]
+    shapes += [((1, sq, skv, 4, 4, 64, causal, 0, 0), dtype)
+               for sq in FLASH_TAILS for skv in FLASH_TAILS
+               for causal in (0, 1)
+               for dtype in (torch.float32, torch.bfloat16)]
+    for shape, dtype in shapes:
+        kw = flash_kw(shape)
+        q, k, v = flash_inputs(gen, dev, shape, dtype)
+        name = f"blocked attention {shape} {dtype}"
+        flash_fwd_check(name, *flash_attention_fwd(q, k, v, **kw), q, k, v,
+                        kw)
+        (flash_bwd_single_key if single_key(shape) else flash_bwd_run)(
+            f"{name} backward", q, k, v, kw, gen)
+        del q, k, v
+    return 2 * len(shapes)
+
+
+# whisper's block at its published widths and lengths, 2 + 2 layers, a step
+# of 4 clips in 2 micro-batches
+WHISPER_STEP = (2, 4, 2)
+
+
+def whisper_step_check(dev) -> dict:
+    """One training step of whisper-large-v3 at full width and lengths
+    (3,000 mel frames, 448 tokens; `WHISPER_STEP`'s layers and clips),
+    bf16, remat, AdamW, under `tracing.recording()`: no attention call on
+    the card may take the plain `_sdpa` (the count ``attn.plain_calls``
+    reads 0), and the blocked attention launches (encoder + 2 x decoder
+    layers) x 2 (remat) forward and as many backward calls of two
+    launches, a micro-batch, at whisper's three shapes. Raises on a
+    failure."""
+    import dataclasses
+    from repro_torch import tracing
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.common import (kernel_launch_counts,
+                                            kernel_launch_shapes,
+                                            reset_kernel_launch_counts)
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.encdec import init_encdec
+    from repro_torch.optim import get_optimizer
+    layers, clips, micro = WHISPER_STEP
+    cfg = dataclasses.replace(get_config("whisper-large-v3"),
+                              n_layers=layers, n_enc_layers=layers)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    model = init_encdec(cfg, generator=gen, device=dev)
+    opt = get_optimizer("adamw", lr=LM_TRAIN_LR)
+    state = opt[0](dict(model.named_parameters()))
+    step = make_train_step(cfg, opt, micro_batches=micro)
+    S, F = cfg.whisper.max_target_positions, 2 * cfg.enc_context
+    toks = torch.randint(0, cfg.vocab_size, (clips, S + 1), generator=gen,
+                         device=dev, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous(),
+             "frames": torch.randn((clips, cfg.whisper.n_mels, F),
+                                   generator=gen, device=dev).to(cfg.adtype)}
+    reset_kernel_launch_counts()
+    tracing.clear()
+    with tracing.recording():
+        _, _, out = step(model, state, 0, batch)
+        loss = float(out["loss"])
+    plain = sum(r.counts.get("attn.plain_calls", 0)
+                for r in tracing.records())
+    tracing.clear()
+    launches, shapes = kernel_launch_counts(), kernel_launch_shapes()
+    n_attn = 3 * layers
+    B, H, dh = clips // micro, cfg.n_heads, cfg.head_dim_
+    T = cfg.enc_context
+    want = {(B, T, T, H, H, dh, 0, 0, 0): 2 * layers * micro,
+            (B, S, S, H, H, dh, 1, 0, 0): 2 * layers * micro,
+            (B, S, T, H, H, dh, 0, 0, 0): 2 * layers * micro}
+    if plain or not math.isfinite(loss) or \
+            shapes.get(BLOCKED) != want or \
+            launches.get(BLOCKED + "_bwd") != 2 * n_attn * micro:
+        raise AssertionError(
+            f"whisper step: attn.plain_calls {plain}, loss {loss}, blocked "
+            f"launches {shapes.get(BLOCKED)} and "
+            f"{launches.get(BLOCKED + '_bwd')} backward, expected 0, a "
+            f"finite loss, {want} and {2 * n_attn * micro}")
+    del model, state
+    return dict(layers=[layers, layers], clips=clips, micro_batches=micro,
+                frames=F, tokens=S, loss=loss, plain_calls=plain,
+                blocked_launches=launches.get(BLOCKED),
+                backward_launches=launches.get(BLOCKED + "_bwd"))
+
+
 def flash_library(shape) -> bool:
     """One PyTorch call computes this shape's function: no softcap, no
     window."""
@@ -5193,7 +5356,10 @@ def phase_kernels(shapes: dict, path_shapes: dict) -> dict:
              + edge_delta(gen, dev) + edge_float_scan(gen, dev)
              + edge_decode(gen, dev) + edge_ssm(gen, dev)
              + edge_ssm_bwd(gen, dev) + edge_flash(gen, dev)
-             + edge_adamw(gen, dev))
+             + edge_flash_whisper(gen, dev) + edge_adamw(gen, dev))
+    whisper_step = whisper_step_check(dev)
+    cases += 1
+    torch.cuda.empty_cache()
     measured = {}
     for name, (cost, measure) in KERNELS.items():
         seen = shapes[name]
@@ -5282,6 +5448,7 @@ def phase_kernels(shapes: dict, path_shapes: dict) -> dict:
                    "(bf16 output as decode_attn's), flash_attention_bwd "
                    f"{FLASH_BWD_TOL} (bf16: {FLASH_BWD_TOL_BF16}) x each "
                    "gradient's max |value|; adamw 0 (bit for bit)",
+         whisper_step=whisper_step,
          kernels=[dict(name=k, ok=True, **m) for k, m in measured.items()])
     return measured
 

@@ -36,6 +36,9 @@ _MODULES = {
     "qwen2.5-14b": "qwen2_5_14b",
     "whisper-base": "whisper_base",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    # whisper's own block at its large published widths (the benchmark's
+    # whisper-train cell); not one of the assigned ARCH_NAMES
+    "whisper-large-v3": "whisper_large_v3",
 }
 
 

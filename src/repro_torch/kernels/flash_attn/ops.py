@@ -202,6 +202,12 @@ def launch_flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, dk, dv,
         *_scalars(q, k, causal, window, softcap))
 
 
+def takes(head_dim: int, dtype) -> bool:
+    """Whether the kernels take this head size and type (the lengths are
+    any)."""
+    return head_dim in HEAD_DIMS and dtype in _DTYPES
+
+
 def _check(q, k, v, window: int, *more) -> None:
     """What the kernels take, or a ValueError / TypeError that names the
     plain version: fitting shapes, head_dim in HEAD_DIMS, one type of

@@ -63,11 +63,12 @@ def make_train_step(cfg: ModelConfig, optimizer, micro_batches: int = 1):
                 with tracing.span("train.backward", step):
                     l.backward()      # adds into .grad, in the params' dtype
                 loss = loss + l.detach()
-            grads = {}
             with tracing.span("train.grad_scale", step):
-                for k, p in params.items():
-                    g = p.grad if p.grad is not None else torch.zeros_like(p)
-                    grads[k] = g.div_(micro_batches)
+                grads = {k: p.grad if p.grad is not None
+                         else torch.zeros_like(p) for k, p in params.items()}
+                # one multi-tensor launch group, not a launch a leaf
+                torch._foreach_div_(list(grads.values()), micro_batches)
+                for p in params.values():
                     p.grad = None
             with tracing.span("train.optimizer", step,
                               device=batch["tokens"].device):

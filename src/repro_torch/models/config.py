@@ -16,6 +16,20 @@ class BlockSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class WhisperBlock:
+    """whisper's own encoder-decoder block (arXiv:2212.04356), for a
+    `WhisperConfig`: a front end of two Conv1d + GELU over
+    ``n_mels`` log-mel bins (the second of stride 2), fixed sinusoidal
+    encoder positions, learned decoder positions (``max_target_positions``
+    of them, no RoPE), pre-LayerNorm with a bias (eps 1e-5) before each
+    sub-layer and at the ends of both stacks, q, v and out biases (none on
+    k), a GELU MLP with biases, and a head tied to the token embedding."""
+
+    n_mels: int = 128
+    max_target_positions: int = 448
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     n_layers: int
@@ -45,6 +59,11 @@ class ModelConfig:
     is_encoder_decoder: bool = False
     n_enc_layers: int = 0
     enc_context: int = 1500            # decode-time encoder length (audio frames)
+    # the encoder-decoder's block (a class attribute, not a field, so that
+    # a config compares field for field with the reference's): None, the
+    # reference's whisper-shaped stand-in (RMSNorm, SwiGLU, RoPE, a stub
+    # front end, an untied head); `WhisperConfig` sets whisper's own
+    whisper = None
     # modality frontend stub: None | "patch" (vlm) | "frames" (audio)
     frontend: str | None = None
     n_frontend_tokens: int = 1024
@@ -90,6 +109,15 @@ class ModelConfig:
     def param_count(self) -> int:
         """Total parameters (analytic); used for MODEL_FLOPS in the roofline."""
         d, dff, hd = self.d_model, self.d_ff, self.head_dim_
+        if self.whisper is not None:
+            inner, w = self.n_heads * hd, self.whisper
+            attn = 4 * d * inner + 2 * inner + d     # q, v and out biases
+            mlp = 2 * d * dff + dff + d
+            return (self.vocab_size * d + w.max_target_positions * d
+                    + 3 * w.n_mels * d + 3 * d * d + 2 * d
+                    + (self.n_enc_layers or self.n_layers) * (attn + mlp
+                                                              + 4 * d)
+                    + self.n_layers * (2 * attn + mlp + 6 * d) + 4 * d)
         n = 2 * self.vocab_size * d  # embed + head (untied)
         for spec in self.blocks:
             reps = self.n_periods
@@ -121,3 +149,12 @@ class ModelConfig:
         all_experts = moe_layers * 3 * d * dff * self.n_experts
         active = moe_layers * 3 * d * dff * self.top_k
         return total - all_experts + active
+
+
+@dataclasses.dataclass(frozen=True)
+class WhisperConfig(ModelConfig):
+    """A `ModelConfig` with one more field, ``whisper``: the
+    encoder-decoder runs whisper's own block (`WhisperBlock`; None: the
+    reference's stand-in)."""
+
+    whisper: WhisperBlock | None = WhisperBlock()

@@ -1,15 +1,22 @@
 """GQA attention: prefill (causal, optional sliding window and softcap),
 the encoder-decoder's cross and bidirectional forms (no mask, no RoPE),
 and decode (one token against a KV cache through the flash-decode
-kernel). Each prefill form takes the blocked attention (`nn.flash`) where
-the reference does: at S >= FLASH_THRESHOLD with S % 1024 == 0 (and, for
-the cross form, T % 1024 == 0)."""
+kernel). Each prefill and training form takes the blocked attention
+(`nn.flash`) by `_blocked`: on the CPU where the reference does, at S >=
+FLASH_THRESHOLD with S % 1024 == 0 (and, for the cross form, T % 1024 ==
+0); on CUDA tensors at any lengths wherever the kernel takes the head
+size and type, its tiles' tails masked in the kernel (a deliberate
+difference from the reference, whose blocked attention refuses such
+lengths). A CUDA call that takes the plain `_sdpa` instead is counted as
+``attn.plain_calls`` (`repro_torch.tracing`)."""
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels.decode_attn import decode_attention
+from repro_torch.kernels.flash_attn import ops as flash_ops
 from repro_torch.nn.layers import Params, dense, init_dense, softcap
 from repro_torch.nn.rope import apply_rope
 
@@ -41,6 +48,8 @@ def _sdpa(q, k, v, mask, attn_softcap: float = 0.0):
     B, S, H, dh = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
+    if q.is_cuda:
+        tracing.count("attn.plain_calls", 1)
     qg = q.reshape(B, S, Hkv, G, dh)
     scores = torch.einsum("bshgd,bthd->bhgst", qg.float(),
                           k.float()) * (dh ** -0.5)
@@ -61,8 +70,21 @@ def causal_mask(S: int, window: int = 0, device=None):
     return m[None]
 
 
-# sequences at or above this length take the blocked (flash) path
+# on the CPU, sequences at or above this length take the blocked (flash)
+# path
 FLASH_THRESHOLD = 2048
+
+
+def _blocked(q, k) -> bool:
+    """Whether a prefill or training attention with queries q (B, S, H,
+    dh) and keys k (B, T, Hkv, dh) takes the blocked attention: on CUDA
+    tensors whenever the kernel takes the head size and type
+    (`flash_ops.takes`), at any lengths; otherwise the reference's rule, S
+    >= FLASH_THRESHOLD with S and T multiples of 1,024."""
+    if q.is_cuda and flash_ops.takes(q.shape[-1], q.dtype):
+        return True
+    S, T = q.shape[1], k.shape[1]
+    return S >= FLASH_THRESHOLD and S % 1024 == 0 and T % 1024 == 0
 
 
 def attention_train(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta=1e4,
@@ -75,7 +97,7 @@ def attention_train(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta=1e4,
     if use_rope:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
-    if S >= FLASH_THRESHOLD and S % 1024 == 0:
+    if _blocked(q, k):
         from repro_torch.nn.flash import flash_attention
         out = flash_attention(q, k, v, causal=True, window=window,
                               softcap=attn_softcap)
@@ -97,7 +119,7 @@ def cross_attention_train(p, x, ctx, *, n_heads, n_kv_heads, head_dim):
     q = dense(p["wq"], x).reshape(B, S, n_heads, head_dim)
     k = dense(p["wk"], ctx).reshape(B, T, n_kv_heads, head_dim)
     v = dense(p["wv"], ctx).reshape(B, T, n_kv_heads, head_dim)
-    if S >= FLASH_THRESHOLD and S % 1024 == 0 and T % 1024 == 0:
+    if _blocked(q, k):
         from repro_torch.nn.flash import flash_attention
         out = flash_attention(q, k, v, causal=False)
     else:
@@ -109,7 +131,7 @@ def bidir_attention_train(p, x, *, n_heads, n_kv_heads, head_dim):
     """Encoder self-attention (bidirectional, no rope - whisper style)."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, n_heads, n_kv_heads, head_dim)
-    if S >= FLASH_THRESHOLD and S % 1024 == 0:
+    if _blocked(q, k):
         from repro_torch.nn.flash import flash_attention
         out = flash_attention(q, k, v, causal=False)
     else:

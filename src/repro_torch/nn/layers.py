@@ -1,4 +1,5 @@
-"""Core layers: dense, embedding, RMSNorm, and the parameter tree node.
+"""Core layers: dense, embedding, RMSNorm, LayerNorm, and the parameter tree
+node.
 
 Weights keep the reference's ``(d_in, d_out)`` layout (``x @ w``), so a
 reference parameter tree loads as it is and the two compare like with
@@ -89,6 +90,18 @@ def rmsnorm(p, x, eps: float = 1e-6):
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * p["scale"].float()).to(x.dtype)
+
+
+def init_layernorm(d: int, dtype=torch.float32, device=None) -> Params:
+    return Params(scale=torch.ones((d,), dtype=dtype, device=device),
+                  bias=torch.zeros((d,), dtype=dtype, device=device))
+
+
+def layernorm(p, x, eps: float = 1e-5):
+    """LayerNorm with a bias over the last axis, in x's type (PyTorch's
+    kernel sums in float32 whatever the type)."""
+    return F.layer_norm(x, (x.shape[-1],), p["scale"].to(x.dtype),
+                        p["bias"].to(x.dtype), eps)
 
 
 def silu(x):

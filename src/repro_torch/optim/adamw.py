@@ -8,8 +8,14 @@ from repro_torch.kernels.adamw import adamw_update
 
 
 def f32_step(step, device) -> torch.Tensor:
-    """The reference's ``step.astype(float32) + 1``, on `device`."""
-    return torch.as_tensor(step, device=device).to(torch.float32) + 1.0
+    """The reference's ``step.astype(float32) + 1``, on `device`. A Python
+    step is filled in on the device: a copy from the host would wait for
+    the device's queue to drain, and the device would then idle through
+    the update's host work."""
+    if isinstance(step, torch.Tensor):
+        return step.to(device=device, dtype=torch.float32) + 1.0
+    return torch.full((), float(step), dtype=torch.float32,
+                      device=device) + 1.0
 
 
 def adamw(lr: float = 1e-4, b1: float = 0.9, b2: float = 0.95,
