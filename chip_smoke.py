@@ -167,8 +167,9 @@ script's wall seconds so far, ``elapsed_seconds``):
                  256,000) must be finite;
                  falcon-mamba-7b (64 layers) runs `make_prefill_step` over 4 x
                  ``--lm-prefill`` 2048 tokens twice (64 selective-scan
-                 launches a call), then serves as gemma2 through the plain
-                 Mamba step; the MoE models llama4-scout-17b-a16e (12 of 48
+                 launches and 64 causal-conv launches a call), then serves
+                 as gemma2 through the plain Mamba step; the MoE models
+                 llama4-scout-17b-a16e (12 of 48
                  layers) and kimi-k2-1t-a32b (1 of 61 layers: `LM_DEPTH`,
                  the layers one card holds in bf16 at full width; a depth
                  whose weights would leave under 8 GiB free is refused)
@@ -233,11 +234,12 @@ script's wall seconds so far, ``elapsed_seconds``):
                  on the card (the scan kernel and its backward kernel)
                  against the same model's on the CPU (the plain scan under
                  autograd), within 1e-3 of each leaf's largest |g|. Fails
-                 on a loss that is not finite, on selective-scan launches
-                 other than layers x 2 (remat) x micro-batches x steps or
-                 backward launches other than layers x micro-batches x
-                 steps, on AdamW launches other than `adamw_launches` a
-                 step, and where the pipeline launched no K5, K7 or K10.
+                 on a loss that is not finite, on selective-scan or
+                 causal-conv launches other than layers x 2 (remat) x
+                 micro-batches x steps or backward calls of either other
+                 than layers x micro-batches x steps, on AdamW launches
+                 other than `adamw_launches` a step, and where the
+                 pipeline launched no K5, K7 or K10.
                  Prints ms a step and tokens/s (the steps after the
                  first), peak device bytes, one more step under
                  `torch.profiler` (device ms, busy share), propagate and
@@ -365,6 +367,21 @@ script's wall seconds so far, ``elapsed_seconds``):
                  registers of each instance and
                  ``torch.optim.AdamW(fused=True)`` over float32 weights as
                  the library row (a yardstick only: other arithmetic).
+                 The causal conv with its bias and SiLU (``causal_conv``,
+                 replacing no Pallas kernel: the reference's is plain jnp)
+                 and its backward (``causal_conv_bwd``: two launches a
+                 call, counted once) against their plain versions computed
+                 in float32 on the same operands, within one rounding to
+                 the kernel's type (2**-7 of the value in bf16, 1e-5 in
+                 float32) plus 1e-5 of the largest |value|, dw and db bit
+                 for bit from two identical calls, at edge shapes (ragged
+                 T and D, one step, one channel, x the in-projection's
+                 strided half, a contiguous copy, a view off a 16-byte
+                 boundary; bf16 and float32) and at the shapes the paths
+                 ran (x strided as the paths hand it over), with ptxas'
+                 registers of each instance; the plain row is the bf16
+                 chain the kernel replaced (forward; the backward by
+                 autograd through it).
 
 Each kernel is checked against the path that runs it (counts set to 0 just
 before the path, read just after): the one-island kernels against
@@ -381,7 +398,9 @@ against ``float_scan``, flash-decode attention against ``lm_serve``
 ``lm_train``, the blocked attention against ``lm_serve`` (gemma2's
 prefill) and ``encdec_train`` (whisper's training, counted over both) and
 its backward against ``encdec_train``, AdamW's update against
-``lm_train`` and ``encdec_train`` (counted over both). ``elastic`` is a path of
+``lm_train`` and ``encdec_train`` (counted over both), the causal conv
+against ``lm_serve`` and ``lm_train`` (counted over both) and its backward
+against ``lm_train``. ``elastic`` is a path of
 its own that runs kernels already held to these (no kernel is measured
 against it); like every path it may not launch the kernels folded into
 others (`NEVER_ON_PATH`). The correction lane alone
@@ -466,6 +485,9 @@ REPLACES = {
                        "lax.scan (plain jnp)",
     "flash_attention_bwd": "none: jax.grad of the same",
     "adamw": "none: src/repro/optim/adamw.py is plain jnp (XLA fuses it)",
+    "causal_conv": "none: src/repro/nn/mamba.py:37 `_causal_conv` and its "
+                   "silu are plain jnp (XLA fuses them)",
+    "causal_conv_bwd": "none: jax.grad of the same",
 }
 SOURCES = {
     "scan_exact": "src/repro_torch/kernels/csrc/scan_exact.cu",
@@ -493,6 +515,8 @@ SOURCES = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attn.cu",
     "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_attn.cu",
     "adamw": "src/repro_torch/kernels/csrc/adamw.cu",
+    "causal_conv": "src/repro_torch/kernels/csrc/causal_conv.cu",
+    "causal_conv_bwd": "src/repro_torch/kernels/csrc/causal_conv.cu",
 }
 # the path that runs each kernel (or the paths: the kernel must launch on
 # each): its launches are counted on that path (summed over the paths)
@@ -511,7 +535,9 @@ PATH_OF = {"scan_exact_sharded": "islands",
            "selective_scan_bwd": "lm_train",
            "flash_attention": ("lm_serve", "encdec_train"),
            "flash_attention_bwd": "encdec_train",
-           "adamw": ("lm_train", "encdec_train")}
+           "adamw": ("lm_train", "encdec_train"),
+           "causal_conv": ("lm_serve", "lm_train"),
+           "causal_conv_bwd": "lm_train"}
 # kernels a path launches only for some data, or none: the tile merge (K6)
 # sorts a row wider than one tile's 32,768 keys, which the paths may not
 # have; the sort unit (K4) sorts only a dictionary stage the fused apply
@@ -2629,7 +2655,7 @@ def phase_lm_serve(args, dev=None) -> tuple[dict, dict]:
         if n_attn:
             want["decode_attn"] = n_attn * (P + G - 1)
         if n_mamba:
-            want["selective_scan"] = n_mamba * 2
+            want["selective_scan"] = want["causal_conv"] = n_mamba * 2
         if encdec and encdec_blocked(cfg, dev):
             # the encoder's attentions in both encode calls and the three
             # attentions of both prefill calls, at any lengths on the card
@@ -2641,7 +2667,8 @@ def phase_lm_serve(args, dev=None) -> tuple[dict, dict]:
             raise AssertionError(f"{name}: launches {launches}, expected "
                                  f"{want} ({n_attn} attention layers x "
                                  f"{P + G - 1} decode steps, {n_mamba} Mamba "
-                                 f"layers x 2 prefill calls, {n_blocked} "
+                                 f"layers x 2 prefill calls (the scan and "
+                                 f"the conv), {n_blocked} "
                                  "blocked attention calls in the prefill "
                                  "and, for an encoder-decoder, the encode)")
         add_counts(total, launches, shapes)
@@ -2878,9 +2905,10 @@ def phase_lm_train(args, dev=None) -> tuple[dict, dict]:
     n_mamba = sum(cfg.blocks[i % cfg.period].mixer == "mamba"
                   for i in range(cfg.n_layers))
     remat = 2 if cfg.remat else 1
-    want = {"selective_scan": n_mamba * remat * LM_TRAIN_MICRO
-            * LM_TRAIN_STEPS,
-            "selective_scan_bwd": n_mamba * LM_TRAIN_MICRO * LM_TRAIN_STEPS,
+    forward = n_mamba * remat * LM_TRAIN_MICRO * LM_TRAIN_STEPS
+    backward = n_mamba * LM_TRAIN_MICRO * LM_TRAIN_STEPS
+    want = {"selective_scan": forward, "selective_scan_bwd": backward,
+            "causal_conv": forward, "causal_conv_bwd": backward,
             "adamw": (adamw_launches(model, opt_state) * LM_TRAIN_STEPS
                       if opt_name == "adamw" else 0)}
     got = {k: launches.get(k, 0) for k in want}
@@ -2888,8 +2916,9 @@ def phase_lm_train(args, dev=None) -> tuple[dict, dict]:
         raise AssertionError(
             f"lm_train: launches {got}, expected {want} ({n_mamba} Mamba "
             f"layers x {remat} (remat) x {LM_TRAIN_MICRO} micro-batches x "
-            f"{LM_TRAIN_STEPS} steps forward; the backward once a layer and "
-            "micro-batch; AdamW once a group of leaves and step)")
+            f"{LM_TRAIN_STEPS} steps forward, the scan and the conv; their "
+            "backward calls once a layer and micro-batch; AdamW once a group "
+            "of leaves and step)")
     idle = [k for k in PIPELINE_KERNELS if not launches.get(k)]
     if idle:
         raise AssertionError(f"lm_train: the token pipeline launched no "
@@ -5277,6 +5306,180 @@ def measure_adamw(gen, dev, shape) -> dict:
     return out
 
 
+# The causal conv: shapes are the wrapper's launch shape (B, T, D, K); the
+# paths launch it in bf16 with x the in-projection's first half.
+
+def conv_cost(shape):
+    """(B, T, D, K) in bf16: x read and y written (4 B an element), w and
+    b read; K multiply-adds, the bias and the SiLU's exponential, add and
+    divide an element."""
+    B, T, D, K = shape
+    return 4 * B * T * D + 2 * (K + 1) * D, B * T * D * (2 * K + 4)
+
+
+def conv_bwd_cost(shape):
+    """(B, T, D, K) in bf16: x and gy read and dx written (6 B an
+    element), w and b read and dw and db written (the tiles' float32
+    partial sums are the kernel's own scratch); an element's pre again
+    (2 K), silu' (7), gp (1), dx (2 K) and dw and db (2 K + 1)."""
+    B, T, D, K = shape
+    return 6 * B * T * D + 4 * (K + 1) * D, B * T * D * (6 * K + 9)
+
+
+CONV_EDGES = ((1, 1, 1), (2, 3, 100), (1, 5, 264), (3, 67, 8),
+              (1, 4097, 257), (2, 64, 4101))
+CONV_LAYOUTS = ("strided", "contiguous", "offset")
+CONV_SCALE_TOL = 1e-5     # of each result's largest |value|
+
+
+def conv_inputs(gen, dev, shape, dtype=torch.bfloat16, layout="strided"):
+    """x (the first half of a (B, T, 2 D) buffer, a contiguous copy or
+    a view one element into it), w, b and an upstream gradient gy."""
+    B, T, D, K = shape
+    full = torch.randn((B, T, 2 * D), generator=gen, device=dev)
+    full = full.to(dtype)
+    x = {"strided": full[..., :D], "contiguous": full[..., :D].contiguous(),
+         "offset": full[..., 1:D + 1]}[layout]
+    w = (torch.randn((K, D), generator=gen, device=dev) * K ** -0.5)
+    b = torch.randn((D,), generator=gen, device=dev) * 0.1
+    gy = torch.randn((B, T, D), generator=gen, device=dev)
+    return x, w.to(dtype), b.to(dtype), gy.to(dtype)
+
+
+def conv_check(name, got, want) -> float:
+    """`got` (the kernel's type) against the float32 plain result rounded
+    to that type: within 2**-7 of the value in bf16 (1e-5 in float32) plus
+    CONV_SCALE_TOL of the largest |value|; returns the largest absolute
+    difference from the float32 result."""
+    want = want.float()
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    if not got.numel():
+        return 0.0
+    rtol = 2**-7 if got.dtype == torch.bfloat16 else 1e-5
+    atol = CONV_SCALE_TOL * float(want.abs().max()) + 1e-7
+    g, w = got.float(), want.to(got.dtype).float()
+    if not torch.allclose(g, w, rtol=rtol, atol=atol):
+        raise AssertionError(
+            f"kernel check {name!r}: differs from its plain version (max "
+            f"abs err {float((g - w).abs().max())}, tolerance {rtol} "
+            f"relative plus {atol})")
+    return float((g - want).abs().max())
+
+
+def conv_both_check(name, x, w, b, gy) -> float:
+    """The forward and the backward against the float32 plain versions on
+    the same operands, the backward twice and bit for bit the same."""
+    from repro_torch.kernels.causal_conv import (causal_conv_silu,
+                                                 causal_conv_silu_bwd,
+                                                 causal_conv_silu_bwd_ref,
+                                                 causal_conv_silu_ref)
+    f32 = [t.float() for t in (x, w, b)]
+    err = conv_check(f"{name} forward", causal_conv_silu(x, w, b),
+                     causal_conv_silu_ref(*f32))
+    got = causal_conv_silu_bwd(x, w, b, gy)
+    for part, g, want, again in zip(
+            ("dx", "dw", "db"), got,
+            causal_conv_silu_bwd_ref(*f32, gy.float()),
+            causal_conv_silu_bwd(x, w, b, gy)):
+        err = max(err, conv_check(f"{name} {part}", g, want))
+        if not torch.equal(g, again):
+            raise AssertionError(f"kernel check {name!r}: two identical "
+                                 f"calls gave different bits in {part}")
+    return err
+
+
+def edge_conv(gen, dev) -> int:
+    """Ragged T and D, one step, one channel, each layout of x, bf16 and
+    float32: forward and backward."""
+    cases = 0
+    for B, T, D in CONV_EDGES:
+        for layout in CONV_LAYOUTS:
+            for dtype in (torch.bfloat16, torch.float32):
+                args = conv_inputs(gen, dev, (B, T, D, 4), dtype, layout)
+                conv_both_check(f"causal conv {(B, T, D)} {layout} {dtype}",
+                                *args)
+                cases += 1
+    return cases
+
+
+def conv_registers() -> dict:
+    """ptxas' registers and spill bytes of each causal-conv instance, and
+    the occupancy API's resident blocks an SM of the forward's and the
+    backward's tile kernels."""
+    import ctypes
+    from repro_torch.kernels import build
+    out = {}
+    for entry, n in REGISTERS.items():
+        m = re.search(r"causal_conv_(fwd|bwd|reduce)_kernelI(\w+?)Li(\d+)E",
+                      entry)
+        if m:
+            key = (f"{m.group(1)},"
+                   f"{'bf16' if 'bfloat16' in m.group(2) else 'float32'},"
+                   f"K={m.group(3)}")
+            out[key] = dict(registers=n, spill_bytes=SPILLS.get(entry, 0))
+    for bwd in (0, 1):
+        for bf16 in (1, 0):
+            blocks = ctypes.c_int(0)
+            build.check(build.entry("causal_conv_occupancy")(
+                bwd, bf16, ctypes.byref(blocks)), "causal_conv_occupancy")
+            key = (f"{'bwd' if bwd else 'fwd'},"
+                   f"{'bf16' if bf16 else 'float32'},K=4")
+            out.setdefault(key, {})["blocks_per_sm"] = blocks.value
+    return out
+
+
+def measure_conv(gen, dev, shape) -> dict:
+    """At a path's shape, x the in-projection's strided half in bf16; the
+    plain row is the bf16 chain the kernel replaced."""
+    from repro_torch.kernels.causal_conv import (causal_conv_silu,
+                                                 causal_conv_silu_ref,
+                                                 launch_causal_conv)
+    x, w, b, gy = conv_inputs(gen, dev, shape)
+    err = conv_both_check(f"causal conv {shape}", x, w, b, gy)
+    y = torch.empty(x.shape, dtype=x.dtype, device=dev)
+    return dict(max_abs_err=err, tolerance=f"2**-7 relative (bf16) plus "
+                                           f"{CONV_SCALE_TOL} x max |value|",
+                registers=conv_registers(),
+                ms=time_ms(lambda: launch_causal_conv(x, w, b, y), 20),
+                **device_time(lambda: launch_causal_conv(x, w, b, y)),
+                wrapper_ms=time_ms(lambda: causal_conv_silu(x, w, b), 20),
+                plain_ms=time_ms(lambda: causal_conv_silu_ref(x, w, b), 5),
+                library_ms=None)
+
+
+def measure_conv_bwd(gen, dev, shape) -> dict:
+    """As `measure_conv`; the bare launches (both) into allocated outputs
+    and partials, and the plain row the autograd backward of the bf16
+    chain."""
+    from repro_torch.kernels.causal_conv import (causal_conv_silu_bwd,
+                                                 causal_conv_silu_ref,
+                                                 launch_causal_conv_bwd)
+    from repro_torch.kernels.causal_conv.ops import _bwd_partials
+    B, T, D, K = shape
+    x, w, b, gy = conv_inputs(gen, dev, shape)
+    err = conv_both_check(f"causal conv backward {shape}", x, w, b, gy)
+    outs = (torch.empty(x.shape, dtype=x.dtype, device=dev),
+            _bwd_partials(B, T, D, K, dev), torch.empty_like(w),
+            torch.empty_like(b))
+    leaves = tuple(t.detach().requires_grad_() for t in (x, w, b))
+    y = causal_conv_silu_ref(*leaves)
+    return dict(max_abs_err=err, tolerance=f"2**-7 relative (bf16) plus "
+                                           f"{CONV_SCALE_TOL} x max |value|",
+                bitwise_repeatable=True, registers=conv_registers(),
+                partial_bytes=outs[1].numel() * 4,
+                ms=time_ms(lambda: launch_causal_conv_bwd(x, w, b, gy,
+                                                          *outs), 20),
+                **device_time(lambda: launch_causal_conv_bwd(x, w, b, gy,
+                                                             *outs)),
+                wrapper_ms=time_ms(lambda: causal_conv_silu_bwd(x, w, b, gy),
+                                   20),
+                plain_ms=time_ms(lambda: torch.autograd.grad(
+                    y, leaves, gy, retain_graph=True), 5),
+                library_ms=None)
+
+
 # kernel name -> (cost of one launch at a shape, measurement at a shape)
 KERNELS = {
     "scan_exact": (lambda s: scan_cost(s, False),
@@ -5318,6 +5521,8 @@ KERNELS = {
     "flash_attention": (flash_cost, measure_flash),
     "flash_attention_bwd": (flash_bwd_cost, measure_flash_bwd),
     "adamw": (adamw_cost, measure_adamw),
+    "causal_conv": (conv_cost, measure_conv),
+    "causal_conv_bwd": (conv_bwd_cost, measure_conv_bwd),
 }
 DECODE_32K = (4, 32768, 16, 8, 256, 32768)    # gemma2's heads at decode_32k
 DECODE_32K_D112 = (4, 32768, 64, 8, 112, 32768)   # kimi-k2's heads
@@ -5356,7 +5561,8 @@ def phase_kernels(shapes: dict, path_shapes: dict) -> dict:
              + edge_delta(gen, dev) + edge_float_scan(gen, dev)
              + edge_decode(gen, dev) + edge_ssm(gen, dev)
              + edge_ssm_bwd(gen, dev) + edge_flash(gen, dev)
-             + edge_flash_whisper(gen, dev) + edge_adamw(gen, dev))
+             + edge_flash_whisper(gen, dev) + edge_adamw(gen, dev)
+             + edge_conv(gen, dev))
     whisper_step = whisper_step_check(dev)
     cases += 1
     torch.cuda.empty_cache()
@@ -5447,7 +5653,10 @@ def phase_kernels(shapes: dict, path_shapes: dict) -> dict:
                    f"{FLOAT_SCAN_TOL}; flash_attention float32 {FLASH_TOL} "
                    "(bf16 output as decode_attn's), flash_attention_bwd "
                    f"{FLASH_BWD_TOL} (bf16: {FLASH_BWD_TOL_BF16}) x each "
-                   "gradient's max |value|; adamw 0 (bit for bit)",
+                   "gradient's max |value|; adamw 0 (bit for bit); "
+                   "causal_conv and causal_conv_bwd one rounding (2**-7 "
+                   "relative in bf16, 1e-5 in float32) plus "
+                   f"{CONV_SCALE_TOL} x each result's max |value|",
          whisper_step=whisper_step,
          kernels=[dict(name=k, ok=True, **m) for k, m in measured.items()])
     return measured

@@ -99,6 +99,13 @@ _SIGNATURES = {
     "scan_float_occupancy": (_I, _P),
     # table(host) n_leaves bf16 master b1 c1 b2 c2 eps wd lr bc1 bc2 stream
     "adamw_update": (_P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P, _P),
+    # x sb sx w b y B T D K bf16 stream
+    "causal_conv_fwd": (_P, _L, _L, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x sb sx w b gy dx part dw db B T D K bf16 stream
+    "causal_conv_bwd": (_P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _I, _I, _P),
+    # bwd bf16 blocks_per_sm (int*)
+    "causal_conv_occupancy": (_I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

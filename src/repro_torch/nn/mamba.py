@@ -1,10 +1,11 @@
 """Mamba-1 block (falcon-mamba; jamba's SSM layers).
 
-in_proj -> (x, z); causal depthwise conv (d_conv taps); x_proj -> (dt,B,C);
-selective scan (the hand-written kernel on CUDA tensors, its plain version
-on the CPU); silu(z) gate; out_proj. Decode keeps a (d_conv-1)-tap conv
-state and the (D, N) ssm state and steps with the plain recurrence, as the
-reference does.
+in_proj -> (x, z); causal depthwise conv (d_conv taps) with its bias and
+SiLU; x_proj -> (dt,B,C); selective scan; silu(z) gate; out_proj. The conv
+and the scan are hand-written kernels on CUDA tensors and their plain
+versions on the CPU. Decode keeps a (d_conv-1)-tap conv state and the
+(D, N) ssm state and steps with the plain recurrence, as the reference
+does.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import torch
 from torch.nn import functional as F
 
+from repro_torch.kernels.causal_conv import causal_conv_silu
 from repro_torch.kernels.selective_scan import (selective_scan,
                                                 selective_scan_step_ref)
 from repro_torch.nn.layers import Params, init_dense, normal, silu
@@ -35,15 +37,6 @@ def init_mamba(gen, d_model: int, d_inner: int, d_state: int, d_conv: int,
     return p
 
 
-def _causal_conv(x, w, b):
-    """x: (B,T,D); w: (K,D) depthwise; left-pad K-1."""
-    K = w.shape[0]
-    T = x.shape[1]
-    xp = F.pad(x, (0, 0, K - 1, 0))
-    out = sum(xp[:, i:i + T, :] * w[i][None, None, :] for i in range(K))
-    return out + b[None, None, :]
-
-
 def _ssm_params(p, xc, d_state, dt_rank):
     proj = xc @ p["x_proj"]["w"]                               # (B,T,R+2N)
     dt_r, b_mat, c_mat = torch.split(proj, [dt_rank, d_state, d_state],
@@ -58,11 +51,11 @@ def _f32(t):
 
 
 def mamba_train(p, x, *, d_inner, d_state, d_conv, dt_rank):
-    """x: (B,T,d_model) -> (B,T,d_model). The scan is the kernel on CUDA
-    tensors (any T), its plain version on the CPU."""
+    """x: (B,T,d_model) -> (B,T,d_model). The conv and the scan are the
+    kernels on CUDA tensors (any T), their plain versions on the CPU."""
     xz = x @ p["in_proj"]["w"]
     xin, z = xz.chunk(2, dim=-1)
-    xc = silu(_causal_conv(xin, p["conv_w"], p["conv_b"]))
+    xc = causal_conv_silu(xin, p["conv_w"], p["conv_b"])
     dt, a, b_mat, c_mat = _ssm_params(p, xc, d_state, dt_rank)
     y = selective_scan(_f32(xc), _f32(dt), _f32(a), _f32(b_mat),
                        _f32(c_mat), _f32(p["d_skip"]))

@@ -32,6 +32,7 @@ from repro_torch.kernels.dict_ops import (MAX_CORR_Q, scan_exact_group_ref,
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
+from test_torch_causal_conv import fake_conv_launches  # noqa: E402
 from test_torch_flash_attn import fake_flash_launches  # noqa: E402
 
 torch.set_num_threads(1)
@@ -451,6 +452,36 @@ def test_lm_serve_phase_rehearsed_with_whisper(decode_gpu_branch,
     assert line["read_bound_ms_with_cross_kv"] > line["weights_read_bound_ms"]
 
 
+def _fake_scan_launch(monkeypatch):
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+
+    def scan(x, dt, a, b, c, d, y):
+        y.copy_(scan_ops.selective_scan_ref(x, dt, a, b, c, d))
+    monkeypatch.setattr(scan_ops, "on_gpu", lambda *t: True)
+    monkeypatch.setattr(scan_ops, "launch_selective_scan", scan)
+
+
+def test_lm_serve_phase_rehearsed_with_falcon_mamba(decode_gpu_branch,
+                                                    monkeypatch, capsys):
+    """falcon-mamba-7b-smoke through the phase, the scan's and the conv's
+    GPU branches faked: its two prefill calls launch the scan and the conv
+    once a layer each; the decode steps launch neither (the plain Mamba
+    step)."""
+    from repro_torch import configs
+    monkeypatch.setattr(configs, "get_config", configs.get_smoke_config)
+    _fake_scan_launch(monkeypatch)
+    fake_conv_launches(monkeypatch)
+    args = argparse.Namespace(lm_models=["falcon-mamba-7b"], lm_batch=4,
+                              lm_prompt=6, lm_gen=3, lm_prefill=32, seed=0)
+    launches, shapes = chip_smoke.phase_lm_serve(args, dev=CPU)
+    (line,) = _lines(capsys, "lm_serve")
+    assert line["ok"] and line["prefill_tokens"] == 4 * 32
+    assert line["launches"] == launches == {"selective_scan": 2 * 2,
+                                            "causal_conv": 2 * 2}
+    assert shapes["causal_conv"] == {(4, 32, 128, 4): 4}
+    assert line["cross_check"]["max_abs_err"] <= 2e-3
+
+
 def _gemma2_prefill(monkeypatch):
     """gemma2-9b-smoke with head_dim 64 (one the blocked kernel takes; the
     smoke config's is 16) through `lm_serve`, its prefill at 4 x 2,048
@@ -560,7 +591,8 @@ def train_gpu_branch(monkeypatch):
     """The GPU branch of the wrappers `lm_train` runs - the selective scan
     and its backward, the k-way merge, the fused apply, the snapshot copy,
     AdamW's update - and whisper's training runs - the blocked attention
-    and its backward (`fake_flash_launches`) - with each bare launch
+    and its backward (`fake_flash_launches`), the causal conv and its
+    backward (`fake_conv_launches`) - with each bare launch
     writing its plain version's result, so the launch counts run as on the
     card; the `torch.cuda` calls made no-ops; no profiler; the phase's
     sizes cut to a few hundred tokens."""
@@ -608,6 +640,7 @@ def train_gpu_branch(monkeypatch):
         monkeypatch.setattr(mod, "on_gpu", lambda *t: True)
         monkeypatch.setattr(mod, name, fake)
     fake_flash_launches(monkeypatch)
+    fake_conv_launches(monkeypatch)
     for fn in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
         monkeypatch.setattr(torch.cuda, fn, lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
@@ -636,9 +669,10 @@ def _smoke_train_config(monkeypatch, depth=None):
 
 
 def test_lm_train_phase_rehearsed(train_gpu_branch, monkeypatch, capsys):
-    """The phase at the smoke config: the gradient cross-check, four
-    kernels' launches counted (the scan twice a layer and micro-batch for
-    remat, its backward once), the pipeline's kernels, finite losses that
+    """The phase at the smoke config: the gradient cross-check, the
+    kernels' launches counted (the scan and the conv twice a layer and
+    micro-batch for remat, their backward calls once), the pipeline's
+    kernels, finite losses that
     the steps bring down, the freshness lag before and after each
     propagation."""
     _smoke_train_config(monkeypatch, depth=4)
@@ -651,11 +685,14 @@ def test_lm_train_phase_rehearsed(train_gpu_branch, monkeypatch, capsys):
     assert line["remat"] and line["optimizer"] == "adamw"
     assert launches["selective_scan"] == 2 * 2 * 2 * 3
     assert launches["selective_scan_bwd"] == 2 * 2 * 3
+    assert launches["causal_conv"] == 2 * 2 * 2 * 3
+    assert launches["causal_conv_bwd"] == 2 * 2 * 3
     assert launches["adamw"] == 3      # one table of leaves a step
     for k in ("merge_runs", "bitonic_apply", "snapshot_copy"):
         assert launches[k] > 0, k
     assert line["launches"] == launches
     assert shapes["selective_scan_bwd"] == {(1, 8, 128, 4): 12}
+    assert shapes["causal_conv_bwd"] == {(1, 8, 128, 4): 12}
     losses = line["losses"]
     assert len(losses) == 3 and all(np.isfinite(losses))
     pipe = line["pipeline"]
@@ -919,6 +956,52 @@ def test_adamw_edges_rehearsed_and_a_lost_write_caught(monkeypatch):
     monkeypatch.setattr(adamw_ops, "launch_adamw", lost_write)
     with pytest.raises(AssertionError, match="master differs"):
         chip_smoke.edge_adamw(gen, CPU)
+    common.reset_kernel_launch_counts()
+
+
+def test_conv_costs_count_each_byte_once():
+    """falcon-mamba-7b's training shape: x read and y written forward, x
+    and gy read and dx written backward (bf16), the taps and bias."""
+    shape, n, D = (1, 4096, 8192, 4), 4096 * 8192, 8192
+    assert chip_smoke.conv_cost(shape) == (4 * n + 2 * 5 * D, 12 * n)
+    assert chip_smoke.conv_bwd_cost(shape) == (6 * n + 4 * 5 * D, 33 * n)
+    # the least times the kernel table holds: 0.040 and 0.060 ms
+    assert round(chip_smoke.conv_cost(shape)[0]
+                 / chip_smoke.HBM_BYTES_PER_S * 1e3, 3) == 0.040
+    assert round(chip_smoke.conv_bwd_cost(shape)[0]
+                 / chip_smoke.HBM_BYTES_PER_S * 1e3, 3) == 0.060
+
+
+@pytest.mark.parametrize("fault", ["forward", "repeat"])
+def test_conv_edges_rehearsed_and_a_fault_caught(fault, monkeypatch):
+    """The kernels phase's causal-conv edges on the wrappers' GPU branch,
+    the bare launches faked with the plain versions: every case passes; a
+    forward off by a few roundings in one element, or a backward whose
+    second call differs in a bit, fails."""
+    from repro_torch.kernels.causal_conv import ops as conv_ops
+    fake_conv_launches(monkeypatch)
+    gen = torch.Generator().manual_seed(0)
+    assert chip_smoke.edge_conv(gen, CPU) == 6 * 3 * 2
+    fwd, bwd = conv_ops.launch_causal_conv, conv_ops.launch_causal_conv_bwd
+    calls = []
+
+    def off(x, w, b, y):
+        fwd(x, w, b, y)
+        y.view(-1)[-1] = y.view(-1)[-1].float() * 1.05 + 1.0
+
+    def drifts(x, w, b, gy, dx, part, dw, db):
+        bwd(x, w, b, gy, dx, part, dw, db)
+        calls.append(1)
+        if len(calls) % 2 == 0:
+            db.view(-1)[0] += 1
+    if fault == "forward":
+        monkeypatch.setattr(conv_ops, "launch_causal_conv", off)
+        match = "differs from its plain version"
+    else:
+        monkeypatch.setattr(conv_ops, "launch_causal_conv_bwd", drifts)
+        match = "different bits in db"
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.edge_conv(gen, CPU)
     common.reset_kernel_launch_counts()
 
 

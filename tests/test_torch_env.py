@@ -512,5 +512,5 @@ def test_build_module_names_every_c_entry_and_needs_nvcc_only_at_first_use():
     text = "".join(p.read_text() for p in build.CSRC.glob("*.cu"))
     for entry in build._SIGNATURES:
         assert f'extern "C" int {entry}(' in text
-    assert len(list(build.CSRC.glob("*.cu"))) == 10
+    assert len(list(build.CSRC.glob("*.cu"))) == 11
     assert build.build_dir().parts[-2:] == ("build", "repro_torch_kernels")

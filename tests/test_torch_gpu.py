@@ -8,7 +8,9 @@ blocked attention and its backward (2e-4 in float32, the reference's own
 flash-vs-SDPA tolerance; 1e-4 of each gradient's largest |value|; bf16
 one bf16 step more), the float32 scan with an exact count
 and its sum within ``float_scan_error_bound`` of the exact sum and 1e-5 *
-sum(|v|) of the plain version's.
+sum(|v|) of the plain version's, AdamW's update bit for bit, the causal
+conv and its backward within one rounding of the float32 plain version
+(dw and db bit for bit repeatable).
 
 Marked ``gpu``; every test skips when no GPU is present (decided when the
 test runs, never at import). This file imports nothing of the JAX package,
@@ -661,6 +663,7 @@ def test_lm_decode_matches_prefill_on_the_card(cuda, name):
     want_counts = {}
     if n_mamba:
         want_counts["selective_scan"] = n_mamba
+        want_counts["causal_conv"] = n_mamba
     if cfg.n_layers - n_mamba:
         want_counts["decode_attn"] = (cfg.n_layers - n_mamba) * 12
     assert kernel_launch_counts() == want_counts
@@ -799,3 +802,87 @@ def test_adamw_kernel_equals_its_plain_version_bit_for_bit(cuda, shapes,
         groups = [g for g in launch_groups(with_g)
                   if sum(with_g[i][0].numel() for i in g)]
         assert n_launches == len(groups)
+
+
+# The causal conv: x the in-projection's first half (rows 2 D apart), a
+# contiguous copy, or a view one element off a 16-byte boundary; ragged T
+# (tiles of 64 steps) and D (slabs of 256 channels, vectors of 8)
+CONV_CASES = [(1, 4096, 8192, "strided"), (1, 1, 100, "strided"),
+              (2, 3, 4101, "contiguous"), (1, 5, 264, "strided"),
+              (3, 4097, 8, "strided"), (2, 65, 257, "offset"),
+              (1, 130, 512, "offset"), (2, 64, 1, "contiguous")]
+
+
+def _conv_inputs(cuda, B, T, D, dtype, layout, seed=34):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    full = torch.randn((B, T, 2 * D), generator=gen,
+                       device=cuda).to(dtype)
+    x = {"strided": full[..., :D], "contiguous": full[..., :D].contiguous(),
+         "offset": full[..., 1:D + 1]}[layout]
+    w = (torch.randn((4, D), generator=gen, device=cuda) * 0.5).to(dtype)
+    b = (torch.randn((D,), generator=gen, device=cuda) * 0.1).to(dtype)
+    gy = torch.randn((B, T, D), generator=gen, device=cuda).to(dtype)
+    return x, w, b, gy
+
+
+def _conv_close(got, want):
+    """`got` in its type against the float32 plain result rounded to that
+    type: one rounding apart (2**-7 of the value in bf16; 1e-5 in float32
+    for the sums' order) plus 1e-5 of the largest |value| (sums that
+    cancel)."""
+    rtol = 2**-7 if got.dtype == torch.bfloat16 else 1e-5
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    torch.testing.assert_close(got.float(), want.to(got.dtype).float(),
+                               rtol=rtol, atol=1e-5 * scale + 1e-7)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,T,D,layout", CONV_CASES)
+def test_causal_conv_kernels_match_their_plain_version(cuda, B, T, D, layout,
+                                                       dtype):
+    """The forward and the backward's dx, dw and db against the float32
+    plain versions on the same operands; one launch each, counted with
+    (B, T, D, K); dw and db bit for bit the same from a second call."""
+    from repro_torch.kernels.causal_conv import (causal_conv_silu,
+                                                 causal_conv_silu_bwd,
+                                                 causal_conv_silu_bwd_ref,
+                                                 causal_conv_silu_ref)
+    x, w, b, gy = _conv_inputs(cuda, B, T, D, dtype, layout)
+    reset_kernel_launch_counts()
+    y = causal_conv_silu(x, w, b)
+    grads = causal_conv_silu_bwd(x, w, b, gy)
+    again = causal_conv_silu_bwd(x, w, b, gy)
+    torch.cuda.synchronize()
+    assert kernel_launch_shapes() == {"causal_conv": {(B, T, D, 4): 1},
+                                      "causal_conv_bwd": {(B, T, D, 4): 2}}
+    f32 = [t.float() for t in (x, w, b)]
+    _conv_close(y, causal_conv_silu_ref(*f32))
+    assert y.is_contiguous() and grads[0].is_contiguous()
+    for got, want, twice in zip(grads, causal_conv_silu_bwd_ref(
+            *f32, gy.float()), again):
+        assert got.dtype == dtype and got.shape == want.shape
+        _conv_close(got, want)
+        assert torch.equal(got, twice)
+
+
+def test_causal_conv_autograd_runs_both_kernels(cuda):
+    """Through `causal_conv_silu` on the in-projection's half with
+    gradients on: the forward and backward kernels once each, the
+    gradient reaching the projection's first half only."""
+    from repro_torch.kernels.causal_conv import (causal_conv_silu,
+                                                 causal_conv_silu_bwd_ref)
+    _, w, b, gy = _conv_inputs(cuda, 1, 300, 264, torch.bfloat16, "strided")
+    xz = torch.randn((1, 300, 528), device=cuda).to(torch.bfloat16)
+    leaves = [t.requires_grad_() for t in (xz, w, b)]
+    reset_kernel_launch_counts()
+    y = causal_conv_silu(xz.chunk(2, dim=-1)[0], w, b)
+    (y.float() * gy.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert kernel_launch_counts() == {"causal_conv": 1, "causal_conv_bwd": 1}
+    want = causal_conv_silu_bwd_ref(xz[..., :264].detach().float(),
+                                    w.detach().float(), b.detach().float(),
+                                    gy.float())
+    for got, ref in zip((xz.grad[..., :264], w.grad, b.grad), want):
+        _conv_close(got, ref)
+    assert not xz.grad[..., 264:].any()
+    del leaves

@@ -14,9 +14,14 @@ at the cell's own sizes) and, after three warm steps, runs
   same spans' host ms there; the idle split by harness range and program
   span (`bench/program_trace.py`), the share of the idle under the
   harness's `train_step` and `propagate` that a program span holds, and
-  the ten device operations that took most time, each with the share of
+  the thirty device operations that took most time, each with the share of
   its device seconds launched under each program span (a kernel goes to
-  the innermost span open, on any thread, when its launch was issued).
+  the innermost span open, on any thread, when its launch was issued);
+- `--steps` steps more under `torch.profiler` with the operators' input
+  shapes recorded (apart, since recording them slows the host): the
+  device seconds of the kernels each PyTorch operator launched itself, by
+  operator and input shapes, the largest first (``by_operator``), which
+  tells the elementwise entries apart by their source in the model.
 
 ``cost`` runs the cell once, untraced, through `bench/run.py`'s own entry
 point, with `recording()` on or off for the whole run, and prints the
@@ -80,6 +85,17 @@ def _launch_owners(prof, records):
     got = program_trace.owners(records, [t or 0 for t in linked])
     return [(n, ns, (o.name if o is not None else "-") if t else "unlinked")
             for (n, ns), t, o in zip(ops, linked, got)]
+
+
+def _by_operator(prof, n_steps: int, top: int = 30) -> list:
+    """The device ms a step of the kernels each ATen operator launched
+    itself, by operator and input shapes, the `top` largest."""
+    rows = [(e.key, str(e.input_shapes), e.self_device_time_total, e.count)
+            for e in prof.key_averages(group_by_input_shape=True)
+            if e.key.startswith("aten::") and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[2])
+    return [{"op": k, "shapes": sh[:160], "ms_a_step": us / 1e3 / n_steps,
+             "calls_a_step": n / n_steps} for k, sh, us, n in rows[:top]]
 
 
 def report(seed: int, n_steps: int) -> dict:
@@ -154,7 +170,7 @@ def report(seed: int, n_steps: int) -> dict:
     for name, ns, owner in owned:
         d = by_op.setdefault(name, {})
         d[owner] = d.get(owner, 0) + ns
-    top = sorted(by_op.items(), key=lambda kv: -sum(kv[1].values()))[:10]
+    top = sorted(by_op.items(), key=lambda kv: -sum(kv[1].values()))[:30]
     out["traced"] = {
         "window_s": window_s, "busy_s": trace.busy_s,
         "idle_share": 100 * (1 - trace.busy_s / window_s),
@@ -177,6 +193,13 @@ def report(seed: int, n_steps: int) -> dict:
         "counts": program_trace.counts(program_trace.in_stretch(
             trace, traced)),
     }
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as shaped:
+        for _ in range(n_steps):
+            prog.step(s)
+            s += 1
+        torch.cuda.synchronize(dev)
+    out["by_operator"] = _by_operator(shaped, n_steps)
     return out
 
 
