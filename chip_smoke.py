@@ -217,34 +217,33 @@ script's wall seconds so far, ``elapsed_seconds``):
                  2e-3); its read bound counts the decoder's weights (not the
                  encoder's nor the cross K/V projections) and, beside it,
                  the cross K/V.
-13. ``lm_train``  LM training fed by the HTAP token pipeline:
-                 falcon-mamba-7b at full width (d_model 4,096, d_inner
-                 8,192, d_state 16, vocab 65,024), `LM_TRAIN_DEPTH` 16 of
-                 its 64 layers (``reduced``: one card's memory), bf16
-                 weights, remat, the optimizer `default_optimizer_for`
-                 picks for the full model (AdamW, lr 1e-4), 4 steps of
-                 2 x 4,096 tokens in 2 micro-batches (so the 2,048-token
-                 loss chunks run), each fed by an `HTAPTokenPipeline` on
-                 the card (a 16.8M-row token column; 65,536 tokens
-                 ingested and propagated before the step - ship, K5; the
-                 one-column apply, K7; the snapshot at the pinned read,
-                 K10 - and the batch from ``get_batch(step)``). Before it,
-                 a gradient cross-check at 2 layers, full width, float32,
-                 1 x 512 tokens: the loss and every parameter's gradient
-                 on the card (the scan kernel and its backward kernel)
-                 against the same model's on the CPU (the plain scan under
-                 autograd), within 1e-3 of each leaf's largest |g|. Fails
-                 on a loss that is not finite, on selective-scan or
-                 causal-conv launches other than layers x 2 (remat) x
-                 micro-batches x steps or backward calls of either other
-                 than layers x micro-batches x steps, on AdamW launches
-                 other than `adamw_launches` a step, and where the
-                 pipeline launched no K5, K7 or K10.
-                 Prints ms a step and tokens/s (the steps after the
-                 first), peak device bytes, one more step under
-                 `torch.profiler` (device ms, busy share), propagate and
-                 get_batch ms a step, the freshness lag before and after
-                 each propagation, the losses.
+13. ``lm_train``  the benchmark's ``fm7b-train`` cell (`TRAIN_CELL`) as its
+                 files define it, its training object built by
+                 `bench/drivers/lm_train.py`: the
+                 configuration's widths and depth (falcon-mamba-7b at 16
+                 of 64 layers, ``reduced``), its seeded bf16 weights,
+                 remat, its AdamW, and the traffic's batch, sequence,
+                 micro-batches, initial token column and tokens ingested a
+                 step through an `HTAPTokenPipeline` on the card (ship,
+                 K5; the one-column apply, K7; the snapshot at the pinned
+                 read, K10); `LM_TRAIN_STEPS` 4 of its `Program.step`s.
+                 Before them, a gradient cross-check of the cell's block
+                 at 2 layers, full width, float32, 1 x 512 tokens: the
+                 loss and every parameter's gradient on the card (the scan
+                 kernel and its backward kernel) against the same model's
+                 on the CPU (the plain scan under autograd), within 1e-3
+                 of each leaf's largest |g|. Fails on a loss that is not
+                 finite, on selective-scan or causal-conv launches other
+                 than layers x 2 (remat) x micro-batches x steps or
+                 backward calls of either other than layers x
+                 micro-batches x steps, on AdamW launches other than
+                 `adamw_launches` a step, where the pipeline launched no
+                 K5, K7 or K10, where a step left an ingested token
+                 unapplied (a freshness lag), and on a batch that is not
+                 the reference's window of the seed's token column.
+                 Prints the cell's sizes, the peak device bytes and the
+                 losses; the cell's throughput is the benchmark's
+                 (``train_tokens_per_s``), not this phase's.
 14. ``lm_train``  (whisper-base) the encoder-decoder's training at full
                  width and depth: bf16, remat, loss chunks of 512, AdamW
                  (`default_optimizer_for`), lr 1e-4, 4 steps of 2 x 4,096
@@ -305,32 +304,29 @@ script's wall seconds so far, ``elapsed_seconds``):
                  and bit for bit at k in {1, 2, 3, 4, 7, 8, 70} with empty
                  and one-entry runs, ties across runs, int64.max and
                  inputs too large for shared memory; for the selective
-                 scan ptxas' registers and spills of each instance, and
-                 ``bound_sfu_ms`` (the
-                 exponentials on the SFUs alone); for the blocked
-                 attention (``flash_attention``, replacing no Pallas
-                 kernel: the reference's is a jitted nested scan) the
+                 scan ptxas' registers and spills of each instance; for
+                 the blocked attention (``flash_attention``, replacing no
+                 Pallas kernel: the reference's is a jitted nested scan) the
                  output within 2e-4 in float32 (the reference's own
                  flash-vs-SDPA tolerance) and a bf16 output as
                  flash-decode's, the log-sum-exp within 2e-4, at edge
                  shapes (ragged lengths, Sq != Skv, a window shorter than
                  S with whole leading tiles masked, Sq > Skv, head_dim 112
                  at G 8 and 128 at G 5, float32 and bf16) and at every
-                 shape the paths ran (``at_shapes``), with the bound at
-                 the tensor cores' bf16 rate and ``bound_fp32_ms`` beside
-                 it, and ``F.scaled_dot_product_attention`` as the library
-                 call where no softcap or window is asked; for its
-                 backward (``flash_attention_bwd``, two launches a call)
-                 dq, dk, dv within 1e-4 (bf16: one bf16 step more) of each
-                 one's largest |value| at the same shapes, two identical
+                 shape the paths ran (``at_shapes``), with
+                 ``bound_fp32_ms`` (its products at the float32 rate)
+                 beside the bound, and ``F.scaled_dot_product_attention``
+                 as the library call where no softcap or window is asked;
+                 for its backward (``flash_attention_bwd``, two launches a
+                 call) dq, dk, dv within 1e-4 (bf16: one bf16 step more) of
+                 each one's largest |value| at the same shapes, two identical
                  calls equal bit for bit, and the autograd backward of one
                  SDPA call as the library row; for the scan's backward
                  (``selective_scan_bwd``, the port's own kernel: the
                  reference differentiates its plain scan) the six
                  gradients within 1e-4 of each one's largest |value| at
                  the scan's edge shapes and the path's, two identical
-                 calls equal bit for bit, and twice the forward's
-                 ``bound_sfu_ms``; for the bucket probe
+                 calls equal bit for bit; for the bucket probe
                  the host's cost of one launch, item by item, under
                  ``host_us``; for the join scans and the float32 scan the
                  instances they ran, under ``instances``; the join lane
@@ -409,7 +405,14 @@ held and timed beside it under ``raw_value_scan``) and the sort unit have
 no caller on these paths: the lane rides the scan launches and the sort
 unit the fused apply. They are held to their plain versions at edge shapes
 and measured at NO_CALLER_SHAPE, with their launches on every path
-(``launches_by_path``). Then the ``{"kernels": [...]}``
+(``launches_by_path``). Each kernel's ``bound_ms`` is its least time at
+the shape, and ``bound_by`` the bound that binds: the benchmark's
+(`bench/yardstick.py`, `bench/whisper_yardstick.py`) for the exact scans
+and the forms built on their cost, the selective scan and its backward
+(bytes or exponentials on the SFUs) and the blocked attention and its
+backward (products or exponentials; a backward call is two launches);
+for the others the larger of their bytes at 3.35 TB/s and their
+operations at 67 Tops/s. Then the ``{"kernels": [...]}``
 summary, the card's name and power limit, and as the last line ``{"ok":
 true, "device": {...}}``. Any failed phase raises: the script exits
 non-zero and prints no result. Without CUDA it exits with code 2 before
@@ -436,11 +439,12 @@ STARTED = time.perf_counter()
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device-memory rate (data sheet)
-# The kernels' arithmetic is 32/64-bit integer compares and adds outside the
-# tensor cores; the float32 rate outside the tensor cores (data sheet) stands
-# in as the card's peak for them.
-ALU_OPS_PER_S = 67e12
+# the card's peaks and the kernels' least times are the benchmark's
+from bench.trace import _on_device  # noqa: E402
+from bench.whisper_yardstick import band_pairs, flash_bound_s  # noqa: E402
+from bench.yardstick import (ALU_OPS_PER_S, HBM_BYTES_PER_S,  # noqa: E402
+                             max_sm_clock_hz, scan_cost, ssm_bound_s,
+                             ssm_bwd_cost, ssm_cost)
 
 REPLACES = {
     "scan_exact": "src/repro/kernels/dict_ops/dict_ops.py:63",
@@ -2169,13 +2173,6 @@ def replay(model, cfg, prompts, gen, max_len: int, cross_kv=None) -> int:
 BACKWARD_SCOPE = 1    # torch's RecordScope.BACKWARD_FUNCTION
 
 
-def _on_device(e) -> bool:
-    """A device event of the profile (kernel, copy or fill); a
-    `record_function` range's span on the device's timeline is not one."""
-    return (str(e.device_type()).endswith("CUDA")
-            and not e.is_user_annotation())
-
-
 class _Spans:
     """Time spans by thread, merged; `holds(thread, t)` says whether one
     of them covers time t on that thread."""
@@ -2702,18 +2699,8 @@ def phase_lm_serve(args, dev=None) -> tuple[dict, dict]:
 # phase 13: LM training fed by the HTAP token pipeline
 # ---------------------------------------------------------------------------
 
-LM_TRAIN_MODEL = "falcon-mamba-7b"
-# 16 of 64 layers: 2.22B parameters, about 35.5 GB with AdamW (bf16
-# weights and gradients, float32 m, v and masters); all 64 would need
-# about 117 GB
-LM_TRAIN_DEPTH = 16
-LM_TRAIN_BATCH = 2           # sequences a step
-LM_TRAIN_SEQ = 4096          # tokens a sequence: two 2,048-token loss chunks
-LM_TRAIN_MICRO = 2           # micro-batches a step
+TRAIN_CELL = "fm7b-train"    # the benchmark's cell the phase runs
 LM_TRAIN_STEPS = 4
-LM_TRAIN_LR = 1e-4
-LM_TRAIN_TOKENS = 1 << 24    # the token column at the start
-LM_TRAIN_INGEST = 65_536     # tokens ingested and propagated before a step
 # the token pipeline's kernels: ship, one-column apply stage, snapshot
 PIPELINE_KERNELS = ("merge_runs", "bitonic_apply", "snapshot_copy")
 # the gradient cross-check: layers, batch, sequence (float32, full width)
@@ -2721,21 +2708,25 @@ LM_GRAD_CHECK = (2, 1, 512)
 LM_GRAD_TOL = 1e-3           # of each parameter's largest |g| (and the loss)
 
 
-def token_window(column: np.ndarray, n_rows: int, step: int):
-    """The batch `get_batch(step)` must return when the column holds
-    `column[:n_rows]`: the reference's window of LM_TRAIN_BATCH sequences
-    of LM_TRAIN_SEQ + 1 tokens, as (tokens, labels)."""
-    need = LM_TRAIN_BATCH * (LM_TRAIN_SEQ + 1)
-    start = (step * need) % max(n_rows - need, 1)
-    w = column[start:start + need].reshape(LM_TRAIN_BATCH, LM_TRAIN_SEQ + 1)
-    return w[:, :-1], w[:, 1:]
+def train_cell(seed: int, dev):
+    """`TRAIN_CELL` as the benchmark's harness hands it to
+    `bench/drivers/lm_train.py`: the workload, its configuration and
+    traffic read from their files."""
+    from bench import harness
+    wl, config, traffic = harness.load_cell(harness.load_benchmark(),
+                                            TRAIN_CELL)
+    return harness.Cell(name=TRAIN_CELL, config_name=wl["config"],
+                        config=config, traffic_name=wl["traffic"],
+                        traffic=traffic, chips=int(wl["chips"]), seed=seed,
+                        seconds=0.0, trace=False, device=dev,
+                        t_start=STARTED)
 
 
-def same_batch(got, column, n_rows, step) -> None:
-    """`got` (tokens, labels) on the card equals `token_window`, token for
+def same_batch(got, want, step) -> None:
+    """`got` (tokens, labels) on the card equals `want`, the window the
+    benchmark's reference works out from the seed's token column, token for
     token: the apply and the snapshot wrote the ingested tokens."""
-    for what, g, w in zip(("tokens", "labels"), got,
-                          token_window(column, n_rows, step)):
+    for what, g, w in zip(("tokens", "labels"), got, want):
         g = g.cpu().numpy()
         if g.shape != w.shape or not np.array_equal(g, w):
             bad = int((g != w).sum()) if g.shape == w.shape else g.size
@@ -2817,105 +2808,68 @@ def grads_match(what, loss_dev, g_dev, loss_cpu, g_cpu,
 
 
 def phase_lm_train(args, dev=None) -> tuple[dict, dict]:
-    """`LM_TRAIN_MODEL` at full width, `LM_TRAIN_DEPTH` layers, bf16,
-    remat, the optimizer `default_optimizer_for` picks for the full
-    model, `LM_TRAIN_STEPS` steps of `LM_TRAIN_BATCH` x `LM_TRAIN_SEQ`
-    tokens in `LM_TRAIN_MICRO` micro-batches, each fed by an
-    `HTAPTokenPipeline` on the card (`LM_TRAIN_INGEST` tokens ingested and
-    propagated before the step, its batch from `get_batch(step)`). Returns
-    the launches and launch shapes of the steps (the gradient cross-check
-    before and the profiled step after are not counted)."""
-    import dataclasses
-    from repro_torch.configs import get_config
-    from repro_torch.data import HTAPTokenPipeline
+    """`TRAIN_CELL`'s training object, built by the benchmark's
+    `bench/drivers/lm_train.py` (the configuration's sizes and seeded
+    weights, its AdamW, `make_train_step`, an `HTAPTokenPipeline` on the
+    card), run for `LM_TRAIN_STEPS` of its `Program.step`s (the
+    traffic's tokens ingested, `propagate`, `get_batch(step)`, the train
+    step). Holds what the benchmark does not: the kernels' launches a
+    step, the pipeline's kernels, every ingested token applied with no
+    freshness lag, every batch the reference's window, and the float32
+    gradient cross-check on the cell's block. Returns the launches and
+    launch shapes of the steps (the cross-check before them is not
+    counted)."""
+    from bench.drivers import lm_train
+    from bench.trace import Spans
     from repro_torch.kernels.common import (kernel_launch_counts,
                                             kernel_launch_shapes,
                                             reset_kernel_launch_counts)
-    from repro_torch.launch.steps import make_train_step
-    from repro_torch.models.lm import init_lm
-    from repro_torch.optim import default_optimizer_for, get_optimizer
     dev = torch.device("cuda", 0) if dev is None else dev
     torch.backends.cuda.matmul.allow_tf32 = False    # float32 is float32
     torch.backends.cudnn.allow_tf32 = False
-    full = get_config(LM_TRAIN_MODEL)
-    cfg = dataclasses.replace(full,
-                              n_layers=min(LM_TRAIN_DEPTH, full.n_layers))
-    check = train_grad_check(cfg, args, dev)
+    cell = train_cell(args.seed, dev)
+    cfg, tr, job = cell.config, cell.traffic, cell.config["job"]
+    mcfg = lm_train.model_config(cfg)
+    check = train_grad_check(mcfg, args, dev)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    t0 = time.perf_counter()
-    model = init_lm(cfg, generator=gen, device=dev)
-    opt_name = default_optimizer_for(full.param_count())
-    opt = get_optimizer(opt_name, lr=LM_TRAIN_LR, period=cfg.period)
-    opt_state = opt[0](dict(model.named_parameters()))
-    step_fn = make_train_step(cfg, opt, micro_batches=LM_TRAIN_MICRO)
-    pipe = HTAPTokenPipeline(cfg.vocab_size, LM_TRAIN_SEQ, LM_TRAIN_BATCH,
-                             seed=args.seed, initial_tokens=LM_TRAIN_TOKENS,
-                             device=dev)
-    torch.cuda.synchronize()
-    setup_seconds = time.perf_counter() - t0
-    feed = np.random.default_rng(args.seed + 2)
-    # the column as the host sees it: the seed's initial tokens (drawn as
-    # the pipeline documents), then every ingested chunk
-    column = np.empty(LM_TRAIN_TOKENS + (LM_TRAIN_STEPS + 1)
-                      * LM_TRAIN_INGEST, np.int32)
-    column[:LM_TRAIN_TOKENS] = np.random.default_rng(args.seed).integers(
-        0, cfg.vocab_size, size=(LM_TRAIN_TOKENS, 1))[:, 0]
-    n_rows = LM_TRAIN_TOKENS
-
-    def ingest():
-        nonlocal n_rows
-        chunk = feed.integers(0, cfg.vocab_size, LM_TRAIN_INGEST)
-        column[n_rows:n_rows + LM_TRAIN_INGEST] = chunk
-        n_rows += LM_TRAIN_INGEST
-        pipe.ingest(chunk)
-    losses, step_s, prop_s, batch_s, lags = [], [], [], [], []
+    prog = lm_train.Program(cell, Spans(dev, False))
+    want = lm_train.reference_batches(cell, LM_TRAIN_STEPS)
     reset_kernel_launch_counts()
     for step in range(LM_TRAIN_STEPS):
-        ingest()
-        lags.append(pipe.freshness_lag())
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        applied = pipe.propagate()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        toks, labels = pipe.get_batch(step)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        model, opt_state, metrics = step_fn(
-            model, opt_state, step, {"tokens": toks, "labels": labels})
-        losses.append(float(metrics["loss"]))      # synchronises
-        t3 = time.perf_counter()
-        if applied != LM_TRAIN_INGEST or pipe.freshness_lag() != 0:
-            raise AssertionError(f"lm_train: propagate applied {applied} of "
-                                 f"{LM_TRAIN_INGEST}, lag "
-                                 f"{pipe.freshness_lag()}")
-        if toks.shape != (LM_TRAIN_BATCH, LM_TRAIN_SEQ) or \
+        prog.step(step)
+        rows = prog.pipe.replica.columns[prog.pipe.TOKEN_COL].n_rows
+        if rows != tr["initial_tokens"] + (step + 1) * tr["ingest_per_step"] \
+                or prog.pipe.freshness_lag() != 0:
+            raise AssertionError(
+                f"lm_train: after step {step} the column holds {rows} rows, "
+                f"lag {prog.pipe.freshness_lag()}: propagate did not apply "
+                "every ingested token")
+        toks, labels = prog.batches[step]
+        if toks.shape != (tr["batch"], tr["seq_len"]) or \
                 toks.device != dev or toks.dtype != torch.int32:
             raise AssertionError(f"lm_train: batch {tuple(toks.shape)} "
                                  f"{toks.dtype} on {toks.device}")
-        same_batch((toks, labels), column, n_rows, step)
-        prop_s.append(t1 - t0)
-        batch_s.append(t2 - t1)
-        step_s.append(t3 - t2)
+        same_batch((toks, labels), want[step], step)
     launches, shapes = kernel_launch_counts(), kernel_launch_shapes()
+    losses = [float(x) for x in prog.losses]
     if not all(map(math.isfinite, losses)):
         raise AssertionError(f"lm_train: a loss is not finite: {losses}")
-    n_mamba = sum(cfg.blocks[i % cfg.period].mixer == "mamba"
-                  for i in range(cfg.n_layers))
-    remat = 2 if cfg.remat else 1
-    forward = n_mamba * remat * LM_TRAIN_MICRO * LM_TRAIN_STEPS
-    backward = n_mamba * LM_TRAIN_MICRO * LM_TRAIN_STEPS
-    want = {"selective_scan": forward, "selective_scan_bwd": backward,
-            "causal_conv": forward, "causal_conv_bwd": backward,
-            "adamw": (adamw_launches(model, opt_state) * LM_TRAIN_STEPS
-                      if opt_name == "adamw" else 0)}
-    got = {k: launches.get(k, 0) for k in want}
-    if got != want:
+    n_mamba = sum(mcfg.blocks[i % mcfg.period].mixer == "mamba"
+                  for i in range(mcfg.n_layers))
+    remat = 2 if mcfg.remat else 1
+    micro = job["micro_batches"]
+    forward = n_mamba * remat * micro * LM_TRAIN_STEPS
+    backward = n_mamba * micro * LM_TRAIN_STEPS
+    expect = {"selective_scan": forward, "selective_scan_bwd": backward,
+              "causal_conv": forward, "causal_conv_bwd": backward,
+              "adamw": adamw_launches(prog.model, prog.opt_state)
+              * LM_TRAIN_STEPS}
+    got = {k: launches.get(k, 0) for k in expect}
+    if got != expect:
         raise AssertionError(
-            f"lm_train: launches {got}, expected {want} ({n_mamba} Mamba "
-            f"layers x {remat} (remat) x {LM_TRAIN_MICRO} micro-batches x "
+            f"lm_train: launches {got}, expected {expect} ({n_mamba} Mamba "
+            f"layers x {remat} (remat) x {micro} micro-batches x "
             f"{LM_TRAIN_STEPS} steps forward, the scan and the conv; their "
             "backward calls once a layer and micro-batch; AdamW once a group "
             "of leaves and step)")
@@ -2923,42 +2877,21 @@ def phase_lm_train(args, dev=None) -> tuple[dict, dict]:
     if idle:
         raise AssertionError(f"lm_train: the token pipeline launched no "
                              f"{idle}")
-    peak = torch.cuda.max_memory_allocated()
-    ingest()
-    pipe.propagate()
-    batch = dict(zip(("tokens", "labels"), pipe.get_batch(LM_TRAIN_STEPS)))
-    same_batch((batch["tokens"], batch["labels"]), column, n_rows,
-               LM_TRAIN_STEPS)
-    prof = profile_device(lambda: step_fn(model, opt_state, LM_TRAIN_STEPS,
-                                           batch), 1)
-    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
-    steady = step_s[1:] or step_s
-    fields = {}
-    if cfg.n_layers < full.n_layers:
-        fields["reduced"] = "depth: one card's memory"
-    emit("lm_train", model=LM_TRAIN_MODEL, layers=cfg.n_layers,
-         full_layers=full.n_layers, d_model=cfg.d_model,
-         d_inner=cfg.d_inner, d_state=cfg.d_state, vocab=cfg.vocab_size,
-         params=sum(p.numel() for p in model.parameters()),
-         dtype=str(cfg.pdtype), remat=cfg.remat, optimizer=opt_name,
-         lr=LM_TRAIN_LR, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
-         micro_batches=LM_TRAIN_MICRO, loss_chunk=cfg.loss_chunk,
-         steps=LM_TRAIN_STEPS, seed=args.seed, setup_seconds=setup_seconds,
-         losses=losses, step_seconds=step_s,
-         ms_per_step=sum(steady) / len(steady) * 1e3,
-         ms_per_step_of="the steps after the first",
-         tokens_per_s=tokens * len(steady) / sum(steady),
-         peak_device_bytes=peak, profile=prof,
-         pipeline=dict(initial_tokens=LM_TRAIN_TOKENS,
-                       ingest_per_step=LM_TRAIN_INGEST,
-                       rows_at_end=pipe.replica.columns[0].n_rows,
-                       propagate_ms=[x * 1e3 for x in prop_s],
-                       get_batch_ms=[x * 1e3 for x in batch_s],
-                       freshness_lag_before_propagate=lags,
-                       freshness_lag_after=pipe.freshness_lag(),
-                       batches_equal_ingested_tokens=LM_TRAIN_STEPS + 1),
-         launches=launches, grad_check=check, **fields, ok=True)
-    del model, opt_state, pipe, batch
+    emit("lm_train", cell=TRAIN_CELL, config=cell.config_name,
+         layers=mcfg.n_layers, d_model=mcfg.d_model, d_inner=mcfg.d_inner,
+         d_state=mcfg.d_state, vocab=mcfg.vocab_size,
+         params=sum(p.numel() for p in prog.model.parameters()),
+         dtype=str(mcfg.pdtype), remat=mcfg.remat,
+         optimizer=job["optimizer"], batch=tr["batch"], seq=tr["seq_len"],
+         micro_batches=micro, loss_chunk=mcfg.loss_chunk,
+         steps=LM_TRAIN_STEPS, seed=args.seed, reduced=cfg["reduced"],
+         losses=losses, peak_device_bytes=torch.cuda.max_memory_allocated(),
+         pipeline=dict(initial_tokens=tr["initial_tokens"],
+                       ingest_per_step=tr["ingest_per_step"],
+                       rows_at_end=rows,
+                       batches_equal_ingested_tokens=LM_TRAIN_STEPS),
+         launches=launches, grad_check=check, ok=True)
+    del prog
     torch.cuda.empty_cache()
     return launches, shapes
 
@@ -3107,7 +3040,8 @@ def phase_encdec_train(args, dev=None) -> tuple[dict, dict]:
     t0 = time.perf_counter()
     model = init_encdec(cfg, generator=gen, device=dev)
     opt_name = default_optimizer_for(cfg.param_count())
-    opt = get_optimizer(opt_name, lr=LM_TRAIN_LR, period=cfg.period)
+    lr = adamw_hyper()["lr"]
+    opt = get_optimizer(opt_name, lr=lr, period=cfg.period)
     opt_state = opt[0](dict(model.named_parameters()))
     step_fn = make_train_step(cfg, opt, micro_batches=1)
     pipe = SyntheticPipeline(cfg.vocab_size, S, B, seed=args.seed,
@@ -3171,7 +3105,7 @@ def phase_encdec_train(args, dev=None) -> tuple[dict, dict]:
          vocab=cfg.vocab_size,
          params=sum(p.numel() for p in model.parameters()),
          dtype=str(cfg.pdtype), remat=cfg.remat, optimizer=opt_name,
-         lr=LM_TRAIN_LR, batch=B, seq=S, frames=S, micro_batches=1,
+         lr=lr, batch=B, seq=S, frames=S, micro_batches=1,
          loss_chunk=cfg.loss_chunk, steps=ENCDEC_TRAIN_STEPS,
          seed=args.seed, setup_seconds=setup_seconds, losses=losses,
          step_seconds=step_s, ms_per_step=sum(steady) / len(steady) * 1e3,
@@ -3208,18 +3142,11 @@ def sort_ops(width: int) -> int:
     return (next_pow2(width) // 2) * (lg * (lg + 1) // 2) * 2
 
 
-def scan_cost(shape, join):
-    n, k, q = shape[0], shape[1], shape[-1]
-    nbytes = n * (4 + 4 + 1) + k * 4 + q * 8 + (3 if join else 2) * q * 8
-    if join:
-        nbytes += n * (4 + 1) + shape[2] * 4
-    return nbytes, n * (2 * q + 2) * (2 if join else 1)
-
-
 def scan_sharded_cost(shape, join):
-    """(S, W, k[, kj], Q): every slot of the stacked shards is read once."""
+    """(S, W, k[, kj], Q): every slot of the stacked shards is read once
+    (the benchmark's `scan_cost` over S x W rows), and S partials out."""
     n_shards, width = shape[0], shape[1]
-    nbytes, ops = scan_cost((n_shards * width,) + tuple(shape[2:]), join)
+    nbytes, ops = scan_cost((n_shards * width,) + tuple(shape[2:]))
     lanes = 3 if join else 2
     return nbytes + (n_shards - 1) * lanes * shape[-1] * 8, ops
 
@@ -4063,7 +3990,7 @@ def group_cost(shape, kind):
     and the output's one more row."""
     if kind == "flat":
         *base, nr = shape
-        nbytes, ops = scan_cost(tuple(base), False)
+        nbytes, ops = scan_cost(tuple(base))
         stacks = (nr,)
     elif kind == "sharded":
         *base, nr = shape
@@ -4071,7 +3998,7 @@ def group_cost(shape, kind):
         stacks = (nr,)
     elif kind == "join":
         *base, nr_a, nr_j = shape
-        nbytes, ops = scan_cost(tuple(base), True)
+        nbytes, ops = scan_cost(tuple(base))
         stacks = (nr_a, nr_j)
     else:
         *base, nr_a, nr_j = shape
@@ -4314,7 +4241,8 @@ def measure_values_delta(gen, dev, shape) -> dict:
     same made-up shape."""
     m = measure_values(gen, dev, shape, 6)
     m["raw_value_scan"] = with_bound(measure_values(gen, dev, shape, 3),
-                                     shape, lambda s: values_cost(s, 3), 0)
+                                     shape, 0,
+                                     roofline_ms(values_cost(shape, 3)))
     return m
 
 
@@ -4516,34 +4444,6 @@ def measure_decode(gen, dev, shape) -> dict:
                 "prefix (a transposed view of the cache)")
 
 
-def ssm_cost(shape):
-    """(B, T, D, N): x and dt read and y written (12 B per (t, channel)),
-    B_t and C_t (8 N B per step), A and the skip; per (t, channel, state)
-    an exponential, three multiply-adds and a multiply."""
-    B, T, D, N = shape
-    return (12 * B * T * D + 8 * B * T * N + 4 * D * (N + 1),
-            B * T * D * (7 * N + 3))
-
-
-SFU_EXP_PER_CLOCK = 16     # exponentials an SM's SFUs take a clock (sm_90)
-
-
-def sm_clock_hz() -> float:
-    """The card's highest SM clock (`nvidia-smi clocks.max.sm`)."""
-    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                          "--format=csv,noheader,nounits"], check=True,
-                         capture_output=True, text=True).stdout
-    return float(out.split()[0]) * 1e6
-
-
-def ssm_sfu_bound_ms(shape) -> float:
-    """The B T D N exponentials alone on the SFUs: 16 a clock an SM, every
-    SM, at the card's highest clock."""
-    B, T, D, N = shape
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return B * T * D * N / (SFU_EXP_PER_CLOCK * sms * sm_clock_hz()) * 1e3
-
-
 def ssm_inputs(gen, dev, shape):
     B, T, D, N = shape
     x = torch.randn((B, T, D), generator=gen, device=dev)
@@ -4593,8 +4493,7 @@ def edge_ssm(gen, dev) -> int:
 
 
 def measure_ssm(gen, dev, shape) -> dict:
-    """Held to 3e-5; `bound_sfu_ms` beside the bytes and operations
-    bound."""
+    """Held to 3e-5, then timed."""
     from repro_torch.kernels.selective_scan import (launch_selective_scan,
                                                     selective_scan,
                                                     selective_scan_ref)
@@ -4611,20 +4510,7 @@ def measure_ssm(gen, dev, shape) -> dict:
         ms=time_ms(lambda: launch_selective_scan(*args, y), 10),
         **device_time(lambda: launch_selective_scan(*args, y)),
         wrapper_ms=time_ms(lambda: selective_scan(*args), 10),
-        plain_ms=plain_ms, library_ms=None,
-        bound_sfu_ms=ssm_sfu_bound_ms(shape), registers=ssm_registers())
-
-
-def ssm_bwd_cost(shape):
-    """(B, T, D, N) of the backward: x, dt and gy read and gx, gdt written
-    (20 B per (t, channel)), B_t and C_t read and their gradients written
-    (16 N B per step), A and the skip read and their gradients written;
-    per (t, channel, state) the recurrence once to re-derive h (the
-    forward's 7 operations less y's multiply-add: 5) and the reverse
-    recurrence with its products (19 more), and 4 per (t, channel)."""
-    B, T, D, N = shape
-    return (20 * B * T * D + 16 * B * T * N + 8 * D * (N + 1),
-            B * T * D * (24 * N + 4))
+        plain_ms=plain_ms, library_ms=None, registers=ssm_registers())
 
 
 SSM_BWD_TOL = 1e-4     # of each gradient's largest |value|
@@ -4678,9 +4564,7 @@ def edge_ssm_bwd(gen, dev) -> int:
 
 
 def measure_ssm_bwd(gen, dev, shape) -> dict:
-    """Held to SSM_BWD_TOL and bit for bit repeatable; `bound_sfu_ms` (twice
-    the forward's exponentials on the SFUs) beside the bytes and
-    operations bound."""
+    """Held to SSM_BWD_TOL and bit for bit repeatable, then timed."""
     from repro_torch.kernels.selective_scan import (
         BWD_LANES, launch_selective_scan_bwd, selective_scan_bwd,
         selective_scan_bwd_ref)
@@ -4705,7 +4589,6 @@ def measure_ssm_bwd(gen, dev, shape) -> dict:
         **device_time(lambda: launch_selective_scan_bwd(*args, *bufs)),
         wrapper_ms=time_ms(lambda: selective_scan_bwd(*args), 10),
         plain_ms=plain_ms, library_ms=None,
-        bound_sfu_ms=2 * ssm_sfu_bound_ms(shape),
         scratch_bytes=sum(b.numel() * 4 for b in bufs[2:]),
         registers=ssm_registers(backward=True), lanes=BWD_LANES[N])
 
@@ -4713,19 +4596,10 @@ def measure_ssm_bwd(gen, dev, shape) -> dict:
 # The blocked attention: shapes are the wrappers' `launch_shape`, (B, Sq,
 # Skv, H, Hkv, dh, causal, window, softcap).
 
-TENSOR_BF16_FLOPS = 989e12   # the tensor cores' dense bf16 rate (data sheet)
 FLASH_TOL = 2e-4             # float32: the reference's own flash-vs-SDPA
                              # tolerance (tests/test_kernels.py:191-206)
 FLASH_BWD_TOL = 1e-4         # float32 gradients, of each one's max |value|
 FLASH_BWD_TOL_BF16 = 2**-7 + FLASH_BWD_TOL    # bf16: one bf16 step more
-
-
-def band_pairs(Sq, Skv, causal, window) -> int:
-    """The (query row, key) pairs in the causal / window band."""
-    i = np.arange(Sq)
-    hi = np.minimum(i, Skv - 1) if causal else np.full(Sq, Skv - 1)
-    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros(Sq, int)
-    return int(np.maximum(0, hi - lo + 1).sum())
 
 
 def flash_flops(shape, products: int) -> float:
@@ -4736,13 +4610,12 @@ def flash_flops(shape, products: int) -> float:
 
 def flash_cost(shape):
     """At the paths' bf16: q, k, v read once, out and the float32 lse
-    written once; QK^T and PV on the pairs in the band, at the tensor
-    cores' dense bf16 rate (`bound_fp32_ms`: the same operations at the
-    CUDA cores' float32 rate, the float32 instances' ceiling)."""
+    written once; QK^T and PV on the pairs in the band. It ranks the
+    shapes; the bound is the benchmark's (`least_ms`)."""
     B, Sq, Skv, H, Hkv, dh = shape[:6]
     nbytes = 2 * (2 * B * Sq * H * dh + 2 * B * Skv * Hkv * dh) \
         + 4 * B * H * Sq
-    return nbytes, flash_flops(shape, 2), TENSOR_BF16_FLOPS
+    return nbytes, flash_flops(shape, 2)
 
 
 def flash_bwd_cost(shape):
@@ -4752,7 +4625,7 @@ def flash_bwd_cost(shape):
     B, Sq, Skv, H, Hkv, dh = shape[:6]
     nbytes = 2 * (4 * B * Sq * H * dh + 4 * B * Skv * Hkv * dh) \
         + 8 * B * H * Sq
-    return nbytes, flash_flops(shape, 5), TENSOR_BF16_FLOPS
+    return nbytes, flash_flops(shape, 5)
 
 
 def flash_inputs(gen, dev, shape, dtype=torch.bfloat16):
@@ -5029,7 +4902,7 @@ def whisper_step_check(dev) -> dict:
                               n_layers=layers, n_enc_layers=layers)
     gen = torch.Generator(device=dev).manual_seed(7)
     model = init_encdec(cfg, generator=gen, device=dev)
-    opt = get_optimizer("adamw", lr=LM_TRAIN_LR)
+    opt = get_optimizer("adamw", lr=adamw_hyper()["lr"])
     state = opt[0](dict(model.named_parameters()))
     step = make_train_step(cfg, opt, micro_batches=micro)
     S, F = cfg.whisper.max_target_positions, 2 * cfg.enc_context
@@ -5173,9 +5046,11 @@ def measure_flash_bwd(gen, dev, shape) -> dict:
         achieved_TFLOPs=flash_flops(shape, 5) / ms / 1e9)
 
 
-# AdamW's update at the training paths' hyper-parameters
-ADAMW_HYPER = dict(lr=LM_TRAIN_LR, b1=0.9, b2=0.95, eps=1e-8,
-                   weight_decay=0.01)
+def adamw_hyper() -> dict:
+    """AdamW's settings in the training cell's configuration (`TRAIN_CELL`),
+    in `adamw_update_ref`'s order."""
+    o = train_cell(0, None).config["job"]["optimizer"]
+    return {k: o[k] for k in ("lr", "b1", "b2", "eps", "weight_decay")}
 
 
 def adamw_cost(shape):
@@ -5211,7 +5086,8 @@ def adamw_bc(dev, step: int):
     """The bias corrections as the optimizer makes them at `step`."""
     from repro_torch.optim.adamw import f32_step
     t = f32_step(step, dev)
-    return 1.0 - ADAMW_HYPER["b1"] ** t, 1.0 - ADAMW_HYPER["b2"] ** t
+    hyper = adamw_hyper()
+    return 1.0 - hyper["b1"] ** t, 1.0 - hyper["b2"] ** t
 
 
 def adamw_must_equal(name: str, leaves, bc1, bc2) -> int:
@@ -5220,8 +5096,9 @@ def adamw_must_equal(name: str, leaves, bc1, bc2) -> int:
     from repro_torch.kernels.adamw import adamw_update, adamw_update_ref
     copies = [tuple(None if t is None else t.clone() for t in leaf)
               for leaf in leaves]
-    adamw_update(leaves, bc1, bc2, **ADAMW_HYPER)
-    adamw_update_ref(copies, bc1, bc2, *ADAMW_HYPER.values())
+    hyper = adamw_hyper()
+    adamw_update(leaves, bc1, bc2, **hyper)
+    adamw_update_ref(copies, bc1, bc2, *hyper.values())
     for i, (got, want) in enumerate(zip(leaves, copies)):
         for part, x, y in zip(("param", "grad", "m", "v", "master"), got,
                               want):
@@ -5279,26 +5156,26 @@ def measure_adamw(gen, dev, shape) -> dict:
                           pb == 2, bool(master))
     bc1, bc2 = adamw_bc(dev, 2)
     err = adamw_must_equal(f"adamw {shape}", leaves, bc1, bc2)
-    hyper = tuple(ADAMW_HYPER.values())
+    hyper = adamw_hyper()
 
     def bare():
-        launch_adamw(leaves, bc1, bc2, *hyper)
+        launch_adamw(leaves, bc1, bc2, *hyper.values())
     out = dict(max_abs_err=err, bitwise_equal=True,
                registers=adamw_registers(), ms=time_ms(bare, 20),
                **device_time(bare),
                wrapper_ms=time_ms(lambda: adamw_update(
-                   leaves, bc1, bc2, **ADAMW_HYPER), 20),
+                   leaves, bc1, bc2, **hyper), 20),
                plain_ms=time_ms(lambda: adamw_update_ref(
-                   leaves, bc1, bc2, *hyper), 3))
+                   leaves, bc1, bc2, *hyper.values()), 3))
     weights = [torch.nn.Parameter(w if master else p.float())
                for p, _, _, _, w in leaves]
     del leaves
     for w in weights:
         w.grad = torch.randn(w.shape, generator=gen, device=dev) * 1e-2
-    lib = torch.optim.AdamW(weights, lr=ADAMW_HYPER["lr"],
-                            betas=(ADAMW_HYPER["b1"], ADAMW_HYPER["b2"]),
-                            eps=ADAMW_HYPER["eps"],
-                            weight_decay=ADAMW_HYPER["weight_decay"],
+    lib = torch.optim.AdamW(weights, lr=hyper["lr"],
+                            betas=(hyper["b1"], hyper["b2"]),
+                            eps=hyper["eps"],
+                            weight_decay=hyper["weight_decay"],
                             fused=True)
     out.update(library_ms=time_ms(lib.step, 10),
                library="torch.optim.AdamW(fused=True), float32 weights and "
@@ -5482,9 +5359,8 @@ def measure_conv_bwd(gen, dev, shape) -> dict:
 
 # kernel name -> (cost of one launch at a shape, measurement at a shape)
 KERNELS = {
-    "scan_exact": (lambda s: scan_cost(s, False),
-                   lambda g, d, s: measure_scan(g, d, s, False)),
-    "scan_exact_join": (lambda s: scan_cost(s, True),
+    "scan_exact": (scan_cost, lambda g, d, s: measure_scan(g, d, s, False)),
+    "scan_exact_join": (scan_cost,
                         lambda g, d, s: measure_scan(g, d, s, True)),
     "scan_exact_sharded": (
         lambda s: scan_sharded_cost(s, False),
@@ -5528,15 +5404,60 @@ DECODE_32K = (4, 32768, 16, 8, 256, 32768)    # gemma2's heads at decode_32k
 DECODE_32K_D112 = (4, 32768, 64, 8, 112, 32768)   # kimi-k2's heads
 
 
-def with_bound(m: dict, shape, cost, launches: int) -> dict:
-    """`cost(shape)` is (bytes, operations) at ALU_OPS_PER_S, or (bytes,
-    operations, the card's peak rate for their type)."""
-    nbytes, ops, *rate = cost(shape)
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / (rate[0] if rate else ALU_OPS_PER_S) * 1e3
+def flash_bwd_bound_s(shape, sms: int, sm_clock_hz: float):
+    """A backward call's least time and which bound binds: the call is
+    timed whole, its two launches (the dQ pass, the dK/dV pass), so twice
+    the benchmark's least time of one launch (`flash_bound_s` counts a
+    launch as half its call)."""
+    seconds, by = flash_bound_s(shape, True, sms, sm_clock_hz)
+    return 2 * seconds, by
+
+
+# the kernels whose least time the benchmark reckons with the SFUs: name ->
+# least(shape, SMs, highest SM clock) -> (seconds, which bound binds)
+SFU_BOUNDS = {
+    "selective_scan": lambda s, *card: ssm_bound_s(s, False, *card),
+    "selective_scan_bwd": lambda s, *card: ssm_bound_s(s, True, *card),
+    "flash_attention": lambda s, *card: flash_bound_s(s, False, *card),
+    "flash_attention_bwd": flash_bwd_bound_s,
+}
+
+
+def card_sfu() -> tuple[int, float]:
+    """(SMs, highest SM clock in Hz) of the first card: what the SFU
+    bounds need. Raises where `nvidia-smi` gives no clock."""
+    hz = max_sm_clock_hz()
+    if hz is None:
+        raise AssertionError("nvidia-smi gave no clocks.max.sm: the SFU "
+                             "bounds cannot be reckoned")
+    return torch.cuda.get_device_properties(0).multi_processor_count, hz
+
+
+def roofline_ms(cost: tuple) -> tuple[float, str]:
+    """(bytes, operations) -> the larger of the bytes at HBM_BYTES_PER_S
+    and the operations at ALU_OPS_PER_S, in ms, and which binds."""
+    by_bytes, by_ops = cost[0] / HBM_BYTES_PER_S, cost[1] / ALU_OPS_PER_S
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def least_ms(name: str, shape, card: tuple[int, float]) -> tuple[float, str]:
+    """The least milliseconds of one launch of `name` at `shape` (of one
+    call where a call is timed) and which bound binds: the benchmark's
+    where it reckons the kernel (`SFU_BOUNDS` on the card `card_sfu`
+    read; the exact scans' `roofline_ms` of `bench.yardstick.scan_cost`,
+    which is its `scan_bound_s`), else the `roofline_ms` of the kernel's
+    own cost (`KERNELS`)."""
+    if name in SFU_BOUNDS:
+        seconds, by = SFU_BOUNDS[name](shape, *card)
+        return seconds * 1e3, by
+    return roofline_ms(KERNELS[name][0](shape))
+
+
+def with_bound(m: dict, shape, launches: int, bound: tuple[float, str]
+               ) -> dict:
     return dict(m, shape=list(shape), launches_at_shape=launches,
-                bound_ms=max(by_bytes, by_ops),
-                bound_by="bytes" if by_bytes >= by_ops else "operations")
+                bound_ms=bound[0], bound_by=bound[1])
 
 
 def most_launched(seen: dict, cost):
@@ -5554,6 +5475,7 @@ def phase_kernels(shapes: dict, path_shapes: dict) -> dict:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    card = card_sfu()
     cases = (edge_scan(gen, dev) + edge_scan_sharded(gen, dev)
              + edge_join_lane(gen, dev)
              + edge_scan_mesh(gen, dev) + edge_probe(gen, dev) + edge_merge(gen, dev)
@@ -5569,20 +5491,22 @@ def phase_kernels(shapes: dict, path_shapes: dict) -> dict:
     measured = {}
     for name, (cost, measure) in KERNELS.items():
         seen = shapes[name]
+
+        def at(shape, launches):
+            return with_bound(measure(gen, dev, shape), shape, launches,
+                              least_ms(name, shape, card))
         most = most_launched(seen, cost)
         largest = max(seen, key=cost)
-        measured[name] = with_bound(measure(gen, dev, most), most, cost,
-                                    seen[most])
+        measured[name] = at(most, seen[most])
         cases += 1
         if largest != most:
-            measured[name]["largest"] = with_bound(
-                measure(gen, dev, largest), largest, cost, seen[largest])
+            measured[name]["largest"] = at(largest, seen[largest])
             cases += 1
         for path, on_path in path_shapes.get(name, {}).items():
-            at = most_launched(on_path, cost)
-            if at not in (most, largest):
-                measured[name].setdefault("at_paths", {})[path] = with_bound(
-                    measure(gen, dev, at), at, cost, on_path[at])
+            shape = most_launched(on_path, cost)
+            if shape not in (most, largest):
+                measured[name].setdefault("at_paths", {})[path] = at(
+                    shape, on_path[shape])
                 cases += 1
         if name in SHARDED_SCANS:
             # the islands runs' other island counts, at the shape each
@@ -5594,8 +5518,7 @@ def phase_kernels(shapes: dict, path_shapes: dict) -> dict:
                                                        cost(best)):
                     by_count[shape[0]] = shape
             measured[name]["at_islands"] = {
-                str(count): with_bound(measure(gen, dev, shape), shape, cost,
-                                       seen[shape])
+                str(count): at(shape, seen[shape])
                 for count, shape in sorted(by_count.items())
                 if count != most[0]}
             cases += len(by_count) - 1
@@ -5604,14 +5527,12 @@ def phase_kernels(shapes: dict, path_shapes: dict) -> dict:
             carried = {sh: c for sh, c in seen.items()
                        if mesh_stack_rows(name, sh)}
             if carried:
-                at = max(carried, key=lambda sh: (carried[sh], cost(sh)))
-                measured[name]["with_correction"] = with_bound(
-                    measure(gen, dev, at), at, cost, carried[at])
+                shape = max(carried, key=lambda sh: (carried[sh], cost(sh)))
+                measured[name]["with_correction"] = at(shape, carried[shape])
                 cases += 1
         if name == "merge_runs" and most != SHIP_MERGE:
-            measured[name]["at_ship"] = with_bound(
-                measure(gen, dev, SHIP_MERGE), SHIP_MERGE, cost,
-                seen.get(SHIP_MERGE, 0))
+            measured[name]["at_ship"] = at(SHIP_MERGE,
+                                           seen.get(SHIP_MERGE, 0))
             cases += 1
         if name in ("flash_attention", "flash_attention_bwd"):
             # every other shape the paths ran (whisper's causal and
@@ -5620,8 +5541,7 @@ def phase_kernels(shapes: dict, path_shapes: dict) -> dict:
                                      measured[name].get("at_paths",
                                                         {}).values())}
             measured[name]["at_shapes"] = {
-                "/".join(map(str, shape)): with_bound(
-                    measure(gen, dev, shape), shape, cost, seen[shape])
+                "/".join(map(str, shape)): at(shape, seen[shape])
                 for shape in sorted(seen) if shape not in done}
             cases += len(measured[name]["at_shapes"])
         if name == "decode_attn":
@@ -5634,15 +5554,13 @@ def phase_kernels(shapes: dict, path_shapes: dict) -> dict:
                                                        cost(best)):
                     by_heads[shape[2:5]] = shape
             measured[name]["at_heads"] = {
-                "/".join(map(str, heads)): with_bound(
-                    measure(gen, dev, shape), shape, cost, seen[shape])
+                "/".join(map(str, heads)): at(shape, seen[shape])
                 for heads, shape in sorted(by_heads.items())
                 if heads != most[2:5]}
             cases += len(by_heads) - 1
             for key, shape in (("at_decode_32k", DECODE_32K),
                                ("at_decode_32k_d112", DECODE_32K_D112)):
-                measured[name][key] = with_bound(measure(gen, dev, shape),
-                                                 shape, cost, 0)
+                measured[name][key] = at(shape, 0)
                 cases += 1
     torch.cuda.synchronize()
     emit("kernels", cases=cases,

@@ -582,8 +582,9 @@ def test_lm_serve_phase_fails_on_wrong_cross_kv(decode_gpu_branch,
 
 
 # ---------------------------------------------------------------------------
-# lm_train: falcon-mamba's smoke config (remat on, two loss chunks) fed by
-# the token pipeline, every kernel's GPU branch faked with its plain version
+# lm_train: the benchmark's training cell cut to the tiny sizes of its tests,
+# fed by the token pipeline, every kernel's GPU branch faked with its plain
+# version
 # ---------------------------------------------------------------------------
 
 @pytest.fixture
@@ -594,8 +595,8 @@ def train_gpu_branch(monkeypatch):
     and its backward (`fake_flash_launches`), the causal conv and its
     backward (`fake_conv_launches`) - with each bare launch
     writing its plain version's result, so the launch counts run as on the
-    card; the `torch.cuda` calls made no-ops; no profiler; the phase's
-    sizes cut to a few hundred tokens."""
+    card; the `torch.cuda` calls made no-ops; no profiler; 3 training
+    steps, and the gradient cross-check at 2 x 8 tokens."""
     from repro_torch.kernels.adamw import ops as adamw_ops
     from repro_torch.kernels.bitonic_sort import ops as bitonic_ops
     from repro_torch.kernels.merge_runs import ops as merge_ops
@@ -646,63 +647,88 @@ def train_gpu_branch(monkeypatch):
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
     monkeypatch.setattr(chip_smoke, "profile_device",
                         lambda *a: {"device_time": "not measured (CPU)"})
-    for name, value in (("LM_TRAIN_SEQ", 8), ("LM_TRAIN_STEPS", 3),
-                        ("LM_TRAIN_TOKENS", 4096), ("LM_TRAIN_INGEST", 96),
-                        ("LM_GRAD_CHECK", (2, 1, 8))):
+    for name, value in (("LM_TRAIN_STEPS", 3), ("LM_GRAD_CHECK", (2, 1, 8))):
         monkeypatch.setattr(chip_smoke, name, value)
     common.reset_kernel_launch_counts()
     yield
     common.reset_kernel_launch_counts()
 
 
-def _smoke_train_config(monkeypatch, depth=None):
-    import dataclasses
+def _tiny_cell(monkeypatch, **job):
+    """The training cell's files as the benchmark's tests cut them
+    (`bench/tests/tiny.py`: 2 layers at d 64, 2 x 128 tokens a step, a
+    4,096-token column, 256 ingested a step), the configuration's ``job``
+    updated by `job`: what `harness.load_cell` hands the phase."""
+    from bench import harness
+    from bench.tests import tiny
+    real = harness.load_cell
 
-    from repro_torch import configs
-
-    def get(name):
-        cfg = dataclasses.replace(configs.get_smoke_config(name), remat=True,
-                                  loss_chunk=4)
-        return cfg if depth is None else dataclasses.replace(cfg,
-                                                             n_layers=depth)
-    monkeypatch.setattr(configs, "get_config", get)
+    def load(bench, name, root=harness.ROOT):
+        wl, config, traffic = real(bench, name, root)
+        config.update(tiny.TRAIN_CONFIG)
+        config["job"] = {**config["job"], **job}
+        traffic.update(tiny.TRAIN_TRAFFIC)
+        return wl, config, traffic
+    monkeypatch.setattr(harness, "load_cell", load)
+    return tiny
 
 
 def test_lm_train_phase_rehearsed(train_gpu_branch, monkeypatch, capsys):
-    """The phase at the smoke config: the gradient cross-check, the
-    kernels' launches counted (the scan and the conv twice a layer and
-    micro-batch for remat, their backward calls once), the pipeline's
-    kernels, finite losses that
-    the steps bring down, the freshness lag before and after each
-    propagation."""
-    _smoke_train_config(monkeypatch, depth=4)
-    monkeypatch.setattr(chip_smoke, "LM_TRAIN_DEPTH", 2)
-    args = argparse.Namespace(seed=0)
-    launches, shapes = chip_smoke.phase_lm_train(args, dev=CPU)
+    """The phase on the tiny cell: the gradient cross-check, the kernels'
+    launches counted (the scan and the conv twice a layer and micro-batch
+    for remat, their backward calls once, AdamW once a group of leaves),
+    the pipeline's kernels, finite losses, every ingested token applied,
+    every batch the reference's window."""
+    _tiny_cell(monkeypatch)
+    launches, shapes = chip_smoke.phase_lm_train(argparse.Namespace(seed=0),
+                                                 dev=CPU)
     (line,) = _lines(capsys, "lm_train")
-    assert line["ok"] and line["layers"] == 2 and line["full_layers"] == 4
-    assert line["reduced"] == "depth: one card's memory"
-    assert line["remat"] and line["optimizer"] == "adamw"
+    assert line["ok"] and line["cell"] == "fm7b-train"
+    assert line["layers"] == 2 and line["remat"]
+    assert line["optimizer"]["name"] == "adamw"
+    assert "num_hidden_layers" in line["reduced"]
     assert launches["selective_scan"] == 2 * 2 * 2 * 3
     assert launches["selective_scan_bwd"] == 2 * 2 * 3
     assert launches["causal_conv"] == 2 * 2 * 2 * 3
     assert launches["causal_conv_bwd"] == 2 * 2 * 3
-    assert launches["adamw"] == 3      # one table of leaves a step
+    # bf16 leaves with masters, and A's log and the skip in float32
+    assert launches["adamw"] == 2 * 3
     for k in ("merge_runs", "bitonic_apply", "snapshot_copy"):
         assert launches[k] > 0, k
     assert line["launches"] == launches
-    assert shapes["selective_scan_bwd"] == {(1, 8, 128, 4): 12}
-    assert shapes["causal_conv_bwd"] == {(1, 8, 128, 4): 12}
+    assert shapes["selective_scan_bwd"] == {(1, 128, 128, 4): 12}
+    assert shapes["causal_conv_bwd"] == {(1, 128, 128, 4): 12}
     losses = line["losses"]
     assert len(losses) == 3 and all(np.isfinite(losses))
     pipe = line["pipeline"]
-    assert pipe["freshness_lag_before_propagate"] == [96] * 3
-    assert pipe["freshness_lag_after"] == 0
-    assert pipe["rows_at_end"] == 4096 + 4 * 96
-    assert pipe["batches_equal_ingested_tokens"] == 4
+    assert pipe["rows_at_end"] == 4096 + 3 * 256
+    assert pipe["batches_equal_ingested_tokens"] == 3
     check = line["grad_check"]
     assert check["max_rel_err"] <= chip_smoke.LM_GRAD_TOL
     assert check["leaves"] == 2 * 10 + 3        # ln2 gets no gradient
+
+
+@pytest.mark.parametrize("micro", [1, 2])
+def test_lm_train_phase_follows_the_cells_files(train_gpu_branch,
+                                                monkeypatch, capsys, micro):
+    """What the phase runs is what the cell's files say: the tiny cell's
+    batch, sequence, initial column and ingest, and its micro-batches
+    (the scan's launches and shapes follow them)."""
+    tiny = _tiny_cell(monkeypatch, micro_batches=micro)
+    launches, shapes = chip_smoke.phase_lm_train(argparse.Namespace(seed=0),
+                                                 dev=CPU)
+    (line,) = _lines(capsys, "lm_train")
+    tr = tiny.TRAIN_TRAFFIC
+    assert (line["batch"], line["seq"], line["micro_batches"]) == (
+        tr["batch"], tr["seq_len"], micro)
+    assert line["pipeline"]["initial_tokens"] == tr["initial_tokens"]
+    assert line["pipeline"]["ingest_per_step"] == tr["ingest_per_step"]
+    assert line["d_model"] == tiny.TRAIN_CONFIG["hidden_size"]
+    assert line["vocab"] == tiny.TRAIN_CONFIG["vocab_size"]
+    rows = tr["batch"] // micro
+    assert shapes["selective_scan"] == {(rows, tr["seq_len"], 128, 4):
+                                        2 * 2 * micro * 3}
+    assert launches["selective_scan_bwd"] == 2 * micro * 3
 
 
 def test_lm_train_phase_fails_on_a_missing_backward_launch(
@@ -711,13 +737,12 @@ def test_lm_train_phase_fails_on_a_missing_backward_launch(
     a graph, as before `SelectiveScan`) leaves its launches at 0: the
     phase must fail on the counts."""
     from repro_torch.kernels.selective_scan import ops as scan_ops
-    _smoke_train_config(monkeypatch)
+    _tiny_cell(monkeypatch)
     real = scan_ops.selective_scan
 
     def no_graph(*args):
         with torch.no_grad():
             return real(*args)
-    monkeypatch.setattr(chip_smoke, "LM_TRAIN_DEPTH", 2)
     import repro_torch.nn.mamba as mamba
     monkeypatch.setattr(mamba, "selective_scan", no_graph)
     with pytest.raises(AssertionError, match="gradient|launches"):
@@ -731,8 +756,7 @@ def test_lm_train_phase_fails_on_a_wrong_token(train_gpu_branch,
     the tokens ingested: the phase must fail on the batch, though the
     losses stay finite."""
     from repro_torch.kernels.snapshot_copy import ops as snap_ops
-    _smoke_train_config(monkeypatch)
-    monkeypatch.setattr(chip_smoke, "LM_TRAIN_DEPTH", 2)
+    _tiny_cell(monkeypatch)
     real = snap_ops.launch_snapshot_copy
 
     def wrong(src, prev, flags_u8, out, *rest):
@@ -746,13 +770,14 @@ def test_lm_train_phase_fails_on_a_wrong_token(train_gpu_branch,
 def test_lm_train_grad_check_fails_on_a_wrong_backward(train_gpu_branch,
                                                        monkeypatch):
     """A backward kernel that loses a term (here gB) is caught by the
-    cross-check: the "card" model (the first `lm_loss` call) takes the
-    faked GPU branch, the CPU model the plain scan and autograd."""
-    import dataclasses
-
-    from repro_torch import configs
+    cross-check on the tiny cell's block: the "card" model (the first
+    `lm_loss` call) takes the faked GPU branch, the CPU model the plain
+    scan and autograd."""
+    from bench.drivers import lm_train
     from repro_torch.kernels.selective_scan import ops as scan_ops
     from repro_torch.models import lm
+    _tiny_cell(monkeypatch)
+    cfg = lm_train.model_config(chip_smoke.train_cell(0, CPU).config)
     real_bwd, real_loss = scan_ops.launch_selective_scan_bwd, lm.lm_loss
     seen = []
 
@@ -768,8 +793,7 @@ def test_lm_train_grad_check_fails_on_a_wrong_backward(train_gpu_branch,
     monkeypatch.setattr(lm, "lm_loss", loss)
     monkeypatch.setattr(scan_ops, "on_gpu",
                         lambda *t: len(seen) == 1)
-    cfg = dataclasses.replace(configs.get_smoke_config("falcon-mamba-7b"),
-                              remat=True)
+    assert cfg.remat and cfg.d_model == 64
     with pytest.raises(AssertionError, match="gradient differs from the CPU's"):
         chip_smoke.train_grad_check(cfg, argparse.Namespace(seed=0), CPU)
     assert len(seen) == 2
@@ -970,6 +994,82 @@ def test_conv_costs_count_each_byte_once():
                  / chip_smoke.HBM_BYTES_PER_S * 1e3, 3) == 0.040
     assert round(chip_smoke.conv_bwd_cost(shape)[0]
                  / chip_smoke.HBM_BYTES_PER_S * 1e3, 3) == 0.060
+
+
+# ---------------------------------------------------------------------------
+# the kernels phase's bounds: the benchmark's least times where it has them
+# ---------------------------------------------------------------------------
+
+H100_SMS, H100_SM_CLOCK_HZ = 132, 1.98e9      # NVIDIA H100 80GB HBM3
+
+
+@pytest.fixture
+def h100(monkeypatch):
+    """The card's SM count and highest SM clock, as `card_sfu` reads them
+    on an H100 SXM."""
+    class Props:
+        multi_processor_count = H100_SMS
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda *a: Props())
+    monkeypatch.setattr(chip_smoke, "max_sm_clock_hz",
+                        lambda: H100_SM_CLOCK_HZ)
+    return chip_smoke.card_sfu()
+
+
+def _benchmarks_bound(name, shape, card):
+    """(ms, which binds) of a launch (a backward call of the blocked
+    attention: two launches) by `bench/yardstick.py` and
+    `bench/whisper_yardstick.py`."""
+    from bench import whisper_yardstick, yardstick
+    if name.startswith("scan_exact"):
+        nbytes, ops = yardstick.scan_cost(shape)
+        by = ("bytes" if nbytes / yardstick.HBM_BYTES_PER_S
+              >= ops / yardstick.ALU_OPS_PER_S else "operations")
+        return yardstick.scan_bound_s(shape) * 1e3, by
+    if name.startswith("selective_scan"):
+        s, by = yardstick.ssm_bound_s(shape, name.endswith("_bwd"), *card)
+        return s * 1e3, by
+    s, by = whisper_yardstick.flash_bound_s(shape, name.endswith("_bwd"),
+                                            *card)
+    return s * 1e3 * (2 if name.endswith("_bwd") else 1), by
+
+
+# the paths' shapes: the main path's scans at 10M rows, the training cell's
+# K17 launch, whisper-train's three attentions (16 clips, 20 heads of 64)
+@pytest.mark.parametrize("name,shape,want", [
+    ("scan_exact", (10_000_000, 18_827, 1), (0.0269, "bytes")),
+    ("scan_exact_join", (10_000_000, 25_000, 25_000, 1), (0.0419, "bytes")),
+    ("selective_scan", (1, 4096, 8192, 16), (0.1284, "sfu")),
+    ("selective_scan_bwd", (1, 4096, 8192, 16), (0.2010, "bytes")),
+    ("flash_attention", (16, 1500, 1500, 20, 20, 64, 0, 0, 0),
+     (0.1864, "products")),
+    ("flash_attention", (16, 448, 448, 20, 20, 64, 1, 0, 0),
+     (0.0083, "products")),
+    ("flash_attention_bwd", (16, 448, 1500, 20, 20, 64, 0, 0, 0),
+     (0.1392, "products")),
+    ("flash_attention_bwd", (16, 1500, 1500, 20, 20, 64, 0, 0, 0),
+     (0.4659, "products")),
+])
+def test_kernel_bounds_are_the_benchmarks(h100, name, shape, want):
+    """`bound_ms` and `bound_by` of the kernels line are the benchmark's
+    least time and binding bound at the card's SMs and clock, for every
+    kernel the benchmark reckons; K17's backward counts each exponential
+    once (0.1284 ms on the SFUs, under its bytes' 0.2010)."""
+    m = chip_smoke.with_bound({"ms": 1.0}, shape, 7,
+                              chip_smoke.least_ms(name, shape, h100))
+    assert (m["shape"], m["launches_at_shape"]) == (list(shape), 7)
+    ms, by = _benchmarks_bound(name, shape, h100)
+    assert m["bound_ms"] == pytest.approx(ms, rel=1e-12)
+    assert m["bound_by"] == by
+    assert (round(m["bound_ms"], 4), m["bound_by"]) == want
+
+
+def test_card_sfu_fails_without_a_clock(monkeypatch):
+    """A card whose highest SM clock `nvidia-smi` does not give leaves the
+    SFU bounds unreckoned: the kernels phase stops, saying so."""
+    monkeypatch.setattr(chip_smoke, "max_sm_clock_hz", lambda: None)
+    with pytest.raises(AssertionError, match="clocks.max.sm"):
+        chip_smoke.card_sfu()
 
 
 @pytest.mark.parametrize("fault", ["forward", "repeat"])
