@@ -229,14 +229,18 @@ script's wall seconds so far, ``elapsed_seconds``):
                  read, K10); `LM_TRAIN_STEPS` 4 of its `Program.step`s.
                  Before them, a gradient cross-check of the cell's block
                  at 2 layers, full width, float32, 1 x 512 tokens: the
-                 loss and every parameter's gradient on the card (the scan
-                 kernel and its backward kernel) against the same model's
-                 on the CPU (the plain scan under autograd), within 1e-3
-                 of each leaf's largest |g|. Fails on a loss that is not
+                 loss and every parameter's gradient on the card (the
+                 gated scan kernel and its backward kernel) against the
+                 same model's on the CPU (the plain chain under autograd),
+                 within 1e-3 of each leaf's largest |g|. The steps run
+                 under `tracing.recording()`. Fails on a loss that is not
                  finite, on selective-scan or causal-conv launches other
                  than layers x 2 (remat) x micro-batches x steps or
                  backward calls of either other than layers x
-                 micro-batches x steps, on AdamW launches other than
+                 micro-batches x steps, unless every scan launch was a
+                 Mamba call through the gated scan (the count
+                 ``mamba.gated_scan``, printed as ``gated_scans``), on
+                 AdamW launches other than
                  `adamw_launches` a step, where the pipeline launched no
                  K5, K7 or K10, where a step left an ingested token
                  unapplied (a freshness lag), and on a batch that is not
@@ -326,7 +330,20 @@ script's wall seconds so far, ``elapsed_seconds``):
                  reference differentiates its plain scan) the six
                  gradients within 1e-4 of each one's largest |value| at
                  the scan's edge shapes and the path's, two identical
-                 calls equal bit for bit; for the bucket probe
+                 calls equal bit for bit; at the scan's shapes also the
+                 gated forms the paths run (``gated``: dt's bias and
+                 softplus before the scan and the silu(z) gate after it,
+                 bf16, z the in-projection's strided half), forward and
+                 backward, against the same chain in float32 on the same
+                 operands (y within the scan's 3e-5 and one bf16 ulp;
+                 each gradient within 1e-4 of its largest |value| and one
+                 bf16 ulp), timed beside the benchmark's bound and the
+                 chain they replaced (``chain_ms``: bf16 softplus, float32
+                 copies, the plain kernel, the gate; its backward by
+                 autograd), and at the scan's edge shapes in bf16 and
+                 float32, z also contiguous and off a 4-byte boundary,
+                 the backward bit for bit repeatable; for the bucket
+                 probe
                  the host's cost of one launch, item by item, under
                  ``host_us``; for the join scans and the float32 scan the
                  instances they ran, under ``instances``; the join lane
@@ -876,20 +893,24 @@ def join_instances(nq: int) -> dict[str, dict]:
 
 
 def ssm_bwd_instances() -> dict[str, dict]:
-    """Per instance of the selective scan's backward ("N<d_state>"): its
-    lanes a channel, the occupancy API's resident blocks and warps an SM,
-    and, when this process built the library, ptxas' registers and spill
-    bytes."""
+    """Per instance of the selective scan's backward ("N<d_state>", the
+    plain form; "N<d_state> gated bf16", the gated form the training path
+    runs): its lanes a channel, the occupancy API's resident blocks and
+    warps an SM, and, when this process built the library, ptxas'
+    registers and spill bytes."""
     import ctypes
     from repro_torch.kernels import build
     from repro_torch.kernels.selective_scan import BWD_CHANNELS, BWD_LANES
     ptxas = ssm_registers(backward=True)
     out = {}
     for n, lb in BWD_LANES.items():
-        blocks = ctypes.c_int(0)
-        build.check(build.entry("selective_scan_bwd_occupancy")(
-            n, ctypes.byref(blocks)), "selective_scan_bwd_occupancy")
-        out[f"N{n}"] = dict(ptxas.get(f"N{n}", {}), lanes=lb,
+        for gated in ("0", "1"):
+            blocks = ctypes.c_int(0)
+            build.check(build.entry("selective_scan_bwd_occupancy")(
+                n, int(gated), 1, ctypes.byref(blocks)),
+                "selective_scan_bwd_occupancy")
+            key = ssm_instance(n, gated, "bfloat16")
+            out[key] = dict(ptxas.get(key, {}), lanes=lb,
                             blocks_per_sm=blocks.value,
                             warps_per_sm=blocks.value * BWD_CHANNELS * lb
                             // 32)
@@ -2815,12 +2836,14 @@ def phase_lm_train(args, dev=None) -> tuple[dict, dict]:
     traffic's tokens ingested, `propagate`, `get_batch(step)`, the train
     step). Holds what the benchmark does not: the kernels' launches a
     step, the pipeline's kernels, every ingested token applied with no
-    freshness lag, every batch the reference's window, and the float32
-    gradient cross-check on the cell's block. Returns the launches and
-    launch shapes of the steps (the cross-check before them is not
-    counted)."""
+    freshness lag, every batch the reference's window, every Mamba call
+    through the gated scan (``mamba.gated_scan``, under
+    `tracing.recording()`), and the float32 gradient cross-check on the
+    cell's block. Returns the launches and launch shapes of the steps (the
+    cross-check before them is not counted)."""
     from bench.drivers import lm_train
     from bench.trace import Spans
+    from repro_torch import tracing
     from repro_torch.kernels.common import (kernel_launch_counts,
                                             kernel_launch_shapes,
                                             reset_kernel_launch_counts)
@@ -2836,21 +2859,26 @@ def phase_lm_train(args, dev=None) -> tuple[dict, dict]:
     prog = lm_train.Program(cell, Spans(dev, False))
     want = lm_train.reference_batches(cell, LM_TRAIN_STEPS)
     reset_kernel_launch_counts()
-    for step in range(LM_TRAIN_STEPS):
-        prog.step(step)
-        rows = prog.pipe.replica.columns[prog.pipe.TOKEN_COL].n_rows
-        if rows != tr["initial_tokens"] + (step + 1) * tr["ingest_per_step"] \
-                or prog.pipe.freshness_lag() != 0:
-            raise AssertionError(
-                f"lm_train: after step {step} the column holds {rows} rows, "
-                f"lag {prog.pipe.freshness_lag()}: propagate did not apply "
-                "every ingested token")
-        toks, labels = prog.batches[step]
-        if toks.shape != (tr["batch"], tr["seq_len"]) or \
-                toks.device != dev or toks.dtype != torch.int32:
-            raise AssertionError(f"lm_train: batch {tuple(toks.shape)} "
-                                 f"{toks.dtype} on {toks.device}")
-        same_batch((toks, labels), want[step], step)
+    tracing.clear()
+    with tracing.recording():
+        for step in range(LM_TRAIN_STEPS):
+            prog.step(step)
+            rows = prog.pipe.replica.columns[prog.pipe.TOKEN_COL].n_rows
+            if rows != tr["initial_tokens"] + (step + 1) * \
+                    tr["ingest_per_step"] or prog.pipe.freshness_lag() != 0:
+                raise AssertionError(
+                    f"lm_train: after step {step} the column holds {rows} "
+                    f"rows, lag {prog.pipe.freshness_lag()}: propagate did "
+                    "not apply every ingested token")
+            toks, labels = prog.batches[step]
+            if toks.shape != (tr["batch"], tr["seq_len"]) or \
+                    toks.device != dev or toks.dtype != torch.int32:
+                raise AssertionError(f"lm_train: batch {tuple(toks.shape)} "
+                                     f"{toks.dtype} on {toks.device}")
+            same_batch((toks, labels), want[step], step)
+    gated = sum(r.counts.get("mamba.gated_scan", 0)
+                for r in tracing.records())
+    tracing.clear()
     launches, shapes = kernel_launch_counts(), kernel_launch_shapes()
     losses = [float(x) for x in prog.losses]
     if not all(map(math.isfinite, losses)):
@@ -2873,6 +2901,9 @@ def phase_lm_train(args, dev=None) -> tuple[dict, dict]:
             f"{LM_TRAIN_STEPS} steps forward, the scan and the conv; their "
             "backward calls once a layer and micro-batch; AdamW once a group "
             "of leaves and step)")
+    if gated != forward:
+        raise AssertionError(f"lm_train: {gated} Mamba calls took the gated "
+                             f"scan, of {forward} scan launches")
     idle = [k for k in PIPELINE_KERNELS if not launches.get(k)]
     if idle:
         raise AssertionError(f"lm_train: the token pipeline launched no "
@@ -2890,7 +2921,7 @@ def phase_lm_train(args, dev=None) -> tuple[dict, dict]:
                        ingest_per_step=tr["ingest_per_step"],
                        rows_at_end=rows,
                        batches_equal_ingested_tokens=LM_TRAIN_STEPS),
-         launches=launches, grad_check=check, ok=True)
+         launches=launches, gated_scans=gated, grad_check=check, ok=True)
     del prog
     torch.cuda.empty_cache()
     return launches, shapes
@@ -4455,19 +4486,30 @@ def ssm_inputs(gen, dev, shape):
     return x, dt, a, b, c, d
 
 
+def ssm_instance(n, gated, elem) -> str:
+    """The key of a selective-scan instance from its mangled template
+    arguments: "N<d_state>", and " gated bf16" or " gated f32" for the
+    gated form's."""
+    kind = "bf16" if "bfloat16" in elem else "f32"
+    return f"N{n}" + (f" gated {kind}" if gated == "1" else "")
+
+
 def ssm_registers(backward: bool = False) -> dict[str, dict]:
     """ptxas' registers and spill bytes of each selective-scan instance, by
-    d_state and staging (16-byte or 4-byte copies); of the backward's, by
-    d_state."""
+    d_state, form (plain or gated, and the gated form's element type) and
+    staging (16-byte or element copies); of the backward's, by d_state and
+    form."""
     out = {}
     for entry, n in REGISTERS.items():
         if backward:
-            m = re.search(r"selective_scan_bwd_kernelILi(\d+)E", entry)
-            key = m and f"N{m.group(1)}"
+            m = re.search(r"selective_scan_bwd_kernelILi(\d+)ELb([01])E"
+                          r"(\w+?)E", entry)
+            key = m and ssm_instance(m.group(1), m.group(2), m.group(3))
         else:
-            m = re.search(r"selective_scan_kernelILi(\d+)ELb([01])E", entry)
-            key = m and (f"N{m.group(1)} "
-                         f"{'16B' if m.group(2) == '1' else '4B'}")
+            m = re.search(r"selective_scan_kernelILi(\d+)ELb([01])ELb([01])E"
+                          r"(\w+?)E", entry)
+            key = m and (ssm_instance(m.group(1), m.group(3), m.group(4))
+                         + f" {'16B' if m.group(2) == '1' else 'element'}")
         if m:
             out[key] = dict(registers=n, spill_bytes=SPILLS.get(entry, 0))
     return out
@@ -4505,12 +4547,14 @@ def measure_ssm(gen, dev, shape) -> dict:
     err = must_be_close(f"selective scan {shape}", selective_scan(*args),
                         want, 3e-5)
     y = torch.empty_like(args[0])
-    return dict(
+    out = dict(
         max_abs_err=err, tolerance=3e-5,
         ms=time_ms(lambda: launch_selective_scan(*args, y), 10),
         **device_time(lambda: launch_selective_scan(*args, y)),
         wrapper_ms=time_ms(lambda: selective_scan(*args), 10),
         plain_ms=plain_ms, library_ms=None, registers=ssm_registers())
+    del args, want, y
+    return dict(out, gated=measure_ssm_gated(gen, dev, shape))
 
 
 SSM_BWD_TOL = 1e-4     # of each gradient's largest |value|
@@ -4591,6 +4635,213 @@ def measure_ssm_bwd(gen, dev, shape) -> dict:
         plain_ms=plain_ms, library_ms=None,
         scratch_bytes=sum(b.numel() * 4 for b in bufs[2:]),
         registers=ssm_registers(backward=True), lanes=BWD_LANES[N])
+
+
+# The gated scan (`selective_scan_gated`, what Mamba's block calls): dt's
+# bias and softplus before the scan and the silu(z) gate after it, in the
+# gated instances of the scan and of its backward, against the same chain
+# in float32 on the same operands (`selective_scan_gated_f32`,
+# `selective_scan_gated_bwd_ref`), each output there rounded once.
+
+def ssm_gated_inputs(gen, dev, shape, dtype=torch.bfloat16):
+    """Mamba's operands at `shape` (B, T, D, N): x, dt_raw (about -2.5,
+    so dt about 0.08), dt_bias and z of `dtype`, z the second half of a
+    (B, T, 2 D) projection; a, b, c, d float32; and an upstream gradient g
+    of `dtype`."""
+    B, T, D, N = shape
+    x, _, a, b, c, d = ssm_inputs(gen, dev, shape)
+    raw = torch.randn((B, T, D), generator=gen, device=dev) - 2.5
+    bias = torch.randn((D,), generator=gen, device=dev) * 0.3
+    xz = torch.randn((B, T, 2 * D), generator=gen, device=dev).to(dtype)
+    g = torch.randn((B, T, D), generator=gen, device=dev).to(dtype)
+    return (x.to(dtype), raw.to(dtype), bias.to(dtype), a, b, c, d,
+            xz.chunk(2, dim=-1)[1]), g
+
+
+def rounding(dtype) -> float:
+    """One ulp of `dtype`, relative: 2**-7 in bf16; in float32 a few ulps
+    of the float32 work."""
+    return 2**-7 if dtype == torch.bfloat16 else 1e-6
+
+
+def gated_fwd_check(name, args, y, y_pre) -> float:
+    """The gated forward's y and y_pre against the float32 chain: y_pre
+    within the scan's 3e-5 (relative plus absolute) and one ulp of the
+    output's type; y the same, the scan's part scaled by |silu(z)|.
+    Returns the largest absolute difference of y."""
+    from repro_torch.kernels.selective_scan import selective_scan_gated_f32
+    want, pre = selective_scan_gated_f32(*args)
+    z = args[7].float()
+    silu = z * torch.sigmoid(z)
+    r = rounding(y.dtype)
+    err = 0.0
+    for what, got, w, tol in (
+            ("y_pre", y_pre, pre, r * pre.abs() + 3e-5 * (1 + pre.abs())),
+            ("y", y, want, r * want.abs()
+             + 3e-5 * (1 + pre.abs()) * silu.abs())):
+        if got.dtype != args[0].dtype or got.shape != w.shape:
+            raise AssertionError(f"kernel check {name!r}: {what} is "
+                                 f"{got.dtype} {tuple(got.shape)}")
+        diff = (got.float() - w).abs()
+        if got.numel() and not bool((diff <= tol + 1e-30).all()):
+            raise AssertionError(
+                f"kernel check {name!r}: {what} differs from the float32 "
+                f"chain (max abs err {float(diff.max())}, over the "
+                f"tolerance by {float((diff - tol).max())})")
+        if what == "y" and got.numel():
+            err = float(diff.max())
+    return err
+
+
+SSM_GATED_BWD_NAMES = ("gx", "g_raw", "gbias", "ga", "gb", "gc", "gd", "gz")
+
+
+def gated_bwd_check(name, got, want) -> float:
+    """The gated backward's eight gradients against the float32 plain
+    version on the same operands and y_pre: each within SSM_BWD_TOL of
+    its largest |value| (the scan's sums in other orders; gz, which needs
+    no sum, 1e-6) plus an ulp of its type (both sides rounded once).
+    Returns the largest absolute difference."""
+    err = 0.0
+    for what, g, w in zip(SSM_GATED_BWD_NAMES, got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"kernel check {name!r}: {what} is "
+                                 f"{g.dtype} {tuple(g.shape)}, not "
+                                 f"{w.dtype} {tuple(w.shape)}")
+        if not g.numel():
+            continue
+        gf, wf = g.float(), w.float()
+        scale = float(wf.abs().max())
+        tol = ((1e-6 if what == "gz" else SSM_BWD_TOL) * scale
+               + rounding(g.dtype) * wf.abs())
+        diff = (gf - wf).abs()
+        if not bool((diff <= tol + 1e-30).all()):
+            raise AssertionError(
+                f"kernel check {name!r}: gradient {what} differs from its "
+                f"plain version (max abs err {float(diff.max())}, scale "
+                f"{scale})")
+        err = max(err, float(diff.max()))
+    return err
+
+
+def gated_case(name, args, g) -> None:
+    """One gated case: forward and backward checked, the backward twice
+    bit for bit, the launches counted under the plain kernels' names."""
+    from repro_torch.kernels.selective_scan import (
+        selective_scan_gated_bwd, selective_scan_gated_bwd_ref)
+    from repro_torch.kernels.selective_scan.ops import _gated_forward_gpu
+    y, y_pre = _gated_forward_gpu(*args, True)
+    gated_fwd_check(name, args, y, y_pre)
+    got = selective_scan_gated_bwd(*args, y_pre, g)
+    gated_bwd_check(f"{name} backward", got,
+                    selective_scan_gated_bwd_ref(*args, y_pre, g))
+    again = selective_scan_gated_bwd(*args, y_pre, g)
+    if not all(torch.equal(p, q) for p, q in zip(got, again)):
+        raise AssertionError(f"kernel check {name!r}: two identical "
+                             "backward calls gave different bits")
+
+
+def edge_ssm_gated(gen, dev) -> int:
+    """The gated forms at the scan's edge shapes (`SSM_EDGES`), bf16 and
+    float32, z the in-projection's strided half; in bf16 also z as a
+    contiguous copy and a view one element off a 4-byte boundary (the
+    element-wise staging)."""
+    from repro_torch.kernels.common import (kernel_launch_shapes,
+                                            reset_kernel_launch_counts)
+    cases = 0
+    for shape in SSM_EDGES:
+        for dtype in (torch.bfloat16, torch.float32):
+            args, g = ssm_gated_inputs(gen, dev, shape, dtype)
+            reset_kernel_launch_counts()
+            gated_case(f"gated scan {shape} {dtype}", args, g)
+            if kernel_launch_shapes() != {
+                    "selective_scan": {tuple(shape): 1},
+                    "selective_scan_bwd": {tuple(shape): 2}}:
+                raise AssertionError(f"gated scan {shape}: launches "
+                                     f"{kernel_launch_shapes()}")
+            cases += 1
+        B, T, D, N = shape
+        args, g = ssm_gated_inputs(gen, dev, shape)
+        wide = torch.randn((B, T, D + 1), generator=gen, device=dev).to(
+            torch.bfloat16)
+        for layout, z in (("contiguous z", args[7].contiguous()),
+                          ("odd z", wide[..., 1:])):
+            gated_case(f"gated scan {shape} {layout}", (*args[:7], z), g)
+            cases += 1
+    return cases
+
+
+def measure_ssm_gated(gen, dev, shape) -> dict:
+    """The gated forms in bf16 at `shape`, z the in-projection's strided
+    half: checked, then timed forward (``forward``) and backward
+    (``backward``): the bare launch (``ms``, ``device_ms``), the
+    benchmark's bound of the plain kernel at the shape (its yardstick
+    counts the gated form's launches so), and the chain the gated form
+    replaced (``chain_ms``, ``chain_device_ms``: the bf16 softplus of the
+    biased projection, float32 copies, the plain kernel, y back to bf16,
+    times silu(z); backward, autograd through it, the plain kernel's
+    backward included)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.selective_scan import (
+        launch_selective_scan_gated, launch_selective_scan_gated_bwd,
+        selective_scan, selective_scan_gated_bwd_ref)
+    from repro_torch.kernels.selective_scan.ops import (_bwd_buffers,
+                                                         _gated_forward_gpu)
+    B, T, D, N = shape
+    card = card_sfu()
+    args, g = ssm_gated_inputs(gen, dev, shape)
+    y, y_pre = _gated_forward_gpu(*args, True)
+    err = gated_fwd_check(f"gated scan {shape}", args, y, y_pre)
+    parts = _bwd_buffers(B, T, D, N, dev)
+    # gx, g_raw, gz, ga .. gd partials, the bias's partials, ckpt
+    bufs = (*(torch.empty_like(y) for _ in range(3)), *parts[:4],
+            torch.empty((B, D), dtype=torch.float32, device=dev), parts[4])
+    launch_selective_scan_gated_bwd(*args, y_pre, g, *bufs)
+    got = (bufs[0], bufs[1],
+           bufs[7].sum(0).to(args[2].dtype), *(p.sum(0) for p in bufs[3:7]),
+           bufs[2])
+    bwd_err = gated_bwd_check(f"gated scan backward {shape}", got,
+                              selective_scan_gated_bwd_ref(*args, y_pre, g))
+    del got
+
+    def f32(t):
+        return t.to(torch.float32).contiguous()
+
+    def chain(x, raw, bias, a, b, c, d, z):
+        dt = F.softplus(raw + bias)
+        out = selective_scan(f32(x), f32(dt), f32(a), f32(b), f32(c),
+                             f32(d))
+        return out.to(x.dtype) * (z * torch.sigmoid(z))
+
+    def fwd():
+        launch_selective_scan_gated(*args, y, y_pre)
+
+    def bwd():
+        launch_selective_scan_gated_bwd(*args, y_pre, g, *bufs)
+    forward = dict(max_abs_err=err, ms=time_ms(fwd, 10), **device_time(fwd),
+                   bound_ms=least_ms("selective_scan", shape, card)[0])
+    with torch.no_grad():
+        forward.update(chain_ms=time_ms(lambda: chain(*args), 10),
+                       chain_device_ms=device_time(
+                           lambda: chain(*args))["device_ms"])
+    backward = dict(max_abs_err=bwd_err, ms=time_ms(bwd, 10),
+                    **device_time(bwd),
+                    bound_ms=least_ms("selective_scan_bwd", shape, card)[0])
+    leaves = [t.detach().clone().requires_grad_(t.is_floating_point())
+              for t in args]
+    out = chain(*leaves)
+
+    def chain_bwd():
+        torch.autograd.grad(out, leaves, g, retain_graph=True)
+    backward.update(chain_ms=time_ms(chain_bwd, 10),
+                    chain_device_ms=device_time(chain_bwd)["device_ms"])
+    regs = ssm_registers()
+    bwd_regs = ssm_registers(backward=True)
+    return dict(forward=dict(forward, registers={
+                    k: v for k, v in regs.items() if "gated bf16" in k}),
+                backward=dict(backward, registers={
+                    k: v for k, v in bwd_regs.items() if "gated" in k}),
+                dtype="bfloat16", z="the in-projection's strided half")
 
 
 # The blocked attention: shapes are the wrappers' `launch_shape`, (B, Sq,
@@ -5482,7 +5733,8 @@ def phase_kernels(shapes: dict, path_shapes: dict) -> dict:
              + edge_bitonic(gen, dev) + edge_snapshot(gen, dev)
              + edge_delta(gen, dev) + edge_float_scan(gen, dev)
              + edge_decode(gen, dev) + edge_ssm(gen, dev)
-             + edge_ssm_bwd(gen, dev) + edge_flash(gen, dev)
+             + edge_ssm_bwd(gen, dev) + edge_ssm_gated(gen, dev)
+             + edge_flash(gen, dev)
              + edge_flash_whisper(gen, dev) + edge_adamw(gen, dev)
              + edge_conv(gen, dev))
     whisper_step = whisper_step_check(dev)
@@ -5574,7 +5826,11 @@ def phase_kernels(shapes: dict, path_shapes: dict) -> dict:
                    "gradient's max |value|; adamw 0 (bit for bit); "
                    "causal_conv and causal_conv_bwd one rounding (2**-7 "
                    "relative in bf16, 1e-5 in float32) plus "
-                   f"{CONV_SCALE_TOL} x each result's max |value|",
+                   f"{CONV_SCALE_TOL} x each result's max |value|; the "
+                   "gated scan: y and y_pre 3e-5 (y's scaled by |silu(z)|) "
+                   "plus a bf16 ulp of the float32 chain, its "
+                   f"backward {SSM_BWD_TOL} x each gradient's max |value| "
+                   "(gz 1e-6) plus a bf16 ulp",
          whisper_step=whisper_step,
          kernels=[dict(name=k, ok=True, **m) for k, m in measured.items()])
     return measured

@@ -79,8 +79,16 @@ _SIGNATURES = {
     # stream
     "selective_scan_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _P, _I, _I, _I, _I, _P),
-    # N blocks_per_sm (int*)
-    "selective_scan_bwd_occupancy": (_I, _P),
+    # x dt_raw dt_bias z z_sb z_st a b c d y y_pre B T D N bf16 stream
+    "selective_scan_gated": (_P, _P, _P, _P, _L, _L, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _P),
+    # x dt_raw dt_bias z z_sb z_st y_pre a b c d g gx g_raw gz ga_part
+    # gb_part gc_part gd_part gbias_part ckpt B T D N bf16 stream
+    "selective_scan_gated_bwd": (_P, _P, _P, _P, _L, _L, _P, _P, _P, _P, _P,
+                                 _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                 _I, _I, _I, _I, _P),
+    # N gated bf16 blocks_per_sm (int*)
+    "selective_scan_bwd_occupancy": (_I, _I, _I, _P),
     # q k v out lse B Sq Skv H Hkv d bf16 causal window scale softcap stream
     "flash_attn_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                        _I, _F, _F, _P),

@@ -1,11 +1,12 @@
 """Mamba-1 block (falcon-mamba; jamba's SSM layers).
 
 in_proj -> (x, z); causal depthwise conv (d_conv taps) with its bias and
-SiLU; x_proj -> (dt,B,C); selective scan; silu(z) gate; out_proj. The conv
-and the scan are hand-written kernels on CUDA tensors and their plain
-versions on the CPU. Decode keeps a (d_conv-1)-tap conv state and the
-(D, N) ssm state and steps with the plain recurrence, as the reference
-does.
+SiLU; x_proj -> (dt,B,C); dt's bias and softplus; selective scan; silu(z)
+gate; out_proj. The conv, and the scan with dt's bias and softplus before
+it and the gate after it, are hand-written kernels on CUDA tensors and
+their plain versions on the CPU. Decode keeps a (d_conv-1)-tap conv state
+and the (D, N) ssm state and steps with the plain recurrence, as the
+reference does.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 from torch.nn import functional as F
 
 from repro_torch.kernels.causal_conv import causal_conv_silu
-from repro_torch.kernels.selective_scan import (selective_scan,
+from repro_torch.kernels.selective_scan import (selective_scan_gated,
                                                 selective_scan_step_ref)
 from repro_torch.nn.layers import Params, init_dense, normal, silu
 
@@ -37,29 +38,30 @@ def init_mamba(gen, d_model: int, d_inner: int, d_state: int, d_conv: int,
     return p
 
 
-def _ssm_params(p, xc, d_state, dt_rank):
+def _ssm_inputs(p, xc, d_state, dt_rank):
+    """-> (dt's projection without its bias, A, B, C)."""
     proj = xc @ p["x_proj"]["w"]                               # (B,T,R+2N)
     dt_r, b_mat, c_mat = torch.split(proj, [dt_rank, d_state, d_state],
                                      dim=-1)
-    dt = F.softplus(dt_r @ p["dt_proj"]["w"] + p["dt_proj"]["b"])
     a = -torch.exp(p["a_log"])                                 # (D, N)
-    return dt, a, b_mat, c_mat
+    return dt_r @ p["dt_proj"]["w"], a, b_mat, c_mat
 
 
-def _f32(t):
-    return t.to(torch.float32).contiguous()
+def _ssm_params(p, xc, d_state, dt_rank):
+    dt_raw, a, b_mat, c_mat = _ssm_inputs(p, xc, d_state, dt_rank)
+    return F.softplus(dt_raw + p["dt_proj"]["b"]), a, b_mat, c_mat
 
 
 def mamba_train(p, x, *, d_inner, d_state, d_conv, dt_rank):
-    """x: (B,T,d_model) -> (B,T,d_model). The conv and the scan are the
-    kernels on CUDA tensors (any T), their plain versions on the CPU."""
+    """x: (B,T,d_model) -> (B,T,d_model). The conv and the gated scan are
+    the kernels on CUDA tensors (any T), their plain versions on the
+    CPU."""
     xz = x @ p["in_proj"]["w"]
     xin, z = xz.chunk(2, dim=-1)
     xc = causal_conv_silu(xin, p["conv_w"], p["conv_b"])
-    dt, a, b_mat, c_mat = _ssm_params(p, xc, d_state, dt_rank)
-    y = selective_scan(_f32(xc), _f32(dt), _f32(a), _f32(b_mat),
-                       _f32(c_mat), _f32(p["d_skip"]))
-    y = y.to(x.dtype) * silu(z)
+    dt_raw, a, b_mat, c_mat = _ssm_inputs(p, xc, d_state, dt_rank)
+    y = selective_scan_gated(xc, dt_raw, p["dt_proj"]["b"], a, b_mat, c_mat,
+                             p["d_skip"], z)
     return y @ p["out_proj"]["w"]
 
 

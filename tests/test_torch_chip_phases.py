@@ -34,6 +34,8 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
 from test_torch_causal_conv import fake_conv_launches  # noqa: E402
 from test_torch_flash_attn import fake_flash_launches  # noqa: E402
+from test_torch_kernels_selective_scan import (  # noqa: E402
+    fake_gated_scan_launches)
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -452,15 +454,6 @@ def test_lm_serve_phase_rehearsed_with_whisper(decode_gpu_branch,
     assert line["read_bound_ms_with_cross_kv"] > line["weights_read_bound_ms"]
 
 
-def _fake_scan_launch(monkeypatch):
-    from repro_torch.kernels.selective_scan import ops as scan_ops
-
-    def scan(x, dt, a, b, c, d, y):
-        y.copy_(scan_ops.selective_scan_ref(x, dt, a, b, c, d))
-    monkeypatch.setattr(scan_ops, "on_gpu", lambda *t: True)
-    monkeypatch.setattr(scan_ops, "launch_selective_scan", scan)
-
-
 def test_lm_serve_phase_rehearsed_with_falcon_mamba(decode_gpu_branch,
                                                     monkeypatch, capsys):
     """falcon-mamba-7b-smoke through the phase, the scan's and the conv's
@@ -469,7 +462,7 @@ def test_lm_serve_phase_rehearsed_with_falcon_mamba(decode_gpu_branch,
     step)."""
     from repro_torch import configs
     monkeypatch.setattr(configs, "get_config", configs.get_smoke_config)
-    _fake_scan_launch(monkeypatch)
+    fake_gated_scan_launches(monkeypatch)
     fake_conv_launches(monkeypatch)
     args = argparse.Namespace(lm_models=["falcon-mamba-7b"], lm_batch=4,
                               lm_prompt=6, lm_gen=3, lm_prefill=32, seed=0)
@@ -589,8 +582,8 @@ def test_lm_serve_phase_fails_on_wrong_cross_kv(decode_gpu_branch,
 
 @pytest.fixture
 def train_gpu_branch(monkeypatch):
-    """The GPU branch of the wrappers `lm_train` runs - the selective scan
-    and its backward, the k-way merge, the fused apply, the snapshot copy,
+    """The GPU branch of the wrappers `lm_train` runs - the gated selective
+    scan and its backward (`fake_gated_scan_launches`), the k-way merge, the fused apply, the snapshot copy,
     AdamW's update - and whisper's training runs - the blocked attention
     and its backward (`fake_flash_launches`), the causal conv and its
     backward (`fake_conv_launches`) - with each bare launch
@@ -600,21 +593,7 @@ def train_gpu_branch(monkeypatch):
     from repro_torch.kernels.adamw import ops as adamw_ops
     from repro_torch.kernels.bitonic_sort import ops as bitonic_ops
     from repro_torch.kernels.merge_runs import ops as merge_ops
-    from repro_torch.kernels.selective_scan import ops as scan_ops
     from repro_torch.kernels.snapshot_copy import ops as snap_ops
-
-    def scan(x, dt, a, b, c, d, y):
-        y.copy_(scan_ops.selective_scan_ref(x, dt, a, b, c, d))
-
-    def scan_bwd(x, dt, a, b, c, d, gy, gx, gdt, ga_part, gb_part, gc_part,
-                 gd_part, ckpt):
-        gx_, gdt_, ga, gb, gc, gd = scan_ops.selective_scan_bwd_ref(
-            x, dt, a, b, c, d, gy)
-        gx.copy_(gx_)
-        gdt.copy_(gdt_)
-        for part, total in ((ga_part, ga), (gb_part, gb), (gc_part, gc),
-                            (gd_part, gd)):
-            part.zero_()[0] = total
 
     def kway(keys, offsets, out_keys, out_idx):
         # runs concatenated in order, each ascending: a stable sort keeps
@@ -631,15 +610,14 @@ def train_gpu_branch(monkeypatch):
     def snap(src, prev, flags_u8, out, block=8192):
         out.copy_(snap_ops.snapshot_copy_ref(src, prev, flags_u8, block))
 
-    for mod, name, fake in ((scan_ops, "launch_selective_scan", scan),
-                            (scan_ops, "launch_selective_scan_bwd", scan_bwd),
-                            (merge_ops, "launch_merge_kway", kway),
+    for mod, name, fake in ((merge_ops, "launch_merge_kway", kway),
                             (bitonic_ops, "launch_bitonic_apply", apply),
                             (snap_ops, "launch_snapshot_copy", snap),
                             (adamw_ops, "launch_adamw",
                              adamw_ops.adamw_update_ref)):
         monkeypatch.setattr(mod, "on_gpu", lambda *t: True)
         monkeypatch.setattr(mod, name, fake)
+    fake_gated_scan_launches(monkeypatch)
     fake_flash_launches(monkeypatch)
     fake_conv_launches(monkeypatch)
     for fn in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
@@ -689,6 +667,7 @@ def test_lm_train_phase_rehearsed(train_gpu_branch, monkeypatch, capsys):
     assert "num_hidden_layers" in line["reduced"]
     assert launches["selective_scan"] == 2 * 2 * 2 * 3
     assert launches["selective_scan_bwd"] == 2 * 2 * 3
+    assert line["gated_scans"] == launches["selective_scan"]
     assert launches["causal_conv"] == 2 * 2 * 2 * 3
     assert launches["causal_conv_bwd"] == 2 * 2 * 3
     # bf16 leaves with masters, and A's log and the skip in float32
@@ -738,13 +717,13 @@ def test_lm_train_phase_fails_on_a_missing_backward_launch(
     phase must fail on the counts."""
     from repro_torch.kernels.selective_scan import ops as scan_ops
     _tiny_cell(monkeypatch)
-    real = scan_ops.selective_scan
+    real = scan_ops.selective_scan_gated
 
     def no_graph(*args):
         with torch.no_grad():
             return real(*args)
     import repro_torch.nn.mamba as mamba
-    monkeypatch.setattr(mamba, "selective_scan", no_graph)
+    monkeypatch.setattr(mamba, "selective_scan_gated", no_graph)
     with pytest.raises(AssertionError, match="gradient|launches"):
         chip_smoke.phase_lm_train(argparse.Namespace(seed=0), dev=CPU)
 
@@ -778,18 +757,18 @@ def test_lm_train_grad_check_fails_on_a_wrong_backward(train_gpu_branch,
     from repro_torch.models import lm
     _tiny_cell(monkeypatch)
     cfg = lm_train.model_config(chip_smoke.train_cell(0, CPU).config)
-    real_bwd, real_loss = scan_ops.launch_selective_scan_bwd, lm.lm_loss
+    real_bwd, real_loss = scan_ops.launch_selective_scan_gated_bwd, lm.lm_loss
     seen = []
 
     def wrong(*args):
         real_bwd(*args)
-        args[10].zero_()                        # gb_part
+        args[14].zero_()                        # gb_part
 
     def loss(model, *args):
         seen.append(model)
         return real_loss(model, *args)
 
-    monkeypatch.setattr(scan_ops, "launch_selective_scan_bwd", wrong)
+    monkeypatch.setattr(scan_ops, "launch_selective_scan_gated_bwd", wrong)
     monkeypatch.setattr(lm, "lm_loss", loss)
     monkeypatch.setattr(scan_ops, "on_gpu",
                         lambda *t: len(seen) == 1)
@@ -799,7 +778,8 @@ def test_lm_train_grad_check_fails_on_a_wrong_backward(train_gpu_branch,
     assert len(seen) == 2
     # the same check passes with the right backward
     seen.clear()
-    monkeypatch.setattr(scan_ops, "launch_selective_scan_bwd", real_bwd)
+    monkeypatch.setattr(scan_ops, "launch_selective_scan_gated_bwd",
+                        real_bwd)
     out = chip_smoke.train_grad_check(cfg, argparse.Namespace(seed=0), CPU)
     assert len(seen) == 2 and out["max_rel_err"] <= chip_smoke.LM_GRAD_TOL
 
@@ -874,7 +854,8 @@ def test_encdec_train_phase_fails_on_a_stray_scan_launch(train_gpu_branch,
     a, b = -torch.rand(128, 4), torch.randn(1, 8, 4, generator=g)
 
     def swiglu(p, h):
-        scan_ops.selective_scan(x, dt, a, b, b, torch.ones(128))
+        scan_ops.selective_scan_gated(x, dt, torch.zeros(128), a, b, b,
+                                      torch.ones(128), x)
         return real(p, h)
     monkeypatch.setattr(encdec, "swiglu", swiglu)
     with pytest.raises(AssertionError, match="no other hand-written kernel"):

@@ -10,7 +10,12 @@ one bf16 step more), the float32 scan with an exact count
 and its sum within ``float_scan_error_bound`` of the exact sum and 1e-5 *
 sum(|v|) of the plain version's, AdamW's update bit for bit, the causal
 conv and its backward within one rounding of the float32 plain version
-(dw and db bit for bit repeatable).
+(dw and db bit for bit repeatable), the gated selective scan (dt's bias
+and softplus, the silu(z) gate) and its backward against the same chain
+in float32 from the same operands: y within the scan's 3e-5 and one ulp
+of its type, each gradient within 1e-4 of its largest |value|
+and one ulp of its type (z's, which sums nothing, 1e-6), bit for bit
+repeatable.
 
 Marked ``gpu``; every test skips when no GPU is present (decided when the
 test runs, never at import). This file imports nothing of the JAX package,
@@ -886,3 +891,133 @@ def test_causal_conv_autograd_runs_both_kernels(cuda):
         _conv_close(got, ref)
     assert not xz.grad[..., 264:].any()
     del leaves
+
+
+# The gated selective scan: Mamba's x, dt's raw projection, its bias and
+# z (the in-projection's second half, a strided view) in bf16 or float32;
+# training's shape sliced along D and T, ragged T and D, every d_state.
+GATED_CASES = [(1, 4096, 256, 16), (1, 257, 8192, 16), (1, 1, 1, 4),
+               (2, 257, 100, 8), (3, 1000, 130, 16), (2, 129, 4101, 8),
+               (1, 40, 70, 4), (4, 2048, 96, 16)]
+
+
+def _gated_inputs(cuda, B, T, D, N, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x, _, a, b, c, d, _ = _scan_inputs(cuda, B, T, D, N, seed)
+    raw = torch.randn((B, T, D), generator=gen, device=cuda) - 2.5
+    bias = torch.randn((D,), generator=gen, device=cuda) * 0.3
+    xz = torch.randn((B, T, 2 * D), generator=gen, device=cuda).to(dtype)
+    g = torch.randn((B, T, D), generator=gen, device=cuda).to(dtype)
+    return (x.to(dtype), raw.to(dtype), bias.to(dtype), a, b, c, d,
+            xz.chunk(2, dim=-1)[1]), g
+
+
+def _rounding(dtype):
+    """One ulp of `dtype`, relative: 2**-7 in bf16; float32 a few ulps."""
+    return 2**-7 if dtype == torch.bfloat16 else 1e-6
+
+
+def _gated_forward_close(args, y, y_pre):
+    """y_pre within the scan's 3e-5 (relative plus absolute) and one ulp of
+    the float32 chain's; y the same, the scan's part carried through the
+    gate (|silu(z)|)."""
+    from repro_torch.kernels.selective_scan import selective_scan_gated_f32
+    want, pre = selective_scan_gated_f32(*args)
+    z = args[7].float()
+    silu = z * torch.sigmoid(z)
+    r = _rounding(y.dtype)
+    for got, w, tol in (
+            (y_pre, pre, r * pre.abs() + 3e-5 * (1 + pre.abs())),
+            (y, want, r * want.abs() + 3e-5 * (1 + pre.abs()) * silu.abs())):
+        assert got.dtype == args[0].dtype and got.is_contiguous()
+        assert bool(((got.float() - w).abs() <= tol + 1e-30).all())
+
+
+def _gated_grads_close(got, want):
+    """The eight gradients, each within 1e-4 of its largest |value| (gz
+    1e-6) plus an ulp of its type (both sides rounded once)."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and g.dtype == w.dtype, i
+        if not g.numel():
+            continue
+        wf = w.float()
+        tol = (1e-6 if i == 7 else 1e-4) * float(wf.abs().max()) \
+            + _rounding(g.dtype) * wf.abs()
+        assert bool(((g.float() - wf).abs() <= tol + 1e-30).all()), i
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,T,D,N", GATED_CASES)
+def test_gated_scan_kernels_match_the_float32_chain(cuda, B, T, D, N, dtype):
+    """The gated forward (y and y_pre) and backward against the chain in
+    float32 from the same operands; one launch each, counted under the
+    plain kernels' names and shapes; two backward calls equal bit for
+    bit."""
+    from repro_torch.kernels.selective_scan import (
+        selective_scan_gated_bwd, selective_scan_gated_bwd_ref)
+    from repro_torch.kernels.selective_scan.ops import _gated_forward_gpu
+    args, g = _gated_inputs(cuda, B, T, D, N, dtype, B + T + D)
+    reset_kernel_launch_counts()
+    y, y_pre = _gated_forward_gpu(*args, True)
+    got = selective_scan_gated_bwd(*args, y_pre, g)
+    torch.cuda.synchronize()
+    assert kernel_launch_shapes() == {
+        "selective_scan": {(B, T, D, N): 1},
+        "selective_scan_bwd": {(B, T, D, N): 1}}
+    _gated_forward_close(args, y, y_pre)
+    _gated_grads_close(got, selective_scan_gated_bwd_ref(*args, y_pre, g))
+    again = selective_scan_gated_bwd(*args, y_pre, g)
+    assert all(torch.equal(p, q) for p, q in zip(got, again))
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "offset"])
+def test_gated_scan_with_z_off_the_in_projection(cuda, layout):
+    """z a contiguous tensor, or a view one element off a 4-byte boundary
+    (the element-wise staging), in bf16."""
+    from repro_torch.kernels.selective_scan import (
+        selective_scan_gated_bwd, selective_scan_gated_bwd_ref)
+    from repro_torch.kernels.selective_scan.ops import _gated_forward_gpu
+    args, g = _gated_inputs(cuda, 2, 131, 264, 16, torch.bfloat16, 9)
+    wide = torch.randn((2, 131, 265), device=cuda).to(torch.bfloat16)
+    z = args[7].contiguous() if layout == "contiguous" else wide[..., 1:]
+    args = (*args[:7], z)
+    y, y_pre = _gated_forward_gpu(*args, True)
+    _gated_forward_close(args, y, y_pre)
+    _gated_grads_close(selective_scan_gated_bwd(*args, y_pre, g),
+                       selective_scan_gated_bwd_ref(*args, y_pre, g))
+
+
+def test_gated_scan_autograd_through_the_in_projection(cuda):
+    """`selective_scan_gated` on the in-projection's halves with gradients
+    on: both gated kernels once, one ``mamba.gated_scan``, the gradient of
+    z reaching the projection's second half, and without autograd no
+    y_pre and the same y."""
+    from repro_torch import tracing
+    from repro_torch.kernels.selective_scan import (
+        selective_scan_gated, selective_scan_gated_bwd_ref)
+    from repro_torch.kernels.selective_scan.ops import _gated_forward_gpu
+    args, g = _gated_inputs(cuda, 1, 300, 264, 16, torch.bfloat16, 3)
+    xz = torch.randn((1, 300, 528), device=cuda).to(torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in (*args[:7], xz)]
+    reset_kernel_launch_counts()
+    tracing.clear()
+    with tracing.recording():
+        y = selective_scan_gated(*leaves[:7], leaves[7].chunk(2, dim=-1)[1])
+    counted = sum(r.counts.get("mamba.gated_scan", 0)
+                  for r in tracing.records())
+    tracing.clear()
+    (y.float() * g.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert counted == 1
+    assert kernel_launch_counts() == {"selective_scan": 1,
+                                      "selective_scan_bwd": 1}
+    z = xz[..., 264:]
+    plain = (*args[:7], z)
+    _, y_pre = _gated_forward_gpu(*plain, True)
+    want = selective_scan_gated_bwd_ref(*plain, y_pre, g)
+    grad_xz = leaves[7].grad
+    _gated_grads_close([t.grad for t in leaves[:7]] + [grad_xz[..., 264:]],
+                       want)
+    assert not grad_xz[..., :264].any()
+    with torch.no_grad():
+        assert torch.equal(selective_scan_gated(*plain), y.detach())

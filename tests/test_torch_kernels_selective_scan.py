@@ -243,8 +243,8 @@ def test_backward_constants_match_the_source():
     assert m, "bwd_lanes not found in selective_scan.cu"
     assert {4: int(m.group(1)), 8: int(m.group(2)),
             16: int(m.group(2))} == scan_ops.BWD_LANES
-    for entry in ("launch_bwd", "occupancy_bwd"):
-        built = {int(n) for n in re.findall(rf"{entry}<(\d+)>\(", src)}
+    for entry in ("launch", "launch_bwd", "occupancy_bwd"):
+        built = {int(n) for n in re.findall(rf"\b{entry}<(\d+)\b", src)}
         assert built == set(STATE_SIZES), entry
 
 
@@ -429,3 +429,218 @@ def test_selective_scan_backward_refuses_cpu_tensors(rng):
                                 needs_input_grad=(True,) * 6)
     with pytest.raises(RuntimeError, match="CUDA tensors only"):
         scan_ops.SelectiveScan.backward(ctx, torch.ones(1, 3, 4))
+
+
+# ---------------------------------------------------------------------------
+# The gated entry (`selective_scan_gated`): dt's bias and softplus before
+# the scan, the silu(z) gate after it. On the CPU it is Mamba's plain chain
+# bit for bit; its GPU branch is rehearsed with each bare launch writing
+# the kernel's arithmetic (`selective_scan_gated_f32`,
+# `selective_scan_gated_bwd_ref`: float32 from the operands, each output
+# rounded once).
+# ---------------------------------------------------------------------------
+
+BF = torch.bfloat16
+
+
+def _gated_inputs(rng, B, Tn, D, N, dtype=torch.float32):
+    """x, dt_raw, dt_bias, a, b, c, d, z as Mamba's block hands them: x,
+    dt_raw, dt_bias of `dtype`, z the second half of a (B, T, 2 D)
+    projection (a strided view), b and c slices of x_proj's output, a and
+    d float32."""
+    x, dt, a, b, c, d = map(T, _inputs(rng, B, Tn, D, N))
+    raw = T(rng.normal(size=(B, Tn, D)).astype(np.float32)) - 2.5
+    bias = T(rng.normal(size=(D,)).astype(np.float32)) * 0.3
+    xz = T(rng.normal(size=(B, Tn, 2 * D)).astype(np.float32)).to(dtype)
+    proj = torch.cat([b, c], -1).to(dtype)
+    return (x.to(dtype), raw.to(dtype), bias.to(dtype), a,
+            proj[..., :N], proj[..., N:], d, xz.chunk(2, dim=-1)[1])
+
+
+def _todays_chain(x, dt_raw, dt_bias, a, b, c, d, z):
+    """Mamba's block before the gated entry, written out: the biased
+    softplus in the operands' type, the float32 scan on float32 copies,
+    y rounded back, times silu(z)."""
+    def f32(t):
+        return t.to(torch.float32).contiguous()
+    dt = torch.nn.functional.softplus(dt_raw + dt_bias)
+    y = selective_scan(f32(x), f32(dt), f32(a), f32(b), f32(c), f32(d))
+    return y.to(x.dtype) * (z * torch.sigmoid(z))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF])
+@pytest.mark.parametrize("B,Tn,D,N", [(1, 9, 6, 4), (2, 21, 10, 16)])
+def test_gated_plain_version_is_todays_chain_bit_for_bit(rng, B, Tn, D, N,
+                                                         dtype):
+    """The CPU's gated entry against the chain it replaced, forward and
+    every gradient, in float32 and bf16."""
+    from repro_torch.kernels.selective_scan import selective_scan_gated
+    args = _gated_inputs(rng, B, Tn, D, N, dtype)
+    g = T(rng.normal(size=(B, Tn, D)).astype(np.float32)).to(dtype)
+    outs = []
+    for fn in (_todays_chain, selective_scan_gated):
+        leaves = [t.detach().clone().requires_grad_() for t in args]
+        y = fn(*leaves)
+        outs.append((y, torch.autograd.grad(y, leaves, g)))
+    (want, want_g), (got, got_g) = outs
+    assert got.dtype == dtype and torch.equal(got, want)
+    for i, (p, q) in enumerate(zip(got_g, want_g)):
+        assert p.dtype == q.dtype and torch.equal(p, q), i
+
+
+@pytest.mark.parametrize("B,Tn,D,N", [(1, 9, 6, 4), (2, 40, 33, 8)])
+def test_gated_written_out_backward_matches_autograd(rng, B, Tn, D, N):
+    """`selective_scan_gated_bwd_ref`, the kernel's backward in plain
+    PyTorch, against autograd of the float32 chain (within 1e-5 of each
+    gradient's largest |value|), dt_raw past softplus's threshold in a
+    few places."""
+    from repro_torch.kernels.selective_scan import (
+        selective_scan_gated_bwd_ref, selective_scan_gated_f32,
+        selective_scan_gated_ref)
+    args = list(_gated_inputs(rng, B, Tn, D, N))
+    args[1] = args[1].clone()
+    args[1][:, ::5, ::3] = 21.0
+    g = T(rng.normal(size=(B, Tn, D)).astype(np.float32))
+    leaves = [t.detach().clone().requires_grad_() for t in args]
+    want = torch.autograd.grad(selective_scan_gated_ref(*leaves), leaves, g)
+    y, y_pre = selective_scan_gated_f32(*args)
+    assert torch.equal(y, selective_scan_gated_ref(*args))
+    gx, g_raw, gbias, ga, gb, gc, gd, gz = selective_scan_gated_bwd_ref(
+        *args, y_pre, g)
+    _assert_rel([gx, g_raw, gbias, ga, gb, gc, gd, gz],
+                [w.numpy() for w in want], what="written-out gated")
+
+
+def test_mamba_train_on_the_cpu_launches_nothing(rng):
+    """The block on CPU tensors: the plain chain, no kernel launched and no
+    ``mamba.gated_scan`` counted."""
+    from repro_torch import tracing
+    from repro_torch.nn.mamba import init_mamba, mamba_train
+    gen = torch.Generator().manual_seed(0)
+    p = init_mamba(gen, 16, 32, 4, 4, 2)
+    x = T(rng.normal(size=(2, 7, 16)).astype(np.float32))
+    reset_kernel_launch_counts()
+    tracing.clear()
+    with tracing.recording():
+        y = mamba_train(p, x, d_inner=32, d_state=4, d_conv=4, dt_rank=2)
+    assert y.shape == x.shape and torch.isfinite(y).all()
+    assert kernel_launch_counts() == {}
+    assert not any("mamba.gated_scan" in r.counts for r in tracing.records())
+    tracing.clear()
+
+
+def fake_gated_scan_launches(monkeypatch):
+    """The gated entry's GPU branch on CPU tensors: each bare launch writes
+    the kernel's arithmetic in plain PyTorch (float32 from the operands,
+    each output rounded once by `copy_`; the backward's partial sums in
+    their first row, as float32). Returns the y_pre each forward launch got (None
+    where no backward follows)."""
+    seen = []
+
+    def fwd(x, dt_raw, dt_bias, a, b, c, d, z, y, y_pre=None):
+        assert y.is_contiguous() and y.dtype == x.dtype
+        seen.append(y_pre)
+        out, pre = scan_ops.selective_scan_gated_f32(x, dt_raw, dt_bias, a,
+                                                     b, c, d, z)
+        y.copy_(out)
+        if y_pre is not None:
+            y_pre.copy_(pre)
+
+    def bwd(x, dt_raw, dt_bias, a, b, c, d, z, y_pre, g, gx, g_raw, gz,
+            ga_part, gb_part, gc_part, gd_part, gbias_part, ckpt):
+        B, Tn, D = x.shape
+        want = scan_ops._bwd_buffers(B, Tn, D, a.shape[1], "meta")
+        assert [t.shape for t in (ga_part, gb_part, gc_part, gd_part,
+                                  ckpt)] == [t.shape for t in want]
+        assert gbias_part.shape == (B, D)
+        gx_, gr_, gbias, ga, gb, gc, gd, gz_ = \
+            scan_ops.selective_scan_gated_bwd_ref(x, dt_raw, dt_bias, a, b,
+                                                  c, d, z, y_pre, g)
+        for out, val in ((gx, gx_), (g_raw, gr_), (gz, gz_)):
+            out.copy_(val)
+        for part, total in ((ga_part, ga), (gb_part, gb), (gc_part, gc),
+                            (gd_part, gd), (gbias_part, gbias.float())):
+            part.zero_()[0] = total
+
+    monkeypatch.setattr(scan_ops, "on_gpu", lambda *tensors: True)
+    monkeypatch.setattr(scan_ops, "launch_selective_scan_gated", fwd)
+    monkeypatch.setattr(scan_ops, "launch_selective_scan_gated_bwd", bwd)
+    return seen
+
+
+@pytest.fixture
+def gated_gpu_branch(monkeypatch):
+    reset_kernel_launch_counts()
+    yield fake_gated_scan_launches(monkeypatch)
+    reset_kernel_launch_counts()
+
+
+@pytest.mark.parametrize("B,Tn,D,N", [(1, 1, 1, 4), (2, 37, 100, 8),
+                                      (3, 70, 130, 16)])
+def test_gated_autograd_gpu_branch(gated_gpu_branch, rng, B, Tn, D, N):
+    """`SelectiveScanGated` rehearsed: the plain chain's gradients, one
+    launch each way counted under the plain kernels' names and shapes, one
+    ``mamba.gated_scan``, y_pre kept for the backward; None where an input
+    needs no gradient; without autograd, no y_pre."""
+    from repro_torch import tracing
+    from repro_torch.kernels.selective_scan import (selective_scan_gated,
+                                                    selective_scan_gated_ref)
+    args = _gated_inputs(rng, B, Tn, D, N)
+    g = T(rng.normal(size=(B, Tn, D)).astype(np.float32))
+    plain = [t.detach().clone().requires_grad_() for t in args]
+    want = torch.autograd.grad(selective_scan_gated_ref(*plain), plain, g)
+    leaves = [t.detach().clone().requires_grad_(i != 6)
+              for i, t in enumerate(args)]
+    tracing.clear()
+    with tracing.recording():
+        y = selective_scan_gated(*leaves)
+    counted = sum(r.counts.get("mamba.gated_scan", 0)
+                  for r in tracing.records())
+    tracing.clear()
+    assert counted == 1 and y.grad_fn is not None
+    y.backward(g)
+    assert kernel_launch_shapes() == {
+        "selective_scan": {(B, Tn, D, N): 1},
+        "selective_scan_bwd": {(B, Tn, D, N): 1}}
+    assert gated_gpu_branch[0] is not None and leaves[6].grad is None
+    got = [t.grad for i, t in enumerate(leaves) if i != 6]
+    _assert_rel([t.numpy() for t in got],
+                [w.numpy() for i, w in enumerate(want) if i != 6],
+                what="rehearsed gated")
+    reset_kernel_launch_counts()
+    with torch.no_grad():
+        assert selective_scan_gated(*leaves).grad_fn is None
+    assert kernel_launch_counts() == {"selective_scan": 1}
+    assert gated_gpu_branch[-1] is None
+
+
+def test_gated_gpu_branch_refuses(gated_gpu_branch, rng):
+    from repro_torch.kernels.selective_scan import selective_scan_gated
+    x, raw, bias, a, b, c, d, z = _gated_inputs(rng, 1, 5, 8, 16, BF)
+    with pytest.raises(TypeError):                        # mixed types
+        selective_scan_gated(x.float(), raw, bias, a, b, c, d, z)
+    with pytest.raises(TypeError):
+        selective_scan_gated(x.double(), raw.double(), bias.double(), a, b,
+                             c, d, z.double())
+    z_t = z.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError):                       # z along T
+        selective_scan_gated(x, raw, bias, a, b, c, d, z_t)
+    with pytest.raises(ValueError):                       # not contiguous
+        selective_scan_gated(x.transpose(0, 1), raw, bias, a, b, c, d, z)
+    with pytest.raises(ValueError):                       # d_state 12
+        selective_scan_gated(x, raw, bias, a[:, :12], b[..., :12],
+                             c[..., :12], d, z)
+    with pytest.raises(ValueError):                       # bias
+        selective_scan_gated(x, raw, bias[:4], a, b, c, d, z)
+    assert gated_gpu_branch == [] and kernel_launch_counts() == {}
+
+
+def test_gated_backward_refuses_cpu_tensors(rng):
+    """The gated Function's backward never falls back to the plain
+    version."""
+    import types
+    args = _gated_inputs(rng, 1, 3, 4, 4)
+    ctx = types.SimpleNamespace(saved_tensors=(*args, args[0]),
+                                needs_input_grad=(True,) * 8)
+    with pytest.raises(RuntimeError, match="CUDA tensors only"):
+        scan_ops.SelectiveScanGated.backward(ctx, torch.ones(1, 3, 4))

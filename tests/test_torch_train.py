@@ -44,10 +44,10 @@ from repro.models import encdec as ref_encdec
 from repro.models import lm as ref_lm
 from repro_torch import configs, optim
 from repro_torch.kernels import common
-from repro_torch.kernels.selective_scan import ops as scan_ops
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.encdec import encdec_params_from_reference
 from repro_torch.models.lm import lm_loss, params_from_reference
+from test_torch_kernels_selective_scan import fake_gated_scan_launches
 
 torch.set_num_threads(1)
 T = torch.from_numpy
@@ -270,25 +270,10 @@ def test_remat_gives_equal_losses_and_gradients(name):
 
 @pytest.fixture
 def scan_gpu_branch(monkeypatch):
-    """Call to take the selective scan's GPU branch on CPU tensors: both
-    bare launches then write the plain versions' results."""
-    def fwd(x, dt, a, b, c, d, y):
-        y.copy_(scan_ops.selective_scan_ref(x, dt, a, b, c, d))
-
-    def bwd(x, dt, a, b, c, d, gy, gx, gdt, ga_part, gb_part, gc_part,
-            gd_part, ckpt):
-        gx_, gdt_, ga, gb, gc, gd = scan_ops.selective_scan_bwd_ref(
-            x, dt, a, b, c, d, gy)
-        gx.copy_(gx_)
-        gdt.copy_(gdt_)
-        for part, total in ((ga_part, ga), (gb_part, gb), (gc_part, gc),
-                            (gd_part, gd)):
-            part.zero_()[0] = total
-
+    """Call to take the gated selective scan's GPU branch on CPU tensors:
+    both bare launches then write the plain versions' results."""
     def enable():
-        monkeypatch.setattr(scan_ops, "on_gpu", lambda *t: True)
-        monkeypatch.setattr(scan_ops, "launch_selective_scan", fwd)
-        monkeypatch.setattr(scan_ops, "launch_selective_scan_bwd", bwd)
+        fake_gated_scan_launches(monkeypatch)
         common.reset_kernel_launch_counts()
 
     yield enable
@@ -298,8 +283,8 @@ def scan_gpu_branch(monkeypatch):
 @pytest.mark.parametrize("remat", [False, True])
 def test_kernel_branch_gradients_equal_plain_autograd(scan_gpu_branch,
                                                       remat):
-    """falcon-mamba through `SelectiveScan` against autograd through the
-    plain scan: the same loss and gradients, every Mamba mixer parameter's
+    """falcon-mamba through `SelectiveScanGated` against autograd through
+    the plain chain: the same loss and gradients, every Mamba mixer parameter's
     non-zero; one forward launch a layer (two with remat) and one backward
     launch a layer."""
     cfg, tree, tcfg = _ref("falcon-mamba-7b")
