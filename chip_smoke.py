@@ -21,8 +21,8 @@ script's wall seconds so far, ``elapsed_seconds``):
                  spill bytes, and the HGMMA and HMMA instructions of its
                  SASS, read with ``cuobjdump -sass``: every bf16 instance
                  must issue tensor-core instructions, the forward at the
-                 paths' head_dims 64 and 256 HGMMA, and no bf16 instance
-                 at 64 or 256 may spill).
+                 paths' head_dims 64, 128 and 256 HGMMA, and no bf16
+                 instance at 64, 128 or 256 may spill).
 3. ``main_path`` one HTAP session of the full system (`Polynesia` preset,
                  ``backend="hopper"``) at 10,000,000 rows x 8 columns,
                  400,000 transactions, 32 queries, 4 rounds, plus one late
@@ -4900,7 +4900,7 @@ def flash_blocks(q, k) -> dict:
 
 
 FLASH_PASSES = ("fwd", "bwd_dq", "bwd_dkdv")
-FLASH_PATH_DH = (64, 256)     # whisper's and gemma2's head_dims
+FLASH_PATH_DH = (64, 128, 256)   # whisper's, Jamba's and gemma2's
 
 
 def flash_key(entry: str) -> str | None:

@@ -39,6 +39,9 @@ _MODULES = {
     # whisper's own block at its large published widths (the benchmark's
     # whisper-train cell); not one of the assigned ARCH_NAMES
     "whisper-large-v3": "whisper_large_v3",
+    # AI21's Jamba block at Jamba2-3B's published widths (the benchmark's
+    # jamba2-3b-train-32k cell); not one of the assigned ARCH_NAMES
+    "ai21-jamba2-3b": "ai21_jamba2_3b",
 }
 
 

@@ -30,6 +30,18 @@ class WhisperBlock:
 
 
 @dataclasses.dataclass(frozen=True)
+class JambaBlock:
+    """AI21's Jamba block (arXiv:2403.19887; `JambaMambaMixer` and
+    `JambaAttention` in ``transformers``), for a `JambaConfig`: RMS norms
+    (the repository's `rmsnorm`, eps 1e-6 as every norm of the stack:
+    float32 inside, the scale applied before the cast back) on the Mamba
+    mixer's dt low-rank part, B and C right after ``x_proj``, their scales
+    leaves of the Mamba layer (``dt_norm``, ``b_norm``, ``c_norm``);
+    attention with no positional encoding (no RoPE); and a head tied to
+    the token embedding (logits ``x @ table.T``, no ``head`` leaf)."""
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     n_layers: int
@@ -64,6 +76,9 @@ class ModelConfig:
     # reference's whisper-shaped stand-in (RMSNorm, SwiGLU, RoPE, a stub
     # front end, an untied head); `WhisperConfig` sets whisper's own
     whisper = None
+    # the decoder's Jamba block (a class attribute too): None, the
+    # reference's blocks; `JambaConfig` sets it
+    jamba = None
     # modality frontend stub: None | "patch" (vlm) | "frames" (audio)
     frontend: str | None = None
     n_frontend_tokens: int = 1024
@@ -71,7 +86,7 @@ class ModelConfig:
     param_dtype: str = "float32"
     activ_dtype: str = "float32"
     loss_chunk: int = 0                # >0: chunked cross-entropy over seq
-    remat: bool = False                # activation checkpointing per period
+    remat: bool = False                # activation checkpointing per layer
     # attention family flags (for long_500k applicability, DESIGN.md §5)
     sub_quadratic: bool = False
 
@@ -118,7 +133,8 @@ class ModelConfig:
                     + (self.n_enc_layers or self.n_layers) * (attn + mlp
                                                               + 4 * d)
                     + self.n_layers * (2 * attn + mlp + 6 * d) + 4 * d)
-        n = 2 * self.vocab_size * d  # embed + head (untied)
+        # embed + head (untied; Jamba's head is the embedding)
+        n = (1 if self.jamba is not None else 2) * self.vocab_size * d
         for spec in self.blocks:
             reps = self.n_periods
             if spec.mixer in ("attn", "attn_local", "bidir"):
@@ -130,6 +146,8 @@ class ModelConfig:
                              + di * (self.dt_rank + 2 * self.d_state)
                              + self.dt_rank * di + di * self.d_state + di
                              + di * d)
+                if self.jamba is not None:     # the dt, B and C norms
+                    n += reps * (self.dt_rank + 2 * self.d_state)
             if spec.mlp == "dense":
                 n += reps * 3 * d * dff
             elif spec.mlp == "moe":
@@ -158,3 +176,11 @@ class WhisperConfig(ModelConfig):
     reference's stand-in)."""
 
     whisper: WhisperBlock | None = WhisperBlock()
+
+
+@dataclasses.dataclass(frozen=True)
+class JambaConfig(ModelConfig):
+    """A `ModelConfig` with one more field, ``jamba``: the decoder's layers
+    run Jamba's block (`JambaBlock`; None: the reference's)."""
+
+    jamba: JambaBlock | None = JambaBlock()

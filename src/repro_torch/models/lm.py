@@ -3,11 +3,15 @@
 Covers dense GQA (phi3, deepseek-coder, qwen2.5), local/global alternation
 with softcaps (gemma2), pure SSM (falcon-mamba) and the VLM backbone
 (internvl2, with its patch-embedding stub), MoE (kimi-k2, llama4) and
-the hybrid of attention, Mamba and MoE (jamba). An `LM` holds one module
-per layer in an ``nn.ModuleList`` and the depth loop is a Python loop; the
-reference stacks each period's parameters and scans over them (layer
-``p * period + i`` here is stacked period ``p``, block ``i`` there). The
-encoder-decoder (whisper) has its own assembly, `models.encdec`.
+the hybrid of attention, Mamba and MoE (jamba), and, opt-in through a
+`JambaConfig`, AI21's Jamba block (norms in the Mamba mixer, attention
+without RoPE, a tied head). An `LM` holds one module per layer in an
+``nn.ModuleList`` and the depth loop is a Python loop; the reference
+stacks each period's parameters and scans over them (layer ``p * period +
+i`` here is stacked period ``p``, block ``i`` there). With remat each
+layer is checkpointed, where the reference checkpoints each period: the
+same numbers, one layer's activations live at a time. The encoder-decoder
+(whisper) has its own assembly, `models.encdec`.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tracing
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.config import BlockSpec, ModelConfig
 from repro_torch.nn.attention import (attention_decode, attention_train,
@@ -54,14 +59,18 @@ class Block(Params):
 
 class LM(nn.Module):
     """The model: ``embed``, ``layers`` (one `Block` per layer), ``ln_f``
-    and ``head``; ``forward`` is `lm_apply`."""
+    and ``head`` (None where Jamba's block ties it to the embedding);
+    ``forward`` is `lm_apply`."""
 
     def __init__(self, cfg: ModelConfig, embed: Params, layers: list[Block],
-                 ln_f: Params, head: Params):
+                 ln_f: Params, head: Params | None):
         super().__init__()
         check_supported(cfg)
         if len(layers) != cfg.n_layers:
             raise ValueError(f"{len(layers)} layers for {cfg.n_layers}")
+        if (head is None) != (cfg.jamba is not None):
+            raise ValueError("a head leaf exactly where the block does not "
+                             "tie it to the embedding (Jamba's does)")
         self.cfg = cfg
         self.embed = embed
         self.layers = nn.ModuleList(layers)
@@ -87,7 +96,8 @@ def _init_block(gen, cfg: ModelConfig, spec: BlockSpec, dtype,
                                    cfg.qkv_bias, **kw)
     else:
         p["mamba"] = init_mamba(gen, cfg.d_model, cfg.d_inner, cfg.d_state,
-                                cfg.d_conv, cfg.dt_rank, **kw)
+                                cfg.d_conv, cfg.dt_rank, **kw,
+                                mixer_norms=cfg.jamba is not None)
     if spec.mlp == "dense":
         p["mlp"] = init_swiglu(gen, cfg.d_model, cfg.d_ff, **kw)
     elif spec.mlp == "moe":
@@ -107,7 +117,8 @@ def init_lm(cfg: ModelConfig, *, generator: torch.Generator, device=None,
     dtype = cfg.pdtype if dtype is None else dtype
     kw = dict(dtype=dtype, device=device)
     emb = init_embed(generator, cfg.vocab_size, cfg.d_model, **kw)
-    head = init_dense(generator, cfg.d_model, cfg.vocab_size, **kw)
+    head = (None if cfg.jamba is not None else
+            init_dense(generator, cfg.d_model, cfg.vocab_size, **kw))
     layers = [_init_block(generator, cfg, cfg.blocks[i % cfg.period], dtype,
                           device) for i in range(cfg.n_layers)]
     return LM(cfg, emb, layers, init_rmsnorm(cfg.d_model, **kw), head)
@@ -133,8 +144,11 @@ def params_from_reference(cfg: ModelConfig, tree, device) -> LM:
     """An `LM` holding the reference's `init_lm` parameters: `tree` is its
     pytree as nested dicts and tuples of numpy arrays, each leaf of
     ``tree["layers"][i]`` with a leading ``n_periods`` axis. Stacked
-    period ``p``, block ``i`` becomes layer ``p * period + i``."""
+    period ``p``, block ``i`` becomes layer ``p * period + i``. Jamba's
+    block has no counterpart there."""
     check_supported(cfg)
+    if cfg.jamba is not None:
+        raise ValueError(f"{cfg.name}: the reference has no Jamba block")
     device = resolve_device(device)
     layers = [Block(spec, _tree(tree["layers"][i], device, pick=p))
               for p in range(cfg.n_periods)
@@ -155,7 +169,7 @@ def _mixer_kw(cfg: ModelConfig, spec: BlockSpec) -> dict:
     return dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                 head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta,
                 window=cfg.window if spec.mixer == "attn_local" else 0,
-                attn_softcap=cfg.attn_softcap)
+                attn_softcap=cfg.attn_softcap, use_rope=cfg.jamba is None)
 
 
 def _mlp(p: Block, x, cfg: ModelConfig):
@@ -169,13 +183,16 @@ def _mlp(p: Block, x, cfg: ModelConfig):
 
 
 def _block_train(p: Block, x, cfg: ModelConfig):
-    """-> (x, the MoE aux loss or None)."""
+    """-> (x, the MoE aux loss or None). An attention mixer runs inside
+    the span ``lm.attention`` (stream events on x's device), in the
+    forward and in a remat's recompute."""
     spec = p.spec
     h = rmsnorm(p["ln1"], x)
     if spec.mixer == "mamba":
         h = mamba_train(p["mamba"], h, **_mixer_kw(cfg, spec))
     else:
-        h = attention_train(p["attn"], h, **_mixer_kw(cfg, spec))
+        with tracing.span("lm.attention", device=x.device):
+            h = attention_train(p["attn"], h, **_mixer_kw(cfg, spec))
     x = x + h
     if spec.mlp == "none":
         return x, None
@@ -183,22 +200,16 @@ def _block_train(p: Block, x, cfg: ModelConfig):
     return x + h, aux
 
 
-def _period_train(layers, x, aux, cfg: ModelConfig):
-    """`cfg.period` consecutive layers -> (x, aux plus their MoE aux)."""
-    for layer in layers:
-        x, a = _block_train(layer, x, cfg)
-        if a is not None:
-            aux = aux + a
-    return x, aux
-
-
 def lm_hidden(model: LM, tokens, cfg: ModelConfig, patch_embeds=None):
     """tokens: (B, S) -> hidden states (B, S, d) and the auxiliary loss
     (float32: the MoE layers' summed in layer order, as the reference's
     scan carries it; 0 without MoE). The reference's sharding constraints
     do nothing on one device and are left out. With ``cfg.remat`` and
-    autograd recording, each period runs under
-    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``)."""
+    autograd recording, each layer runs under ``torch.utils.checkpoint``:
+    its input is kept, its inside recomputed in the backward. The
+    reference's ``jax.checkpoint`` wraps a whole period instead; the
+    numbers are the same, and at most one layer's activations live at a
+    time rather than a period's."""
     x = embed(model.embed, tokens).to(cfg.adtype)
     if cfg.frontend is not None and patch_embeds is not None:
         # VLM stub: precomputed frontend embeddings replace the first
@@ -207,22 +218,28 @@ def lm_hidden(model: LM, tokens, cfg: ModelConfig, patch_embeds=None):
         x = torch.cat([patch_embeds.to(cfg.adtype), x[:, nf:]], dim=1)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
-    for p0 in range(0, cfg.n_layers, cfg.period):
-        period = model.layers[p0:p0 + cfg.period]
+    for layer in model.layers:
         if remat:
-            # the reference's jax.checkpoint of each period: only the
-            # period's input is kept, its inside recomputed in backward
-            x, aux = checkpoint(_period_train, period, x, aux, cfg,
-                                use_reentrant=False,
-                                preserve_rng_state=False)
+            x, a = checkpoint(_block_train, layer, x, cfg,
+                              use_reentrant=False, preserve_rng_state=False)
         else:
-            x, aux = _period_train(period, x, aux, cfg)
+            x, a = _block_train(layer, x, cfg)
+        if a is not None:
+            aux = aux + a
     return rmsnorm(model.ln_f, x), aux
+
+
+def head_weight(model: LM):
+    """The head's (d, V) matrix: ``head["w"]``, or the embedding's table
+    transposed (a view) where Jamba's block ties them."""
+    if model.head is None:
+        return model.embed["table"].t()
+    return model.head["w"]
 
 
 def lm_logits(model: LM, x, cfg: ModelConfig):
     """Hidden states -> float32 logits (final softcap applied)."""
-    logits = x @ model.head["w"]
+    logits = x @ head_weight(model)
     return apply_softcap(logits.float(), cfg.final_softcap)
 
 
@@ -258,7 +275,7 @@ def chunked_ce(x, head_w, labels, cfg: ModelConfig):
 def lm_loss(model: LM, tokens, labels, cfg: ModelConfig, patch_embeds=None):
     """Next-token cross entropy plus 0.01 x the MoE auxiliary loss."""
     x, aux = lm_hidden(model, tokens, cfg, patch_embeds)
-    return chunked_ce(x, model.head["w"], labels, cfg) + 0.01 * aux
+    return chunked_ce(x, head_weight(model), labels, cfg) + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------

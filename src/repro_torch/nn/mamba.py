@@ -1,12 +1,13 @@
 """Mamba-1 block (falcon-mamba; jamba's SSM layers).
 
 in_proj -> (x, z); causal depthwise conv (d_conv taps) with its bias and
-SiLU; x_proj -> (dt,B,C); dt's bias and softplus; selective scan; silu(z)
-gate; out_proj. The conv, and the scan with dt's bias and softplus before
-it and the gate after it, are hand-written kernels on CUDA tensors and
-their plain versions on the CPU. Decode keeps a (d_conv-1)-tap conv state
-and the (D, N) ssm state and steps with the plain recurrence, as the
-reference does.
+SiLU; x_proj -> (dt,B,C), with Jamba's block RMS norms on each of the
+three (`models.config.JambaBlock`); dt's bias and softplus; selective
+scan; silu(z) gate; out_proj. The conv, and the scan with dt's bias and
+softplus before it and the gate after it, are hand-written kernels on
+CUDA tensors and their plain versions on the CPU. Decode keeps a
+(d_conv-1)-tap conv state and the (D, N) ssm state and steps with the
+plain recurrence, as the reference does.
 """
 
 from __future__ import annotations
@@ -14,14 +15,20 @@ from __future__ import annotations
 import torch
 from torch.nn import functional as F
 
+from repro_torch import tracing
 from repro_torch.kernels.causal_conv import causal_conv_silu
 from repro_torch.kernels.selective_scan import (selective_scan_gated,
                                                 selective_scan_step_ref)
-from repro_torch.nn.layers import Params, init_dense, normal, silu
+from repro_torch.nn.layers import (Params, init_dense, init_rmsnorm, normal,
+                                   rmsnorm, silu)
 
 
 def init_mamba(gen, d_model: int, d_inner: int, d_state: int, d_conv: int,
-               dt_rank: int, dtype=torch.float32, device=None) -> Params:
+               dt_rank: int, dtype=torch.float32, device=None,
+               mixer_norms: bool = False) -> Params:
+    """The layer's leaves; with `mixer_norms` also Jamba's norms of dt's
+    low-rank part, B and C (``dt_norm``, ``b_norm``, ``c_norm``, scales
+    1)."""
     kw = dict(dtype=dtype, device=device)
     p = Params(
         in_proj=init_dense(gen, d_model, 2 * d_inner, **kw),
@@ -35,14 +42,26 @@ def init_mamba(gen, d_model: int, d_inner: int, d_state: int, d_conv: int,
     p["a_log"] = torch.log(torch.arange(1, d_state + 1, dtype=torch.float32,
                                         device=dev)).repeat(d_inner, 1)
     p["d_skip"] = torch.ones((d_inner,), dtype=torch.float32, device=dev)
+    if mixer_norms:
+        for name, n in (("dt_norm", dt_rank), ("b_norm", d_state),
+                        ("c_norm", d_state)):
+            p[name] = init_rmsnorm(n, dtype=dtype, device=dev)
     return p
 
 
 def _ssm_inputs(p, xc, d_state, dt_rank):
-    """-> (dt's projection without its bias, A, B, C)."""
+    """-> (dt's projection without its bias, A, B, C). Where the layer has
+    Jamba's norms (``dt_norm`` among its leaves) dt's low-rank part, B and
+    C each go through their RMS norm first, counted as
+    ``mamba.mixer_norms``."""
     proj = xc @ p["x_proj"]["w"]                               # (B,T,R+2N)
     dt_r, b_mat, c_mat = torch.split(proj, [dt_rank, d_state, d_state],
                                      dim=-1)
+    if "dt_norm" in p:
+        dt_r = rmsnorm(p["dt_norm"], dt_r)
+        b_mat = rmsnorm(p["b_norm"], b_mat)
+        c_mat = rmsnorm(p["c_norm"], c_mat)
+        tracing.count("mamba.mixer_norms", 1)
     a = -torch.exp(p["a_log"])                                 # (D, N)
     return dt_r @ p["dt_proj"]["w"], a, b_mat, c_mat
 

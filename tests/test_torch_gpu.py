@@ -15,7 +15,9 @@ and softplus, the silu(z) gate) and its backward against the same chain
 in float32 from the same operands: y within the scan's 3e-5 and one ulp
 of its type, each gradient within 1e-4 of its largest |value|
 and one ulp of its type (z's, which sums nothing, 1e-6), bit for bit
-repeatable.
+repeatable; and Jamba2-3B's Mamba mixer with its dt, B and C norms at its
+widths, card against CPU in float32 (the output 1e-4, each gradient 1e-3
+of its largest |value|).
 
 Marked ``gpu``; every test skips when no GPU is present (decided when the
 test runs, never at import). This file imports nothing of the JAX package,
@@ -23,6 +25,8 @@ so it runs where only the port is installed:
 
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -678,15 +682,21 @@ def test_lm_decode_matches_prefill_on_the_card(cuda, name):
     (2, 300, 300, 8, 8, 64, True, 0, 0.0),        # ragged tiles
     (1, 200, 333, 5, 1, 128, False, 0, 30.0),     # Sq != Skv, G 5
     (1, 1024, 1024, 8, 1, 112, True, 100, 50.0),  # d 112, G 8, a window
-    (1, 512, 512, 16, 8, 256, True, 64, 50.0)])   # gemma2's heads
+    (1, 512, 512, 16, 8, 256, True, 64, 50.0),    # gemma2's heads
+    # Jamba2-3B's attention: 20 query heads of 128 over one KV head; one
+    # query row (against 65 keys: a causal row of length 1 has one key, and
+    # its dq and dk are 0), and causal lengths that leave the 64- and
+    # 128-row tiles tails
+    (1, 1, 65, 20, 1, 128, False, 0, 0.0),
+    *[(1, s, s, 20, 1, 128, True, 0, 0.0) for s in (63, 65, 4097)]])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernels_match_their_plain_versions(cuda, shape,
                                                             dtype):
     """The blocked attention's forward (output and log-sum-exp, 2e-4 in
     float32 as the reference's flash-vs-SDPA test; a bf16 output one bf16
     step more) and its two backward launches (1e-4 of each gradient's
-    largest |value|, bf16 one bf16 step more; bit for bit repeatable)
-    against the plain versions."""
+    largest |value|, bf16 one bf16 step more) against the plain versions;
+    a second forward and backward equal to the first bit for bit."""
     from repro_torch.kernels.flash_attn import (flash_attention_bwd,
                                                 flash_attention_bwd_ref,
                                                 flash_attention_fwd,
@@ -707,6 +717,8 @@ def test_flash_attention_kernels_match_their_plain_versions(cuda, shape,
     torch.testing.assert_close(out.float(), want, rtol=2e-4 + step,
                                atol=2e-4)
     torch.testing.assert_close(lse, want_lse, rtol=2e-4, atol=2e-4)
+    out2, lse2 = flash_attention_fwd(q, k, v, **kw)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
     dout = torch.randn(out.shape, generator=gen, device=cuda).to(dtype)
     got = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
     torch.cuda.synchronize()
@@ -718,7 +730,7 @@ def test_flash_attention_kernels_match_their_plain_versions(cuda, shape,
             (1e-4 + step) * scale
     again = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
-    assert kernel_launch_counts() == {"flash_attention": 1,
+    assert kernel_launch_counts() == {"flash_attention": 2,
                                       "flash_attention_bwd": 4}
 
 
@@ -812,7 +824,8 @@ def test_adamw_kernel_equals_its_plain_version_bit_for_bit(cuda, shapes,
 # The causal conv: x the in-projection's first half (rows 2 D apart), a
 # contiguous copy, or a view one element off a 16-byte boundary; ragged T
 # (tiles of 64 steps) and D (slabs of 256 channels, vectors of 8)
-CONV_CASES = [(1, 4096, 8192, "strided"), (1, 1, 100, "strided"),
+CONV_CASES = [(1, 4096, 8192, "strided"), (1, 4096, 5120, "strided"),
+              (1, 1, 100, "strided"),
               (2, 3, 4101, "contiguous"), (1, 5, 264, "strided"),
               (3, 4097, 8, "strided"), (2, 65, 257, "offset"),
               (1, 130, 512, "offset"), (2, 64, 1, "contiguous")]
@@ -895,9 +908,10 @@ def test_causal_conv_autograd_runs_both_kernels(cuda):
 
 # The gated selective scan: Mamba's x, dt's raw projection, its bias and
 # z (the in-projection's second half, a strided view) in bf16 or float32;
-# training's shape sliced along D and T, ragged T and D, every d_state.
-GATED_CASES = [(1, 4096, 256, 16), (1, 257, 8192, 16), (1, 1, 1, 4),
-               (2, 257, 100, 8), (3, 1000, 130, 16), (2, 129, 4101, 8),
+# training's shape sliced along D and T (falcon-mamba's D 8,192, Jamba's
+# 5,120), ragged T and D, every d_state.
+GATED_CASES = [(1, 4096, 256, 16), (1, 257, 8192, 16),
+               (1, 2049, 5120, 16), (1, 1, 1, 4), (2, 257, 100, 8), (3, 1000, 130, 16), (2, 129, 4101, 8),
                (1, 40, 70, 4), (4, 2048, 96, 16)]
 
 
@@ -1021,3 +1035,60 @@ def test_gated_scan_autograd_through_the_in_projection(cuda):
     assert not grad_xz[..., :264].any()
     with torch.no_grad():
         assert torch.equal(selective_scan_gated(*plain), y.detach())
+
+
+def test_jamba_mamba_mixer_on_the_card_matches_the_cpu(cuda):
+    """Jamba2-3B's Mamba mixer at its widths (d 2,560, d_inner 5,120,
+    d_state 16, dt_rank 160) with its dt, B and C norms (scales away from
+    1), float32, T 1,000: the card's path (the conv and the gated scan
+    kernels, forward and backward) against the CPU's plain path from the
+    same weights. The output within 1e-4 of its largest |value|, each
+    leaf's gradient within 1e-3 of its largest |value| (`chip_smoke`'s
+    card-against-CPU gradient check); one ``mamba.mixer_norms``, each
+    kernel launched once. TF32 is off for the test alone."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        _jamba_mixer_card_against_cpu(cuda)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _jamba_mixer_card_against_cpu(cuda):
+    from repro_torch import tracing
+    from repro_torch.nn.mamba import init_mamba, mamba_train
+    gen = torch.Generator().manual_seed(37)
+    kw = dict(d_inner=5120, d_state=16, d_conv=4, dt_rank=160)
+    cpu = init_mamba(gen, 2560, 5120, 16, 4, 160, device="cpu",
+                     mixer_norms=True)
+    for name in ("dt_norm", "b_norm", "c_norm"):
+        n = cpu[name]["scale"].shape
+        cpu[name]["scale"] = 1 + 0.2 * torch.randn(n, generator=gen)
+    x = torch.randn((1, 1000, 2560), generator=gen)
+    gy = torch.randn((1, 1000, 2560), generator=gen)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = copy.deepcopy(cpu).to(dev).requires_grad_(True)
+        reset_kernel_launch_counts()
+        tracing.clear()
+        with tracing.recording():
+            y = mamba_train(p, x.to(dev), **kw)
+        norms = sum(r.counts.get("mamba.mixer_norms", 0)
+                    for r in tracing.records())
+        tracing.clear()
+        (y * gy.to(dev)).sum().backward()
+        out[str(dev)] = (y.detach().cpu(), {k: v.grad.cpu() for k, v in
+                                            p.named_parameters()}, norms)
+    torch.cuda.synchronize()
+    assert kernel_launch_counts() == {"causal_conv": 1, "causal_conv_bwd": 1,
+                                      "selective_scan": 1,
+                                      "selective_scan_bwd": 1}
+    (y_cpu, g_cpu, n_cpu), (y_gpu, g_gpu, n_gpu) = out["cpu"], out[str(cuda)]
+    assert n_cpu == n_gpu == 1
+    assert float((y_gpu - y_cpu).abs().max()) <= \
+        1e-4 * float(y_cpu.abs().max())
+    assert g_gpu.keys() == g_cpu.keys() and {"dt_norm.scale", "b_norm.scale",
+                                             "c_norm.scale"} <= g_cpu.keys()
+    for k, want in g_cpu.items():
+        assert float((g_gpu[k] - want).abs().max()) <= \
+            1e-3 * float(want.abs().max()), k
